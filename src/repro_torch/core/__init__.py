@@ -1,0 +1,1 @@
+"""ENEC codec core of the PyTorch port (counterpart of ``repro.core``)."""

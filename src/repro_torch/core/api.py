@@ -1,0 +1,160 @@
+"""ENEC data model (port of ``repro/core/api.py``): ``CompressedTensor``
+with exact wire accounting, the fused-matmul tile layout, and the const /
+raw escapes.  The codec pipeline itself lives on
+:class:`repro_torch.core.codec_api.Codec`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .codec import BlockStreams
+from .dtypes import DTYPE_NAMES, FORMATS, FloatFormat, to_container
+from .params import DEFAULT_BLOCK_ELEMS, EnecParams
+
+# enec-v2 framed-record overhead, byte for byte the reference's
+# ``core/wire.py:record_overhead_bytes``: frame header ("<IHHQI" = 20) +
+# magic/mode/fmt/stack (8) + ndim (4) + dtype tag (8) + block_elems/shards
+# (8) + 8 per shape dim; enec records add params ("<5i" = 20) + nblocks (4)
+FRAME_HEADER_BYTES = 20
+_RECORD_COMMON_BYTES = 8 + 4 + 8 + 8
+_RECORD_PARAMS_BYTES = 20 + 4
+
+SUPPORTED_FLOAT_DTYPES = tuple(DTYPE_NAMES)
+
+
+def record_overhead_bytes(mode: str, ndim: int) -> int:
+    base = FRAME_HEADER_BYTES + _RECORD_COMMON_BYTES + 8 * ndim
+    return base + (_RECORD_PARAMS_BYTES if mode == "enec" else 0)
+
+
+def dtype_from_str(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+@dataclasses.dataclass
+class CompressedTensor:
+    """ENEC-compressed view of one tensor.
+
+    mode == "enec": ``streams`` carries the block streams, with a leading
+    ``shards`` dim when ``shards > 1``; a stacked tensor carries one more
+    leading ``(L,)`` dim while the metadata describes one layer.
+    mode == "raw" / "const": ``raw_bytes`` holds the buffer / one value.
+    """
+    streams: Optional[BlockStreams]
+    raw_bytes: Optional[torch.Tensor]
+    fmt_name: str
+    params: Optional[EnecParams]
+    shape: tuple
+    dtype_str: str
+    block_elems: int
+    shards: int
+    mode: str
+
+    def __post_init__(self):
+        self._wire_bytes = None
+
+    @property
+    def fmt(self) -> FloatFormat:
+        return FORMATS[self.fmt_name]
+
+    @property
+    def itemsize(self) -> int:
+        return dtype_from_str(self.dtype_str).itemsize
+
+    def nbytes_device(self) -> int:
+        """Bytes of the padded device layout."""
+        arrays = self.streams if self.mode == "enec" else (self.raw_bytes,)
+        return sum(a.numel() * a.element_size() for a in arrays)
+
+    def nbytes_wire(self) -> int:
+        """Exact size of the framed enec-v2 record (same arithmetic as the
+        reference; the high stream is byte-padded per block)."""
+        overhead = record_overhead_bytes(self.mode, len(self.shape))
+        if self.mode == "const":
+            return self.itemsize + overhead
+        if self.mode == "raw":
+            return int(np.prod(self.shape)) * self.itemsize + overhead
+        if self._wire_bytes is None:
+            s = self.streams
+            hl = s.high_len.reshape(-1).to(torch.int64)
+            true_high = int(((hl + 7) // 8).sum())
+            fixed = s.mask.numel() + s.low.numel() + s.raw.numel()
+            self._wire_bytes = fixed + true_high + 4 * hl.numel() + overhead
+        return self._wire_bytes
+
+    def nbytes_raw(self) -> int:
+        return int(np.prod(self.shape)) * self.itemsize
+
+    def ratio(self) -> float:
+        return self.nbytes_raw() / max(self.nbytes_wire(), 1)
+
+
+def raw_tensor(x: torch.Tensor, shards: int) -> CompressedTensor:
+    """Raw escape: the tensor's bytes, stored as they are."""
+    return CompressedTensor(
+        streams=None, raw_bytes=x.reshape(-1).view(torch.uint8),
+        fmt_name="bf16", params=None, shape=tuple(x.shape),
+        dtype_str=DTYPE_NAMES.get(x.dtype, str(x.dtype).split(".")[-1]),
+        block_elems=0, shards=shards, mode="raw")
+
+
+def const_tensor(first_bits: int, x: torch.Tensor, fmt: FloatFormat,
+                 block_elems: int, shards: int) -> CompressedTensor:
+    """Const escape: one repeated bit pattern, stored once."""
+    value = torch.tensor([first_bits], dtype=fmt.work_dtype)
+    buf = to_container(value, fmt).view(torch.uint8).to(x.device)
+    return CompressedTensor(
+        streams=None, raw_bytes=buf, fmt_name=fmt.name, params=None,
+        shape=tuple(x.shape), dtype_str=DTYPE_NAMES[x.dtype],
+        block_elems=block_elems, shards=shards, mode="const")
+
+
+def slice_stacked(ct: CompressedTensor, index: int) -> CompressedTensor:
+    """Layer ``index`` of a stacked tensor as a standalone tensor."""
+    return dataclasses.replace(ct, streams=ct.streams.map(lambda a: a[index]))
+
+
+# ---------------------------------------------------------------------------
+# tile layout for the fused decompress+matmul kernel
+# ---------------------------------------------------------------------------
+
+MATMUL_TILE = 128
+# one 128x128 weight tile holds exactly one 16,384-element ENEC block
+assert MATMUL_TILE * MATMUL_TILE == DEFAULT_BLOCK_ELEMS
+
+
+def _padded(k: int, n: int):
+    t = MATMUL_TILE
+    return -(-k // t) * t, -(-n // t) * t
+
+
+def matmul_tiles(w: torch.Tensor) -> torch.Tensor:
+    """(L, K, N) or (K, N) weight -> (L, n_tiles * k_tiles * TILE*TILE).
+
+    Tile ``t = n_tile * k_tiles + k_tile`` of layer ``l`` is stored
+    row-major at block ``(l, t)``; ragged K/N are zero-padded (zeros, so
+    the padded products vanish exactly).
+    """
+    t = MATMUL_TILE
+    if w.ndim == 2:
+        w = w[None]
+    n_layers, k, n = w.shape
+    kp, np_ = _padded(k, n)
+    if (kp, np_) != (k, n):
+        w = F.pad(w, (0, np_ - n, 0, kp - k))
+    tiles = w.reshape(n_layers, kp // t, t, np_ // t, t)
+    return tiles.permute(0, 3, 1, 2, 4).reshape(n_layers, -1)
+
+
+def untile_matmul_weight(flat: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """Inverse of :func:`matmul_tiles` for one layer: flat tiles ->
+    (k, n) with the padding stripped."""
+    t = MATMUL_TILE
+    kp, np_ = _padded(k, n)
+    tiles = flat.reshape(np_ // t, kp // t, t, t)
+    return tiles.permute(1, 2, 0, 3).reshape(kp, np_)[:k, :n]

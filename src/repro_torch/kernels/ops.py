@@ -1,0 +1,51 @@
+"""Device routing of the port's kernels (counterpart of
+``repro/kernels/ops.py``).
+
+A tensor on the CPU goes to the kernel's plain version; a tensor on CUDA
+goes to the kernel, and the kernel's wrapper raises on what it cannot take.
+Nothing falls back from one to the other.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.api import CompressedTensor
+from repro_torch.core.codec import BlockStreams
+from repro_torch.core.dtypes import FloatFormat
+from repro_torch.core.params import EnecParams
+
+from . import decompress_matmul as dm
+from . import enec_decode, ref
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
+def decode_blocks(streams: BlockStreams, n_elems: int, fmt: FloatFormat,
+                  p: EnecParams, b_vec=None, l_vec=None) -> torch.Tensor:
+    """Decode flat (B, ...) streams -> (B, N) bit containers."""
+    if _on_cpu(streams.mask):
+        return ref.decode_blocks_ref(streams, n_elems, fmt, p, b_vec, l_vec)
+    nblocks, dev = streams.mask.shape[0], streams.mask.device
+    if b_vec is None:
+        b_vec = torch.full((nblocks,), p.b, dtype=torch.int32, device=dev)
+    if l_vec is None:
+        l_vec = torch.full((nblocks,), p.l, dtype=torch.int32, device=dev)
+    return enec_decode.decode_blocks_cuda(streams, n_elems, fmt, p, b_vec,
+                                          l_vec)
+
+
+def decompress_matmul(x: torch.Tensor, ct: CompressedTensor, k: int,
+                      n: int) -> torch.Tensor:
+    """x @ W with W resident only in ENEC tile streams."""
+    if _on_cpu(x):
+        return ref.decompress_matmul_ref(x, ct, k, n)
+    return dm.decompress_matmul_cuda(x, ct, k, n)
+
+
+def tiled_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in the canonical tiled schedule (dense weights)."""
+    if _on_cpu(x):
+        return ref.tiled_matmul_ref(x, w)
+    return dm.dense_matmul_cuda(x, w)

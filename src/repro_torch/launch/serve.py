@@ -1,0 +1,158 @@
+"""One-shot serving launcher of the PyTorch port (counterpart of
+``repro/launch/serve.py``): seeded synthetic weights, compressed on the
+device under the chosen weight-execution mode, then a few requests served
+as one greedy batch (prefill, then decode steps).
+
+Modes (runtime/streaming.py):
+  dense   raw weights, canonical tiled matmul (dense-tile kernel entry)
+  stream  ENEC streams decoded layer by layer inside the step (ENEC
+          decode kernel, then the dense-tile entry)
+  fused   ENEC tile streams decoded inside the matmul kernel (default)
+All three give bitwise-equal logits on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --batch 4 \\
+        --prompt-len 64 --tokens 16          # full width, on the GPU
+
+``main`` returns the run's tokens, logits, timings and kernel launch
+counts, so a calling script can compare modes.  The continuous-batching
+engine and checkpoint restore are not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.codec_api import default_codec
+from repro_torch.kernels import decompress_matmul, enec_decode
+from repro_torch.models import build_model
+from repro_torch.runtime.streaming import (assign_weight_modes, mode_mix,
+                                           stream_stats, tree_leaves)
+from repro_torch.runtime.weights import FusedWeight, StreamedWeight
+
+COUNTERS = {"enec_decode": enec_decode.LAUNCHES,
+            "decompress_matmul": decompress_matmul.FUSED_LAUNCHES,
+            "dense_tile_matmul": decompress_matmul.DENSE_LAUNCHES}
+
+
+def launch_counts() -> dict:
+    return {name: c.n for name, c in COUNTERS.items()}
+
+
+def _since(base: dict) -> dict:
+    now = launch_counts()
+    return {k: now[k] - base[k] for k in now}
+
+
+def reset_launch_counts() -> None:
+    for c in COUNTERS.values():
+        c.reset()
+
+
+def wire_ratio(tree) -> float:
+    """Raw over compressed (framed wire) bytes of the compressed leaves."""
+    raw = wire = 0
+    for _, leaf in tree_leaves(tree):
+        if isinstance(leaf, (StreamedWeight, FusedWeight)):
+            n_layers = leaf.ct.streams.mask.shape[0]
+            raw += n_layers * leaf.ct.nbytes_raw()
+            wire += leaf.ct.nbytes_wire()
+    return raw / wire if wire else 1.0
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="llama3_2_1b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the arch's reduced smoke config")
+    ap.add_argument("--mode", default="fused",
+                    choices=("dense", "stream", "fused"))
+    ap.add_argument("--min-bytes", type=int, default=4096,
+                    help="smallest leaf worth compressing")
+    ap.add_argument("--shards", type=int, default=2,
+                    help="TP shard count of the stream block dim")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--tokens", type=int, default=8,
+                    help="new tokens per request (1 from the prefill)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0, help="weight seed")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    dev = resolve_device(args.device)
+    cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    model = build_model(cfg)
+    codec = default_codec()     # the codec the handles decode through
+
+    t0 = time.perf_counter()
+    params = model.init(seed=args.seed, device=dev)
+    params = assign_weight_modes(params, mode=args.mode,
+                                 min_bytes=args.min_bytes,
+                                 shards=args.shards, codec=codec)
+    _sync(dev)
+    setup_s = time.perf_counter() - t0
+    ratio = wire_ratio(params)
+    stats = stream_stats(params)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"[serve] arch={cfg.name} mode={args.mode} device={name} "
+          f"setup={setup_s:.2f}s mode_mix={mode_mix(params)}")
+    print(f"[serve] stream_stats={stats} wire_ratio={ratio:.4f}")
+
+    gen = torch.Generator().manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size,
+                            (args.batch, args.prompt_len), generator=gen)
+    prompts = prompts.to(dev)
+    max_len = args.prompt_len + args.tokens
+
+    base = launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill_fn(params, {"tokens": prompts}, max_len)
+    tok = torch.argmax(logits, dim=-1)
+    _sync(dev)
+    ttft = time.perf_counter() - t0
+    prefill_launches = _since(base)
+    all_logits, all_tokens, step_s, step_launches = [logits], [tok], [], []
+    for _ in range(args.tokens - 1):
+        before = launch_counts()
+        t1 = time.perf_counter()
+        logits, cache = model.decode_fn(params, cache, tok)
+        tok = torch.argmax(logits, dim=-1)
+        _sync(dev)
+        step_s.append(time.perf_counter() - t1)
+        step_launches.append(_since(before))
+        all_logits.append(logits)
+        all_tokens.append(tok)
+    wall = time.perf_counter() - t0
+    launches = _since(base)
+
+    tpot = sum(step_s) / len(step_s) if step_s else 0.0
+    tok_s = args.batch * args.tokens / wall
+    print(f"[serve] batch={args.batch} prompt={args.prompt_len} "
+          f"tokens={args.tokens} TTFT={ttft * 1e3:.2f}ms "
+          f"TPOT={tpot * 1e3:.2f}ms tok/s={tok_s:.2f} mode={args.mode}")
+    print(f"[serve] launches={launches} prefill={prefill_launches} "
+          f"per_decode_step={step_launches[0] if step_launches else {}}")
+    tokens = torch.stack(all_tokens, dim=1)
+    print(f"[serve] seq0={tokens[0].tolist()}")
+    return {"tokens": tokens, "logits": torch.stack(all_logits),
+            "ttft_s": ttft, "tpot_s": tpot, "tok_s": tok_s,
+            "setup_s": setup_s, "launches": launches,
+            "prefill_launches": prefill_launches,
+            "step_launches": step_launches, "mode_mix": mode_mix(params),
+            "stream_stats": stats, "wire_ratio": ratio}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,191 @@
+"""Decoder-only LM, dense family (port of the dense path of
+``repro/models/lm.py``): init, prefill and one-token decode.
+
+Parameters are a nested dict with the reference's layout: ``embed``,
+``period`` (a list with one dict per program position whose leaves are
+stacked over layers), ``final_norm`` and, untied, ``head``.  Weight
+handles (``runtime/weights.py``) may replace leaves; the layer loop is a
+Python loop that takes layer ``i`` of every stacked leaf.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.runtime.weights import is_handle
+from repro_torch.runtime.weights import resolve as resolve_weights
+
+from .layers import (ACT_DTYPE, AttnParamsShape, attention_block,
+                     attention_decode_block, dense_init, embed_init,
+                     embed_tokens, init_attention, init_mlp, lm_logits,
+                     mlp_block, rms_norm)
+
+
+class BlockDesc(NamedTuple):
+    seq: str               # attn
+    ffn: Optional[str]     # mlp
+
+
+def block_program(cfg) -> list:
+    """cfg -> list[BlockDesc] (one period); the dense family without
+    qk-norm only."""
+    if cfg.family == "dense" and not cfg.qk_norm:
+        return [BlockDesc("attn", "mlp")]
+    raise ValueError(f"{cfg.name}: family {cfg.family!r} "
+                     f"(qk_norm={cfg.qk_norm}) is not ported yet")
+
+
+def attn_shape(cfg) -> AttnParamsShape:
+    hd = cfg.head_dim or cfg.d_model // cfg.n_heads
+    return AttnParamsShape(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, hd)
+
+
+def param_shapes(cfg) -> dict:
+    """The parameter tree's leaf shapes, keyed by path ("period/0/attn/wq");
+    the layout :func:`init_params` builds."""
+    program = block_program(cfg)
+    n, d, s = cfg.n_layers // len(program), cfg.d_model, attn_shape(cfg)
+    hq, hkv = s.n_heads * s.head_dim, s.n_kv_heads * s.head_dim
+    shapes = {"embed": (cfg.vocab_size, d), "final_norm": (d,)}
+    for pos in range(len(program)):
+        pre = f"period/{pos}"
+        shapes.update({
+            f"{pre}/pre_norm": (n, d), f"{pre}/post_norm": (n, d),
+            f"{pre}/attn/wq": (n, d, hq), f"{pre}/attn/wk": (n, d, hkv),
+            f"{pre}/attn/wv": (n, d, hkv), f"{pre}/attn/wo": (n, hq, d),
+            f"{pre}/mlp/w_gate": (n, d, cfg.d_ff),
+            f"{pre}/mlp/w_up": (n, d, cfg.d_ff),
+            f"{pre}/mlp/w_down": (n, cfg.d_ff, d)})
+    if not cfg.tie_embeddings:
+        shapes["head"] = (d, cfg.vocab_size)
+    return shapes
+
+
+def init_params(cfg, *, seed: int = 0, device="cuda"):
+    """Seeded synthetic weights with the reference's distributions, made
+    on ``device`` by a ``torch.Generator`` (the numbers differ from the
+    reference's ``jax.random`` streams; tests carry JAX weights over with
+    ``convert.params_from_jax`` instead)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    program = block_program(cfg)
+    n_periods = cfg.n_layers // len(program)
+    zeros = lambda *shape: torch.zeros(shape, dtype=ACT_DTYPE, device=dev)  # noqa: E731
+    period = []
+    for _ in program:
+        p = {"pre_norm": zeros(n_periods, cfg.d_model),
+             "attn": init_attention(n_periods, attn_shape(cfg), gen, dev),
+             "post_norm": zeros(n_periods, cfg.d_model),
+             "mlp": init_mlp(n_periods, cfg.d_model, cfg.d_ff, gen, dev)}
+        period.append(p)
+    params = {"embed": embed_init((cfg.vocab_size, cfg.d_model), gen, dev),
+              "period": period, "final_norm": zeros(cfg.d_model)}
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init((cfg.d_model, cfg.vocab_size), gen, dev)
+    return params
+
+
+def layer_slice(tree, i: int):
+    """Layer ``i`` of every stacked tensor / handle in a period subtree."""
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, i) for k, v in tree.items()}
+    return tree.layer(i) if is_handle(tree) else tree[i]
+
+
+def _dense_leaf(leaf):
+    """Materialize a top-level weight handle (embed / head)."""
+    return leaf.materialize() if is_handle(leaf) else leaf
+
+
+def _apply_position(p, cfg, x, positions):
+    """Full-sequence forward of one attn+mlp block -> (x, K/V)."""
+    h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+    out, kv = attention_block(p["attn"], h, attn_shape(cfg), positions,
+                              cfg.rope_theta, chunk=cfg.attn_chunk)
+    x = x + out
+    x = x + mlp_block(p["mlp"], rms_norm(x, p["post_norm"], cfg.norm_eps))
+    return x, {"k": kv[0], "v": kv[1]}
+
+
+def _apply_position_step(p, cfg, x, cache, lengths):
+    """One-token decode of one attn+mlp block -> (x, K/V)."""
+    h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+    out, kv = attention_decode_block(p["attn"], h, attn_shape(cfg),
+                                     (cache["k"], cache["v"]), lengths,
+                                     cfg.rope_theta)
+    x = x + out
+    x = x + mlp_block(p["mlp"], rms_norm(x, p["post_norm"], cfg.norm_eps))
+    return x, {"k": kv[0], "v": kv[1]}
+
+
+def _head(params, cfg, embed):
+    return embed.T if cfg.tie_embeddings else _dense_leaf(params["head"])
+
+
+def forward(params, cfg, tokens: torch.Tensor):
+    """Prompt forward. Returns (normed x, per-position stacked K/V, head)."""
+    program = block_program(cfg)
+    n_periods = cfg.n_layers // len(program)
+    embed = _dense_leaf(params["embed"])
+    x = embed_tokens(embed, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    kvs = [[] for _ in program]
+    for i in range(n_periods):
+        for pos in range(len(program)):
+            p = resolve_weights(layer_slice(params["period"][pos], i))
+            x, kv = _apply_position(p, cfg, x, positions)
+            kvs[pos].append(kv)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    caches = [{k: torch.stack([e[k] for e in entries]) for k in ("k", "v")}
+              for entries in kvs]
+    return x, caches, _head(params, cfg, embed)
+
+
+def init_cache(cfg, batch: int, max_len: int, device="cuda"):
+    program = block_program(cfg)
+    n_periods = cfg.n_layers // len(program)
+    s = attn_shape(cfg)
+    dev = resolve_device(device)
+    shape = (n_periods, batch, max_len, s.n_kv_heads, s.head_dim)
+    entries = [{"k": torch.zeros(shape, dtype=ACT_DTYPE, device=dev),
+                "v": torch.zeros(shape, dtype=ACT_DTYPE, device=dev)}
+               for _ in program]
+    return {"entries": entries,
+            "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+
+def prefill_fn(params, cfg, batch: dict, max_len: int):
+    """Run the prompt, build the cache. Returns (last_token_logits, cache)."""
+    tokens = batch["tokens"]
+    x, caches, head = forward(params, cfg, tokens)
+    b, t = x.shape[0], x.shape[1]
+    logits = lm_logits(x[:, -1:], head)[:, 0]
+    cache = init_cache(cfg, b, max_len, device=x.device)
+    for entry, got in zip(cache["entries"], caches):
+        entry["k"][:, :, :t] = got["k"].to(ACT_DTYPE)
+        entry["v"][:, :, :t] = got["v"].to(ACT_DTYPE)
+    cache["lengths"] = torch.full((b,), t, dtype=torch.int32,
+                                  device=x.device)
+    return logits, cache
+
+
+def decode_fn(params, cfg, cache, tokens: torch.Tensor):
+    """One decode step. tokens: (B,) int. Returns (logits (B, V), cache);
+    the cache's K/V tensors are updated in place."""
+    program = block_program(cfg)
+    n_periods = cfg.n_layers // len(program)
+    embed = _dense_leaf(params["embed"])
+    x = embed_tokens(embed, tokens[:, None])
+    lengths = cache["lengths"].to(torch.int64)
+    for i in range(n_periods):
+        for pos in range(len(program)):
+            p = resolve_weights(layer_slice(params["period"][pos], i))
+            entry = cache["entries"][pos]
+            x, _ = _apply_position_step(
+                p, cfg, x, {"k": entry["k"][i], "v": entry["v"][i]},
+                lengths)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = lm_logits(x, _head(params, cfg, embed))[:, 0]
+    return logits, dict(cache, lengths=cache["lengths"] + 1)

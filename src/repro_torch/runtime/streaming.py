@@ -1,0 +1,236 @@
+"""Weight-execution policy (port of ``repro/runtime/streaming.py``): which
+leaves are served dense, streamed (decoded inside the step) or fused
+(decoded inside the matmul kernel), and their compression.
+
+  raw      small / non-stacked leaves: untouched tensors
+  dense    big matmul weights in DenseWeight (the baseline)
+  stream   StreamedWeight: ENEC streams in the ``moveaxis(tp_axis -> 0)``
+           layout, decoded inside the step
+  fused    FusedWeight: tile-wise ENEC streams for the fused kernel
+
+Only leaves of at least ``min_bytes`` are compressed.  Trees are nested
+dicts and lists; a leaf's path joins its keys with "/" as the reference
+does ("period/0/attn/wq").
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.api import (MATMUL_TILE, SUPPORTED_FLOAT_DTYPES,
+                                  matmul_tiles)
+from repro_torch.core.codec_api import default_codec
+from repro_torch.runtime.weights import (DenseWeight, FusedWeight,
+                                         StreamedWeight, handle_kind,
+                                         is_handle)
+
+MIN_STREAM_BYTES = 1 << 20  # 1 MiB
+STREAM_SHARDS = 16          # production TP width (divisors also work)
+
+WEIGHT_MODES = ("dense", "stream", "fused")
+
+MATMUL_LEAF_NAMES = frozenset(
+    {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"})
+
+
+def tree_leaves(tree, path: str = ""):
+    """(path, leaf) pairs of a nested dict/list tree, handles as leaves."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, f"{path}/{k}" if path else str(k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, f"{path}/{i}" if path else str(i))
+    else:
+        yield path, tree
+
+
+def tree_map_with_path(fn, tree, path: str = ""):
+    """Rebuild ``tree`` with ``fn(path, leaf)`` at every leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{path}/{k}" if path else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(
+            tree_map_with_path(fn, v, f"{path}/{i}" if path else str(i))
+            for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def stream_eligible(pstr: str, shape, dtype,
+                    min_bytes: int = MIN_STREAM_BYTES) -> bool:
+    """A leaf is compressible iff it is big enough and is either a stacked
+    (L, ...) float stack or a plain 2-D float weight (embed)."""
+    if dtype not in SUPPORTED_FLOAT_DTYPES:
+        return False
+    numel = 1
+    for d in shape:
+        numel *= d
+    if numel * dtype.itemsize < min_bytes:
+        return False
+    if len(shape) == 2:
+        return True
+    stacked = "period" in pstr or "stack" in pstr
+    return stacked and len(shape) >= 3
+
+
+def _tp_axis_for(path: str, shape) -> int:
+    """Which axis is model-sharded at serve time."""
+    name = path.rsplit("/", 1)[-1]
+    if name == "embed":
+        return 0
+    if name in ("wo", "w_down", "out_proj"):
+        return len(shape) - 2
+    if name in ("e_gate", "e_up", "e_down"):
+        return len(shape) - 3
+    return len(shape) - 1
+
+
+def fused_shards(k: int, n: int, shards: int) -> int:
+    """``shards`` when the n-major tile count divides by it (each shard a
+    contiguous range of flat tiles), else 1: pad blocks would corrupt the
+    kernel's flat tile order."""
+    t = MATMUL_TILE
+    blocks = (-(-k // t)) * (-(-n // t))
+    return shards if shards > 1 and blocks % shards == 0 else 1
+
+
+def _is_matmul_pos(pstr: str, ndim: int) -> bool:
+    """Is this leaf executed through ``models.layers.weight_matmul``?"""
+    parts = pstr.split("/")
+    return (parts[-1] in MATMUL_LEAF_NAMES and ndim == 3
+            and len(parts) >= 2 and parts[-2] in ("attn", "mlp"))
+
+
+def serving_job(pstr: str, leaf: torch.Tensor, mode: str,
+                min_bytes: int = MIN_STREAM_BYTES) -> Optional[dict]:
+    """Per-leaf compression plan for "stream" / "fused": the layout to
+    encode (``arr``) and the handle metadata; ``None`` keeps the leaf."""
+    if not stream_eligible(pstr, leaf.shape, leaf.dtype, min_bytes):
+        return None
+    if leaf.ndim == 2:
+        tp_axis = _tp_axis_for(pstr, leaf.shape)
+        return dict(kind="stream", leaf=leaf,
+                    arr=torch.movedim(leaf, tp_axis, 0)[None],
+                    tp_axis=tp_axis, layer_shape=tuple(leaf.shape),
+                    matmul_pos=False, flat=True)
+    matmul_pos = _is_matmul_pos(pstr, leaf.ndim)
+    if mode == "fused" and matmul_pos:
+        return dict(kind="fused", leaf=leaf, arr=matmul_tiles(leaf),
+                    k=leaf.shape[1], n=leaf.shape[2], matmul_pos=True)
+    tp_axis = _tp_axis_for(pstr, leaf.shape[1:])
+    return dict(kind="stream", leaf=leaf,
+                arr=torch.movedim(leaf, 1 + tp_axis, 1),
+                tp_axis=tp_axis, layer_shape=tuple(leaf.shape[1:]),
+                matmul_pos=matmul_pos)
+
+
+def build_serving_handle(job: dict, ct):
+    """Handle (or fallback leaf) from a compression result; ``ct=None``
+    (const / incompressible) falls back to DenseWeight at matmul positions
+    and to the raw tensor elsewhere."""
+    leaf = job["leaf"]
+    dtype_str = str(leaf.dtype).split(".")[-1]
+    if job["kind"] == "fused":
+        # tile accounting runs on the zero-padded layout; re-check the
+        # escape against the true (unpadded) raw bytes
+        if ct is not None and ct.nbytes_wire() >= leaf.numel() \
+                * leaf.element_size():
+            ct = None
+        return (DenseWeight(w=leaf) if ct is None else
+                FusedWeight(ct=ct, k=job["k"], n=job["n"],
+                            dtype_str=dtype_str))
+    if ct is None:
+        return DenseWeight(w=leaf) if job["matmul_pos"] else leaf
+    return StreamedWeight(
+        ct=ct, tp_axis=job["tp_axis"], layer_shape=job["layer_shape"],
+        dtype_str=dtype_str,
+        execution="matmul" if job["matmul_pos"] else "materialize",
+        flat=job.get("flat", False))
+
+
+def assign_weight_modes(params, *, mode: str = "fused",
+                        min_bytes: int = MIN_STREAM_BYTES,
+                        shards: int = STREAM_SHARDS, codec=None):
+    """Assign every leaf a weight-execution mode and compress the
+    compressible ones on their device.
+
+    mode="dense":  matmul positions wrapped in DenseWeight, rest raw.
+    mode="stream": eligible leaves become StreamedWeight.
+    mode="fused":  matmul positions become FusedWeight tile streams
+                   (TP-sharded when the tile count allows it, see
+                   :func:`fused_shards`); other eligible leaves stream.
+    A leaf whose streams would not beat raw bytes stays dense / raw.
+    Leaves that are already handles pass through.
+    """
+    if mode not in WEIGHT_MODES:
+        raise ValueError(f"unknown weight mode {mode!r}; "
+                         f"expected one of {WEIGHT_MODES}")
+    codec = codec or default_codec()
+    jobs = {}
+
+    def plan(pstr, leaf):
+        if is_handle(leaf):
+            return leaf
+        if mode == "dense":
+            eligible = stream_eligible(pstr, leaf.shape, leaf.dtype,
+                                       min_bytes)
+            return (DenseWeight(w=leaf)
+                    if eligible and _is_matmul_pos(pstr, leaf.ndim)
+                    else leaf)
+        job = serving_job(pstr, leaf, mode, min_bytes)
+        if job is None:
+            return leaf
+        job["shards"] = (fused_shards(job["k"], job["n"], shards)
+                         if job["kind"] == "fused" else shards)
+        jobs[pstr] = job
+        return leaf
+
+    tree = tree_map_with_path(plan, params)
+    handles = {}
+    for pstr, job in jobs.items():
+        ct = codec.compress_stacked_many([job.pop("arr")],
+                                         shards=job["shards"])[0]
+        handles[pstr] = build_serving_handle(job, ct)
+    return tree_map_with_path(lambda p, leaf: handles.get(p, leaf), tree)
+
+
+def mode_mix(tree) -> dict:
+    """Handle-kind census of a weight tree."""
+    mix: dict = {}
+    for _, leaf in tree_leaves(tree):
+        k = handle_kind(leaf)
+        mix[k] = mix.get(k, 0) + 1
+    return mix
+
+
+def stream_stats(tree) -> dict:
+    """Bytes and handle counts of a weight-execution tree."""
+    total_raw = total_dev = 0
+    counts = {"streamed_tensors": 0, "fused_tensors": 0, "dense_handles": 0,
+              "flat_stream_tensors": 0}
+    for _, leaf in tree_leaves(tree):
+        if isinstance(leaf, StreamedWeight):
+            counts["streamed_tensors"] += 1
+            counts["flat_stream_tensors"] += int(leaf.flat)
+            n_layers = leaf.ct.streams.mask.shape[0]
+            per_layer = 1
+            for d in leaf.layer_shape:
+                per_layer *= d
+            total_raw += n_layers * per_layer * leaf.ct.itemsize
+            total_dev += leaf.ct.nbytes_device()
+        elif isinstance(leaf, FusedWeight):
+            counts["fused_tensors"] += 1
+            n_layers = leaf.ct.streams.mask.shape[0]
+            total_raw += n_layers * leaf.k * leaf.n * leaf.ct.itemsize
+            total_dev += leaf.ct.nbytes_device()
+        elif isinstance(leaf, DenseWeight):
+            counts["dense_handles"] += 1
+            total_raw += leaf.w.numel() * leaf.w.element_size()
+            total_dev += leaf.w.numel() * leaf.w.element_size()
+        elif isinstance(leaf, torch.Tensor):
+            total_raw += leaf.numel() * leaf.element_size()
+            total_dev += leaf.numel() * leaf.element_size()
+    return {**counts, "raw_bytes": total_raw, "device_bytes": total_dev,
+            "hbm_ratio": total_raw / max(total_dev, 1)}

@@ -1,0 +1,130 @@
+"""Weight-execution handles (port of ``repro/runtime/weights.py``).
+
+Every big weight leaf is served in one of three modes:
+
+  dense    :class:`DenseWeight`     raw weight resident on the device
+  stream   :class:`StreamedWeight`  ENEC streams on the device, decoded to
+                                    a dense weight inside the step
+  fused    :class:`FusedWeight`     ENEC tile streams decoded inside the
+                                    matmul kernel; the dense weight never
+                                    exists in device memory
+
+Every mode's ``matmul`` realises the same contraction: on the card the
+fused kernel on compressed tiles, or its dense-tile entry on a dense /
+just-decoded weight; on the CPU the plain ``tiled_matmul_ref``.  So logits
+are bitwise equal across modes on each device.
+
+Handles hold tensors with a leading ``(L,)`` layer dim; the model's layer
+loop takes one layer with :meth:`WeightHandle.layer`.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.api import CompressedTensor, slice_stacked
+from repro_torch.core.codec_api import default_codec
+from repro_torch.kernels import ops
+
+
+class WeightHandle:
+    """Base of the weight-execution handles: ``matmul(x2d) -> (M, N) f32``
+    and ``materialize() -> (K, N)`` (bit-exact: ENEC is lossless)."""
+
+    def matmul(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def materialize(self, codec=None) -> torch.Tensor:
+        raise NotImplementedError
+
+    def layer(self, i: int) -> "WeightHandle":
+        raise NotImplementedError
+
+
+@dataclasses.dataclass
+class DenseWeight(WeightHandle):
+    """Raw weight executed through the canonical serve matmul."""
+    w: torch.Tensor        # (..., K, N); leading (L,) when stacked
+
+    def materialize(self, codec=None):
+        return self.w
+
+    def matmul(self, x):
+        return ops.tiled_matmul(x, self.w)
+
+    def layer(self, i):
+        return DenseWeight(w=self.w[i])
+
+
+@dataclasses.dataclass
+class StreamedWeight(WeightHandle):
+    """A weight stored as per-layer ENEC streams in the
+    ``moveaxis(tp_axis -> 0)`` layout.  ``execution="matmul"`` leaves run
+    the canonical contraction on the just-decoded weight; "materialize"
+    leaves are decoded before the layer runs.  ``flat`` marks a 2-D leaf
+    (embed) stored as an L=1 stack; it is never sliced per layer."""
+    ct: CompressedTensor
+    tp_axis: int
+    layer_shape: tuple
+    dtype_str: str
+    execution: str = "materialize"
+    flat: bool = False
+
+    def materialize(self, codec=None):
+        w_perm = (codec or default_codec()).decompress_array(self.ct)
+        return torch.movedim(w_perm, 0, self.tp_axis).to(
+            getattr(torch, self.dtype_str))
+
+    def matmul(self, x):
+        return ops.tiled_matmul(x, self.materialize())
+
+    def layer(self, i):
+        return dataclasses.replace(self, ct=slice_stacked(self.ct, i))
+
+
+@dataclasses.dataclass
+class FusedWeight(WeightHandle):
+    """A (L, K, N) matmul weight stored as ENEC tile streams, executed by
+    the fused decode+matmul kernel.  ``k``/``n`` are the unpadded dims."""
+    ct: CompressedTensor
+    k: int
+    n: int
+    dtype_str: str
+
+    def matmul(self, x):
+        return ops.decompress_matmul(x, self.ct, self.k, self.n)
+
+    def materialize(self, codec=None):
+        w = (codec or default_codec()).untile_matmul_weight(
+            self.ct, self.k, self.n)
+        return w.to(getattr(torch, self.dtype_str))
+
+    def layer(self, i):
+        return dataclasses.replace(self, ct=slice_stacked(self.ct, i))
+
+
+def is_handle(x) -> bool:
+    return isinstance(x, WeightHandle)
+
+
+def handle_kind(leaf) -> str:
+    """"dense" / "stream" / "fused" for handles, "raw" for tensors."""
+    if isinstance(leaf, DenseWeight):
+        return "dense"
+    if isinstance(leaf, StreamedWeight):
+        return "stream"
+    if isinstance(leaf, FusedWeight):
+        return "fused"
+    return "raw"
+
+
+def resolve(tree, codec=None):
+    """Per-layer resolution: storage-only handles (StreamedWeight in
+    "materialize" execution) become dense tensors; matmul-capable handles
+    pass through for the layers to execute."""
+    if isinstance(tree, dict):
+        return {k: resolve(v, codec) for k, v in tree.items()}
+    if isinstance(tree, StreamedWeight) and tree.execution != "matmul":
+        return tree.materialize(codec)
+    return tree

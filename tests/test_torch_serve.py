@@ -1,0 +1,99 @@
+"""The port's serving path against the JAX package on the llama3_2_1b
+smoke config: the same weights (JAX init, carried over with
+``convert.params_from_jax``), the same prompts, prefill and 8 greedy
+decode steps.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.models import build_model as jax_build_model
+from repro.runtime.streaming import assign_weight_modes as jax_assign
+from repro.runtime.streaming import mode_mix as jax_mode_mix
+from repro_torch.configs import get_smoke_config
+from repro_torch.convert import params_from_jax
+from repro_torch.models import build_model
+from repro_torch.runtime.streaming import assign_weight_modes, mode_mix
+
+DECODE_STEPS = 8
+# Logits may differ from the reference by the f32 sum order inside each
+# 128-term tile product (XLA and torch order them differently); where that
+# moves a bf16 activation cast, the change is about one bf16 ulp (2**-8
+# relative) of the O(1) smoke activations and logits.
+LOGIT_ATOL = 2.0 ** -8
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg = jax_smoke_config("llama3_2_1b")
+    jmodel = jax_build_model(jcfg)
+    jparams = jmodel.init(jax.random.key(0))
+    host = jax.device_get(jparams)
+    cfg = get_smoke_config("llama3_2_1b")
+    params = params_from_jax(host, "cpu", cfg=cfg)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 12))
+    return jmodel, jparams, build_model(cfg), params, prompts
+
+
+def _serve_jax(model, tree, prompts):
+    logits, cache = model.prefill_fn(
+        tree, {"tokens": jax.numpy.asarray(prompts, jax.numpy.int32)}, 24)
+    out = [np.asarray(logits)]
+    tok = jax.numpy.argmax(logits, -1).astype(jax.numpy.int32)
+    toks = [np.asarray(tok)]
+    for _ in range(DECODE_STEPS):
+        logits, cache = model.decode_fn(tree, cache, tok)
+        tok = jax.numpy.argmax(logits, -1).astype(jax.numpy.int32)
+        out.append(np.asarray(logits))
+        toks.append(np.asarray(tok))
+    return np.stack(out), np.stack(toks)
+
+
+def _serve_torch(model, tree, prompts):
+    logits, cache = model.prefill_fn(
+        tree, {"tokens": torch.from_numpy(prompts)}, 24)
+    tok = torch.argmax(logits, -1)
+    out, toks = [logits], [tok]
+    for _ in range(DECODE_STEPS):
+        logits, cache = model.decode_fn(tree, cache, tok)
+        tok = torch.argmax(logits, -1)
+        out.append(logits)
+        toks.append(tok)
+    return torch.stack(out), torch.stack(toks)
+
+
+def test_three_modes_bitwise_equal_and_match_reference(setup):
+    jmodel, jparams, model, params, prompts = setup
+    want_logits, want_toks = _serve_jax(
+        jmodel, jax_assign(jparams, mode="dense", min_bytes=1024, shards=2),
+        prompts)
+    outs = {}
+    for mode in ("dense", "stream", "fused"):
+        tree = assign_weight_modes(params, mode=mode, min_bytes=1024,
+                                   shards=2)
+        jtree = jax_assign(jparams, mode=mode, min_bytes=1024, shards=2)
+        assert mode_mix(tree) == jax_mode_mix(jtree), mode
+        outs[mode] = _serve_torch(model, tree, prompts)
+    for mode in ("stream", "fused"):
+        assert torch.equal(outs[mode][0].view(torch.int32),
+                           outs["dense"][0].view(torch.int32)), mode
+        assert torch.equal(outs[mode][1], outs["dense"][1]), mode
+    logits, toks = outs["fused"]
+    np.testing.assert_array_equal(toks.numpy(), want_toks)
+    np.testing.assert_allclose(logits.numpy(), want_logits, rtol=0,
+                               atol=LOGIT_ATOL)
+
+
+def test_raw_tree_serves_like_the_handles(setup):
+    """Unassigned weights (plain tensors) serve the same greedy tokens as
+    the handle tree: the plain einsum path and the tiled schedule differ
+    only in the order of f32 sums."""
+    _, _, model, params, prompts = setup
+    raw_logits, raw_toks = _serve_torch(model, params, prompts)
+    tree = assign_weight_modes(params, mode="dense", min_bytes=1024)
+    logits, toks = _serve_torch(model, tree, prompts)
+    assert torch.equal(raw_toks, toks)
+    np.testing.assert_allclose(raw_logits.numpy(), logits.numpy(), rtol=0,
+                               atol=LOGIT_ATOL)
