@@ -7,29 +7,45 @@ its CUDA kernels against their plain PyTorch versions.
 Phases, each printed as it runs; any failure raises and exits nonzero:
 
 1. build   compile ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a into
-           ``build/kernels/``; print the build time and the card's name
-           and power limit (nvidia-smi).
+           ``build/kernels/`` (one nvcc per source, all in parallel); print
+           the build time and the card's name and power limit (nvidia-smi).
 2. decode  the ENEC decode kernel against the plain decoder, bitwise:
            bf16 / fp16 / fp32, N in {2048, 16384}, the (m, n, L) grid,
            all / no anomalous groups, m == n, per-block (b, l) across the
            wrap boundary; then the decode of the full-width 128256x2048
            embed, timed beside the plain version and its bound.
+   encode  the ENEC encode kernel against the plain encoder, byte for byte
+           in all five streams, on the same grid (per-block b across the
+           wrap); each result decoded back to its input by the decode
+           kernel; then the encode of the full-width embed, timed beside
+           the plain version and its bound; after phase 4, the fused
+           set-up's own launches (the whole tree in one bucket, per-block
+           b of every stack) re-planned and held against the plain
+           encoder byte for byte.
 3. matmul  the fused decode+matmul kernel at every full-width leaf shape
            and M in {1, 4, batch*prompt}: bitwise equal to its dense-tile
            entry on the decoded weight, within a stated tolerance of the
            plain version and of torch.matmul; timed at M = batch.
 4. serve   llama3_2_1b at full width from seeded synthetic weights,
-           compressed on the card, through ``launch.serve.main`` in fused,
-           stream and dense modes (batch 4, prompt 64, 16 new tokens):
-           equal greedy tokens, bitwise-equal logits, the kernel launch
-           counts per decode step; plus a smoke-size model on the card
-           against the plain CPU path.  The launch counts are set to 0
-           just before each mode's run and read just after it.
-5. a ``{"kernels": [...]}`` JSON line, then the card line and the last
+           compressed on the card by the encode kernel, through
+           ``launch.serve.main`` in fused, stream and dense modes (batch 4,
+           prompt 64, 16 new tokens): equal greedy tokens, bitwise-equal
+           logits, the kernel launch counts per decode step, encode
+           launches equal to the set-up's encode buckets; plus a
+           smoke-size model on the card against the plain CPU path.
+5. ckpt    the fused run again through ``serve.main``, first with
+           ``--save-ckpt DIR`` (an enec-v2 checkpoint in a temporary
+           directory), then with ``--ckpt DIR``: the restored run's tokens
+           and logits bitwise equal to phase 4's fused run, no leaf of at
+           least ``--min-bytes`` moved host to device as dense bytes, and
+           restore decode dispatches equal to the restore plan's buckets.
+6. a ``{"kernels": [...]}`` JSON line, then the card line and the last
    line ``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` is
    its count in the run of its ``path`` (fused, the main path, for the
-   decoder and the fused entry; dense for the dense-tile entry);
-   ``launches_by_path`` gives its count in each mode's own run.
+   decoder, the encoder and the fused entry; dense for the dense-tile
+   entry); ``launches_by_path`` gives its count in each served run (the
+   three modes, ``ckpt_save`` and ``ckpt_restore``).  Every count is set
+   to 0 just before its run and read just after it.
 
 Details go to ``chiprun_out/chip_smoke.json``.  The script needs CUDA and
 the repository's ``src/``; without either it exits nonzero and prints no
@@ -48,6 +64,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
 BATCH, PROMPT, TOKENS = 4, 64, 16
+MIN_BYTES = 4096                   # serve's default --min-bytes
+N_LAYERS = 16
 LEAVES = {"wq": (2048, 2048), "wk": (2048, 512), "wv": (2048, 512),
           "wo": (2048, 2048), "w_gate": (2048, 8192), "w_up": (2048, 8192),
           "w_down": (8192, 2048)}
@@ -56,6 +74,16 @@ LEAVES = {"wq": (2048, 2048), "wk": (2048, 512), "wv": (2048, 512),
 # or kept bf16 partial sums errs by >= 1e-4; phase 3 computes both controls
 # and fails unless each exceeds this limit.
 MATMUL_ATOL = 2e-5
+
+# kernel launches of one decode step of each served mode
+_PER_STEP = N_LAYERS * len(LEAVES)
+STEP_LAUNCHES = {
+    "fused": {"enec_decode": 1, "decompress_matmul": _PER_STEP,
+              "dense_tile_matmul": 0, "enec_encode": 0},
+    "stream": {"enec_decode": 1 + _PER_STEP, "decompress_matmul": 0,
+               "dense_tile_matmul": _PER_STEP, "enec_encode": 0},
+    "dense": {"enec_decode": 0, "decompress_matmul": 0,
+              "dense_tile_matmul": _PER_STEP, "enec_encode": 0}}
 
 RESULTS: dict = {}
 
@@ -142,6 +170,59 @@ def _weights(shape, fmt, gen, outliers=3e-3):
     return w.to(fmt.float_dtype)
 
 
+def _grid(gen):
+    """The cases both codec kernels are held on, as ``(bits, fmt, p, label,
+    b_vec, l_vec)``: bf16 / fp16 / fp32 at N in {2048, 16384} with searched
+    parameters; the (m, n, L) grid; all / no anomalous groups and m == n;
+    two tensors' blocks in one launch with exponents at each window's edge
+    (per-block b and l across the wrap)."""
+    import torch
+    from repro_torch.core import params, stats
+    from repro_torch.core.dtypes import BF16, FORMATS, to_bits
+    from repro_torch.core.params import EnecParams
+    for key, fmt in FORMATS.items():
+        for n_elems in (2048, 16384):
+            bits = to_bits(_weights((4, n_elems), fmt, gen))
+            st = stats.stack_stats(bits.reshape(1, -1), fmt)
+            p = params.widen_for_range(
+                params.search(st.hist, fmt, block_elems=n_elems),
+                *st.bounds())
+            yield bits, fmt, p, f"{key} N={n_elems} {p.astuple()}", None, None
+    for m, n, L in ((1, 4, 16), (3, 6, 16), (5, 6, 32), (2, 7, 64),
+                    (6, 6, 16)):
+        for n_elems in (2048, 16384):
+            exps = torch.randint(127 - (1 << n) + 1, 128, (2, n_elems),
+                                 generator=gen, device="cuda")
+            low = torch.randint(0, 1 << 16, (2, n_elems), generator=gen,
+                                device="cuda") & 0x807F
+            bits = ((exps << 7) | low).to(torch.int32)
+            p = EnecParams(b=127, n=n, m=m, L=L, l=127 - (1 << n) + 1)
+            yield (bits, BF16, p, f"grid m={m} n={n} L={L} N={n_elems}",
+                   None, None)
+    n_elems = 16384
+    exps = torch.cat([torch.full((1, n_elems), 120, device="cuda"),
+                      torch.full((1, n_elems), 127, device="cuda")])
+    bits = ((exps << 7) | (torch.randint(0, 1 << 16, (2, n_elems),
+                                         generator=gen, device="cuda")
+                           & 0x807F)).to(torch.int32)
+    yield (bits, BF16, EnecParams(b=127, n=4, m=2, L=16, l=120), "all/none",
+           None, None)
+    yield (bits, BF16, EnecParams(b=127, n=4, m=4, L=16, l=120), "m == n",
+           None, None)
+    ps = (EnecParams(b=126, n=4, m=2, L=16, l=120),
+          EnecParams(b=100, n=4, m=2, L=16, l=90))
+    rows = []
+    for p in ps:
+        e = torch.randint(p.l, p.l + 16, (n_elems,), generator=gen,
+                          device="cuda")
+        e[:2] = torch.tensor([p.l, p.l + 15])
+        rows.append((e << 7) | (torch.arange(n_elems, device="cuda") & 127))
+    b_vec = torch.tensor([p.b for p in ps], dtype=torch.int32, device="cuda")
+    l_vec = torch.tensor([p.l for p in ps], dtype=torch.int32, device="cuda")
+    yield (torch.stack(rows).to(torch.int32), BF16, ps[0], "per-block (b, l)",
+           b_vec, l_vec)
+
+
 def _decode_both(streams, n_elems, fmt, p, b_vec=None, l_vec=None):
     import torch
     from repro_torch.kernels import enec_decode, ops
@@ -154,68 +235,18 @@ def _decode_both(streams, n_elems, fmt, p, b_vec=None, l_vec=None):
 
 def phase_decode():
     import torch
-    from repro_torch.core import codec, params, stats
+    from repro_torch.core import codec
     from repro_torch.core.codec_api import Codec
-    from repro_torch.core.dtypes import BF16, FORMATS, to_bits
-    from repro_torch.core.params import EnecParams
-    from repro_torch.kernels import enec_decode, ops
+    from repro_torch.kernels import enec_decode
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = 0
-
-    def run(bits, fmt, p, label, b_vec=None, l_vec=None):
-        nonlocal cases
-        n_elems = bits.shape[1]
-        if b_vec is None:
-            streams = codec.encode_blocks(bits, fmt, p)
-        else:
-            streams = codec.encode_blocks(bits, fmt, p, b_vec=b_vec)
-        got, want = _decode_both(streams, n_elems, fmt, p, b_vec, l_vec)
+    for bits, fmt, p, label, b_vec, l_vec in _grid(gen):
+        streams = codec.encode_blocks(bits, fmt, p, b_vec=b_vec)
+        got, want = _decode_both(streams, bits.shape[1], fmt, p, b_vec, l_vec)
         check(torch.equal(got, want), f"decode kernel != plain ({label})")
         check(torch.equal(got.to(fmt.work_dtype) & fmt.bits_mask, bits),
               f"decode is not lossless ({label})")
         cases += 1
-
-    for key, fmt in FORMATS.items():
-        for n_elems in (2048, 16384):
-            w = _weights((4, n_elems), fmt, gen)
-            bits = to_bits(w)
-            st = stats.stack_stats(bits.reshape(1, -1), fmt)
-            p = params.widen_for_range(
-                params.search(st.hist, fmt, block_elems=n_elems),
-                *st.bounds())
-            run(bits, fmt, p, f"{key} N={n_elems} {p.astuple()}")
-    for m, n, L in ((1, 4, 16), (3, 6, 16), (5, 6, 32), (2, 7, 64),
-                    (6, 6, 16)):
-        for n_elems in (2048, 16384):
-            exps = torch.randint(127 - (1 << n) + 1, 128, (2, n_elems),
-                                 generator=gen, device="cuda")
-            low = torch.randint(0, 1 << 16, (2, n_elems), generator=gen,
-                                device="cuda") & 0x807F
-            bits = ((exps << 7) | low).to(torch.int32)
-            p = EnecParams(b=127, n=n, m=m, L=L, l=127 - (1 << n) + 1)
-            run(bits, BF16, p, f"grid m={m} n={n} L={L} N={n_elems}")
-    # all groups anomalous in block 0, none in block 1; and m == n
-    n_elems = 16384
-    exps = torch.cat([torch.full((1, n_elems), 120, device="cuda"),
-                      torch.full((1, n_elems), 127, device="cuda")])
-    bits = ((exps << 7) | (torch.randint(0, 1 << 16, (2, n_elems),
-                                         generator=gen, device="cuda")
-                           & 0x807F)).to(torch.int32)
-    run(bits, BF16, EnecParams(b=127, n=4, m=2, L=16, l=120), "all/none")
-    run(bits, BF16, EnecParams(b=127, n=4, m=4, L=16, l=120), "m == n")
-    # two tensors' blocks in one launch, exponents at each window's edge
-    ps = (EnecParams(b=126, n=4, m=2, L=16, l=120),
-          EnecParams(b=100, n=4, m=2, L=16, l=90))
-    rows = []
-    for p in ps:
-        e = torch.randint(p.l, p.l + 16, (n_elems,), generator=gen,
-                          device="cuda")
-        e[:2] = torch.tensor([p.l, p.l + 15])
-        rows.append((e << 7) | (torch.arange(n_elems, device="cuda") & 127))
-    b_vec = torch.tensor([p.b for p in ps], dtype=torch.int32, device="cuda")
-    l_vec = torch.tensor([p.l for p in ps], dtype=torch.int32, device="cuda")
-    run(torch.stack(rows).to(torch.int32), BF16, ps[0], "per-block (b, l)",
-        b_vec, l_vec)
     log(f"decode: {cases} cases bitwise equal to the plain decoder")
 
     # the main path's decode: the full-width tied embed, flat L=1 stack
@@ -256,6 +287,144 @@ def phase_decode():
                          "embed_params": list(ct.params.astuple()),
                          "embed_ratio": ct.ratio()}
     del embed, ct, flat
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase encode: the encode kernel
+# ---------------------------------------------------------------------------
+
+def _encode_both(bits, fmt, p, b_vec=None):
+    """Encode kernel and plain encoder on the same (B, N) work-type bits."""
+    import torch
+    from repro_torch.core.dtypes import to_container
+    from repro_torch.kernels import enec_encode
+    raw = to_container(bits, fmt).contiguous()
+    if b_vec is None:
+        b_vec = torch.full((bits.shape[0],), p.b, dtype=torch.int32,
+                           device="cuda")
+    got = enec_encode.encode_blocks_cuda(raw, fmt, p, b_vec)
+    torch.cuda.synchronize()
+    want = enec_encode.encode_blocks_plain(raw, fmt, p, b_vec)
+    return got, want
+
+
+def phase_encode():
+    import torch
+    from repro_torch.core import params, stats
+    from repro_torch.core.dtypes import BF16
+    from repro_torch.kernels import enec_decode, enec_encode
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = 0
+    for bits, fmt, p, label, b_vec, l_vec in _grid(gen):
+        got, want = _encode_both(bits, fmt, p, b_vec)
+        for name in got._fields:
+            check(torch.equal(getattr(got, name), getattr(want, name)),
+                  f"encode kernel != plain in {name} ({label})")
+        nb = bits.shape[0]
+        b = b_vec if b_vec is not None else torch.full(
+            (nb,), p.b, dtype=torch.int32, device="cuda")
+        l_ = l_vec if l_vec is not None else torch.full(
+            (nb,), p.l, dtype=torch.int32, device="cuda")
+        dec = enec_decode.decode_blocks_cuda(got, bits.shape[1], fmt, p, b,
+                                             l_)
+        torch.cuda.synchronize()
+        check(torch.equal(dec.to(fmt.work_dtype) & fmt.bits_mask, bits),
+              f"encode kernel -> decode kernel is not lossless ({label})")
+        cases += 1
+    log(f"encode: {cases} cases byte-identical to the plain encoder in all "
+        f"five streams, each decoded back to its input by the decode kernel")
+
+    # the main path's largest encode: the full-width tied embed
+    embed = (torch.nn.init.trunc_normal_(
+        torch.empty((128256, 2048), device="cuda"), 0.0, 1.0, -2.0, 2.0,
+        generator=gen) * 0.02).to(torch.bfloat16)
+    raw = embed.view(torch.int16).reshape(-1, 16384)
+    st = stats.stack_stats(raw.reshape(1, -1), BF16)
+    p = params.widen_for_range(params.search(st.hist, BF16), *st.bounds())
+    nblocks = raw.shape[0]
+    b_vec = torch.full((nblocks,), p.b, dtype=torch.int32, device="cuda")
+    got = enec_encode.encode_blocks_cuda(raw, BF16, p, b_vec)
+    torch.cuda.synchronize()
+    want = enec_encode.encode_blocks_plain(raw, BF16, p, b_vec)
+    for name in got._fields:
+        check(torch.equal(getattr(got, name), getattr(want, name)),
+              f"embed encode kernel != plain in {name}")
+    # largest difference of any stream byte (or high_len) from the plain
+    # encoder's: the byte-identity check as a number
+    embed_err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                    if a.numel() else 0 for a, b in zip(got, want))
+    written = sum(a.numel() * a.element_size() for a in got)
+    del got, want
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    ms = cuda_ms(lambda: enec_encode.encode_blocks_cuda(raw, BF16, p, b_vec),
+                 10, flush_buf.zero_)
+    plain_ms = cuda_ms(lambda: enec_encode.encode_blocks_plain(
+        raw, BF16, p, b_vec), 2, flush_buf.zero_)
+    in_bytes = raw.numel() * 2 + 4 * nblocks            # + per-block b
+    bound = (in_bytes + written) / HBM_BYTES_PER_S * 1e3
+    log(f"encode embed 128256x2048 bf16 ({nblocks} blocks, params "
+        f"{p.astuple()}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound:.4f} ms (bytes {in_bytes + written}), "
+        f"{bound / ms:.3f} of bound")
+    RESULTS["encode"] = {"cases": cases, "embed_ms": ms,
+                         "embed_plain_ms": plain_ms, "embed_bound_ms": bound,
+                         "embed_bytes": in_bytes + written,
+                         "embed_max_abs_err": embed_err,
+                         "embed_params": list(p.astuple())}
+    del embed, raw, flush_buf
+    torch.cuda.empty_cache()
+
+
+def phase_setup_encode(fused):
+    """The fused set-up's own encoder launches: the same seeded weights
+    re-planned as ``serve.main`` plans them (``fused`` is phase 4's fused
+    run, whose bucket count they must repeat); each bucket's one launch,
+    over its whole block count with its per-block ``b``, byte-identical to
+    the plain encoder in all five streams (compared in chunks of rows)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.codec_api import Codec
+    from repro_torch.kernels import enec_encode, ops
+    from repro_torch.models import build_model
+    from repro_torch.runtime.streaming import serving_encode_plans
+    cfg = get_config("llama3_2_1b")
+    params = build_model(cfg).init(seed=0, device="cuda")
+    codec_obj = Codec()
+    launches = []
+    for plan in serving_encode_plans(params, mode="fused",
+                                     min_bytes=MIN_BYTES, shards=2,
+                                     codec=codec_obj):
+        for bucket, (blocks, fmt, p, b_vec) in zip(
+                plan.buckets, codec_obj.encode_launches(plan)):
+            got = ops.encode_blocks(blocks, fmt, p, b_vec)
+            torch.cuda.synchronize()
+            nblocks = blocks.shape[0]
+            chunk = 16384
+            for s in range(0, nblocks, chunk):
+                want = enec_encode.encode_blocks_plain(
+                    blocks[s:s + chunk], fmt, p, b_vec[s:s + chunk])
+                for name in want._fields:
+                    check(torch.equal(getattr(got, name)[s:s + chunk],
+                                      getattr(want, name)),
+                          f"set-up encode launch != plain in {name} "
+                          f"(blocks {s}..{s + chunk} of {nblocks})")
+                del want
+            launches.append({
+                "key": [bucket.fmt_name, list(bucket.params_key),
+                        bucket.block_elems],
+                "stacks": bucket.n_tensors, "blocks": nblocks,
+                "input_bytes": blocks.numel() * blocks.element_size(),
+                "distinct_b": int(torch.unique(b_vec).numel())})
+            del got, blocks, b_vec
+    check(len(launches) == fused["encode_buckets"],
+          f"re-planned set-up has {len(launches)} buckets, the fused run "
+          f"{fused['encode_buckets']}")
+    log(f"encode: the fused set-up's {len(launches)} launch(es) "
+        f"{launches} byte-identical to the plain encoder in all five "
+        f"streams")
+    RESULTS["encode"]["setup_launches"] = launches
+    del params
     torch.cuda.empty_cache()
 
 
@@ -476,24 +645,26 @@ def phase_serve():
         check(torch.equal(runs[mode]["logits"].view(torch.int32),
                           ref["logits"].view(torch.int32)),
               f"{mode} logits not bitwise equal to fused")
-    n_layers, per_layer = 16, len(LEAVES)
     for mode, out in runs.items():
         step = out["step_launches"][0]
         check(all(s == step for s in out["step_launches"]),
               f"{mode}: launches vary between decode steps")
-        want = {"fused": {"enec_decode": 1,
-                          "decompress_matmul": n_layers * per_layer,
-                          "dense_tile_matmul": 0},
-                "stream": {"enec_decode": 1 + n_layers * per_layer,
-                           "decompress_matmul": 0,
-                           "dense_tile_matmul": n_layers * per_layer},
-                "dense": {"enec_decode": 0, "decompress_matmul": 0,
-                          "dense_tile_matmul": n_layers * per_layer}}[mode]
+        want = STEP_LAUNCHES[mode]
         check(step == want, f"{mode}: per-step launches {step} != {want}")
         for name, n in want.items():
             check(n == 0 or out["path_launches"][name] > 0,
                   f"{mode}: kernel {name} was never launched in its run")
-        log(f"serve {mode}: set-up {out['setup_s']:.3f} s, TTFT "
+        # set-up compresses on the card: one encode launch per bucket of
+        # its encode plans, none in dense mode
+        enc = out["path_launches"]["enec_encode"]
+        check(enc == out["encode_dispatches"] == out["encode_buckets"],
+              f"{mode}: {enc} encode launches, set-up reports "
+              f"{out['encode_dispatches']} dispatches of "
+              f"{out['encode_buckets']} buckets")
+        check((enc > 0) == (mode != "dense"),
+              f"{mode}: {enc} encode launches in set-up")
+        log(f"serve {mode}: set-up {out['setup_s']:.3f} s "
+            f"({out['encode_buckets']} encode buckets), TTFT "
             f"{out['ttft_s'] * 1e3:.2f} ms, TPOT {out['tpot_s'] * 1e3:.2f} "
             f"ms, {out['tok_s']:.2f} tok/s, wire ratio "
             f"{out['wire_ratio']:.4f}, hbm ratio "
@@ -507,27 +678,103 @@ def phase_serve():
         "card": card, "smoke_max_err": smoke_err,
         "modes": {m: {k: o[k] for k in ("ttft_s", "tpot_s", "tok_s",
                                         "setup_s", "wire_ratio",
+                                        "encode_buckets",
                                         "path_launches", "prefill_launches",
                                         "mode_mix")}
                   | {"step_launches": o["step_launches"][0],
                      "hbm_ratio": o["stream_stats"]["hbm_ratio"]}
                   for m, o in runs.items()}}
+    return launches, runs["fused"]
+
+
+# ---------------------------------------------------------------------------
+# phase 5: checkpoint save -> restore -> serve
+# ---------------------------------------------------------------------------
+
+def _leaf_bytes() -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import param_shapes
+    return {f"params/{path}": math.prod(shape) * 2       # bf16
+            for path, shape in param_shapes(get_config("llama3_2_1b")).items()}
+
+
+def phase_ckpt(fused):
+    """``fused`` is phase 4's fused run: the restored run must repeat it
+    bit for bit."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.launch import serve
+    args = ["--batch", str(BATCH), "--prompt-len", str(PROMPT), "--tokens",
+            str(TOKENS), "--mode", "fused", "--min-bytes", str(MIN_BYTES)]
+    ck = tempfile.mkdtemp(prefix="enec-ckpt-")
+    launches, runs = {}, {}
+    try:
+        for path, extra in (("ckpt_save", ["--save-ckpt", ck]),
+                            ("ckpt_restore", ["--ckpt", ck])):
+            serve.reset_launch_counts()      # this path's run starts here ...
+            out = serve.main(args + extra)
+            launches[path] = serve.launch_counts()   # ... and ends here
+            runs[path] = out
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    for path, out in runs.items():
+        check(torch.equal(out["tokens"], fused["tokens"]),
+              f"{path}: greedy tokens differ from the fresh fused run")
+        check(torch.equal(out["logits"].view(torch.int32),
+                          fused["logits"].view(torch.int32)),
+              f"{path}: logits not bitwise equal to the fresh fused run")
+        check(out["step_launches"][0] == STEP_LAUNCHES["fused"],
+              f"{path}: per-step launches {out['step_launches'][0]}")
+    save, restore = runs["ckpt_save"]["save"], runs["ckpt_restore"]["restore"]
+    sizes = _leaf_bytes()
+    big = [n for n in restore["dense_records"] if sizes[n] >= MIN_BYTES]
+    check(not big, f"restore moved leaves of >= {MIN_BYTES} bytes host to "
+          f"device as dense bytes: {big}")
+    check(restore["h2d_dense_bytes"] == sum(
+        sizes[n] for n in restore["dense_records"]),
+        f"h2d dense bytes {restore['h2d_dense_bytes']} are not those of "
+        f"the small dense records {restore['dense_records']}")
+    check(restore["decode_dispatches"] == restore["plan_buckets"],
+          f"restore: {restore['decode_dispatches']} decode dispatches, "
+          f"{restore['plan_buckets']} plan buckets")
+    for path, out in runs.items():
+        check(launches[path]["enec_encode"] == out["encode_dispatches"],
+              f"{path}: {launches[path]['enec_encode']} encode launches, "
+              f"the codec counts {out['encode_dispatches']}")
+    log(f"ckpt fused full width: save {save['seconds']:.3f} s "
+        f"({save['records']} records, {save['bytes_on_disk']} bytes on "
+        f"disk, manifest ratio {save['ratio']:.4f}), restore "
+        f"{restore['seconds']:.3f} s (h2d "
+        f"{restore['h2d_compressed_bytes'] / 1e6:.3f} MB compressed, "
+        f"{restore['h2d_dense_bytes'] / 1e6:.6f} MB dense in "
+        f"{len(restore['dense_records'])} records < {MIN_BYTES} bytes; "
+        f"{restore['decode_dispatches']} decode dispatches == "
+        f"{restore['plan_buckets']} plan buckets); restored tokens and "
+        f"logits bitwise equal to the fresh fused run; launches "
+        f"{launches} on {card_line()}")
+    RESULTS["ckpt"] = {"save": save, "restore": restore,
+                       "setup_s": {p: o["setup_s"] for p, o in runs.items()},
+                       "launches": launches}
     return launches
 
 
 # ---------------------------------------------------------------------------
 
 # the served path whose own run gives each kernel's ``launches``: the
-# default fused mode (the main path) runs the decoder and the fused entry;
-# the dense-tile entry runs in the dense and stream modes only
+# default fused mode (the main path) runs the decoder and the fused entry,
+# and its set-up the encoder; the dense-tile entry runs in the dense and
+# stream modes only
 KERNEL_PATH = {"enec_decode": "fused", "decompress_matmul": "fused",
-               "dense_tile_matmul": "dense"}
+               "dense_tile_matmul": "dense", "enec_encode": "fused"}
 
 
 def kernels_line(launches):
-    """``launches`` maps each served mode to the counts read right after
-    that mode's run, with every count set to 0 just before it."""
-    d, mm = RESULTS["decode"], RESULTS["matmul"]
+    """``launches`` maps each served run to the counts read right after
+    that run, with every count set to 0 just before it."""
+    d, mm, enc = RESULTS["decode"], RESULTS["matmul"], RESULTS["encode"]
     t = mm["totals_m_batch"]
     src = "src/repro_torch/csrc/"
     rows = [
@@ -551,6 +798,13 @@ def kernels_line(launches):
          "ms": t["dense"], "plain_ms": t["dense_plain"],
          "bound_ms": t["dense_bound"], "bound_by": "bytes",
          "library_ms": t["library"]},
+        {"name": "enec_encode", "route": "cuda",
+         "source": src + "enec_encode.cu",
+         "replaces": "src/repro/kernels/enec_encode.py:89",
+         "max_abs_err": enc["embed_max_abs_err"],
+         "ms": enc["embed_ms"], "plain_ms": enc["embed_plain_ms"],
+         "bound_ms": enc["embed_bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "setup_launches": enc["setup_launches"]},
     ]
     for row in rows:
         path = KERNEL_PATH[row["name"]]
@@ -573,8 +827,12 @@ def main():
     t0 = time.perf_counter()
     phase_build()
     phase_decode()
+    phase_encode()
     phase_matmul()
-    launches = phase_serve()
+    launches, fused = phase_serve()
+    phase_setup_encode(fused)
+    launches.update(phase_ckpt(fused))
+    del fused
     line = kernels_line(launches)
     RESULTS["kernels"] = line["kernels"]
     RESULTS["seconds"] = time.perf_counter() - t0

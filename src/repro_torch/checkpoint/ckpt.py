@@ -1,0 +1,713 @@
+"""ENEC-compressed checkpointing in the enec-v2 container (port of the
+strict subset of ``repro/checkpoint/ckpt.py``; packs and manifests are the
+reference's byte for byte).
+
+Layout (one directory per step):
+    <root>/step_000001230/
+        manifest.json          tree structure + per-record (pack, offset,
+                               length) index, shapes, dtypes, ENEC stats
+        pack-00000.bin ...     per-shard pack files: concatenated framed
+                               wire records (length + CRC32 per record)
+    <root>/LATEST              atomic pointer file (rename-committed)
+
+* atomic: packs, the manifest and the directory entries are written into a
+  ``.tmp-`` directory and fsynced, then renamed; ``LATEST`` is updated last;
+* async: ``save(blocking=False)`` compresses on the caller's thread, then
+  writes on a background thread; ``wait()`` (and the next ``save``)
+  re-raises its failure;
+* parallel: records are serialized by a pool of ``writers`` threads and
+  streamed round-robin (``index % n_packs``) to the pack files;
+* verified: every record is framed (length + CRC32); ``load`` rejects a
+  truncated or flipped record with :class:`CheckpointError` naming the
+  record, its pack and its byte offset;
+* retried: every pack and manifest read and every pack write goes through
+  the manager's :class:`~repro_torch.runtime.retry.RetryPolicy`;
+* keep-last-k retention and stale-tmp GC.
+
+``serving_layout="stream"|"fused"`` stores each policy-eligible weight in
+its serving stream layout (the bundles ``assign_weight_modes`` builds), so
+:meth:`CheckpointManager.load_for_serving` deserializes those records
+straight into ``StreamedWeight`` / ``FusedWeight`` handles: only
+compressed bytes cross host to device (the codec's ``h2d`` ledger), and the
+dense weight never exists on the host.
+
+Trees are walked in the reference's flatten order (sorted dict keys), so
+record names, indices and the pack round-robin match it.  Not ported yet
+(ROADMAP Queue 1 items 8, 10 and 12), each raising a clear error:
+``policy="degraded"`` with its quarantine and ``RestoreReport``, the fault
+injection hooks, per-expert records and placement on a mesh.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import shutil
+import threading
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import wire as enec_wire
+from repro_torch.core.api import (SUPPORTED_FLOAT_DTYPES, CompressedTensor,
+                                  slice_stacked)
+from repro_torch.core.codec_api import Codec, current_codec
+from repro_torch.runtime import streaming as rt_streaming
+from repro_torch.runtime.retry import RetryPolicy
+from repro_torch.runtime.weights import (DenseWeight, finish_materialize,
+                                         handle_from_spec, handle_spec,
+                                         is_handle)
+
+MANIFEST_FORMAT = "enec-v2"
+RESTORE_POLICIES = ("strict",)
+
+# tree roots that hold optimizer state: never stored in a serving layout
+_NON_SERVING_ROOTS = frozenset({"opt", "opt_state", "optimizer"})
+
+
+class CheckpointError(RuntimeError):
+    """A checkpoint could not be saved or restored."""
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def _leaf_nbytes(shape, dtype_str: str) -> int:
+    itemsize = torch.empty((), dtype=getattr(torch, dtype_str)).element_size()
+    return int(np.prod(shape, dtype=np.int64)) * itemsize
+
+
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """Host copy of a non-compressed leaf (bf16 travels as its int16
+    bits: numpy has no bf16)."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy()
+    return t.numpy()
+
+
+def _fsync_path(path) -> None:
+    """fsync a file or directory (the rename commit is durable only once
+    the parent's entries are)."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _read_file(path) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _read_range(path, offset: int, length: int) -> bytes:
+    with open(path, "rb") as f:
+        f.seek(offset)
+        return f.read(length)
+
+
+def _where(e: dict, packs) -> str:
+    """The record's coordinates for an error message."""
+    parts = [f"record={e['name']}"]
+    if packs is not None and "pack" in e:
+        parts += [f"pack={packs[e['pack']]}", f"offset={e['offset']}"]
+    return " [" + ", ".join(parts) + "]"
+
+
+@dataclasses.dataclass
+class CheckpointManager:
+    root: Path
+    keep_last: int = 3
+    compress: bool = True
+    writers: int = 4                       # pack shards == writer threads
+    serving_layout: Optional[str] = None   # None | "stream" | "fused"
+    serving_min_bytes: int = rt_streaming.MIN_STREAM_BYTES
+    serving_shards: int = 1
+    expert_records: bool = False
+    codec: Optional[Codec] = None          # default: ambient codec at init
+    retry: Optional[RetryPolicy] = None    # default: RetryPolicy()
+    device: Any = "cuda"                   # where restored tensors live
+    _thread: Optional[threading.Thread] = None
+    _exc: Optional[BaseException] = None
+
+    def __post_init__(self):
+        self.root = Path(self.root)
+        self.device = resolve_device(self.device)
+        if self.expert_records:
+            raise CheckpointError(
+                "per-expert records are not ported yet (ROADMAP Queue 1, "
+                "item 10)")
+        if self.serving_layout not in (None, "stream", "fused"):
+            raise ValueError(
+                f"serving_layout must be None, 'stream' or 'fused', "
+                f"got {self.serving_layout!r}")
+        self.root.mkdir(parents=True, exist_ok=True)
+        self.last_decode_plan = None   # DecodePlan of the latest load
+        self.last_dense_records = []   # records the latest load moved dense
+        if self.retry is None:
+            self.retry = RetryPolicy()
+        if self.codec is None:
+            # captured once: every save and load of this manager encodes,
+            # decodes and counts its transfers on ONE codec
+            self.codec = current_codec()
+
+    # -- save ------------------------------------------------------------
+
+    def save(self, step: int, tree, *, blocking: bool = False) -> None:
+        """Compress ``tree`` on its device now; write it blocking or on a
+        background thread."""
+        self.wait()    # also re-raises a previous async failure
+        names, leaves = _tree_paths(tree)
+        payload, dense_specs = self._prepare(names, leaves)
+        if blocking:
+            self._save_host(step, names, payload, dense_specs)
+            return
+        self._thread = threading.Thread(
+            target=self._save_guarded,
+            args=(step, names, payload, dense_specs), daemon=True)
+        self._thread.start()
+
+    def _save_guarded(self, step, names, payload, dense_specs):
+        try:
+            self._save_host(step, names, payload, dense_specs)
+        except BaseException as e:  # noqa: BLE001 — surfaced via wait()
+            self._exc = e
+
+    def wait(self):
+        """Join the in-flight async save and re-raise its failure."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._exc is not None:
+            exc, self._exc = self._exc, None
+            raise CheckpointError(
+                f"async checkpoint save failed: {exc}") from exc
+
+    def _prepare(self, names, leaves):
+        """Per-leaf record plan:
+             ("np",  host_array, dtype)     raw host bytes (non-float)
+             ("ct",  CompressedTensor)      plain enec/raw/const record
+             ("hct", ct, spec, raw_bytes)   stacked serving-layout record
+        """
+        payload: list = [None] * len(leaves)
+        float_slots, serve_jobs = [], []
+        dense_specs: dict = {}   # slot -> handle spec for fallback leaves
+        for i, (name, leaf) in enumerate(zip(names, leaves)):
+            if is_handle(leaf):
+                if isinstance(leaf, DenseWeight):
+                    leaf = leaves[i] = leaf.w   # re-wrapped on restore
+                    dense_specs[i] = {"kind": "dense"}
+                else:
+                    spec = handle_spec(leaf)
+                    raw = _leaf_nbytes(
+                        (leaf.ct.streams.mask.shape[0],)
+                        + tuple(spec.get("layer_shape")
+                                or (spec["k"], spec["n"])), spec["dtype"])
+                    payload[i] = ("hct", leaf.ct, spec, raw)
+                    continue
+            if not (self.compress and leaf.dtype in SUPPORTED_FLOAT_DTYPES):
+                payload[i] = ("np", _host_array(leaf),
+                              _dtype_name(leaf.dtype))
+                continue
+            if self.serving_layout is not None and i not in dense_specs \
+                    and name.split("/", 1)[0] not in _NON_SERVING_ROOTS:
+                job = rt_streaming.serving_job(name, leaf,
+                                               self.serving_layout,
+                                               self.serving_min_bytes)
+                if job is not None:
+                    job["slot"] = i
+                    serve_jobs.append(job)
+                    continue
+            float_slots.append(i)
+
+        # serving-layout leaves: the exact stream bundles the policy builds,
+        # one batched encode per shard width
+        by_shards: dict = {}
+        for job in serve_jobs:
+            job_shards = (rt_streaming.fused_shards(
+                job["k"], job["n"], self.serving_shards)
+                if job["kind"] == "fused" else self.serving_shards)
+            by_shards.setdefault(job_shards, []).append(job)
+        for job_shards, jobs in sorted(by_shards.items()):
+            cts = self.codec.compress_stacked_many(
+                [job["arr"] for job in jobs], shards=job_shards)
+            for job, ct in zip(jobs, cts):
+                i = job["slot"]
+                handle = rt_streaming.build_serving_handle(job, ct)
+                if is_handle(handle) and not isinstance(handle, DenseWeight):
+                    payload[i] = ("hct", handle.ct, handle_spec(handle),
+                                  job["leaf"].numel()
+                                  * job["leaf"].element_size())
+                else:
+                    # const / incompressible: a plain record, re-wrapped as
+                    # DenseWeight by the restore policy
+                    if job["matmul_pos"]:
+                        dense_specs[i] = {"kind": "dense"}
+                    float_slots.append(i)
+
+        # every other float leaf is an L=1 stack of the batched pipeline:
+        # per-leaf searched params, one launch per bucket
+        float_slots.sort()
+        cts = self.codec.compress_stacked_many(
+            [leaves[i][None] for i in float_slots])
+        for i, ct in zip(float_slots, cts):
+            payload[i] = ("ct", self.codec.compress_array(leaves[i])
+                          if ct is None else slice_stacked(ct, 0))
+        return payload, dense_specs
+
+    def _build_record(self, index, name, item, dense_specs):
+        """(manifest entry sans pack/offset, framed blob, raw bytes)."""
+        tag = item[0]
+        if tag == "np":
+            _, leaf, dtype = item
+            entry = {"name": name, "index": index, "shape": list(leaf.shape),
+                     "dtype": dtype, "mode": "npraw"}
+            blob = b"RAW0" + leaf.tobytes()
+            raw = leaf.nbytes
+        elif tag == "ct":
+            ct = item[1]
+            entry = {"name": name, "index": index, "shape": list(ct.shape),
+                     "dtype": ct.dtype_str, "mode": ct.mode}
+            if ct.params is not None:
+                entry["params"] = list(ct.params.astuple())
+            blob = enec_wire.to_wire(ct)
+            raw = ct.nbytes_raw()
+        else:   # "hct": stacked serving-layout record
+            _, ct, spec, raw = item
+            entry = {"name": name, "index": index,
+                     "shape": list(ct.shape), "dtype": ct.dtype_str,
+                     "mode": ct.mode, "handle": spec,
+                     "stack": int(ct.streams.mask.shape[0]),
+                     "params": list(ct.params.astuple())}
+            blob = enec_wire.to_wire(ct, stacked=True)
+        spec = dense_specs.get(index)
+        if spec is not None and "handle" not in entry:
+            entry["handle"] = spec
+        entry["bytes"] = len(blob)
+        return entry, enec_wire.frame(blob), raw
+
+    def _save_host(self, step: int, names, payload, dense_specs) -> None:
+        t0 = time.time()
+        final = self.root / f"step_{step:012d}"
+        tmp = self.root / f".tmp-step_{step:012d}"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+        n_packs = max(1, min(self.writers, len(payload) or 1))
+        manifest = {"format": MANIFEST_FORMAT, "step": step,
+                    "packs": [f"pack-{i:05d}.bin" for i in range(n_packs)],
+                    "leaves": []}
+        if self.serving_layout is not None:
+            manifest["serving_layout"] = {
+                "mode": self.serving_layout,
+                "min_bytes": self.serving_min_bytes,
+                "shards": self.serving_shards}
+        raw_total = comp_total = 0
+        offsets = [0] * n_packs
+        # records are built by the pool and streamed round-robin to the
+        # packs through a bounded window: a few frames in host memory at a
+        # time, never the whole checkpoint
+        files = [open(tmp / name, "wb") for name in manifest["packs"]]
+        workers = max(self.writers, 1)
+        pending: deque = deque()
+
+        def drain_one():
+            nonlocal raw_total, comp_total
+            i, fut = pending.popleft()
+            pack = i % n_packs
+            entry, framed, raw = fut.result()
+            entry["pack"] = pack
+            entry["offset"] = offsets[pack]
+            entry["length"] = len(framed)
+
+            def write_framed(f=files[pack], pos=offsets[pack], fr=framed):
+                # seek to the record's offset on every attempt, so a retried
+                # write after a partial one lays the frame down once
+                f.seek(pos)
+                f.write(fr)
+
+            self.retry.call(write_framed)
+            offsets[pack] += len(framed)
+            raw_total += raw
+            comp_total += entry["bytes"]
+            manifest["leaves"].append(entry)
+
+        try:
+            with ThreadPoolExecutor(max_workers=workers) as ex:
+                for i, (n, it) in enumerate(zip(names, payload)):
+                    pending.append((i, ex.submit(
+                        self._build_record, i, n, it, dense_specs)))
+                    if len(pending) >= 2 * workers:
+                        drain_one()
+                while pending:
+                    drain_one()
+            for f in files:
+                f.flush()
+                os.fsync(f.fileno())
+        finally:
+            for f in files:
+                f.close()
+
+        manifest["raw_bytes"] = raw_total
+        manifest["compressed_bytes"] = comp_total
+        manifest["ratio"] = raw_total / max(comp_total, 1)
+        manifest["save_s"] = round(time.time() - t0, 3)
+        with open(tmp / "manifest.json", "w") as f:
+            f.write(json.dumps(manifest, indent=1))
+            f.flush()
+            os.fsync(f.fileno())
+        _fsync_path(tmp)
+        if final.exists():
+            shutil.rmtree(final)
+        tmp.rename(final)                       # atomic commit
+        _fsync_path(self.root)
+        latest_tmp = self.root / ".LATEST.tmp"
+        with open(latest_tmp, "w") as f:
+            f.write(final.name)
+            f.flush()
+            os.fsync(f.fileno())
+        latest_tmp.rename(self.root / "LATEST")
+        _fsync_path(self.root)
+        self._gc()
+
+    def _gc(self):
+        # retention counts only steps whose manifest parses
+        steps = sorted(p for p in self.root.glob("step_*") if p.is_dir())
+        intact = [p for p in steps if self._try_manifest(p) is not None]
+        for old in intact[: max(0, len(intact) - self.keep_last)]:
+            shutil.rmtree(old, ignore_errors=True)
+        for stale in self.root.glob(".tmp-step_*"):
+            shutil.rmtree(stale, ignore_errors=True)
+
+    # -- locating a step ----------------------------------------------------
+
+    def latest_step(self) -> Optional[int]:
+        """Step named by ``LATEST``, or None when it is missing or garbage."""
+        try:
+            text = (self.root / "LATEST").read_text()
+        except OSError:
+            return None
+        try:
+            return int(text.strip().split("_")[-1])
+        except ValueError:
+            return None
+
+    def manifest(self, step: Optional[int] = None) -> dict:
+        """The manifest of ``step`` (default: latest), no record read."""
+        return self._step_dir(step)[1]
+
+    def _try_manifest(self, cdir) -> Optional[dict]:
+        path = cdir / "manifest.json"
+        try:
+            raw = self.retry.call(lambda: _read_file(path))
+            return json.loads(raw.decode())
+        except (OSError, ValueError):
+            return None
+
+    def _step_candidates(self) -> list:
+        out = []
+        s = self.latest_step()
+        if s is not None:
+            out.append(s)
+        for p in sorted(self.root.glob("step_*"), reverse=True):
+            if not p.is_dir():
+                continue
+            try:
+                c = int(p.name.split("_")[-1])
+            except ValueError:
+                continue
+            if c not in out:
+                out.append(c)
+        return out
+
+    def _step_dir(self, step: Optional[int]) -> tuple:
+        """``(cdir, manifest)``; an explicit step must be intact, ``None``
+        falls back from ``LATEST`` to the newest step that parses."""
+        if step is not None:
+            cdir = self.root / f"step_{step:012d}"
+            path = cdir / "manifest.json"
+            if not path.exists():
+                raise CheckpointError(f"{cdir} has no manifest.json")
+            try:
+                raw = self.retry.call(lambda: _read_file(path))
+                return cdir, json.loads(raw.decode())
+            except (json.JSONDecodeError, UnicodeDecodeError) as e:
+                raise CheckpointError(f"{path} is corrupt: {e}") from e
+        candidates = self._step_candidates()
+        if not candidates:
+            raise FileNotFoundError(f"no checkpoint under {self.root}")
+        causes = []
+        for c in candidates:
+            try:
+                return self._step_dir(c)
+            except CheckpointError as e:
+                causes.append(str(e))
+        raise CheckpointError("no step with an intact manifest under "
+                              f"{self.root}: " + "; ".join(causes))
+
+    # -- reading records ----------------------------------------------------
+
+    @staticmethod
+    def _require_records(names, by_name, cdir, what="records"):
+        missing = [n for n in names if n not in by_name]
+        if missing:
+            raise CheckpointError(
+                f"checkpoint {cdir.name} lacks {what} for {missing[:5]}"
+                + ("…" if len(missing) > 5 else "")
+                + f" [record={missing[0]}]")
+
+    @staticmethod
+    def _check_leaf(e, shape, like, packs, dtype=None):
+        if tuple(shape) != tuple(like.shape):
+            raise CheckpointError(
+                f"{e['name']}: ckpt {tuple(shape)} vs model "
+                f"{tuple(like.shape)}" + _where(e, packs))
+        if dtype is not None and dtype != _dtype_name(like.dtype):
+            raise CheckpointError(
+                f"{e['name']}: ckpt dtype {dtype} vs model "
+                f"{_dtype_name(like.dtype)}" + _where(e, packs))
+
+    def _iter_records(self, cdir, manifest, entries):
+        """Yield ``(entry, payload)`` for ``entries``, validated (frame
+        length + CRC for enec-v2 packs, declared size for v1 files), in
+        pack/offset order; only the requested records are read."""
+        fmt = manifest.get("format", "enec-v1")
+        if fmt == "enec-v1":
+            for e in entries:
+                path = cdir / f"t_{e['index']:05d}.enec"
+                try:
+                    blob = self.retry.call(lambda p=path: _read_file(p))
+                except OSError as err:
+                    raise CheckpointError(
+                        f"{path.name} ({e['name']}): {err}") from err
+                if "bytes" in e and len(blob) != e["bytes"]:
+                    raise CheckpointError(
+                        f"{path.name}: {len(blob)} bytes on disk, manifest "
+                        f"declares {e['bytes']} — truncated or corrupt "
+                        f"[record={e['name']}, pack={path.name}, offset=0]")
+                self.codec.count_link("disk", len(blob),
+                                      dense=e.get("mode") == "npraw")
+                yield e, blob
+            return
+        if fmt != MANIFEST_FORMAT:
+            raise CheckpointError(f"unknown checkpoint format {fmt!r}")
+        by_pack: dict = {}
+        for e in entries:
+            by_pack.setdefault(e["pack"], []).append(e)
+        for pack, es in sorted(by_pack.items()):
+            path = cdir / manifest["packs"][pack]
+            for e in sorted(es, key=lambda e: e["offset"]):
+                try:
+                    buf = self.retry.call(
+                        lambda e=e: _read_range(path, e["offset"],
+                                                e["length"]))
+                    payload, end = enec_wire.read_frame(
+                        buf, record=e["name"], pack=path.name,
+                        base_offset=e["offset"])
+                    if end != len(buf):
+                        raise enec_wire.WireError(
+                            f"frame length {end} != indexed {len(buf)}")
+                except (OSError, enec_wire.WireError) as err:
+                    if isinstance(err, enec_wire.WireError):
+                        err.with_context(record=e["name"], pack=path.name,
+                                         offset=e["offset"])
+                    raise CheckpointError(
+                        f"{path.name} @ {e['offset']} ({e['name']}): "
+                        f"{err}") from err
+                self.codec.count_link("disk", len(payload),
+                                      dense=e.get("mode") == "npraw")
+                yield e, payload
+
+    def _decode_npraw(self, e, blob, packs) -> torch.Tensor:
+        blob = bytes(blob)
+        if blob[:4] != b"RAW0":
+            raise CheckpointError(f"corrupt raw blob for {e['name']}"
+                                  + _where(e, packs))
+        bf16 = e["dtype"] == "bfloat16"
+        arr = np.frombuffer(blob[4:], np.int16 if bf16
+                            else np.dtype(e["dtype"]))
+        if arr.size != int(np.prod(e["shape"], dtype=np.int64)):
+            raise CheckpointError(
+                f"{e['name']}: raw payload holds {arr.size} elements, "
+                f"manifest declares shape {e['shape']}" + _where(e, packs))
+        t = enec_wire.h2d(arr.reshape(e["shape"]), self.device, self.codec,
+                          dense=True)
+        self.last_dense_records.append(e["name"])
+        return t.view(torch.bfloat16) if bf16 else t
+
+    def _record_ct(self, e, blob, packs) -> CompressedTensor:
+        """Deserialize one compressed record; its streams move to the
+        device here (counted on this manager's codec), nothing is
+        decoded."""
+        pack = packs[e["pack"]] if packs is not None and "pack" in e \
+            else None
+        try:
+            ct = enec_wire.from_wire(blob, codec=self.codec,
+                                     device=self.device, record=e["name"],
+                                     pack=pack, offset=e.get("offset"))
+        except enec_wire.WireError as err:
+            err.with_context(record=e["name"], pack=pack,
+                             offset=e.get("offset"))
+            raise CheckpointError(f"{e['name']}: {err}") from err
+        if ct.mode == "raw":
+            self.last_dense_records.append(e["name"])
+        return ct
+
+    def _queue_record(self, e, blob, pending, vals, like, packs):
+        """An ``npraw`` record becomes a device tensor now; a compressed
+        one is queued for the batched decode (serving-layout records as
+        handles, plain ones as CompressedTensors)."""
+        if e["mode"] == "npraw":
+            val = self._decode_npraw(e, blob, packs)
+            self._check_leaf(e, val.shape, like, packs)
+            vals[e["name"]] = val.to(like.dtype)
+            return
+        ct = self._record_ct(e, blob, packs)
+        obj = (handle_from_spec(e["handle"], ct)
+               if "handle" in e and e.get("stack") else ct)
+        pending.append((e, like, obj))
+
+    def _decode_pending(self, pending, vals, packs):
+        """Decode every queued record in ONE batched pass: O(#buckets)
+        decoder launches; the plan's summary is kept on
+        ``last_decode_plan``."""
+        plan = self.codec.plan_decode(
+            [obj.ct if is_handle(obj) else obj for _, _, obj in pending])
+        decs = self.codec.execute(plan)
+        # keep only the summary: the execution state pins the streams
+        self.last_decode_plan = dataclasses.replace(
+            plan, _groups=[], _passthrough={}, _leaves=[])
+        for (e, like, obj), dec in zip(pending, decs):
+            val = finish_materialize(obj, dec) if is_handle(obj) else dec
+            self._check_leaf(e, val.shape, like, packs)
+            # a const record decodes to a broadcast view: give it storage
+            vals[e["name"]] = val.to(like.dtype).contiguous()
+
+    @staticmethod
+    def _check_policy(policy, mesh=None):
+        if policy not in RESTORE_POLICIES:
+            raise CheckpointError(
+                f"restore policy {policy!r} is not ported yet (ROADMAP "
+                f"Queue 1, item 8); the port restores with policy='strict'")
+        if mesh is not None:
+            raise CheckpointError("restoring onto a mesh is not ported yet "
+                                  "(ROADMAP Queue 1, item 12)")
+
+    def load(self, like_tree, step: Optional[int] = None, *,
+             policy: str = "strict"):
+        """Restore the dense tree shaped like ``like_tree`` (tensors, or
+        ``meta`` tensors for shape and dtype) onto the manager's device;
+        the first bad record raises.  Returns ``(tree, manifest)``."""
+        self._check_policy(policy)
+        self.last_dense_records = []
+        cdir, manifest = self._step_dir(step)
+        names, leaves = _tree_paths(like_tree)
+        by_name = {e["name"]: e for e in manifest["leaves"]}
+        self._require_records(names, by_name, cdir)
+        like_by_name = dict(zip(names, leaves))
+        packs = manifest.get("packs")
+        vals: dict = {}
+        pending: list = []
+        for e, payload in self._iter_records(
+                cdir, manifest, [by_name[n] for n in names]):
+            self._queue_record(e, payload, pending, vals,
+                               like_by_name[e["name"]], packs)
+        self._decode_pending(pending, vals, packs)
+        tree = rt_streaming.tree_map_with_path(lambda p, _: vals.pop(p),
+                                               like_tree)
+        return tree, manifest
+
+    # -- restore straight into serving handles ----------------------------
+
+    @staticmethod
+    def _spec_serves_mode(spec: dict, mode: str) -> bool:
+        """Can a stored serving-layout record be adopted as-is under
+        ``mode``?"""
+        kind = spec.get("kind")
+        if mode == "fused":
+            return kind == "fused" or (
+                kind == "stream"
+                and spec.get("execution", "materialize") == "materialize")
+        if mode == "stream":
+            return kind == "stream"
+        return False
+
+    def load_for_serving(self, like_params, *, mode: str = "fused",
+                         step: Optional[int] = None, prefix: str = "",
+                         min_bytes: int = rt_streaming.MIN_STREAM_BYTES,
+                         shards: int = rt_streaming.STREAM_SHARDS,
+                         policy: str = "strict", mesh=None):
+        """Restore ONLY the weight records into a serving handle tree.
+
+        ``like_params`` gives the structure, shapes and dtypes (``meta``
+        tensors are fine: nothing is allocated from it); ``prefix``
+        namespaces the record names ("params" for a checkpoint saved as
+        ``{"params": ...}``).  Records stored in a layout that serves
+        ``mode`` deserialize straight into handles, moving only compressed
+        bytes to the device; everything else is decoded in one batched
+        pass and handed to ``assign_weight_modes``, which passes the
+        adopted handles through.  Returns ``(tree, manifest)``."""
+        if mode not in rt_streaming.WEIGHT_MODES:
+            raise ValueError(f"unknown weight mode {mode!r}")
+        self._check_policy(policy, mesh)
+        self.last_dense_records = []
+        cdir, manifest = self._step_dir(step)
+        names, leaves = _tree_paths(like_params)
+        full = [f"{prefix}/{n}" if prefix else n for n in names]
+        by_name = {e["name"]: e for e in manifest["leaves"]}
+        self._require_records(full, by_name, cdir, what="weight records")
+        like_by_name = dict(zip(full, leaves))
+        packs = manifest.get("packs")
+        vals: dict = {}
+        pending: list = []
+        for e, payload in self._iter_records(cdir, manifest,
+                                             [by_name[n] for n in full]):
+            name, spec = e["name"], e.get("handle")
+            like = like_by_name[name]
+            if spec and spec["kind"] != "dense" and e.get("stack") \
+                    and self._spec_serves_mode(spec, mode):
+                if spec["kind"] == "stream":
+                    leaf_shape = (tuple(spec["layer_shape"])
+                                  if spec.get("flat") else
+                                  (int(e["stack"]),)
+                                  + tuple(spec["layer_shape"]))
+                else:
+                    leaf_shape = (int(e["stack"]), int(spec["k"]),
+                                  int(spec["n"]))
+                self._check_leaf(e, leaf_shape, like, packs,
+                                 dtype=spec["dtype"])
+                ct = self._record_ct(e, payload, packs)
+                # adopt only at the shard width the policy would pick;
+                # otherwise decode and let the policy re-lay it out
+                req_shards = (rt_streaming.fused_shards(
+                    int(spec["k"]), int(spec["n"]), shards)
+                    if spec["kind"] == "fused" else shards)
+                if ct.shards == req_shards:
+                    vals[name] = handle_from_spec(spec, ct)
+                else:
+                    pending.append((e, like, handle_from_spec(spec, ct)))
+                continue
+            self._queue_record(e, payload, pending, vals, like, packs)
+        self._decode_pending(pending, vals, packs)
+        tree = rt_streaming.tree_map_with_path(
+            lambda p, _: vals.pop(f"{prefix}/{p}" if prefix else p),
+            like_params)
+        tree = rt_streaming.assign_weight_modes(
+            tree, mode=mode, min_bytes=min_bytes, shards=shards,
+            codec=self.codec)
+        return tree, manifest
+
+
+def _tree_paths(tree):
+    """Leaf names and leaves in the reference's flatten order (sorted dict
+    keys), weight handles as leaves."""
+    pairs = list(rt_streaming.tree_leaves(tree))
+    return [n for n, _ in pairs], [leaf for _, leaf in pairs]

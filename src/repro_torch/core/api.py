@@ -80,11 +80,20 @@ class CompressedTensor:
         if self.mode == "raw":
             return int(np.prod(self.shape)) * self.itemsize + overhead
         if self._wire_bytes is None:
-            s = self.streams
-            hl = s.high_len.reshape(-1).to(torch.int64)
-            true_high = int(((hl + 7) // 8).sum())
-            fixed = s.mask.numel() + s.low.numel() + s.raw.numel()
-            self._wire_bytes = fixed + true_high + 4 * hl.numel() + overhead
+            self._set_wire_bytes(self.streams.high_len.cpu())
+        return self._wire_bytes
+
+    def _set_wire_bytes(self, high_len_bits) -> int:
+        """Fill the wire-size cache from a host copy of the per-block
+        ``high_len`` vector (bits), so that ``nbytes_wire`` needs no device
+        sync after an encode or a ``from_wire``.  The wire byte-pads the
+        high stream per block, hence the vector and not its sum."""
+        s = self.streams
+        hl = np.asarray(high_len_bits, np.int64).reshape(-1)
+        fixed = s.mask.numel() + s.low.numel() + s.raw.numel()
+        overhead = record_overhead_bytes(self.mode, len(self.shape))
+        self._wire_bytes = (fixed + int(((hl + 7) // 8).sum())
+                            + 4 * hl.size + overhead)
         return self._wire_bytes
 
     def nbytes_raw(self) -> int:

@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 __all__ = ["pack_fixed", "unpack_fixed", "packed_nbytes", "piece_map",
-           "pack_bool_mask", "unpack_bool_mask"]
+           "pack_bool_mask", "unpack_bool_mask", "pack_straight",
+           "unpack_straight", "exact_from_straight", "straight_from_exact"]
 
 
 def fold_plan(a: int, n: int):
@@ -154,3 +155,94 @@ def unpack_bool_mask(bytes_: torch.Tensor, g: int) -> torch.Tensor:
     shifts = torch.arange(8, dtype=torch.int32, device=bytes_.device)
     bits = (bytes_.to(torch.int32)[..., None] >> shifts) & 1
     return bits.reshape(bytes_.shape[:-1] + (g,)).bool()
+
+
+# ---------------------------------------------------------------------------
+# exact bit streams (the wire form of the variable-length high stream)
+# ---------------------------------------------------------------------------
+#
+# The wire stores each block's high stream as a straight little-endian bit
+# concatenation of its ``count`` rank-ordered values, byte-padded per block
+# (``repro/core/bitio.py:np_pack_bits_exact``).  The reference loops over
+# blocks on the host with ``np.bitwise_or.at``.  Here the straight packing
+# of all N lanes of every block is one tensor operation on the streams'
+# device (:func:`pack_straight`; lanes past ``count`` are zero, so a block's
+# exact bytes are a prefix of its straight row).  On a save the host
+# selects every block's prefix at once (:func:`exact_from_straight`); on a
+# load the exact bytes go to the device as they are and are scattered
+# into rows there (:func:`straight_from_exact`).
+
+STRAIGHT_CHUNK_BLOCKS = 2048     # bounds the (B, N, width) bit intermediates
+
+
+def straight_nbytes(n: int, width: int) -> int:
+    return (n * width + 7) // 8
+
+
+def pack_straight(vals: torch.Tensor, width: int) -> torch.Tensor:
+    """(B, N) non-negative lanes of ``width`` bits -> (B, ceil(N*width/8))
+    uint8, each row the straight little-endian concatenation of its
+    lanes."""
+    nblocks, n = vals.shape
+    out = torch.zeros((nblocks, straight_nbytes(n, width)), dtype=torch.uint8,
+                      device=vals.device)
+    if width == 0:
+        return out
+    shifts = torch.arange(width, dtype=torch.int32, device=vals.device)
+    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32,
+                           device=vals.device)
+    pad = (-n * width) % 8
+    for s in range(0, nblocks, STRAIGHT_CHUNK_BLOCKS):
+        v = vals[s:s + STRAIGHT_CHUNK_BLOCKS].to(torch.int32)
+        bits = ((v[..., None] >> shifts) & 1).reshape(v.shape[0], -1)
+        if pad:
+            bits = torch.nn.functional.pad(bits, (0, pad))
+        out[s:s + v.shape[0]] = (bits.reshape(v.shape[0], -1, 8)
+                                 * weights).sum(-1).to(torch.uint8)
+    return out
+
+
+def unpack_straight(stream: torch.Tensor, n: int, width: int) -> torch.Tensor:
+    """Inverse of :func:`pack_straight` -> (B, n) int32."""
+    nblocks = stream.shape[0]
+    out = torch.zeros((nblocks, n), dtype=torch.int32, device=stream.device)
+    if width == 0:
+        return out
+    shifts = torch.arange(8, dtype=torch.int32, device=stream.device)
+    weights = torch.arange(width, dtype=torch.int32, device=stream.device)
+    for s in range(0, nblocks, STRAIGHT_CHUNK_BLOCKS):
+        row = stream[s:s + STRAIGHT_CHUNK_BLOCKS].to(torch.int32)
+        bits = ((row[..., None] >> shifts) & 1).reshape(row.shape[0], -1)
+        bits = bits[:, :n * width].reshape(row.shape[0], n, width)
+        out[s:s + row.shape[0]] = (bits << weights).sum(-1, dtype=torch.int32)
+    return out
+
+
+def exact_from_straight(straight: np.ndarray, nbytes: np.ndarray) -> bytes:
+    """Concatenate the first ``nbytes[b]`` bytes of every row ``b`` of a
+    (B, W) host array (each block's exact high stream)."""
+    keep = np.arange(straight.shape[1])[None, :] < nbytes[:, None]
+    return straight[keep].tobytes()
+
+
+def straight_from_exact(exact: torch.Tensor, nbytes: torch.Tensor,
+                        width_bytes: int) -> torch.Tensor:
+    """Inverse of :func:`exact_from_straight`, on ``exact``'s device: the
+    per-block exact byte runs (concatenated, ``nbytes[b]`` each; both 1-D
+    tensors on one device) -> zero-padded (B, width_bytes) uint8."""
+    dev = exact.device
+    out = torch.zeros((nbytes.shape[0], width_bytes), dtype=torch.uint8,
+                      device=dev)
+    if not width_bytes or not exact.numel():
+        return out
+    cols = torch.arange(width_bytes, device=dev)[None, :]
+    nbytes = nbytes.to(torch.int64)
+    # source offset of each chunk of rows: one small transfer to the host
+    ends = [0] + torch.cumsum(nbytes, 0)[STRAIGHT_CHUNK_BLOCKS - 1::
+                                         STRAIGHT_CHUNK_BLOCKS].tolist()
+    for k, s in enumerate(range(0, nbytes.shape[0], STRAIGHT_CHUNK_BLOCKS)):
+        rows = out[s:s + STRAIGHT_CHUNK_BLOCKS]
+        end = ends[k + 1] if k + 1 < len(ends) else exact.numel()
+        rows.masked_scatter_(cols < nbytes[s:s + rows.shape[0], None],
+                             exact[ends[k]:end])
+    return out

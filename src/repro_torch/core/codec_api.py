@@ -1,44 +1,163 @@
-"""The codec object (subset of ``repro/core/codec_api.py``).
+"""The codec object with its plan/execute split (port of
+``repro/core/codec_api.py``).
 
 :class:`Codec` compresses layer stacks and fused-matmul tile streams and
-decompresses tensors.  It encodes one stack per pass with the plain codec
-(set-up work, on the tensor's device) and decodes one tensor per launch of
-the ENEC decoder (``kernels.ops.decode_blocks``: the CUDA kernel for a
-CUDA tensor, the plain version for a CPU one).  ``decode_launches`` counts
-this codec's decodes.  The reference's plan/execute bucketing, which
-batches many tensors into one launch, is not ported yet.
+decompresses tensors through an explicit schedule:
+
+* :meth:`Codec.plan_encode` takes statistics of every input on its device,
+  brings them to the host in ONE transfer, searches each stack's
+  parameters, lays out its blocks, and groups the stacks into
+  :class:`EncodeBucket` s keyed on ``(fmt, (n, m, L), block_elems)``; the
+  linear-map parameter ``b`` travels as a per-block vector, so stacks with
+  different searched ``b`` share a bucket.
+* :meth:`Codec.plan_decode` groups compressed tensors the same way
+  (:class:`DecodeBucket`; ``(b, l)`` per block).
+* :meth:`Codec.execute` launches EXACTLY ``len(plan.buckets)`` encoder or
+  decoder calls (``kernels.ops``: the CUDA kernel for CUDA tensors, the
+  plain version for CPU ones), plus, for an encode plan, ONE transfer of
+  every stack's ``high_len`` for the never-worse escape.
+
+The reference pads each bucket's block count to a power of two to bound
+XLA's compile cache.  The CUDA kernels take any block count and the port
+has no compile cache, so a bucket encodes or decodes its true block count:
+``block_bucket == nblocks`` always.
+
+Each codec owns its counters: encode / decode dispatches
+(:meth:`encode_cache_stats`, :meth:`decode_cache_stats`) and the per-link
+transfer ledger (:meth:`count_link`, :meth:`transfer_stats`).
+:func:`use_codec` makes one codec ambient for a block of code
+(:func:`current_codec`), so the handles' decodes, the checkpoint manager
+and the wire module all count on the codec that a launcher built.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import codec as block_codec
 from . import params as params_mod
 from . import stats as stats_mod
-from .api import (SUPPORTED_FLOAT_DTYPES, CompressedTensor,
-                  const_tensor, matmul_tiles, raw_tensor)
+from .api import (SUPPORTED_FLOAT_DTYPES, CompressedTensor, const_tensor,
+                  matmul_tiles, raw_tensor, slice_stacked)
 from .api import untile_matmul_weight as _untile
-from .dtypes import DTYPE_NAMES, format_for, to_bits
+from .codec import BlockStreams
+from .dtypes import DTYPE_NAMES, FloatFormat, format_for
 from .params import DEFAULT_BLOCK_ELEMS, EnecParams
+
+# Transfer-ledger links; every byte a codec moves is attributed to one,
+# split compressed / dense.  The port has no mesh, so of the reference's
+# ``codec_api.LINKS`` it keeps the two it can move bytes over.
+LINKS = ("h2d", "disk")
 
 
 @dataclasses.dataclass(frozen=True)
 class CodecConfig:
-    """Immutable policy of one :class:`Codec`: the default ENEC block
-    size (paper §VI-D: 16384 == one 128x128 tile).  Parameters are
-    searched per tensor from its exponent histogram."""
+    """Immutable policy of one :class:`Codec`.
+
+    block_elems
+        Default ENEC block size (paper §VI-D: 16384 == one 128x128 tile).
+    shared_params
+        ``None`` searches parameters per stack from its exponent
+        histogram; a fixed :class:`EnecParams` encodes every stack under
+        it, widened to the stack's exact exponent range.
+    """
     block_elems: int = DEFAULT_BLOCK_ELEMS
+    shared_params: Optional[EnecParams] = None
 
     def __post_init__(self):
         if self.block_elems < 1:
             raise ValueError("block_elems must be >= 1")
 
 
+@dataclasses.dataclass(frozen=True)
+class EncodeBucket:
+    """One encoder launch: every member stack shares ``key``."""
+    fmt_name: str
+    params_key: tuple        # (n, m, L)
+    block_elems: int
+    block_bucket: int        # blocks the launch encodes (== nblocks)
+    nblocks: int
+    n_tensors: int
+
+    @property
+    def key(self) -> tuple:
+        return (self.fmt_name, self.params_key, self.block_elems)
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeBucket:
+    """One decoder launch; mirror of :class:`EncodeBucket`."""
+    fmt_name: str
+    params_key: tuple
+    block_elems: int
+    block_bucket: int
+    nblocks: int
+    n_tensors: int
+
+    @property
+    def key(self) -> tuple:
+        return (self.fmt_name, self.params_key, self.block_elems)
+
+
+@dataclasses.dataclass
+class EncodePlan:
+    """Inspectable encode schedule over a list of inputs:
+    ``len(buckets)`` launches; ``n_fallback`` inputs skip the encoder
+    (unsupported dtype, empty, or a constant layer)."""
+    config: CodecConfig
+    buckets: Tuple[EncodeBucket, ...]
+    n_inputs: int
+    n_fallback: int
+    stacked: bool
+    shards: int
+    block_elems: int = DEFAULT_BLOCK_ELEMS
+    _groups: list = dataclasses.field(repr=False, default_factory=list)
+    _fallbacks: dict = dataclasses.field(repr=False, default_factory=dict)
+    _leaves: list = dataclasses.field(repr=False, default_factory=list)
+
+
+@dataclasses.dataclass
+class DecodePlan:
+    """Inspectable decode schedule; ``n_passthrough`` entries (const / raw
+    tensors, non-tensors, ``None``) restore without a launch."""
+    config: CodecConfig
+    buckets: Tuple[DecodeBucket, ...]
+    n_inputs: int
+    n_passthrough: int
+    _groups: list = dataclasses.field(repr=False, default_factory=list)
+    _passthrough: dict = dataclasses.field(repr=False, default_factory=dict)
+    _leaves: list = dataclasses.field(repr=False, default_factory=list)
+
+
+def _stack_dim(ct: CompressedTensor) -> Optional[int]:
+    """Leading layer count of a stacked tensor, else ``None``."""
+    base = 3 if ct.shards > 1 else 2
+    return ct.streams.mask.shape[0] if ct.streams.mask.ndim == base + 1 \
+        else None
+
+
+def _stacked_from_bits(ct: CompressedTensor, n_layers: int,
+                       bits: torch.Tensor) -> torch.Tensor:
+    """(L*B, N) decoded bit containers -> the dense ``(L,) + ct.shape``."""
+    per = int(np.prod(ct.shape))
+    flat = bits.reshape(n_layers, -1)[:, :per]
+    return flat.view(ct.fmt.float_dtype).reshape((n_layers,) + ct.shape)
+
+
+def _per_block(members, like, value, nblocks_of) -> torch.Tensor:
+    """(B,) int32 vector of ``value(m)`` over each member's blocks."""
+    return torch.cat([torch.full((nblocks_of(m),), value(m),
+                                 dtype=torch.int32, device=like.device)
+                      for m in members])
+
+
 class Codec:
-    """One ENEC codec: config plus its decode launch counter."""
+    """One ENEC codec: config, dispatch counters and transfer ledger."""
 
     def __init__(self, config: Optional[CodecConfig] = None, **overrides):
         if config is None:
@@ -46,76 +165,325 @@ class Codec:
         elif overrides:
             config = dataclasses.replace(config, **overrides)
         self.config = config
-        self.decode_launches = 0
+        self._encode_stats = {"dispatches": 0, "blocks": 0,
+                              "planned_buckets": 0}
+        self._decode_stats = {"dispatches": 0, "blocks": 0}
+        self._transfer = {"h2d_bytes": 0, "h2d_arrays": 0}
+        self._links = {link: {"compressed_bytes": 0, "dense_bytes": 0,
+                              "ops": 0} for link in LINKS}
 
     def __repr__(self):
         return f"Codec(block_elems={self.config.block_elems})"
 
-    # -- encode -----------------------------------------------------------
+    # -- counters ---------------------------------------------------------
 
-    def _compress_stack(self, x: torch.Tensor, p: Optional[EnecParams],
-                        block_elems: int, shards: int
-                        ) -> Optional[CompressedTensor]:
-        if x.ndim < 1 or x.dtype not in SUPPORTED_FLOAT_DTYPES \
-                or x.numel() == 0:
-            return None
-        fmt = format_for(x.dtype)
-        bits2d = to_bits(x.reshape(x.shape[0], -1))
-        st = stats_mod.stack_stats(bits2d, fmt)
-        if st.is_const.any():
-            return None      # a constant layer keeps the whole stack dense
-        pi = (params_mod.search(st.hist, fmt, block_elems=block_elems)
-              if p is None else p)
-        pi = params_mod.widen_for_range(pi, *st.bounds())
-        blocks, per_layer = block_codec.stacked_blocks(
-            bits2d, block_elems, shards, pad_value=pi.b << fmt.mant_bits)
-        del bits2d
-        streams = block_codec.encode_blocks(blocks, fmt, pi)
-        n_layers = x.shape[0]
-        lead = ((n_layers, shards, per_layer // shards) if shards > 1
-                else (n_layers, per_layer))
-        streams = streams.map(lambda a: a.reshape(lead + a.shape[1:]))
-        ct = CompressedTensor(
-            streams=streams, raw_bytes=None, fmt_name=fmt.name, params=pi,
-            shape=tuple(x.shape[1:]), dtype_str=DTYPE_NAMES[x.dtype],
-            block_elems=block_elems, shards=shards, mode="enec")
-        # never-worse escape: streams that do not beat raw bytes stay dense
-        if ct.nbytes_wire() >= n_layers * ct.nbytes_raw():
-            return None
-        return ct
+    def encode_cache_stats(self) -> dict:
+        """``dispatches``: encoder launches; ``blocks``: blocks encoded;
+        ``planned_buckets``: buckets of every plan built."""
+        return dict(self._encode_stats)
+
+    def decode_cache_stats(self) -> dict:
+        """``dispatches``: decoder launches; ``blocks``: blocks decoded."""
+        return dict(self._decode_stats)
+
+    def reset_decode_cache_stats(self) -> None:
+        for k in self._decode_stats:
+            self._decode_stats[k] = 0
+
+    def transfer_stats(self) -> dict:
+        """``h2d_bytes`` / ``h2d_arrays`` plus the per-link ledger."""
+        out = dict(self._transfer)
+        out["links"] = self.link_stats()
+        return out
+
+    def link_stats(self) -> dict:
+        """``{link: {compressed_bytes, dense_bytes, ops}}``."""
+        return {link: dict(v) for link, v in self._links.items()}
+
+    def reset_transfer_stats(self) -> None:
+        for k in self._transfer:
+            self._transfer[k] = 0
+        for entry in self._links.values():
+            for k in entry:
+                entry[k] = 0
+
+    def count_link(self, link: str, nbytes: int, *, dense: bool = False,
+                   ops: int = 1) -> None:
+        """Attribute ``nbytes`` moved over ``link``; ``dense=True`` marks
+        payloads that are not ENEC streams (raw leaves, raw escapes)."""
+        if link not in self._links:
+            raise ValueError(f"unknown transfer link {link!r}; "
+                             f"expected one of {LINKS}")
+        entry = self._links[link]
+        entry["dense_bytes" if dense else "compressed_bytes"] += int(nbytes)
+        entry["ops"] += int(ops)
+        if link == "h2d":
+            self._transfer["h2d_bytes"] += int(nbytes)
+            self._transfer["h2d_arrays"] += int(ops)
+
+    def count_h2d(self, nbytes: int, arrays: int = 1, *,
+                  dense: bool = False) -> None:
+        """A host-to-device upload (``core.wire.h2d`` calls this)."""
+        self.count_link("h2d", nbytes, dense=dense, ops=arrays)
+
+    # -- the two launches -------------------------------------------------
+
+    def _encode(self, blocks: torch.Tensor, fmt: FloatFormat, p: EnecParams,
+                b_vec: torch.Tensor) -> BlockStreams:
+        from repro_torch.kernels import ops    # kernels import core
+        self._encode_stats["dispatches"] += 1
+        self._encode_stats["blocks"] += blocks.shape[0]
+        return ops.encode_blocks(blocks, fmt, p, b_vec)
+
+    def _decode(self, flat: BlockStreams, fmt: FloatFormat, p: EnecParams,
+                block_elems: int, b_vec=None, l_vec=None) -> torch.Tensor:
+        from repro_torch.kernels import ops
+        self._decode_stats["dispatches"] += 1
+        self._decode_stats["blocks"] += flat.mask.shape[0]
+        return ops.decode_blocks(flat, block_elems, fmt, p, b_vec, l_vec)
+
+    # -- plan_encode ------------------------------------------------------
+
+    def plan_encode(self, inputs: Sequence[torch.Tensor], *,
+                    stacked: bool = False, p: Optional[EnecParams] = None,
+                    block_elems: Optional[int] = None,
+                    shards: int = 1) -> EncodePlan:
+        """Encode schedule for a list of tensors.  ``stacked=True`` treats
+        each as an ``(L, ...)`` layer stack (escapes resolve to ``None``);
+        ``stacked=False`` compresses each as one tensor (escapes become
+        const / raw tensors).  Statistics of all inputs reach the host in
+        one transfer; nothing is encoded until :meth:`execute`."""
+        if p is None:
+            p = self.config.shared_params
+        if block_elems is None:
+            block_elems = self.config.block_elems
+        leaves = list(inputs)
+        fallbacks: dict = {}     # slot -> ("dense" | "const", first bits)
+        prepared = []
+        for slot, x in enumerate(leaves):
+            xs = x if stacked else x.reshape((1,) + tuple(x.shape))
+            if xs.ndim < 1 or xs.dtype not in SUPPORTED_FLOAT_DTYPES \
+                    or xs.numel() == 0:
+                fallbacks[slot] = ("dense", None)
+                continue
+            fmt = format_for(xs.dtype)
+            bits2d = xs.reshape(xs.shape[0], -1).view(fmt.bits_dtype)
+            prepared.append((slot, fmt, bits2d, tuple(xs.shape[1:]),
+                             DTYPE_NAMES[xs.dtype],
+                             stats_mod.stack_stats_device(bits2d, fmt)))
+        host_stats = stats_mod.fetch_stats([pr[-1] for pr in prepared])
+
+        groups: Dict[tuple, list] = {}
+        for (slot, fmt, bits2d, layer_shape, dtype_str, _), st in zip(
+                prepared, host_stats):
+            if st.is_const.any():
+                fallbacks[slot] = ("const", st.first)
+                continue
+            pi = (params_mod.search(st.hist, fmt, block_elems=block_elems)
+                  if p is None else p)
+            pi = params_mod.widen_for_range(pi, *st.bounds())
+            blocks, per_layer_blocks = block_codec.stacked_blocks(
+                bits2d, block_elems, shards, pad_value=pi.b << fmt.mant_bits)
+            key = (fmt.name, (pi.n, pi.m, pi.L), block_elems)
+            groups.setdefault(key, []).append(dict(
+                slot=slot, fmt=fmt, p=pi, blocks=blocks,
+                n_layers=bits2d.shape[0], layer_shape=layer_shape,
+                dtype_str=dtype_str, per_layer_blocks=per_layer_blocks))
+
+        buckets = []
+        for key, members in groups.items():
+            nblocks = sum(m["blocks"].shape[0] for m in members)
+            buckets.append(EncodeBucket(
+                fmt_name=key[0], params_key=key[1], block_elems=key[2],
+                block_bucket=nblocks, nblocks=nblocks,
+                n_tensors=len(members)))
+        self._encode_stats["planned_buckets"] += len(buckets)
+        return EncodePlan(
+            config=self.config, buckets=tuple(buckets),
+            n_inputs=len(leaves), n_fallback=len(fallbacks),
+            stacked=stacked, shards=shards, block_elems=block_elems,
+            _groups=list(groups.values()), _fallbacks=fallbacks,
+            _leaves=leaves)
+
+    # -- plan_decode ------------------------------------------------------
+
+    def plan_decode(self, cts: Sequence[Any]) -> DecodePlan:
+        """Decode schedule for a list of :class:`CompressedTensor` (other
+        entries pass through; ``None`` holes stay ``None`` and, as in the
+        reference's pytree flatten, are not counted).  Tensors sharing
+        ``(fmt, (n, m, L), block_elems)`` form one :class:`DecodeBucket` ==
+        one launch."""
+        leaves = list(cts)
+        passthrough: dict = {}    # slot -> "ct" (const / raw) | "identity"
+        groups: Dict[tuple, list] = {}
+        for slot, leaf in enumerate(leaves):
+            if leaf is None:
+                continue
+            if not isinstance(leaf, CompressedTensor):
+                passthrough[slot] = "identity"
+                continue
+            if leaf.mode != "enec":
+                passthrough[slot] = "ct"
+                continue
+            p = leaf.params
+            key = (leaf.fmt_name, (p.n, p.m, p.L), leaf.block_elems)
+            groups.setdefault(key, []).append(dict(
+                slot=slot, ct=leaf, stack=_stack_dim(leaf),
+                flat=block_codec.flatten_blocks(leaf.streams)))
+        buckets = []
+        for key, members in groups.items():
+            nblocks = sum(m["flat"].mask.shape[0] for m in members)
+            buckets.append(DecodeBucket(
+                fmt_name=key[0], params_key=key[1], block_elems=key[2],
+                block_bucket=nblocks, nblocks=nblocks,
+                n_tensors=len(members)))
+        return DecodePlan(
+            config=self.config, buckets=tuple(buckets),
+            n_inputs=len(leaves), n_passthrough=len(passthrough),
+            _groups=list(groups.values()),
+            _passthrough=passthrough, _leaves=leaves)
+
+    # -- execute ----------------------------------------------------------
+
+    def execute(self, plan):
+        """Run a plan: exactly ``len(plan.buckets)`` launches.  Returns one
+        entry per input."""
+        if isinstance(plan, EncodePlan):
+            if plan.config != self.config:
+                raise ValueError("plan was built under a different "
+                                 "CodecConfig; re-plan with this codec")
+            return self._execute_encode(plan)
+        if isinstance(plan, DecodePlan):
+            if plan.config != self.config:
+                raise ValueError("plan was built under a different "
+                                 "CodecConfig; re-plan with this codec")
+            return self._execute_decode(plan)
+        raise TypeError(f"not a plan: {type(plan).__name__}")
+
+    @staticmethod
+    def encode_launches(plan: EncodePlan):
+        """The encoder call :meth:`execute` makes for each bucket of
+        ``plan``, in bucket order, as its arguments ``(blocks, fmt, p,
+        b_vec)``: every member stack's blocks concatenated, and the
+        per-block ``b`` of each."""
+        for members in plan._groups:
+            blocks = (members[0]["blocks"] if len(members) == 1 else
+                      torch.cat([m["blocks"] for m in members]))
+            b_vec = _per_block(members, blocks, lambda m: m["p"].b,
+                               lambda m: m["blocks"].shape[0])
+            yield blocks, members[0]["fmt"], members[0]["p"], b_vec
+
+    def _execute_encode(self, plan: EncodePlan):
+        results: List[Optional[CompressedTensor]] = [None] * plan.n_inputs
+        shards = plan.shards
+        for members, args in zip(plan._groups, self.encode_launches(plan)):
+            streams = self._encode(*args)
+            offset = 0
+            for m in members:
+                nb = m["blocks"].shape[0]
+                n_layers, plb = m["n_layers"], m["per_layer_blocks"]
+                lead = ((n_layers, shards, plb // shards) if shards > 1
+                        else (n_layers, plb))
+                s = streams.map(lambda a: a[offset:offset + nb].reshape(
+                    lead + a.shape[1:]))
+                offset += nb
+                results[m["slot"]] = CompressedTensor(
+                    streams=s, raw_bytes=None, fmt_name=m["fmt"].name,
+                    params=m["p"], shape=m["layer_shape"],
+                    dtype_str=m["dtype_str"],
+                    block_elems=m["blocks"].shape[1], shards=shards,
+                    mode="enec")
+
+        # never-worse escape: ONE transfer of every stack's high_len, which
+        # also fills the nbytes_wire caches
+        pending = [(slot, ct) for slot, ct in enumerate(results)
+                   if ct is not None]
+        if pending:
+            host = torch.cat([ct.streams.high_len.reshape(-1)
+                              for _, ct in pending]).cpu().numpy()
+            off = 0
+            for slot, ct in pending:
+                n = ct.streams.high_len.numel()
+                wire = ct._set_wire_bytes(host[off:off + n])
+                off += n
+                if wire >= ct.streams.mask.shape[0] * ct.nbytes_raw():
+                    results[slot] = None
+        if not plan.stacked:
+            results = self._finish_per_leaf(plan, results)
+        return results
+
+    def _finish_per_leaf(self, plan: EncodePlan, results):
+        """Per-tensor semantics: unwrap the L=1 stacks and resolve escapes
+        to const / raw tensors instead of ``None``."""
+        out = []
+        for slot, ct in enumerate(results):
+            if ct is not None:
+                wire_bytes = ct._wire_bytes
+                ct = slice_stacked(ct, 0)
+                ct._wire_bytes = wire_bytes
+                out.append(ct)
+                continue
+            x = plan._leaves[slot]
+            kind, first = plan._fallbacks.get(slot, ("dense", None))
+            if kind == "const":
+                out.append(const_tensor(int(first[0]), x, format_for(x.dtype),
+                                        plan.block_elems, plan.shards))
+            else:
+                out.append(raw_tensor(x, plan.shards))
+        return out
+
+    def _execute_decode(self, plan: DecodePlan):
+        results: List[Any] = [None] * plan.n_inputs
+        for slot, kind in plan._passthrough.items():
+            leaf = plan._leaves[slot]
+            results[slot] = self.decompress_array(leaf) if kind == "ct" \
+                else leaf
+        for members in plan._groups:
+            flat = (members[0]["flat"] if len(members) == 1 else
+                    BlockStreams(*(torch.cat(f) for f in
+                                   zip(*[m["flat"] for m in members]))))
+            nblocks_of = lambda m: m["flat"].mask.shape[0]   # noqa: E731
+            b_vec = _per_block(members, flat.mask,
+                               lambda m: m["ct"].params.b, nblocks_of)
+            l_vec = _per_block(members, flat.mask,
+                               lambda m: m["ct"].params.l, nblocks_of)
+            ct0 = members[0]["ct"]
+            bits = self._decode(flat, ct0.fmt, ct0.params, ct0.block_elems,
+                                b_vec, l_vec)
+            offset = 0
+            for m in members:
+                nb = nblocks_of(m)
+                bits_m = bits[offset:offset + nb]
+                offset += nb
+                ct = m["ct"]
+                results[m["slot"]] = (
+                    block_codec.from_blocks(bits_m, ct.shape, ct.fmt)
+                    if m["stack"] is None
+                    else _stacked_from_bits(ct, m["stack"], bits_m))
+        return results
+
+    # -- conveniences over plan/execute -----------------------------------
 
     def compress_stacked_many(self, stacks: Sequence[torch.Tensor],
                               p: Optional[EnecParams] = None,
                               block_elems: Optional[int] = None,
                               shards: int = 1
                               ) -> List[Optional[CompressedTensor]]:
-        """Compress ``(L, ...)`` layer stacks; ``None`` entries must stay
-        dense (unsupported dtype, a constant layer, or incompressible).
-        ``p`` fixes the parameters (widened to each stack's exponent
-        range) instead of searching them."""
-        block_elems = block_elems or self.config.block_elems
-        return [self._compress_stack(x, p, block_elems, shards)
-                for x in stacks]
+        """Compress ``(L, ...)`` layer stacks in O(#buckets) launches;
+        ``None`` entries must stay dense (unsupported dtype, a constant
+        layer, or incompressible)."""
+        return self.execute(self.plan_encode(
+            stacks, stacked=True, p=p, block_elems=block_elems,
+            shards=shards))
 
     def compress_array(self, x: torch.Tensor,
                        p: Optional[EnecParams] = None,
                        block_elems: Optional[int] = None,
                        shards: int = 1) -> CompressedTensor:
         """Compress one tensor; escapes become const / raw tensors."""
-        block_elems = block_elems or self.config.block_elems
-        if x.dtype not in SUPPORTED_FLOAT_DTYPES or x.numel() == 0:
-            return raw_tensor(x, shards)
-        fmt = format_for(x.dtype)
-        flat = to_bits(x.reshape(1, -1))
-        st = stats_mod.stack_stats(flat, fmt)
-        if bool(st.is_const[0]):
-            return const_tensor(int(st.first[0]), x, fmt, block_elems,
-                                shards)
-        ct = self._compress_stack(x.reshape(1, -1), p, block_elems, shards)
-        if ct is None:
-            return raw_tensor(x, shards)
-        return dataclasses.replace(ct, streams=ct.streams.map(lambda a: a[0]),
-                                   shape=tuple(x.shape))
+        return self.execute(self.plan_encode(
+            [x], stacked=False, p=p, block_elems=block_elems,
+            shards=shards))[0]
 
     def tile_weights_for_fusion_many(self, ws: Sequence[torch.Tensor],
                                      p: Optional[EnecParams] = None,
@@ -137,21 +505,26 @@ class Codec:
         return self.compress_stacked_many(
             tiles, p=p, block_elems=DEFAULT_BLOCK_ELEMS, shards=shards)
 
-    # -- decode -----------------------------------------------------------
-
     def decompress_array(self, ct: CompressedTensor) -> torch.Tensor:
         """Exact inverse of compression for one (per-layer or L=1) tensor:
-        one decoder launch over all of its blocks."""
-        from repro_torch.kernels import ops   # kernels import core
+        one decoder launch over all of its blocks (none for const / raw)."""
         dtype = getattr(torch, ct.dtype_str)
         if ct.mode == "const":
             return ct.raw_bytes.view(dtype)[0].expand(ct.shape)
         if ct.mode == "raw":
             return ct.raw_bytes.view(dtype).reshape(ct.shape)
-        self.decode_launches += 1
-        bits = ops.decode_blocks(block_codec.flatten_blocks(ct.streams),
-                                 ct.block_elems, ct.fmt, ct.params)
+        bits = self._decode(block_codec.flatten_blocks(ct.streams), ct.fmt,
+                            ct.params, ct.block_elems)
         return block_codec.from_blocks(bits, ct.shape, ct.fmt)
+
+    def decompress_stacked(self, ct: CompressedTensor) -> torch.Tensor:
+        """Inverse of :meth:`compress_stacked`: one launch -> (L, ...)."""
+        return self.decompress_stacked_many([ct])[0]
+
+    def decompress_stacked_many(self, cts: Sequence[Any]) -> List[Any]:
+        """Decompress many tensors in O(#buckets) launches; const / raw /
+        ``None`` entries pass through."""
+        return self.execute(self.plan_decode(cts))
 
     def untile_matmul_weight(self, ct: CompressedTensor, k: int,
                              n: int) -> torch.Tensor:
@@ -159,12 +532,46 @@ class Codec:
         return _untile(self.decompress_array(ct), k, n)
 
 
+# ---------------------------------------------------------------------------
+# the ambient codec: process default + context override
+# ---------------------------------------------------------------------------
+
 _DEFAULT: Optional[Codec] = None
+_AMBIENT: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_codec", default=None)
 
 
 def default_codec() -> Codec:
-    """The process-default codec, used where a caller passes none."""
+    """The process-default codec."""
     global _DEFAULT
     if _DEFAULT is None:
         _DEFAULT = Codec()
     return _DEFAULT
+
+
+def set_default_codec(codec: Codec) -> Codec:
+    """Replace the process-default codec; returns the previous one."""
+    global _DEFAULT
+    prev = default_codec()
+    _DEFAULT = codec
+    return prev
+
+
+def current_codec() -> Codec:
+    """The innermost :func:`use_codec` codec, else :func:`default_codec`."""
+    return _AMBIENT.get() or default_codec()
+
+
+@contextlib.contextmanager
+def use_codec(codec: Codec):
+    """Make ``codec`` the ambient codec inside the block."""
+    token = _AMBIENT.set(codec)
+    try:
+        yield codec
+    finally:
+        _AMBIENT.reset(token)
+
+
+__all__ = ["LINKS", "CodecConfig", "Codec", "EncodeBucket", "DecodeBucket",
+           "EncodePlan", "DecodePlan", "default_codec", "set_default_codec",
+           "current_codec", "use_codec"]

@@ -1,0 +1,368 @@
+"""Exact packed wire/file format for ENEC-compressed tensors (port of
+``repro/core/wire.py``; the bytes are the reference's in both directions).
+
+The device layout pads each block's high stream to its static bound; the
+wire stores the exact bits.  Record layout per tensor (little endian):
+
+  magic  u32 = 0xE47C0DEC
+  mode   u8 (0=enec, 1=raw, 2=const), fmt u8, stack u16 (0 = plain record;
+         else the leading layer-stack length L of every stream)
+  ndim u32, shape i64[ndim], dtype tag u8[8]
+  block_elems u32, shards u32
+  params: b i32, n i32, m i32, L i32, l i32  (enec mode)
+  nblocks u32                      (TOTAL flat blocks: stack * shards * B)
+  high_len u32[nblocks]            (bits)
+  mask | low | raw                 (fixed-size streams, concatenated)
+  high                             (exact bit stream, byte padded per block)
+
+enec-v2 frame (the self-delimiting container unit):
+
+  frame_magic u32 = 0xE47C0DF2
+  version u16 = 2, flags u16 (reserved, must be 0)
+  payload_len u64
+  payload_crc u32                  (CRC32 of the payload bytes)
+  payload bytes
+
+The reference converts each block's high stream between the device's
+halving layout and the exact bit string in a host loop over blocks.  Here
+the conversion to and from a straight bit layout of every block is one
+tensor operation on the streams' device (``bitio.pack_straight`` /
+``unpack_straight``).  A save selects all blocks' exact prefixes on the
+host at once (``bitio.exact_from_straight``); a load uploads the exact
+bytes as they are and scatters them into rows on the device
+(``bitio.straight_from_exact``): no per-block Python loop at either end.
+Every host-to-device upload of a deserialization goes through
+:func:`h2d`, counted on a codec's ledger, so a load moves the record's
+stream bytes and nothing more.
+"""
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+from . import bitio
+from . import codec as block_codec
+from .api import FRAME_HEADER_BYTES, CompressedTensor, record_overhead_bytes
+from .codec import BlockStreams
+from .dtypes import FORMATS
+from .params import EnecParams
+
+MAGIC = 0xE47C0DEC
+_FMT_TAGS = {"bf16": 0, "fp16": 1, "fp32": 2}
+_FMT_FROM_TAG = {v: k for k, v in _FMT_TAGS.items()}
+_MODE_TAGS = {"enec": 0, "raw": 1, "const": 2}
+_MODE_FROM_TAG = {v: k for k, v in _MODE_TAGS.items()}
+
+FRAME_MAGIC = 0xE47C0DF2
+FRAME_VERSION = 2
+_FRAME_HDR = struct.Struct("<IHHQI")   # magic, version, flags, len, crc
+assert _FRAME_HDR.size == FRAME_HEADER_BYTES
+
+__all__ = ["WireError", "h2d", "frame", "read_frame", "iter_frames",
+           "record_overhead_bytes", "to_wire", "from_wire", "wire_stack"]
+
+
+class WireError(ValueError):
+    """A wire record or frame failed validation.  Carries the record's
+    coordinates where known: ``record`` (leaf name), ``pack`` (pack file)
+    and ``offset`` (the frame's byte offset in the pack); outer layers fill
+    the unset ones with :meth:`with_context`."""
+
+    def __init__(self, message, *, record=None, pack=None, offset=None):
+        super().__init__(message)
+        self.record = record
+        self.pack = pack
+        self.offset = offset
+
+    def with_context(self, *, record=None, pack=None, offset=None):
+        if self.record is None:
+            self.record = record
+        if self.pack is None:
+            self.pack = pack
+        if self.offset is None:
+            self.offset = offset
+        return self
+
+    def __str__(self):
+        base = self.args[0] if self.args else ""
+        ctx = [f"{k}={v}" for k, v in (("record", self.record),
+                                       ("pack", self.pack),
+                                       ("offset", self.offset))
+               if v is not None]
+        return f"{base} [{', '.join(ctx)}]" if ctx else str(base)
+
+
+def h2d(arr: np.ndarray, device, codec=None, *,
+        dense: bool = False) -> torch.Tensor:
+    """Upload one host array to ``device``, counting its bytes on
+    ``codec`` (default: the ambient codec); ``dense=True`` books them as
+    dense bytes (raw leaves and raw escapes)."""
+    from .codec_api import current_codec    # codec_api imports api
+    arr = np.ascontiguousarray(arr)
+    (codec or current_codec()).count_h2d(arr.nbytes, dense=dense)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+# ---------------------------------------------------------------------------
+# enec-v2 framing
+# ---------------------------------------------------------------------------
+
+def frame(payload: bytes) -> bytes:
+    """Wrap one record payload in a self-delimiting, CRC-checked frame."""
+    return _FRAME_HDR.pack(FRAME_MAGIC, FRAME_VERSION, 0, len(payload),
+                           zlib.crc32(payload)) + payload
+
+
+def read_frame(buf, off: int = 0, *, record=None, pack=None,
+               base_offset=None):
+    """Validate and return ``(payload, next_off)`` for the frame at
+    ``off``: magic, version, flags, declared length within the buffer and
+    the payload's CRC32; any mismatch raises :class:`WireError`."""
+    def _err(msg):
+        return WireError(msg, record=record, pack=pack, offset=base_offset)
+
+    view = memoryview(buf)
+    if off + FRAME_HEADER_BYTES > len(view):
+        raise _err(f"frame header truncated at offset {off}: need "
+                   f"{FRAME_HEADER_BYTES} bytes, have {len(view) - off}")
+    magic, version, flags, length, crc = _FRAME_HDR.unpack_from(view, off)
+    if magic != FRAME_MAGIC:
+        raise _err(f"bad frame magic {magic:#x} at offset {off} "
+                   f"(expected {FRAME_MAGIC:#x})")
+    if version != FRAME_VERSION:
+        raise _err(f"unsupported frame version {version} at offset {off}")
+    if flags != 0:
+        raise _err(f"unknown frame flags {flags:#x} at offset {off}")
+    start = off + FRAME_HEADER_BYTES
+    if start + length > len(view):
+        raise _err(f"frame payload truncated at offset {off}: declares "
+                   f"{length} bytes, only {len(view) - start} available")
+    payload = view[start:start + length]
+    got = zlib.crc32(payload)
+    if got != crc:
+        raise _err(f"frame CRC mismatch at offset {off}: stored {crc:#010x}, "
+                   f"computed {got:#010x} — record is corrupt")
+    return payload, start + length
+
+
+def iter_frames(buf):
+    """Yield ``(offset, payload)`` for every frame in a concatenated pack."""
+    off, view = 0, memoryview(buf)
+    while off < len(view):
+        start = off
+        payload, off = read_frame(view, off)
+        yield start, payload
+
+
+# ---------------------------------------------------------------------------
+# record serialization
+# ---------------------------------------------------------------------------
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def to_wire(ct: CompressedTensor, *, stacked: bool = False) -> bytes:
+    """Serialize one tensor, or with ``stacked=True`` one ``(L, ...)``
+    stacked stream bundle (the stack length goes into the header so
+    :func:`from_wire` restores the ``(L[, S], B)`` layout)."""
+    stack = 0
+    if stacked:
+        if ct.mode != "enec":
+            raise WireError("only enec-mode tensors can be stacked on wire")
+        stack = int(ct.streams.mask.shape[0])
+        if not 0 < stack <= 0xFFFF:
+            raise WireError(f"stack length {stack} out of range")
+    out = [struct.pack("<IBBH", MAGIC, _MODE_TAGS[ct.mode],
+                       _FMT_TAGS[ct.fmt_name], stack),
+           struct.pack("<I", len(ct.shape)),
+           np.asarray(ct.shape, np.int64).tobytes(),
+           struct.pack("<8s", ct.dtype_str.encode()[:8]),
+           struct.pack("<II", ct.block_elems, ct.shards)]
+    if ct.mode in ("raw", "const"):
+        out.append(_host(ct.raw_bytes).astype(np.uint8).tobytes())
+        return b"".join(out)
+
+    p = ct.params
+    out.append(struct.pack("<5i", p.b, p.n, p.m, p.L, p.l))
+    s = block_codec.flatten_blocks(ct.streams)
+    nblocks = s.mask.shape[0]
+    high_len = _host(s.high_len).astype(np.int64)
+    out += [struct.pack("<I", nblocks),
+            high_len.astype(np.uint32).tobytes(),
+            _host(s.mask).tobytes(), _host(s.low).tobytes(),
+            _host(s.raw).tobytes()]
+    width = p.n - p.m
+    if width:
+        # halving layout -> straight bits on the streams' device; lanes past
+        # each block's count are zeroed, so its exact bytes are a prefix
+        n = ct.block_elems
+        vals = bitio.unpack_fixed(s.high, n, width)
+        count = (s.high_len.to(torch.int64) // width)[:, None]
+        vals = vals * (torch.arange(n, device=vals.device)[None, :] < count)
+        straight = _host(bitio.pack_straight(vals, width))
+        nbytes = (high_len // width * width + 7) // 8
+        out.append(bitio.exact_from_straight(straight, nbytes))
+    return b"".join(out)
+
+
+def _torch_dtype(name: str):
+    dt = getattr(torch, name, None) if name else None
+    return dt if isinstance(dt, torch.dtype) else None
+
+
+def from_wire(buf, codec=None, *, device="cuda", record=None, pack=None,
+              offset=None) -> CompressedTensor:
+    """Parse one record from an EXACT buffer slice (a framed payload or a
+    whole v1 blob).  Every field is validated; short buffers, trailing
+    bytes, unknown tags and impossible stream lengths raise
+    :class:`WireError` with the given coordinates.  Streams are uploaded
+    to ``device`` through :func:`h2d`, so ``codec``'s ledger (default: the
+    ambient codec's) sees exactly the compressed bytes."""
+    def _err(msg):
+        return WireError(msg, record=record, pack=pack, offset=offset)
+
+    dev = resolve_device(device)
+    view = memoryview(buf)
+    total, off = len(view), 0
+    try:
+        magic, mode_tag, fmt_tag, stack = struct.unpack_from("<IBBH", view,
+                                                             off)
+        off += 8
+        if magic != MAGIC:
+            raise _err(f"bad ENEC wire magic {magic:#x}")
+        if mode_tag not in _MODE_FROM_TAG:
+            raise _err(f"unknown mode tag {mode_tag}")
+        mode = _MODE_FROM_TAG[mode_tag]
+        (ndim,) = struct.unpack_from("<I", view, off)
+        off += 4
+        if ndim > 16:
+            raise _err(f"implausible ndim {ndim}")
+        if off + 8 * ndim > total:
+            raise _err(f"record truncated in the {ndim}-dim shape")
+        shape = tuple(np.frombuffer(view, np.int64, ndim, off).tolist())
+        off += 8 * ndim
+        (dtype_raw,) = struct.unpack_from("<8s", view, off)
+        off += 8
+        dtype_str = bytes(dtype_raw).rstrip(b"\x00").decode()
+        block_elems, shards = struct.unpack_from("<II", view, off)
+        off += 8
+    except WireError:
+        raise
+    except (struct.error, UnicodeDecodeError, TypeError) as e:
+        raise _err(f"corrupt record header: {e}") from None
+    dtype = _torch_dtype(dtype_str)
+    if dtype is None:
+        raise _err(f"corrupt record header: unknown dtype {dtype_str!r}")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+
+    if mode in ("raw", "const"):
+        raw = np.frombuffer(view, np.uint8, total - off, off)
+        expect = itemsize * (1 if mode == "const"
+                             else int(np.prod(shape, dtype=np.int64)))
+        if raw.nbytes != expect:
+            raise _err(f"{mode} record carries {raw.nbytes} payload bytes, "
+                       f"expected {expect} for shape {shape} dtype "
+                       f"{dtype_str}")
+        return CompressedTensor(
+            streams=None, raw_bytes=h2d(raw, dev, codec,
+                                        dense=(mode == "raw")),
+            fmt_name=_FMT_FROM_TAG.get(fmt_tag, "bf16"), params=None,
+            shape=shape, dtype_str=dtype_str, block_elems=block_elems,
+            shards=shards, mode=mode)
+
+    if fmt_tag not in _FMT_FROM_TAG:
+        raise _err(f"unknown float format tag {fmt_tag}")
+    fmt = FORMATS[_FMT_FROM_TAG[fmt_tag]]
+    try:
+        b, n, m, L, l = struct.unpack_from("<5i", view, off)
+        off += 20
+        (nblocks,) = struct.unpack_from("<I", view, off)
+        off += 4
+    except struct.error as e:
+        raise _err(f"record truncated in params: {e}") from None
+    p = EnecParams(b=b, n=n, m=m, L=L, l=l)
+    if not (0 <= m <= n <= 32 and L >= 1 and block_elems >= 1):
+        raise _err(f"implausible params {p.astuple()} "
+                   f"block_elems={block_elems}")
+    if shards < 1 or nblocks % (max(stack, 1) * shards):
+        raise _err(f"nblocks={nblocks} not divisible by stack={stack} * "
+                   f"shards={shards} — corrupt header")
+
+    def take(nb, what):
+        nonlocal off
+        need = nblocks * nb
+        if off + need > total:
+            raise _err(f"{what} stream truncated: need {need} bytes at "
+                       f"offset {off}, record has {total - off} left")
+        arr = np.frombuffer(view, np.uint8, need, off).reshape(nblocks, nb)
+        off += need
+        return arr
+
+    if off + 4 * nblocks > total:
+        raise _err("high_len vector truncated")
+    high_len = np.frombuffer(view, np.uint32, nblocks, off).astype(np.int64)
+    off += 4 * nblocks
+    widths = block_codec.stream_shapes(block_elems, fmt, p)
+    mask = take(widths["mask"], "mask")
+    low = take(widths["low"], "low")
+    raw = take(widths["raw"], "raw")
+    width = n - m
+    max_bits = block_elems * width
+    bad = np.nonzero(high_len > max_bits)[0]
+    if bad.size:
+        raise _err(f"block {int(bad[0])}: high_len {int(high_len[bad[0]])} "
+                   f"bits exceeds the {max_bits}-bit block bound — corrupt "
+                   f"record")
+    nbytes = (high_len + 7) // 8
+    need = int(nbytes.sum())
+    if off + need > total:
+        raise _err(f"high stream truncated: need {need} bytes at offset "
+                   f"{off}, record has {total - off} left")
+    exact = np.frombuffer(view, np.uint8, need, off)
+    off += need
+    if off != total:
+        raise _err(f"record has {total - off} trailing bytes after the high "
+                   f"stream — length mismatch (corrupt or mis-framed)")
+
+    lead = ((stack,) if stack else ()) + ((shards,) if shards > 1 else ())
+    flat = nblocks
+    for d in lead:
+        flat //= d
+
+    def up(a):
+        return h2d(a, dev, codec)
+
+    # exact bits -> the device's halving layout, on the device
+    high_len_dev = up(high_len.astype(np.int32))
+    bits_dev = high_len_dev.to(torch.int64)
+    straight = bitio.straight_from_exact(
+        up(exact), (bits_dev + 7) // 8,
+        bitio.straight_nbytes(block_elems, width))
+    vals = bitio.unpack_straight(straight, block_elems, width)
+    count = (bits_dev // max(width, 1))[:, None]
+    vals = vals * (torch.arange(block_elems, device=dev)[None, :] < count)
+    streams = BlockStreams(
+        mask=up(mask), low=up(low), high=bitio.pack_fixed(vals, width),
+        high_len=high_len_dev, raw=up(raw))
+    streams = streams.map(
+        lambda a: a.reshape(lead + (flat,) + tuple(a.shape[1:])))
+    ct = CompressedTensor(
+        streams=streams, raw_bytes=None, fmt_name=fmt.name, params=p,
+        shape=shape, dtype_str=dtype_str, block_elems=block_elems,
+        shards=shards, mode="enec")
+    ct._set_wire_bytes(high_len)
+    return ct
+
+
+def wire_stack(ct: CompressedTensor) -> int:
+    """Leading stream stack length of a deserialized stacked record."""
+    if ct.mode != "enec":
+        return 0
+    lead = ct.streams.mask.ndim - (3 if ct.shards > 1 else 2)
+    return int(ct.streams.mask.shape[0]) if lead == 1 else 0

@@ -11,15 +11,30 @@ import torch
 
 from repro_torch.core.api import CompressedTensor
 from repro_torch.core.codec import BlockStreams
-from repro_torch.core.dtypes import FloatFormat
+from repro_torch.core.dtypes import FloatFormat, to_container
 from repro_torch.core.params import EnecParams
 
 from . import decompress_matmul as dm
-from . import enec_decode, ref
+from . import enec_decode, enec_encode, ref
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
+
+
+def encode_blocks(bits: torch.Tensor, fmt: FloatFormat, p: EnecParams,
+                  b_vec=None) -> BlockStreams:
+    """Encode (B, N) float bit patterns -> flat (B, ...) streams; ``b_vec``
+    ((B,) int32) overrides ``p.b`` per block."""
+    if _on_cpu(bits):
+        return ref.encode_blocks_ref(bits, fmt, p, b_vec)
+    if bits.dtype != fmt.bits_dtype:
+        bits = to_container(bits, fmt)
+    if b_vec is None:
+        b_vec = torch.full((bits.shape[0],), p.b, dtype=torch.int32,
+                           device=bits.device)
+    return enec_encode.encode_blocks_cuda(bits.contiguous(), fmt, p,
+                                          b_vec.to(torch.int32).contiguous())
 
 
 def decode_blocks(streams: BlockStreams, n_elems: int, fmt: FloatFormat,

@@ -17,6 +17,16 @@ from repro_torch.core.api import MATMUL_TILE, CompressedTensor
 TILE = MATMUL_TILE
 
 
+def encode_blocks_ref(bits: torch.Tensor, fmt, p, b_vec=None):
+    """Plain ENEC block encode: (B, N) bits -> flat ``BlockStreams`` (the
+    plain version of ``csrc/enec_encode.cu``).  ``bits`` may hold the bit
+    patterns in the signed container ``fmt.bits_dtype`` (the kernel's
+    input) or already in ``fmt.work_dtype``."""
+    if bits.dtype != fmt.work_dtype:
+        bits = bits.to(fmt.work_dtype) & fmt.bits_mask
+    return codec.encode_blocks(bits, fmt, p, b_vec)
+
+
 def decode_blocks_ref(streams, n_elems: int, fmt, p, b_vec=None,
                       l_vec=None) -> torch.Tensor:
     """Plain ENEC block decode: (B, ...) streams -> (B, N) bit containers
@@ -51,6 +61,6 @@ def decompress_matmul_ref(x: torch.Tensor, ct: CompressedTensor, k: int,
                           n: int, codec_obj=None) -> torch.Tensor:
     """Decompress-untile-then-tiled-matmul: the plain version of the fused
     kernel ``csrc/decompress_matmul.cu``."""
-    from repro_torch.core.codec_api import default_codec
-    w = (codec_obj or default_codec()).untile_matmul_weight(ct, k, n)
+    from repro_torch.core.codec_api import current_codec
+    w = (codec_obj or current_codec()).untile_matmul_weight(ct, k, n)
     return tiled_matmul_ref(x, w)

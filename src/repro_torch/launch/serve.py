@@ -1,42 +1,61 @@
 """One-shot serving launcher of the PyTorch port (counterpart of
 ``repro/launch/serve.py``): seeded synthetic weights, compressed on the
-device under the chosen weight-execution mode, then a few requests served
-as one greedy batch (prefill, then decode steps).
+device under the chosen weight-execution mode (or restored from an ENEC
+checkpoint), then a few requests served as one greedy batch (prefill, then
+decode steps).
 
 Modes (runtime/streaming.py):
   dense   raw weights, canonical tiled matmul (dense-tile kernel entry)
   stream  ENEC streams decoded layer by layer inside the step (ENEC
           decode kernel, then the dense-tile entry)
   fused   ENEC tile streams decoded inside the matmul kernel (default)
-All three give bitwise-equal logits on one device.
+All three give bitwise-equal logits on one device.  Compression runs
+through the codec's encode plans: the ENEC encode kernel on the card.
+
+Checkpoints: ``--save-ckpt DIR`` writes an enec-v2 checkpoint of the
+compressed weights (in the serving layout of the mode) and serves;
+``--ckpt DIR`` restores through ``CheckpointManager.load_for_serving``:
+the records become weight handles on the device, only compressed bytes
+cross host to device, and no weight is initialised.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+        --save-ckpt /tmp/ck
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+        --ckpt /tmp/ck
     PYTHONPATH=src python -m repro_torch.launch.serve --batch 4 \\
         --prompt-len 64 --tokens 16          # full width, on the GPU
 
-``main`` returns the run's tokens, logits, timings and kernel launch
-counts, so a calling script can compare modes.  The continuous-batching
-engine and checkpoint restore are not ported yet.
+One :class:`~repro_torch.core.codec_api.Codec` owns the run: it is ambient
+for the whole of ``main`` (``use_codec``), so the encode plans, the
+checkpoint manager, the h2d ledger and every handle's decode count on it.
+``main`` returns the run's tokens, logits, timings, kernel launch counts,
+plan counts and the save / restore figures, so a calling script can
+compare runs.  The continuous-batching engine is not ported yet.
 """
 from __future__ import annotations
 
 import argparse
 import time
+from pathlib import Path
 
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint.ckpt import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.core.codec_api import default_codec
-from repro_torch.kernels import decompress_matmul, enec_decode
+from repro_torch.core.codec_api import Codec, use_codec
+from repro_torch.kernels import decompress_matmul, enec_decode, enec_encode
 from repro_torch.models import build_model
+from repro_torch.models.lm import abstract_params
 from repro_torch.runtime.streaming import (assign_weight_modes, mode_mix,
                                            stream_stats, tree_leaves)
 from repro_torch.runtime.weights import FusedWeight, StreamedWeight
 
 COUNTERS = {"enec_decode": enec_decode.LAUNCHES,
             "decompress_matmul": decompress_matmul.FUSED_LAUNCHES,
-            "dense_tile_matmul": decompress_matmul.DENSE_LAUNCHES}
+            "dense_tile_matmul": decompress_matmul.DENSE_LAUNCHES,
+            "enec_encode": enec_encode.LAUNCHES}
 
 
 def launch_counts() -> dict:
@@ -86,28 +105,102 @@ def parse_args(argv=None):
                     help="new tokens per request (1 from the prefill)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0, help="weight seed")
+    ck = ap.add_mutually_exclusive_group()
+    ck.add_argument("--ckpt", default=None, metavar="DIR",
+                    help="restore the weights from an ENEC checkpoint "
+                         "instead of initialising them")
+    ck.add_argument("--save-ckpt", default=None, metavar="DIR",
+                    help="write an enec-v2 checkpoint of the compressed "
+                         "weights (the mode's serving layout), then serve")
     return ap.parse_args(argv)
+
+
+def _restore_params(args, cfg, mode, codec, dev) -> tuple:
+    """--ckpt: the weights come from the checkpoint; the tree restored
+    into is ``meta`` tensors, so nothing is initialised."""
+    mgr = CheckpointManager(args.ckpt, codec=codec, device=dev)
+    manifest = mgr.manifest()
+    # a training checkpoint holds {"params": ..., "opt": ...}; a serving
+    # checkpoint holds the params tree at the root
+    prefix = ("params" if any(e["name"].startswith("params/")
+                              for e in manifest["leaves"]) else "")
+    like = abstract_params(cfg)
+    codec.reset_transfer_stats()
+    codec.reset_decode_cache_stats()
+    t0 = time.perf_counter()
+    params, _ = mgr.load_for_serving(like, mode=mode, prefix=prefix,
+                                     min_bytes=args.min_bytes,
+                                     shards=args.shards)
+    _sync(dev)
+    h2d = codec.link_stats()["h2d"]
+    info = {"seconds": time.perf_counter() - t0, "step": manifest["step"],
+            "ratio": manifest["ratio"],
+            "h2d_compressed_bytes": h2d["compressed_bytes"],
+            "h2d_dense_bytes": h2d["dense_bytes"],
+            "dense_records": list(mgr.last_dense_records),
+            "decode_dispatches": codec.decode_cache_stats()["dispatches"],
+            "plan_buckets": len(mgr.last_decode_plan.buckets)}
+    print(f"[serve] restored step {info['step']} from {args.ckpt} in "
+          f"{info['seconds']:.2f}s (h2d "
+          f"{info['h2d_compressed_bytes'] / 1e6:.1f} MB compressed, "
+          f"{info['h2d_dense_bytes'] / 1e6:.1f} MB dense; ratio "
+          f"{info['ratio']:.4f}x; {info['decode_dispatches']} decode "
+          f"dispatches, {info['plan_buckets']} plan buckets)")
+    return params, info
+
+
+def _save_params(args, params, mode, codec, dev) -> dict:
+    """--save-ckpt: the handle tree is saved as it is (its stream bundles
+    become the records), so the weights are compressed once."""
+    mgr = CheckpointManager(
+        args.save_ckpt, serving_layout=None if mode == "dense" else mode,
+        serving_min_bytes=args.min_bytes, serving_shards=args.shards,
+        codec=codec, device=dev)
+    t0 = time.perf_counter()
+    mgr.save(0, {"params": params}, blocking=True)
+    info = {"seconds": time.perf_counter() - t0}
+    manifest = mgr.manifest(0)
+    step_dir = Path(args.save_ckpt) / "step_000000000000"
+    info.update(ratio=manifest["ratio"],
+                bytes_on_disk=sum(f.stat().st_size
+                                  for f in step_dir.iterdir()),
+                records=len(manifest["leaves"]))
+    print(f"[serve] saved {info['records']} records to {args.save_ckpt} in "
+          f"{info['seconds']:.2f}s ({info['bytes_on_disk'] / 1e6:.1f} MB on "
+          f"disk, ratio {info['ratio']:.4f}x)")
+    return info
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
     dev = resolve_device(args.device)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
-    model = build_model(cfg)
-    codec = default_codec()     # the codec the handles decode through
+    codec = Codec()     # owns this run's encodes, decodes and ledger
+    with use_codec(codec):
+        return _serve(args, cfg, build_model(cfg), codec, dev)
 
+
+def _serve(args, cfg, model, codec, dev) -> dict:
     t0 = time.perf_counter()
-    params = model.init(seed=args.seed, device=dev)
-    params = assign_weight_modes(params, mode=args.mode,
-                                 min_bytes=args.min_bytes,
-                                 shards=args.shards, codec=codec)
+    restore = save = None
+    if args.ckpt:
+        params, restore = _restore_params(args, cfg, args.mode, codec, dev)
+    else:
+        params = model.init(seed=args.seed, device=dev)
+        params = assign_weight_modes(params, mode=args.mode,
+                                     min_bytes=args.min_bytes,
+                                     shards=args.shards, codec=codec)
     _sync(dev)
     setup_s = time.perf_counter() - t0
+    encode = codec.encode_cache_stats()
+    if args.save_ckpt:
+        save = _save_params(args, params, args.mode, codec, dev)
     ratio = wire_ratio(params)
     stats = stream_stats(params)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"[serve] arch={cfg.name} mode={args.mode} device={name} "
-          f"setup={setup_s:.2f}s mode_mix={mode_mix(params)}")
+          f"setup={setup_s:.2f}s encode_buckets="
+          f"{encode['planned_buckets']} mode_mix={mode_mix(params)}")
     print(f"[serve] stream_stats={stats} wire_ratio={ratio:.4f}")
 
     gen = torch.Generator().manual_seed(1)
@@ -151,7 +244,10 @@ def main(argv=None) -> dict:
             "setup_s": setup_s, "launches": launches,
             "prefill_launches": prefill_launches,
             "step_launches": step_launches, "mode_mix": mode_mix(params),
-            "stream_stats": stats, "wire_ratio": ratio}
+            "stream_stats": stats, "wire_ratio": ratio,
+            "encode_buckets": encode["planned_buckets"],
+            "encode_dispatches": encode["dispatches"],
+            "save": save, "restore": restore}
 
 
 if __name__ == "__main__":

@@ -63,6 +63,20 @@ def param_shapes(cfg) -> dict:
     return shapes
 
 
+def abstract_params(cfg) -> dict:
+    """The parameter tree of :func:`init_params` as ``meta`` tensors:
+    shapes and dtypes with nothing allocated (what a restore fills)."""
+    tree: dict = {}
+    for path, shape in param_shapes(cfg).items():
+        node, keys = tree, path.split("/")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = torch.empty(shape, dtype=ACT_DTYPE, device="meta")
+    tree["period"] = [tree["period"][str(i)]
+                      for i in range(len(tree["period"]))]
+    return tree
+
+
 def init_params(cfg, *, seed: int = 0, device="cuda"):
     """Seeded synthetic weights with the reference's distributions, made
     on ``device`` by a ``torch.Generator`` (the numbers differ from the

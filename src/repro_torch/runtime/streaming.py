@@ -10,7 +10,9 @@ leaves are served dense, streamed (decoded inside the step) or fused
 
 Only leaves of at least ``min_bytes`` are compressed.  Trees are nested
 dicts and lists; a leaf's path joins its keys with "/" as the reference
-does ("period/0/attn/wq").
+does ("period/0/attn/wq"), and trees are walked in the reference's
+flatten order (dict keys sorted, list items in order), so checkpoint
+record names, their order and the encode plans match it.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 
 from repro_torch.core.api import (MATMUL_TILE, SUPPORTED_FLOAT_DTYPES,
                                   matmul_tiles)
-from repro_torch.core.codec_api import default_codec
+from repro_torch.core.codec_api import current_codec
 from repro_torch.runtime.weights import (DenseWeight, FusedWeight,
                                          StreamedWeight, handle_kind,
                                          is_handle)
@@ -35,9 +37,10 @@ MATMUL_LEAF_NAMES = frozenset(
 
 
 def tree_leaves(tree, path: str = ""):
-    """(path, leaf) pairs of a nested dict/list tree, handles as leaves."""
+    """(path, leaf) pairs of a nested dict/list tree, handles as leaves,
+    dict keys in sorted order."""
     if isinstance(tree, dict):
-        for k, v in tree.items():
+        for k, v in sorted(tree.items()):
             yield from tree_leaves(v, f"{path}/{k}" if path else str(k))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
@@ -50,7 +53,7 @@ def tree_map_with_path(fn, tree, path: str = ""):
     """Rebuild ``tree`` with ``fn(path, leaf)`` at every leaf."""
     if isinstance(tree, dict):
         return {k: tree_map_with_path(fn, v, f"{path}/{k}" if path else str(k))
-                for k, v in tree.items()}
+                for k, v in sorted(tree.items())}
     if isinstance(tree, (list, tuple)):
         return type(tree)(
             tree_map_with_path(fn, v, f"{path}/{i}" if path else str(i))
@@ -150,24 +153,12 @@ def build_serving_handle(job: dict, ct):
         flat=job.get("flat", False))
 
 
-def assign_weight_modes(params, *, mode: str = "fused",
-                        min_bytes: int = MIN_STREAM_BYTES,
-                        shards: int = STREAM_SHARDS, codec=None):
-    """Assign every leaf a weight-execution mode and compress the
-    compressible ones on their device.
-
-    mode="dense":  matmul positions wrapped in DenseWeight, rest raw.
-    mode="stream": eligible leaves become StreamedWeight.
-    mode="fused":  matmul positions become FusedWeight tile streams
-                   (TP-sharded when the tile count allows it, see
-                   :func:`fused_shards`); other eligible leaves stream.
-    A leaf whose streams would not beat raw bytes stays dense / raw.
-    Leaves that are already handles pass through.
-    """
+def _serving_jobs(params, mode: str, min_bytes: int, shards: int):
+    """The tree with dense-mode wraps, and a compression job for every
+    leaf to compress (keyed by path)."""
     if mode not in WEIGHT_MODES:
         raise ValueError(f"unknown weight mode {mode!r}; "
                          f"expected one of {WEIGHT_MODES}")
-    codec = codec or default_codec()
     jobs = {}
 
     def plan(pstr, leaf):
@@ -187,12 +178,54 @@ def assign_weight_modes(params, *, mode: str = "fused",
         jobs[pstr] = job
         return leaf
 
-    tree = tree_map_with_path(plan, params)
-    handles = {}
+    return tree_map_with_path(plan, params), jobs
+
+
+def _encode_plans(jobs: dict, codec):
+    """``(paths, plan)``: one encode plan per shard width, built lazily so
+    each can run before the next stages its blocks."""
+    by_shards: dict = {}
     for pstr, job in jobs.items():
-        ct = codec.compress_stacked_many([job.pop("arr")],
-                                         shards=job["shards"])[0]
-        handles[pstr] = build_serving_handle(job, ct)
+        by_shards.setdefault(job["shards"], []).append(pstr)
+    for job_shards, names in sorted(by_shards.items()):
+        yield names, codec.plan_encode(
+            [jobs[n].pop("arr") for n in names], stacked=True,
+            shards=job_shards)
+
+
+def serving_encode_plans(params, *, mode: str = "fused",
+                         min_bytes: int = MIN_STREAM_BYTES,
+                         shards: int = STREAM_SHARDS, codec=None):
+    """The encode plans :func:`assign_weight_modes` executes for
+    ``params`` under the same arguments, built on ``codec`` (default: the
+    ambient codec) and not executed."""
+    _, jobs = _serving_jobs(params, mode, min_bytes, shards)
+    for _, plan in _encode_plans(jobs, codec or current_codec()):
+        yield plan
+
+
+def assign_weight_modes(params, *, mode: str = "fused",
+                        min_bytes: int = MIN_STREAM_BYTES,
+                        shards: int = STREAM_SHARDS, codec=None):
+    """Assign every leaf a weight-execution mode and compress the
+    compressible ones on their device.
+
+    mode="dense":  matmul positions wrapped in DenseWeight, rest raw.
+    mode="stream": eligible leaves become StreamedWeight.
+    mode="fused":  matmul positions become FusedWeight tile streams
+                   (TP-sharded when the tile count allows it, see
+                   :func:`fused_shards`); other eligible leaves stream.
+    A leaf whose streams would not beat raw bytes stays dense / raw.
+    Leaves that are already handles pass through.  The leaves compress
+    through ``codec``'s encode plans (default: the ambient codec), one plan
+    per shard width: O(#buckets) encoder launches for the whole tree.
+    """
+    codec = codec or current_codec()
+    tree, jobs = _serving_jobs(params, mode, min_bytes, shards)
+    handles = {}
+    for names, plan in _encode_plans(jobs, codec):
+        for n, ct in zip(names, codec.execute(plan)):
+            handles[n] = build_serving_handle(jobs[n], ct)
     return tree_map_with_path(lambda p, leaf: handles.get(p, leaf), tree)
 
 

@@ -15,7 +15,12 @@ just-decoded weight; on the CPU the plain ``tiled_matmul_ref``.  So logits
 are bitwise equal across modes on each device.
 
 Handles hold tensors with a leading ``(L,)`` layer dim; the model's layer
-loop takes one layer with :meth:`WeightHandle.layer`.
+loop takes one layer with :meth:`WeightHandle.layer`.  Decodes go through
+the ambient codec (``core.codec_api.current_codec``) unless one is passed.
+
+:func:`handle_spec` / :func:`handle_from_spec` turn a compressed handle
+into the JSON metadata of a checkpoint record and back, around streams
+read straight from the wire.
 """
 from __future__ import annotations
 
@@ -23,8 +28,9 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.api import CompressedTensor, slice_stacked
-from repro_torch.core.codec_api import default_codec
+from repro_torch.core.api import (CompressedTensor, slice_stacked,
+                                  untile_matmul_weight)
+from repro_torch.core.codec_api import current_codec
 from repro_torch.kernels import ops
 
 
@@ -72,7 +78,7 @@ class StreamedWeight(WeightHandle):
     flat: bool = False
 
     def materialize(self, codec=None):
-        w_perm = (codec or default_codec()).decompress_array(self.ct)
+        w_perm = (codec or current_codec()).decompress_array(self.ct)
         return torch.movedim(w_perm, 0, self.tp_axis).to(
             getattr(torch, self.dtype_str))
 
@@ -96,7 +102,7 @@ class FusedWeight(WeightHandle):
         return ops.decompress_matmul(x, self.ct, self.k, self.n)
 
     def materialize(self, codec=None):
-        w = (codec or default_codec()).untile_matmul_weight(
+        w = (codec or current_codec()).untile_matmul_weight(
             self.ct, self.k, self.n)
         return w.to(getattr(torch, self.dtype_str))
 
@@ -117,6 +123,67 @@ def handle_kind(leaf) -> str:
     if isinstance(leaf, FusedWeight):
         return "fused"
     return "raw"
+
+
+# ---------------------------------------------------------------------------
+# checkpoint (de)serialization: spec <-> handle
+# ---------------------------------------------------------------------------
+
+def handle_spec(handle: WeightHandle) -> dict:
+    """JSON-able metadata of a compressed handle: what a checkpoint
+    manifest needs to rebuild it around a deserialized stream bundle."""
+    if isinstance(handle, StreamedWeight):
+        spec = {"kind": "stream", "tp_axis": handle.tp_axis,
+                "layer_shape": list(handle.layer_shape),
+                "dtype": handle.dtype_str, "execution": handle.execution}
+        if handle.flat:
+            spec["flat"] = True
+        return spec
+    if isinstance(handle, FusedWeight):
+        return {"kind": "fused", "k": handle.k, "n": handle.n,
+                "dtype": handle.dtype_str}
+    raise TypeError(f"no spec for handle type {type(handle).__name__}")
+
+
+def handle_from_spec(spec: dict, ct: CompressedTensor) -> WeightHandle:
+    """Inverse of :func:`handle_spec`: the handle around ``ct``."""
+    kind = spec["kind"]
+    if kind == "stream":
+        return StreamedWeight(ct=ct, tp_axis=int(spec["tp_axis"]),
+                              layer_shape=tuple(spec["layer_shape"]),
+                              dtype_str=spec["dtype"],
+                              execution=spec.get("execution", "materialize"),
+                              flat=bool(spec.get("flat", False)))
+    if kind == "fused":
+        return FusedWeight(ct=ct, k=int(spec["k"]), n=int(spec["n"]),
+                           dtype_str=spec["dtype"])
+    raise ValueError(f"unknown handle spec kind {kind!r}")
+
+
+def finish_materialize(handle, w_stacked: torch.Tensor) -> torch.Tensor:
+    """Stacked decode result -> the handle's original dense ``(L, ...)``
+    leaf (un-permute / un-tile the storage layout)."""
+    if isinstance(handle, StreamedWeight):
+        w = torch.movedim(w_stacked, 1, 1 + handle.tp_axis)
+        if handle.flat:        # L=1 stack of a 2-D leaf
+            w = w[0]
+        return w.to(getattr(torch, handle.dtype_str))
+    if isinstance(handle, FusedWeight):
+        w = torch.stack([untile_matmul_weight(layer, handle.k, handle.n)
+                         for layer in w_stacked.reshape(
+                             w_stacked.shape[0], -1)])
+        return w.to(getattr(torch, handle.dtype_str))
+    raise TypeError(f"not a compressed handle: {type(handle).__name__}")
+
+
+def materialize_full_many(handles, codec=None) -> list:
+    """Every handle's dense ``(L, ...)`` leaf, with O(#decode buckets)
+    launches (``Codec.decompress_stacked_many``)."""
+    codec = codec or current_codec()
+    decs = codec.decompress_stacked_many(
+        [None if isinstance(h, DenseWeight) else h.ct for h in handles])
+    return [h.w if isinstance(h, DenseWeight) else finish_materialize(h, d)
+            for h, d in zip(handles, decs)]
 
 
 def resolve(tree, codec=None):

@@ -213,7 +213,7 @@ def test_compress_stacked_wire_bytes_and_streams_match_reference(shards):
     _assert_streams_equal(ref.streams, got.streams)
     codec_obj = Codec(block_elems=2048)
     layer = codec_obj.decompress_array(slice_stacked(got, 1))
-    assert codec_obj.decode_launches == 1
+    assert codec_obj.decode_cache_stats()["dispatches"] == 1
     np.testing.assert_array_equal(layer.view(torch.int16).numpy(),
                                   stack[1].view(np.int16))
 

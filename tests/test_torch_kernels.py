@@ -19,13 +19,16 @@ from repro.core.dtypes import BF16 as JAX_BF16
 from repro.kernels import ref as jax_ref
 from repro.kernels.decompress_matmul import decompress_matmul as jax_fused
 from repro.kernels.enec_decode import decode_blocks_pallas
+from repro.kernels.enec_encode import encode_blocks_pallas
 from repro_torch.core import codec
 from repro_torch.core.api import slice_stacked
 from repro_torch.core.codec_api import Codec
-from repro_torch.core.dtypes import BF16, FORMATS
+from repro.core import params as jax_params
+from repro.core.dtypes import FORMATS as JAX_FORMATS
+from repro_torch.core.dtypes import BF16, FORMATS, to_container
 from repro_torch.core.params import EnecParams
 from repro_torch.kernels import decompress_matmul as dm
-from repro_torch.kernels import enec_decode, ops
+from repro_torch.kernels import enec_decode, enec_encode, ops
 
 # f32 sums of the same products in another order: |error| grows with the
 # number of terms (K <= 512 here) and the magnitude of the partial sums
@@ -79,6 +82,56 @@ def test_plain_decode_bit_exact_against_pallas_kernel(kind):
     np.testing.assert_array_equal(want, bits)
     routed = ops.decode_blocks(streams, n_elems, BF16, p)
     assert torch.equal(routed, got)
+
+
+_NP_UINT = {"bf16": np.uint16, "fp16": np.uint16, "fp32": np.uint32}
+
+
+def _encode_case(fmt_key, m_equals_n=False, n_elems=2048, nblocks=2):
+    """(B, N) unsigned bits of realistic weights and their searched
+    params (or, for m == n, params that leave no high stream)."""
+    rng = np.random.default_rng(len(fmt_key) + 7 * m_equals_n)
+    w = rng.standard_normal(n_elems * nblocks) * 0.02
+    w[rng.random(w.size) < 3e-3] *= 32
+    dt = {"bf16": jnp.bfloat16, "fp16": np.float16, "fp32": np.float32}
+    arr = np.asarray(jnp.asarray(w.astype(np.float32)).astype(dt[fmt_key]))
+    bits = arr.view(_NP_UINT[fmt_key]).reshape(nblocks, n_elems)
+    fmt = FORMATS[fmt_key]
+    exp = (bits.astype(np.int64) >> fmt.mant_bits) & fmt.exp_mask
+    lo, hi = int(exp.min()), int(exp.max())
+    if m_equals_n:
+        n = max((hi - lo).bit_length(), 1)
+        p = EnecParams(b=hi, n=n, m=n, L=16, l=lo)
+    else:
+        p = jax_params.search_for_array(arr, JAX_FORMATS[fmt_key],
+                                        block_elems=n_elems)
+    return bits, p
+
+
+# bytes are compared exactly: the encoder is integer bit packing
+@pytest.mark.parametrize("fmt_key,m_equals_n", [("bf16", False),
+                                                ("fp16", False),
+                                                ("fp32", False),
+                                                ("bf16", True)])
+def test_plain_encoder_byte_identical_to_pallas_kernel(fmt_key, m_equals_n):
+    bits, p = _encode_case(fmt_key, m_equals_n)
+    fmt = FORMATS[fmt_key]
+    want = encode_blocks_pallas(jnp.asarray(bits), JAX_FORMATS[fmt_key], p,
+                                interpret=True)
+    t_bits = torch.from_numpy(bits.astype(np.int64)).to(fmt.work_dtype)
+    got = enec_encode.encode_blocks_plain(to_container(t_bits, fmt), fmt, p)
+    for name in want._fields:
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=f"stream {name}")
+    if m_equals_n:
+        assert got.high.shape[-1] == 0 and int(got.high_len.sum()) == 0
+    routed = ops.encode_blocks(t_bits, fmt, p)
+    for a, b in zip(routed, got):
+        assert torch.equal(a, b)
+    dec = ops.decode_blocks(got, bits.shape[1], fmt, p)
+    np.testing.assert_array_equal(
+        dec.numpy().view(_NP_UINT[fmt_key]), bits)
 
 
 def _fused_pair(k, n, shards, seed):
@@ -152,4 +205,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                        vec)
     with pytest.raises(ValueError):
         dm.dense_matmul_cuda(torch.zeros(2, 128), torch.zeros(128, 128))
+    with pytest.raises(ValueError):
+        enec_encode.encode_blocks_cuda(
+            to_container(torch.from_numpy(bits.astype(np.int32)), BF16), BF16,
+            p, vec)
     assert enec_decode.LAUNCHES.n == 0 and dm.DENSE_LAUNCHES.n == 0
+    assert enec_encode.LAUNCHES.n == 0
