@@ -39,13 +39,36 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
            and logits bitwise equal to phase 4's fused run, no leaf of at
            least ``--min-bytes`` moved host to device as dense bytes, and
            restore decode dispatches equal to the restore plan's buckets.
+   scan    the standalone prefix-sum kernel through ``ops.idd_scan``:
+           bitwise equal to ``torch.cumsum`` and the plain version on the
+           shapes of tests/test_kernels.py, bool input, the llama embed's
+           (16032, 1024) blocks x groups and (8, 2**20) long rows of
+           full-range values; timed at the last two beside torch.cumsum.
+   kv_attention
+           decode attention over an ENEC-compressed KV prefix through
+           ``ops.compress_kv_prefix`` + ``ops.decode_attention_kv_enec``:
+           the prefix byte-identical to the plain encoder (and decoded
+           back losslessly), the kernel within the reference test's
+           tolerance of its plain version and of dense attention on the
+           decoded K/V, on that test's grid, an m == n case and two
+           full-width shapes (B 8, S 32768, KV 8, grp 3 and 8); the
+           full-width ones timed beside SDPA on the dense bf16 K/V.
+   serve_minitron
+           minitron_4b at full width through ``launch.serve.main`` in
+           fused, stream and dense modes (batch 4, prompt 64, 16 new
+           tokens): equal greedy tokens, bitwise-equal logits, launches
+           per decode step as read from the code (the untied head is a
+           second flat stream beside the embed), encode launches equal to
+           the set-up's buckets.
 6. a ``{"kernels": [...]}`` JSON line, then the card line and the last
    line ``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` is
    its count in the run of its ``path`` (fused, the main path, for the
    decoder, the encoder and the fused entry; dense for the dense-tile
-   entry); ``launches_by_path`` gives its count in each served run (the
-   three modes, ``ckpt_save`` and ``ckpt_restore``).  Every count is set
-   to 0 just before its run and read just after it.
+   entry; ``scan`` and ``kv_attention`` for kernels 3 and 5);
+   ``launches_by_path`` gives its count in each run (the three llama
+   modes, ``ckpt_save``, ``ckpt_restore``, ``scan``, ``kv_attention`` and
+   the three ``minitron_*`` modes).  Every count is set to 0 just before
+   its run and read just after it.
 
 Details go to ``chiprun_out/chip_smoke.json``.  The script needs CUDA and
 the repository's ``src/``; without either it exits nonzero and prints no
@@ -75,15 +98,49 @@ LEAVES = {"wq": (2048, 2048), "wk": (2048, 512), "wv": (2048, 512),
 # and fails unless each exceeds this limit.
 MATMUL_ATOL = 2e-5
 
-# kernel launches of one decode step of each served mode
-_PER_STEP = N_LAYERS * len(LEAVES)
-STEP_LAUNCHES = {
-    "fused": {"enec_decode": 1, "decompress_matmul": _PER_STEP,
-              "dense_tile_matmul": 0, "enec_encode": 0},
-    "stream": {"enec_decode": 1 + _PER_STEP, "decompress_matmul": 0,
-               "dense_tile_matmul": _PER_STEP, "enec_encode": 0},
-    "dense": {"enec_decode": 0, "decompress_matmul": 0,
-              "dense_tile_matmul": _PER_STEP, "enec_encode": 0}}
+# every kernel entry's launch counter (``launch.serve.COUNTERS``)
+KERNELS = ("enec_decode", "decompress_matmul", "dense_tile_matmul",
+           "enec_encode", "idd_scan", "decode_attention_kv")
+
+
+def step_launches(matmuls: int, flat: int) -> dict:
+    """Kernel launches of one decode step of each served mode, read from
+    the code: ``matmuls`` matmul leaves a step (layers x 7, each through
+    ``weight_matmul``) and ``flat`` flat L=1 streams that ``lm.decode_fn``
+    materializes a step (the embed, and an untied head)."""
+    zero = dict.fromkeys(KERNELS, 0)
+    return {"fused": zero | {"enec_decode": flat,
+                             "decompress_matmul": matmuls},
+            "stream": zero | {"enec_decode": flat + matmuls,
+                              "dense_tile_matmul": matmuls},
+            "dense": zero | {"dense_tile_matmul": matmuls}}
+
+
+STEP_LAUNCHES = step_launches(N_LAYERS * len(LEAVES), 1)   # tied embed
+MINITRON_LAYERS = 32
+MINITRON_VOCAB = 256000
+MINITRON_STEP_LAUNCHES = step_launches(MINITRON_LAYERS * len(LEAVES), 2)
+
+# phase scan: the shapes of tests/test_kernels.py::test_idd_scan_matches_
+# cumsum, the llama embed's blocks x groups (16032 blocks of 1024 groups of
+# 16) and long rows that carry across 8192 rows of 128 lanes
+SCAN_SHAPES = ((1, 128), (4, 1024), (2, 4096), (3, 2048))
+SCAN_EMBED = (16032, 1024)
+SCAN_LONG = (8, 1 << 20)
+
+# phase kv_attention: the grid of tests/test_decode_attention_kv.py and two
+# full-width decode shapes (B, S, KV, grp): a batch of 8 at a 32768-token
+# prefix, with minitron_4b's GQA group (24 heads over 8) and qwen3_32b's
+# (64 over 8); the tolerance is that test's (f32 sums in another order,
+# through exp and one division)
+KV_GRID = ((1, 128, 1, 1), (2, 256, 2, 4), (1, 512, 4, 8))
+KV_FULL = {"minitron_4b": (8, 32768, 8, 3), "qwen3_32b": (8, 32768, 8, 8)}
+KV_ATOL, KV_RTOL = 2e-5, 1e-4
+# At S = 32768 the outputs are ~2e-3, so KV_ATOL alone would pass a kernel
+# that skipped a chunk (a 1/256 change); the error is also held relative to
+# the output's magnitude, and a control (dense attention without the last
+# chunk) must exceed that limit.
+KV_REL = 1e-4
 
 RESULTS: dict = {}
 
@@ -452,7 +509,9 @@ def phase_matmul():
     import torch
     from repro_torch.core.api import slice_stacked
     from repro_torch.core.codec_api import Codec
-    from repro_torch.kernels import decompress_matmul as dm
+    from repro_torch.kernels.decompress_matmul import (
+        decompress_matmul_cuda, decompress_matmul_plain, dense_matmul_cuda,
+        dense_matmul_plain)
     gen = torch.Generator(device="cuda").manual_seed(1)
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
@@ -474,16 +533,16 @@ def phase_matmul():
         for m in (1, BATCH, BATCH * PROMPT):
             x = torch.randn((m, k), generator=gen, device="cuda").to(
                 torch.bfloat16)
-            fused = dm.decompress_matmul_cuda(x, ct, k, n)
-            dense = dm.dense_matmul_cuda(x, w_dec)
+            fused = decompress_matmul_cuda(x, ct, k, n)
+            dense = dense_matmul_cuda(x, w_dec)
             torch.cuda.synchronize()
             check(torch.equal(fused.view(torch.int32),
                               dense.view(torch.int32)),
                   f"{name} M={m}: fused != dense-tile entry bitwise")
-            plain = dm.decompress_matmul_plain(x, ct, k, n, codec_obj)
+            plain = decompress_matmul_plain(x, ct, k, n, codec_obj)
             lib = torch.matmul(x.float(), w.float())
             err = float((fused - plain).abs().max())
-            err_dense = float((dense - dm.dense_matmul_plain(x, w_dec))
+            err_dense = float((dense - dense_matmul_plain(x, w_dec))
                               .abs().max())
             err_lib = float((fused - lib).abs().max())
             check(max(err, err_dense, err_lib) <= MATMUL_ATOL,
@@ -500,14 +559,14 @@ def phase_matmul():
                     (_bf16_sums(x, w) - plain).abs().max())
             if m == BATCH:
                 row["ms"] = cuda_ms(
-                    lambda: dm.decompress_matmul_cuda(x, ct, k, n), 20, flush)
+                    lambda: decompress_matmul_cuda(x, ct, k, n), 20, flush)
                 row["dense_ms"] = cuda_ms(
-                    lambda: dm.dense_matmul_cuda(x, w), 20, flush)
+                    lambda: dense_matmul_cuda(x, w), 20, flush)
                 row["plain_ms"] = cuda_ms(
-                    lambda: dm.decompress_matmul_plain(x, ct, k, n,
+                    lambda: decompress_matmul_plain(x, ct, k, n,
                                                        codec_obj), 3, flush)
                 row["dense_plain_ms"] = cuda_ms(
-                    lambda: dm.dense_matmul_plain(x, w), 3, flush)
+                    lambda: dense_matmul_plain(x, w), 3, flush)
                 row["library_ms"] = cuda_ms(lambda: torch.matmul(x, w), 20,
                                             flush)
                 xo = m * k * 2 + m * n * 4
@@ -549,20 +608,20 @@ def phase_matmul():
         ct = slice_stacked(ct, 0)
         check(not fixed or ct.streams.high.shape[-1] == 0, "m == n case")
         x = torch.randn((5, k), generator=gen, device="cuda").to(x_dt)
-        fused = dm.decompress_matmul_cuda(x, ct, k, n)
-        dense = dm.dense_matmul_cuda(x, w)
+        fused = decompress_matmul_cuda(x, ct, k, n)
+        dense = dense_matmul_cuda(x, w)
         torch.cuda.synchronize()
         label = f"{w_dt} {k}x{n} x {x_dt}{' m==n' if fixed else ''}"
         check(torch.equal(fused.view(torch.int32), dense.view(torch.int32)),
               f"{label}: fused != dense-tile entry bitwise")
-        plain = dm.decompress_matmul_plain(x, ct, k, n, codec_obj)
+        plain = decompress_matmul_plain(x, ct, k, n, codec_obj)
         err = float((fused - plain).abs().max())
         check(err <= MATMUL_ATOL, f"{label}: |fused - plain| {err}")
         max_err = max(max_err, err)
         rows.append({"case": label, "max_abs_err_plain": err})
         if w_dt == torch.float32:
             controls["tf32_inputs"] = float(
-                (dm.dense_matmul_plain(_tf32(x), _tf32(w)) - plain)
+                (dense_matmul_plain(_tf32(x), _tf32(w)) - plain)
                 .abs().max())
     for name, c in controls.items():
         check(c > MATMUL_ATOL, f"control {name} errs by {c} <= "
@@ -762,19 +821,339 @@ def phase_ckpt(fused):
 
 
 # ---------------------------------------------------------------------------
+# phase scan: the standalone prefix-sum kernel
+# ---------------------------------------------------------------------------
+
+def _int_err(a, b) -> int:
+    import torch
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
+        if a.numel() else 0
+
+
+def phase_scan():
+    """Kernel 3 through its entry point ``ops.idd_scan``, bitwise against
+    ``torch.cumsum`` and the plain version; timed at the embed's and the
+    long rows' shapes."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.idd_scan import idd_scan_cuda, idd_scan_plain
+    from repro_torch.launch import serve
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def bits(shape):
+        return torch.rand(shape, generator=gen, device="cuda") < 0.3
+
+    cases = [(f"{shape} int32", bits(shape).to(torch.int32))
+             for shape in SCAN_SHAPES]
+    cases += [("(3, 2048) bool", bits((3, 2048))),
+              (f"{SCAN_EMBED} int32", bits(SCAN_EMBED).to(torch.int32)),
+              # full-range values: the sums wrap mod 2**32 many times
+              (f"{SCAN_LONG} int32", torch.randint(
+                  -2 ** 31, 2 ** 31, SCAN_LONG, generator=gen, device="cuda",
+                  dtype=torch.int32))]
+    serve.reset_launch_counts()          # this path's run starts here ...
+    got = [ops.idd_scan(x) for _, x in cases]
+    torch.cuda.synchronize()
+    launches = serve.launch_counts()     # ... and ends here
+    max_err = 0
+    for (label, x), out in zip(cases, got):
+        want = torch.cumsum(x.to(torch.int32), -1, dtype=torch.int32)
+        check(out.dtype == torch.int32 and torch.equal(out, want),
+              f"scan kernel != torch.cumsum ({label})")
+        check(torch.equal(out, idd_scan_plain(x)),
+              f"scan kernel != plain ({label})")
+        max_err = max(max_err, _int_err(out, want))
+    check(launches["idd_scan"] == len(cases),
+          f"{launches['idd_scan']} scan launches for {len(cases)} calls")
+    log(f"scan: {len(cases)} cases bitwise equal to torch.cumsum and the "
+        f"plain version; launches {launches}")
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    timed = {}
+    for label, x in cases[-2:]:
+        row = {"ms": cuda_ms(lambda: idd_scan_cuda(x), 20, flush_buf.zero_),
+               "plain_ms": cuda_ms(lambda: idd_scan_plain(x), 20,
+                                   flush_buf.zero_),
+               "library_ms": cuda_ms(lambda: torch.cumsum(
+                   x, -1, dtype=torch.int32), 20, flush_buf.zero_),
+               "bound_ms": x.numel() * (x.element_size() + 4)
+               / HBM_BYTES_PER_S * 1e3}
+        timed[label] = row
+        log(f"scan {label}: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, torch.cumsum {row['library_ms']:.4f} "
+            f"ms, bound {row['bound_ms']:.4f} ms, "
+            f"{row['bound_ms'] / row['ms']:.3f} of bound")
+    RESULTS["scan"] = {"cases": [label for label, _ in cases],
+                       "max_abs_err": max_err, "timed": timed,
+                       "row_shape": f"{SCAN_EMBED} int32"}
+    del cases, got, flush_buf
+    torch.cuda.empty_cache()
+    return {"scan": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase kv_attention: decode attention over an ENEC-compressed KV prefix
+# ---------------------------------------------------------------------------
+
+def _kv_case(shape, gen, m_equals_n=False):
+    """Seeded bf16 q, K, V (normal x 0.3, as the reference test makes them)
+    and params searched over K and V together (or m == n over their
+    exponent range)."""
+    import torch
+    from repro_torch.core import params, stats
+    from repro_torch.core.dtypes import BF16
+    from repro_torch.core.params import EnecParams
+    b, s, kv, grp = shape
+
+    def t(dims):
+        return (torch.randn(dims, generator=gen, device="cuda") * 0.3).to(
+            torch.bfloat16)
+
+    k, v, q = t((b, s, kv, 128)), t((b, s, kv, 128)), t((b, kv, grp, 128))
+    both = torch.cat([k.reshape(-1), v.reshape(-1)]).view(torch.int16)
+    st = stats.stack_stats(both.reshape(1, -1), BF16)
+    del both
+    lo, hi = st.bounds()
+    if m_equals_n:
+        width = (hi - lo).bit_length() + 1
+        p = EnecParams(b=hi, n=width, m=width, L=16, l=lo)
+    else:
+        p = params.widen_for_range(
+            params.search(st.hist, BF16, block_elems=128 * 128), lo, hi)
+    return q, k, v, p
+
+
+def _dense_attention(q, k, v):
+    """Decompress-then-attend: the plain einsum softmax of the reference
+    test's ``_dense`` on dense K/V (B, S, KV, 128)."""
+    import torch
+    scores = torch.einsum("bkgh,bskh->bkgs", q.float(), k.float()) \
+        / math.sqrt(k.shape[-1])
+    return torch.einsum("bkgs,bskh->bkgh", torch.softmax(scores, -1),
+                        v.float())
+
+
+def _kv_tiles(kv):
+    """(B, S, KV, 128) -> the (B * KV * S/128, 16384) bit tiles that
+    ``compress_kv_prefix`` encodes."""
+    import torch
+    return kv.permute(0, 2, 1, 3).reshape(-1, 128 * kv.shape[-1]).view(
+        torch.int16)
+
+
+def phase_kv_attention():
+    """Kernel 5 through its entry points ``ops.compress_kv_prefix`` and
+    ``ops.decode_attention_kv_enec``: the compressed prefix byte-identical
+    to the plain encoder, the attention within tolerance of its plain
+    version and of dense attention on the decoded K/V; the two full-width
+    shapes timed beside SDPA on the dense K/V."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import codec
+    from repro_torch.core.dtypes import BF16
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention_kv import (
+        decode_attention_kv_enec_cuda, decode_attention_kv_plain)
+    from repro_torch.kernels.enec_decode import decode_blocks_plain
+    from repro_torch.kernels.enec_encode import encode_blocks_plain
+    from repro_torch.launch import serve
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = [(f"grid {shape}", _kv_case(shape, gen)) for shape in KV_GRID]
+    cases.append((f"m == n {KV_GRID[1]}", _kv_case(KV_GRID[1], gen, True)))
+    cases += [(f"{name} {shape}", _kv_case(shape, gen))
+              for name, shape in KV_FULL.items()]
+    serve.reset_launch_counts()          # this path's run starts here ...
+    runs = []
+    for _, (q, k, v, p) in cases:
+        ks, vs = ops.compress_kv_prefix(k, p), ops.compress_kv_prefix(v, p)
+        runs.append((ks, vs, ops.decode_attention_kv_enec(q, ks, vs, p)))
+    torch.cuda.synchronize()
+    launches = serve.launch_counts()     # ... and ends here
+    check(launches["decode_attention_kv"] == len(cases)
+          and launches["enec_encode"] == 2 * len(cases),
+          f"kv_attention launches {launches} for {len(cases)} cases")
+    rows, max_err = {}, 0.0
+    for (label, (q, k, v, p)), (ks, vs, out) in zip(cases, runs):
+        for kv, s in ((k, ks), (v, vs)):
+            tiles = _kv_tiles(kv)
+            want = encode_blocks_plain(tiles, BF16, p)
+            flat = codec.flatten_blocks(s)
+            for name in want._fields:
+                check(torch.equal(getattr(flat, name), getattr(want, name)),
+                      f"compress_kv_prefix != plain encoder in {name} "
+                      f"({label})")
+            check(torch.equal(decode_blocks_plain(flat, 128 * 128, BF16, p),
+                              tiles), f"KV decode is not lossless ({label})")
+            del want, flat, tiles
+        plain = decode_attention_kv_plain(q, ks, vs, p)
+        dense = _dense_attention(q, k, v)
+        scale = float(dense.abs().max())
+        err_plain = float((out - plain).abs().max())
+        err_dense = float((out - dense).abs().max())
+        err_plain_dense = float((plain - dense).abs().max())
+        for name, a, b in (("kernel - plain", out, plain),
+                           ("kernel - dense", out, dense),
+                           ("plain - dense", plain, dense)):
+            check(torch.allclose(a, b, atol=KV_ATOL, rtol=KV_RTOL),
+                  f"{label}: |{name}| {float((a - b).abs().max())} beyond "
+                  f"atol {KV_ATOL} / rtol {KV_RTOL}")
+            rel = float((a - b).abs().max()) / scale
+            check(rel <= KV_REL, f"{label}: |{name}| / max|dense| {rel} > "
+                  f"{KV_REL}")
+        max_err = max(max_err, err_plain, err_dense)
+        row = {"shape": label, "params": list(p.astuple()),
+               "ratio_k": BF16.total_bits * k.numel() / 8
+               / needed_bytes(ks), "max_abs_err_plain": err_plain,
+               "max_abs_err_dense": err_dense,
+               "max_abs_err_plain_dense": err_plain_dense,
+               "max_abs_out": scale}
+        if label.split()[0] in KV_FULL:
+            c = ks.mask.shape[2]
+            control = float((_dense_attention(q, k[:, :-128], v[:, :-128])
+                             - dense).abs().max()) / scale
+            check(control > KV_REL, f"{label}: dropping the last of {c} "
+                  f"chunks moves the output by {control} <= {KV_REL}: the "
+                  f"relative limit would not catch it")
+            row["control_rel_err_without_last_chunk"] = control
+            flush_buf = torch.empty(256 << 20, dtype=torch.uint8,
+                                    device="cuda")
+            row["ms"] = cuda_ms(lambda: decode_attention_kv_enec_cuda(
+                q, ks, vs, p), 5, flush_buf.zero_)
+            row["plain_ms"] = cuda_ms(lambda: decode_attention_kv_plain(
+                q, ks, vs, p), 2, flush_buf.zero_)
+            b, s, n_kv, hd = k.shape
+            grp = q.shape[2]
+            q4 = q.reshape(b, n_kv * grp, 1, hd)
+            k4 = k.permute(0, 2, 1, 3).contiguous()
+            v4 = v.permute(0, 2, 1, 3).contiguous()
+            sdpa = F.scaled_dot_product_attention(q4, k4, v4,
+                                                  enable_gqa=True)
+            row["library_rel_err"] = float(
+                (sdpa.float().reshape(out.shape) - dense).abs().max()) / scale
+            row["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                       enable_gqa=True),
+                5, flush_buf.zero_)
+            in_bytes = (needed_bytes(ks) + needed_bytes(vs)
+                        + q.numel() * q.element_size())
+            out_bytes = out.numel() * out.element_size()
+            bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+            # scores and p @ V: 2 FMAs per (query, token, dim), f32 FMA
+            flops_ms = 4 * b * n_kv * grp * s * hd / F32_FLOPS * 1e3
+            row.update(bytes=in_bytes + out_bytes, bytes_ms=bytes_ms,
+                       flops_ms=flops_ms, bound_ms=max(bytes_ms, flops_ms),
+                       bound_by="bytes" if bytes_ms >= flops_ms
+                       else "operations",
+                       dense_bytes=2 * k.numel() * k.element_size())
+            log(f"kv_attention {label}: kernel {row['ms']:.4f} ms, plain "
+                f"{row['plain_ms']:.4f} ms, SDPA on dense bf16 K/V "
+                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}; {in_bytes + out_bytes} bytes, K "
+                f"ratio {row['ratio_k']:.4f}), {row['bound_ms'] / row['ms']:.4f}"
+                f" of bound; control {control:.3g}")
+            del q4, k4, v4, sdpa, flush_buf
+        rows[label] = row
+        del plain, dense
+    log(f"kv_attention: {len(cases)} cases, compressed prefix byte-identical "
+        f"to the plain encoder, kernel within atol {KV_ATOL} / rtol "
+        f"{KV_RTOL} and {KV_REL} relative of plain and dense attention, max "
+        f"|err| {max_err:.3g}; launches {launches}")
+    RESULTS["kv_attention"] = {"rows": rows, "max_abs_err": max_err,
+                               "atol": KV_ATOL, "rtol": KV_RTOL,
+                               "rel": KV_REL}
+    del cases, runs
+    torch.cuda.empty_cache()
+    return {"kv_attention": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase serve_minitron: minitron_4b at full width
+# ---------------------------------------------------------------------------
+
+def phase_serve_minitron():
+    """``launch.serve.main --arch minitron_4b`` at full width in fused,
+    stream and dense modes: equal greedy tokens, bitwise-equal logits, the
+    launches per decode step read from the code (the untied head is a
+    second flat stream beside the embed)."""
+    import torch
+    from repro_torch.launch import serve
+    card = card_line()
+    runs, launches = {}, {}
+    for mode in ("fused", "stream", "dense"):
+        serve.reset_launch_counts()      # this path's run starts here ...
+        out = serve.main(["--arch", "minitron_4b", "--batch", str(BATCH),
+                          "--prompt-len", str(PROMPT), "--tokens",
+                          str(TOKENS), "--mode", mode])
+        launches[f"minitron_{mode}"] = serve.launch_counts()   # ... ends
+        out["path_launches"] = launches[f"minitron_{mode}"]
+        runs[mode] = out
+        torch.cuda.empty_cache()
+    ref = runs["fused"]
+    check(tuple(ref["logits"].shape) == (TOKENS, BATCH, MINITRON_VOCAB),
+          f"minitron logits shape {tuple(ref['logits'].shape)}")
+    check(bool(torch.isfinite(ref["logits"]).all()), "non-finite logits")
+    for mode in ("stream", "dense"):
+        check(torch.equal(runs[mode]["tokens"], ref["tokens"]),
+              f"minitron {mode} greedy tokens differ from fused")
+        check(torch.equal(runs[mode]["logits"].view(torch.int32),
+                          ref["logits"].view(torch.int32)),
+              f"minitron {mode} logits not bitwise equal to fused")
+    for mode, out in runs.items():
+        step = out["step_launches"][0]
+        check(all(s == step for s in out["step_launches"]),
+              f"minitron {mode}: launches vary between decode steps")
+        want = MINITRON_STEP_LAUNCHES[mode]
+        check(step == want, f"minitron {mode}: per-step launches {step} != "
+              f"{want}")
+        enc = out["path_launches"]["enec_encode"]
+        check(enc == out["encode_dispatches"] == out["encode_buckets"],
+              f"minitron {mode}: {enc} encode launches, set-up reports "
+              f"{out['encode_dispatches']} dispatches of "
+              f"{out['encode_buckets']} buckets")
+        check((enc > 0) == (mode != "dense"),
+              f"minitron {mode}: {enc} encode launches in set-up")
+        log(f"serve minitron_4b {mode}: set-up {out['setup_s']:.3f} s "
+            f"({out['encode_buckets']} encode buckets), TTFT "
+            f"{out['ttft_s'] * 1e3:.2f} ms, TPOT {out['tpot_s'] * 1e3:.2f} "
+            f"ms, {out['tok_s']:.2f} tok/s, wire ratio "
+            f"{out['wire_ratio']:.4f}, hbm ratio "
+            f"{out['stream_stats']['hbm_ratio']:.4f}, launches/step {step}, "
+            f"launches in this run {out['path_launches']}, mode_mix "
+            f"{out['mode_mix']} on {card}")
+    log(f"serve minitron_4b: fused/stream/dense tokens equal, logits bitwise "
+        f"equal; seq0 {ref['tokens'][0].tolist()}")
+    RESULTS["serve_minitron"] = {
+        "card": card,
+        "modes": {m: {k: o[k] for k in ("ttft_s", "tpot_s", "tok_s",
+                                        "setup_s", "wire_ratio",
+                                        "encode_buckets", "path_launches",
+                                        "prefill_launches", "mode_mix")}
+                  | {"step_launches": o["step_launches"][0],
+                     "hbm_ratio": o["stream_stats"]["hbm_ratio"],
+                     "raw_bytes": o["stream_stats"]["raw_bytes"],
+                     "device_bytes": o["stream_stats"]["device_bytes"]}
+                  for m, o in runs.items()}}
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 # the served path whose own run gives each kernel's ``launches``: the
 # default fused mode (the main path) runs the decoder and the fused entry,
 # and its set-up the encoder; the dense-tile entry runs in the dense and
 # stream modes only
 KERNEL_PATH = {"enec_decode": "fused", "decompress_matmul": "fused",
-               "dense_tile_matmul": "dense", "enec_encode": "fused"}
+               "dense_tile_matmul": "dense", "enec_encode": "fused",
+               "idd_scan": "scan", "decode_attention_kv": "kv_attention"}
 
 
 def kernels_line(launches):
     """``launches`` maps each served run to the counts read right after
     that run, with every count set to 0 just before it."""
     d, mm, enc = RESULTS["decode"], RESULTS["matmul"], RESULTS["encode"]
+    sc = RESULTS["scan"]
+    sc_row = sc["timed"][sc["row_shape"]]
+    kv = RESULTS["kv_attention"]
+    kv_row = kv["rows"][f"minitron_4b {KV_FULL['minitron_4b']}"]
     t = mm["totals_m_batch"]
     src = "src/repro_torch/csrc/"
     rows = [
@@ -805,10 +1184,28 @@ def kernels_line(launches):
          "ms": enc["embed_ms"], "plain_ms": enc["embed_plain_ms"],
          "bound_ms": enc["embed_bound_ms"], "bound_by": "bytes",
          "library_ms": None, "setup_launches": enc["setup_launches"]},
+        {"name": "idd_scan", "route": "cuda", "source": src + "idd_scan.cu",
+         "replaces": "src/repro/kernels/idd_scan.py:73",
+         "max_abs_err": sc["max_abs_err"], "shape": sc["row_shape"],
+         "ms": sc_row["ms"], "plain_ms": sc_row["plain_ms"],
+         "bound_ms": sc_row["bound_ms"], "bound_by": "bytes",
+         "library_ms": sc_row["library_ms"], "timed": sc["timed"]},
+        {"name": "decode_attention_kv", "route": "cuda",
+         "source": src + "decode_attention_kv.cu",
+         "replaces": "src/repro/kernels/decode_attention_kv.py:105",
+         "max_abs_err": kv["max_abs_err"], "shape": kv_row["shape"],
+         "ms": kv_row["ms"], "plain_ms": kv_row["plain_ms"],
+         "bound_ms": kv_row["bound_ms"], "bound_by": kv_row["bound_by"],
+         "library_ms": kv_row["library_ms"],
+         "timed": {label: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "library_ms")}
+                   for label, r in kv["rows"].items() if "ms" in r}},
     ]
     for row in rows:
         path = KERNEL_PATH[row["name"]]
         row["launches"] = launches[path][row["name"]]
+        check(row["launches"] > 0, f"{row['name']} was not launched in its "
+              f"path {path}")
         row["path"] = path
         row["launches_by_path"] = {m: c[row["name"]]
                                    for m, c in launches.items()}
@@ -824,6 +1221,9 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script runs on a GPU")
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on")
+    from repro_torch.launch import serve
+    check(tuple(serve.COUNTERS) == KERNELS,
+          f"counters {tuple(serve.COUNTERS)} != {KERNELS}")
     t0 = time.perf_counter()
     phase_build()
     phase_decode()
@@ -833,6 +1233,9 @@ def main():
     phase_setup_encode(fused)
     launches.update(phase_ckpt(fused))
     del fused
+    launches.update(phase_scan())
+    launches.update(phase_kv_attention())
+    launches.update(phase_serve_minitron())
     line = kernels_line(launches)
     RESULTS["kernels"] = line["kernels"]
     RESULTS["seconds"] = time.perf_counter() - t0

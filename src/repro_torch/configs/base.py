@@ -11,7 +11,8 @@ import dataclasses
 import importlib
 from typing import Optional, Tuple
 
-ARCH_IDS = ("llama3_2_1b",)  # the archs this package carries so far
+# the archs this package carries so far: the dense family
+ARCH_IDS = ("llama3_2_1b", "minitron_4b", "qwen3_32b", "stablelm_3b")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -37,6 +38,11 @@ class FloatFormat:
         """Signed container of the float's width (the storage of decoded
         bits; ``.view(float_dtype)`` gives the floats back)."""
         return torch.int16 if self.total_bits == 16 else torch.int32
+
+    @property
+    def np_uint_dtype(self):
+        """numpy's unsigned type of the float's width (host-side search)."""
+        return np.uint16 if self.total_bits == 16 else np.uint32
 
     @property
     def work_dtype(self) -> torch.dtype:

@@ -14,8 +14,11 @@ from repro_torch.core.codec import BlockStreams
 from repro_torch.core.dtypes import FloatFormat, to_container
 from repro_torch.core.params import EnecParams
 
+from . import decode_attention_kv as dak
 from . import decompress_matmul as dm
 from . import enec_decode, enec_encode, ref
+from . import idd_scan as scan
+from .decode_attention_kv import compress_kv_prefix  # noqa: F401
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -64,3 +67,23 @@ def tiled_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if _on_cpu(x):
         return ref.tiled_matmul_ref(x, w)
     return dm.dense_matmul_cuda(x, w)
+
+
+def idd_scan(x: torch.Tensor) -> torch.Tensor:
+    """Batched inclusive prefix sum: (B, N) int32 or bool, N % 128 == 0 ->
+    (B, N) int32."""
+    scan.check_shape(x)
+    if _on_cpu(x):
+        return ref.idd_scan_ref(x)
+    return scan.idd_scan_cuda(x)
+
+
+def decode_attention_kv_enec(q: torch.Tensor, k_streams: BlockStreams,
+                             v_streams: BlockStreams,
+                             p: EnecParams) -> torch.Tensor:
+    """q (B, KV, grp, 128) attends over the K/V prefix held as ENEC streams
+    (B, KV, C, width) from :func:`compress_kv_prefix` -> (B, KV, grp, 128)
+    f32."""
+    if _on_cpu(q):
+        return ref.decode_attention_kv_ref(q, k_streams, v_streams, p)
+    return dak.decode_attention_kv_enec_cuda(q, k_streams, v_streams, p)

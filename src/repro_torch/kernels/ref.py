@@ -8,13 +8,25 @@ always goes to its kernel (``kernels/ops.py``).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import codec
 from repro_torch.core.api import MATMUL_TILE, CompressedTensor
+from repro_torch.core.dtypes import BF16
 
 TILE = MATMUL_TILE
+KV_TOK = 128            # tokens per compressed KV chunk
+KV_HD = 128             # head_dim of the compressed KV attention
+KV_BLOCK_ELEMS = KV_TOK * KV_HD     # one chunk of one head = one ENEC block
+
+
+def idd_scan_ref(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum along the last axis, int32 (the plain version
+    of ``csrc/idd_scan.cu``)."""
+    return torch.cumsum(x.to(torch.int32), dim=-1, dtype=torch.int32)
 
 
 def encode_blocks_ref(bits: torch.Tensor, fmt, p, b_vec=None):
@@ -45,7 +57,9 @@ def tiled_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     assert k == k2, (x.shape, w.shape)
     kp, np_ = -(-k // TILE) * TILE, -(-n // TILE) * TILE
     xf = F.pad(x.float(), (0, kp - k))
-    wf = F.pad(w.float(), (0, np_ - n, 0, kp - k))
+    # row-major whatever w's strides (a stream handle materializes a
+    # transposed view): the CPU matmul's sum order follows the strides
+    wf = F.pad(w.float(), (0, np_ - n, 0, kp - k)).contiguous()
     strips = []
     for ni in range(np_ // TILE):
         acc = None
@@ -64,3 +78,61 @@ def decompress_matmul_ref(x: torch.Tensor, ct: CompressedTensor, k: int,
     from repro_torch.core.codec_api import current_codec
     w = (codec_obj or current_codec()).untile_matmul_weight(ct, k, n)
     return tiled_matmul_ref(x, w)
+
+
+def check_kv_attention_args(q, k_streams, v_streams, p) -> dict:
+    """Shapes of one compressed-KV attention call, checked: q (B, KV, grp,
+    128), K and V streams (B, KV, C, width) of 16384-element bf16 blocks
+    under ``p``; returns the stream widths."""
+    if q.ndim != 4 or q.shape[3] != KV_HD:
+        raise ValueError(f"q must be (B, KV, grp, {KV_HD}); got "
+                         f"{tuple(q.shape)}")
+    widths = codec.stream_shapes(KV_BLOCK_ELEMS, BF16, p)
+    lead = tuple(k_streams.mask.shape[:3])
+    if lead[:2] != tuple(q.shape[:2]):
+        raise ValueError(f"streams lead with {lead}, q with "
+                         f"{tuple(q.shape[:2])}")
+    for which, s in (("k", k_streams), ("v", v_streams)):
+        for name in ("mask", "low", "high", "raw"):
+            t = getattr(s, name)
+            if tuple(t.shape) != lead + (widths[name],):
+                raise ValueError(f"{which} {name} stream must be {lead} + "
+                                 f"({widths[name]},); got {tuple(t.shape)}")
+    return widths
+
+
+def decode_attention_kv_ref(q, k_streams, v_streams, p) -> torch.Tensor:
+    """Plain decode attention over a compressed KV prefix (the plain
+    version of ``csrc/decode_attention_kv.cu``): decode every K and V block
+    with the plain decoder, then the kernel's chunked online softmax in
+    f32 (running max from -1e30, output acc / max(l, 1e-30)).
+    q (B, KV, grp, 128) -> o (B, KV, grp, 128) f32."""
+    check_kv_attention_args(q, k_streams, v_streams, p)
+    b, n_kv, grp, hd = q.shape
+    n_chunks = k_streams.mask.shape[2]
+
+    def tiles(streams):
+        bits = codec.decode_blocks(codec.flatten_blocks(streams),
+                                   KV_BLOCK_ELEMS, BF16, p)
+        return bits.view(torch.bfloat16).reshape(b, n_kv, n_chunks, KV_TOK,
+                                                 hd)
+
+    k, v = tiles(k_streams), tiles(v_streams)
+    qf = q.float()
+    scale = 1.0 / math.sqrt(hd)
+    acc = torch.zeros((b, n_kv, grp, hd), dtype=torch.float32,
+                      device=q.device)
+    m = torch.full((b, n_kv, grp, 1), -1e30, dtype=torch.float32,
+                   device=q.device)
+    denom = torch.zeros_like(m)
+    for c in range(n_chunks):
+        scores = torch.einsum("bkgh,bkth->bkgt", qf, k[:, :, c].float()) \
+            * scale
+        m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
+        prob = torch.exp(scores - m_new)
+        corr = torch.exp(m - m_new)
+        denom = denom * corr + prob.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bkgt,bkth->bkgh", prob,
+                                        v[:, :, c].float())
+        m = m_new
+    return acc / torch.clamp(denom, min=1e-30)

@@ -43,19 +43,25 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint.ckpt import CheckpointManager
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.codec_api import Codec, use_codec
-from repro_torch.kernels import decompress_matmul, enec_decode, enec_encode
+from repro_torch.kernels import decode_attention_kv, enec_decode, enec_encode
+from repro_torch.kernels.decompress_matmul import (DENSE_LAUNCHES,
+                                                  FUSED_LAUNCHES)
+from repro_torch.kernels.idd_scan import LAUNCHES as IDD_SCAN_LAUNCHES
 from repro_torch.models import build_model
 from repro_torch.models.lm import abstract_params
 from repro_torch.runtime.streaming import (assign_weight_modes, mode_mix,
                                            stream_stats, tree_leaves)
 from repro_torch.runtime.weights import FusedWeight, StreamedWeight
 
+# every kernel of the package, whether or not serving launches it
 COUNTERS = {"enec_decode": enec_decode.LAUNCHES,
-            "decompress_matmul": decompress_matmul.FUSED_LAUNCHES,
-            "dense_tile_matmul": decompress_matmul.DENSE_LAUNCHES,
-            "enec_encode": enec_encode.LAUNCHES}
+            "decompress_matmul": FUSED_LAUNCHES,
+            "dense_tile_matmul": DENSE_LAUNCHES,
+            "enec_encode": enec_encode.LAUNCHES,
+            "idd_scan": IDD_SCAN_LAUNCHES,
+            "decode_attention_kv": decode_attention_kv.LAUNCHES}
 
 
 def launch_counts() -> dict:
@@ -90,7 +96,7 @@ def _sync(dev):
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="llama3_2_1b")
+    ap.add_argument("--arch", default="llama3_2_1b", choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced smoke config")
     ap.add_argument("--mode", default="fused",

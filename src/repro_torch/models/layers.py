@@ -96,17 +96,25 @@ class AttnParamsShape:
     n_heads: int
     n_kv_heads: int
     head_dim: int
+    qk_norm: bool = False
 
 
 def init_attention(n_layers: int, s: AttnParamsShape, gen, device):
-    """Stacked (L, ...) attention weights."""
+    """Stacked (L, ...) attention weights; with ``qk_norm`` also the
+    per-head RMS-norm scales ``q_norm`` / ``k_norm`` (L, head_dim), zeros
+    as in the reference."""
     hq, hkv = s.n_heads * s.head_dim, s.n_kv_heads * s.head_dim
-    return {
+    p = {
         "wq": dense_init((n_layers, s.d_model, hq), gen, device),
         "wk": dense_init((n_layers, s.d_model, hkv), gen, device),
         "wv": dense_init((n_layers, s.d_model, hkv), gen, device),
         "wo": dense_init((n_layers, hq, s.d_model), gen, device),
     }
+    if s.qk_norm:
+        for name in ("q_norm", "k_norm"):
+            p[name] = torch.zeros((n_layers, s.head_dim), dtype=ACT_DTYPE,
+                                  device=device)
+    return p
 
 
 def _project_qkv(p, x, s: AttnParamsShape, positions, theta):
@@ -115,6 +123,8 @@ def _project_qkv(p, x, s: AttnParamsShape, positions, theta):
     k = weight_matmul(p["wk"], x).reshape(b, t, s.n_kv_heads, s.head_dim)
     v = weight_matmul(p["wv"], x).reshape(b, t, s.n_kv_heads, s.head_dim)
     q, k, v = q.to(ACT_DTYPE), k.to(ACT_DTYPE), v.to(ACT_DTYPE)
+    if s.qk_norm:   # the reference's default eps, not cfg.norm_eps
+        q, k = rms_norm(q, p["q_norm"]), rms_norm(k, p["k_norm"])
     return apply_rope(q, positions, theta), apply_rope(k, positions, theta), v
 
 

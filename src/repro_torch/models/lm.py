@@ -29,17 +29,16 @@ class BlockDesc(NamedTuple):
 
 
 def block_program(cfg) -> list:
-    """cfg -> list[BlockDesc] (one period); the dense family without
-    qk-norm only."""
-    if cfg.family == "dense" and not cfg.qk_norm:
+    """cfg -> list[BlockDesc] (one period); the dense family only."""
+    if cfg.family == "dense":
         return [BlockDesc("attn", "mlp")]
-    raise ValueError(f"{cfg.name}: family {cfg.family!r} "
-                     f"(qk_norm={cfg.qk_norm}) is not ported yet")
+    raise ValueError(f"{cfg.name}: family {cfg.family!r} is not ported yet")
 
 
 def attn_shape(cfg) -> AttnParamsShape:
     hd = cfg.head_dim or cfg.d_model // cfg.n_heads
-    return AttnParamsShape(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, hd)
+    return AttnParamsShape(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, hd,
+                           cfg.qk_norm)
 
 
 def param_shapes(cfg) -> dict:
@@ -58,6 +57,9 @@ def param_shapes(cfg) -> dict:
             f"{pre}/mlp/w_gate": (n, d, cfg.d_ff),
             f"{pre}/mlp/w_up": (n, d, cfg.d_ff),
             f"{pre}/mlp/w_down": (n, cfg.d_ff, d)})
+        if s.qk_norm:
+            shapes.update({f"{pre}/attn/q_norm": (n, s.head_dim),
+                           f"{pre}/attn/k_norm": (n, s.head_dim)})
     if not cfg.tie_embeddings:
         shapes["head"] = (d, cfg.vocab_size)
     return shapes
@@ -135,7 +137,13 @@ def _apply_position_step(p, cfg, x, cache, lengths):
 
 
 def _head(params, cfg, embed):
-    return embed.T if cfg.tie_embeddings else _dense_leaf(params["head"])
+    """The (D, V) head.  An untied head comes in its dense row-major
+    layout in every weight mode: a stream handle materializes it as a
+    transposed view, and ``torch.matmul``'s sum order follows the
+    strides, so the modes' logits would differ in their last bits."""
+    if cfg.tie_embeddings:
+        return embed.T
+    return _dense_leaf(params["head"]).contiguous()
 
 
 def forward(params, cfg, tokens: torch.Tensor):

@@ -54,3 +54,25 @@ def test_misshaped_leaf_is_named(host_tree):
     bad["period"][0]["attn"]["wk"] = bad["period"][0]["attn"]["wk"][:, :, :8]
     with pytest.raises(ValueError, match="period/0/attn/wk"):
         params_from_jax(bad, "cpu", cfg=get_smoke_config("llama3_2_1b"))
+
+
+@pytest.mark.parametrize("arch", ["qwen3_32b", "stablelm_3b", "minitron_4b"])
+def test_dense_family_round_trips_bitwise(arch):
+    """The rest of the dense family: qwen3_32b's per-head ``q_norm`` /
+    ``k_norm`` (L, head_dim) and the untied heads carry over bit for bit,
+    and the port's own init builds the same layout."""
+    cfg = get_smoke_config(arch)
+    host = jax.device_get(jax_build_model(jax_smoke_config(arch)).init(
+        jax.random.key(1)))
+    got = dict(tree_leaves(params_from_jax(host, "cpu", cfg=cfg)))
+    want = dict(tree_leaves(host))
+    assert set(got) == set(want) == set(param_shapes(cfg))
+    assert ("period/0/attn/q_norm" in got) == cfg.qk_norm
+    assert ("head" in got) == (not cfg.tie_embeddings)
+    for path, leaf in got.items():
+        np.testing.assert_array_equal(leaf.view(torch.int16).numpy(),
+                                      np.asarray(want[path]).view(np.int16),
+                                      err_msg=path)
+    tree = init_params(cfg, device="cpu")
+    assert {p: tuple(t.shape) for p, t in tree_leaves(tree)} == \
+        param_shapes(cfg)

@@ -52,5 +52,6 @@ def test_serve_on_cpu_when_asked():
                       "--min-bytes", "1024"])
     assert tuple(out["tokens"].shape) == (2, 3)
     assert out["launches"] == {"enec_decode": 0, "decompress_matmul": 0,
-                               "dense_tile_matmul": 0, "enec_encode": 0}
+                               "dense_tile_matmul": 0, "enec_encode": 0,
+                               "idd_scan": 0, "decode_attention_kv": 0}
     assert torch.isfinite(out["logits"]).all()

@@ -27,7 +27,10 @@ from repro.core import params as jax_params
 from repro.core.dtypes import FORMATS as JAX_FORMATS
 from repro_torch.core.dtypes import BF16, FORMATS, to_container
 from repro_torch.core.params import EnecParams
-from repro_torch.kernels import decompress_matmul as dm
+from repro_torch.kernels.decompress_matmul import (DENSE_LAUNCHES,
+                                                  decompress_matmul_plain,
+                                                  dense_matmul_cuda,
+                                                  dense_matmul_plain)
 from repro_torch.kernels import enec_decode, enec_encode, ops
 
 # f32 sums of the same products in another order: |error| grows with the
@@ -156,7 +159,7 @@ def test_plain_fused_matmul_against_pallas_kernel(mkn, shards):
     w, jct, tct = _fused_pair(k, n, shards, seed=k + n + shards)
     x = _bf16(np.random.default_rng(m).standard_normal((m, k)))
     want = np.asarray(jax_fused(jnp.asarray(x), jct, k, n, interpret=True))
-    got = dm.decompress_matmul_plain(_torch(x), tct, k, n)
+    got = decompress_matmul_plain(_torch(x), tct, k, n)
     assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
     np.testing.assert_allclose(got.numpy(), want, rtol=MATMUL_RTOL,
                                atol=MATMUL_ATOL)
@@ -166,7 +169,7 @@ def test_plain_fused_matmul_against_pallas_kernel(mkn, shards):
     np.testing.assert_allclose(got.numpy(), want_dense, rtol=MATMUL_RTOL,
                                atol=MATMUL_ATOL)
     # inside the port the fused and dense plain paths are bitwise equal
-    dense = dm.dense_matmul_plain(_torch(x), _torch(w))
+    dense = dense_matmul_plain(_torch(x), _torch(w))
     assert torch.equal(got.view(torch.int32), dense.view(torch.int32))
     assert torch.equal(ops.decompress_matmul(_torch(x), tct, k, n)
                        .view(torch.int32), got.view(torch.int32))
@@ -183,13 +186,13 @@ def test_plain_fused_matmul_other_formats(fmt_key):
     x = rng.standard_normal((m, k)).astype(np.float32)
     [tct] = Codec().tile_weights_for_fusion_many([torch.from_numpy(w)])
     assert tct.fmt == FORMATS[fmt_key]
-    got = dm.decompress_matmul_plain(torch.from_numpy(x), slice_stacked(
+    got = decompress_matmul_plain(torch.from_numpy(x), slice_stacked(
         tct, 0), k, n)
     want = np.asarray(jax_ref.tiled_matmul_ref(jnp.asarray(x),
                                                jnp.asarray(w)))
     np.testing.assert_allclose(got.numpy(), want, rtol=MATMUL_RTOL,
                                atol=MATMUL_ATOL)
-    dense = dm.dense_matmul_plain(torch.from_numpy(x), torch.from_numpy(w))
+    dense = dense_matmul_plain(torch.from_numpy(x), torch.from_numpy(w))
     assert torch.equal(got.view(torch.int32), dense.view(torch.int32))
 
 
@@ -204,10 +207,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         enec_decode.decode_blocks_cuda(streams, bits.shape[1], BF16, p, vec,
                                        vec)
     with pytest.raises(ValueError):
-        dm.dense_matmul_cuda(torch.zeros(2, 128), torch.zeros(128, 128))
+        dense_matmul_cuda(torch.zeros(2, 128), torch.zeros(128, 128))
     with pytest.raises(ValueError):
         enec_encode.encode_blocks_cuda(
             to_container(torch.from_numpy(bits.astype(np.int32)), BF16), BF16,
             p, vec)
-    assert enec_decode.LAUNCHES.n == 0 and dm.DENSE_LAUNCHES.n == 0
+    assert enec_decode.LAUNCHES.n == 0 and DENSE_LAUNCHES.n == 0
     assert enec_encode.LAUNCHES.n == 0
