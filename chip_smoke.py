@@ -22,10 +22,20 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
            set-up's own launches (the whole tree in one bucket, per-block
            b of every stack) re-planned and held against the plain
            encoder byte for byte.
-3. matmul  the fused decode+matmul kernel at every full-width leaf shape
-           and M in {1, 4, batch*prompt}: bitwise equal to its dense-tile
-           entry on the decoded weight, within a stated tolerance of the
-           plain version and of torch.matmul; timed at M = batch.
+3. matmul  both entries of the decode+matmul kernel at every leaf shape
+           of llama3_2_1b and minitron_4b and M in {1, batch,
+           batch*prompt}: the fused entry bitwise equal to the dense-tile
+           entry on the decoded weight, row-major and transposed (the
+           layout stream mode hands it); each row bitwise equal to the
+           same row at M = 1 and M = batch (split-K at M <= 16, the serial
+           walk above: the engine's contract); within a stated tolerance
+           of the plain version and of torch.matmul; fp16 / fp32 / f32-x /
+           ragged / m == n cases in both branches; timed at M = batch and
+           M = batch*prompt (both layouts of the dense-tile entry), each
+           with and without a spin kernel ahead of the window; the ptxas
+           registers of the four kernel builds, each branch's grid,
+           resident CTAs per SM and shared memory, and the host time a
+           call of each entry and of torch.matmul.
 4. serve   llama3_2_1b at full width from seeded synthetic weights,
            compressed on the card by the encode kernel, through
            ``launch.serve.main`` in fused, stream and dense modes (batch 4,
@@ -86,12 +96,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12                # H100 SXM bf16 tensor cores, dense
 BATCH, PROMPT, TOKENS = 4, 64, 16
 MIN_BYTES = 4096                   # serve's default --min-bytes
 N_LAYERS = 16
 LEAVES = {"wq": (2048, 2048), "wk": (2048, 512), "wv": (2048, 512),
           "wo": (2048, 2048), "w_gate": (2048, 8192), "w_up": (2048, 8192),
           "w_down": (8192, 2048)}
+MINITRON_LEAVES = {"wq": (3072, 3072), "wk": (3072, 1024),
+                   "wv": (3072, 1024), "wo": (3072, 3072),
+                   "w_gate": (3072, 9216), "w_up": (3072, 9216),
+                   "w_down": (9216, 3072)}
 # f32 sums of the same exact products in another order: measured <= 3e-6
 # at K <= 8192 with O(1) outputs.  A kernel that rounded f32 inputs to TF32
 # or kept bf16 partial sums errs by >= 1e-4; phase 3 computes both controls
@@ -175,10 +190,18 @@ def needed_bytes(streams) -> int:
     return fixed + int(((hl + 7) // 8).sum())
 
 
-def cuda_ms(fn, reps: int, flush=None) -> float:
-    """Mean device time of ``fn`` over ``reps`` runs (CUDA events), after
-    one warm-up; ``flush`` runs before each timed run, outside the
-    window (evicts the 50 MB L2 so weights are read from memory)."""
+SPIN_CYCLES = 250_000     # ~125 us of a spin kernel before each timed run
+
+
+def cuda_ms(fn, reps: int, flush=None, spin: bool = False) -> float:
+    """Mean time of ``fn`` over ``reps`` runs (CUDA events), after one
+    warm-up; ``flush`` runs before each timed run, outside the window
+    (evicts the 50 MB L2 so weights are read from memory).  The window
+    opens when the host has enqueued the start event, so on an idle card it
+    also holds the host's cost of launching ``fn`` (every kernel time of
+    the ``kernels`` line is taken so, as in earlier runs).  With ``spin``
+    a spin kernel keeps the card busy while the host enqueues ``fn``, so
+    the window holds the device's work alone."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -186,6 +209,8 @@ def cuda_ms(fn, reps: int, flush=None) -> float:
     for _ in range(reps):
         if flush is not None:
             flush()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -505,97 +530,207 @@ def _bf16_sums(x, w):
     return acc
 
 
+def _ptxas_resources() -> dict:
+    """Registers, spills and static shared memory of each matmul kernel
+    instantiation, from the build's ``ptxas -v`` output."""
+    import re
+    from repro_torch.kernels import build
+    kinds = {"ILb1ELb1E": "fused split", "ILb1ELb0E": "fused serial",
+             "ILb0ELb1E": "dense split", "ILb0ELb0E": "dense serial"}
+    out, kind, spill = {}, None, ""
+    for line in build.BUILD_LOG.get("decompress_matmul", {}).get(
+            "ptxas", "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kind = next((v for k, v in kinds.items()
+                         if "matmul_kernel" + k in m.group(1)), m.group(1))
+        elif "spill" in line:
+            spill = line.split(":", 1)[-1].strip()
+        elif "Used" in line and kind:
+            out[kind] = f"{line.split(':', 1)[-1].strip()}; {spill}"
+    return out
+
+
+def _time_leaf(name, k, n, m, x, ct, w, w_t, comp_bytes, codec_obj, flush,
+               plain: bool) -> dict:
+    """Times of one leaf at one M: both entries (the dense-tile one on the
+    row-major and the transposed layout) and torch.matmul in both of
+    cuda_ms's windows (``*_ms`` without, ``*_dev_ms`` with the spin
+    kernel), and the plain versions; bounds from this run's bytes and
+    operations."""
+    import torch
+    from repro_torch.kernels.decompress_matmul import (
+        decompress_matmul_cuda, decompress_matmul_plain, dense_matmul_cuda,
+        dense_matmul_plain)
+    timed = {"ms": lambda: decompress_matmul_cuda(x, ct, k, n),
+             "dense_ms": lambda: dense_matmul_cuda(x, w),
+             "dense_t_ms": lambda: dense_matmul_cuda(x, w_t),
+             "library_ms": lambda: torch.matmul(x, w)}
+    row = {}
+    for key, fn in timed.items():   # both windows (cuda_ms), in one run
+        row[key] = cuda_ms(fn, 20, flush)
+        row[key.replace("ms", "dev_ms")] = cuda_ms(fn, 20, flush, spin=True)
+    if plain:
+        row["plain_ms"] = cuda_ms(lambda: decompress_matmul_plain(
+            x, ct, k, n, codec_obj), 3, flush)
+        row["dense_plain_ms"] = cuda_ms(lambda: dense_matmul_plain(x, w), 3,
+                                        flush)
+    xo = m * k * 2 + m * n * 4
+    flops_ms = 2 * m * k * n / BF16_FLOPS * 1e3   # bf16 x bf16 products
+    row["bound_ms"] = max((comp_bytes + xo) / HBM_BYTES_PER_S * 1e3,
+                          flops_ms)
+    row["dense_bound_ms"] = max((k * n * 2 + xo) / HBM_BYTES_PER_S * 1e3,
+                                flops_ms)
+    log(f"matmul {name} {k}x{n} M={m} (ms [spin window]): fused "
+        f"{row['ms']:.4f} [{row['dev_ms']:.4f}] (bound "
+        f"{row['bound_ms']:.4f}), dense-tile {row['dense_ms']:.4f} "
+        f"[{row['dense_dev_ms']:.4f}], transposed {row['dense_t_ms']:.4f} "
+        f"[{row['dense_t_dev_ms']:.4f}] (bound {row['dense_bound_ms']:.4f}),"
+        f" torch.matmul bf16 {row['library_ms']:.4f} "
+        f"[{row['library_dev_ms']:.4f}]"
+        + (f", plain {row['plain_ms']:.4f}" if plain else ""))
+    return row
+
+
+def _host_us_per_call(codec_obj, gen) -> dict:
+    """Host clock per call of each matmul path over 200 calls issued back
+    to back with one synchronize at the end, on llama's smallest leaf at
+    M = BATCH: the launch cost an eager decode step pays 112 times."""
+    import torch
+    from repro_torch.core.api import slice_stacked
+    from repro_torch.kernels.decompress_matmul import (
+        decompress_matmul_cuda, dense_matmul_cuda)
+    k, n = LEAVES["wk"]
+    w = (torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+         ).to(torch.bfloat16)
+    [ct] = codec_obj.tile_weights_for_fusion_many([w])
+    ct = slice_stacked(ct, 0)
+    x = torch.randn((BATCH, k), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    out = {}
+    for name, fn in (("fused", lambda: decompress_matmul_cuda(x, ct, k, n)),
+                     ("dense", lambda: dense_matmul_cuda(x, w)),
+                     ("torch.matmul", lambda: torch.matmul(x, w))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / 200 * 1e6
+    return out
+
+
 def phase_matmul():
+    """Both entries at every leaf shape of llama3_2_1b and minitron_4b and
+    M in {1, BATCH, BATCH * PROMPT}: fused == dense-tile (row-major and
+    transposed weight) bitwise; each row bitwise equal to the same row at
+    M = 1 and M = BATCH (the two branches of the schedule: split-K at
+    M <= 16, the serial walk above); within MATMUL_ATOL of the plain version
+    and torch.matmul; timed at M = BATCH and M = BATCH * PROMPT."""
     import torch
     from repro_torch.core.api import slice_stacked
     from repro_torch.core.codec_api import Codec
     from repro_torch.kernels.decompress_matmul import (
         decompress_matmul_cuda, decompress_matmul_plain, dense_matmul_cuda,
-        dense_matmul_plain)
+        dense_matmul_plain, last_plan, plan)
     gen = torch.Generator(device="cuda").manual_seed(1)
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
     codec_obj = Codec()
     rows, max_err, max_err_dense, max_err_lib = [], 0.0, 0.0, 0.0
-    controls = {}
-    totals = {k: 0.0 for k in ("fused", "fused_plain", "dense", "dense_plain",
-                               "library", "fused_bound", "dense_bound")}
-    for name, (k, n) in LEAVES.items():
-        w = (torch.nn.init.trunc_normal_(
-            torch.empty((k, n), device="cuda"), 0.0, 1.0, -2.0, 2.0,
-            generator=gen) / math.sqrt(k)).to(torch.bfloat16)
-        [ct] = codec_obj.tile_weights_for_fusion_many([w], shards=2)
-        check(ct is not None, f"{name}: tiles did not compress")
-        ct = slice_stacked(ct, 0)
-        w_dec = codec_obj.untile_matmul_weight(ct, k, n)
-        check(torch.equal(w_dec, w), f"{name}: tile decode not lossless")
-        comp_bytes = needed_bytes(ct.streams)
-        for m in (1, BATCH, BATCH * PROMPT):
-            x = torch.randn((m, k), generator=gen, device="cuda").to(
-                torch.bfloat16)
-            fused = decompress_matmul_cuda(x, ct, k, n)
-            dense = dense_matmul_cuda(x, w_dec)
-            torch.cuda.synchronize()
-            check(torch.equal(fused.view(torch.int32),
-                              dense.view(torch.int32)),
-                  f"{name} M={m}: fused != dense-tile entry bitwise")
-            plain = decompress_matmul_plain(x, ct, k, n, codec_obj)
-            lib = torch.matmul(x.float(), w.float())
-            err = float((fused - plain).abs().max())
-            err_dense = float((dense - dense_matmul_plain(x, w_dec))
-                              .abs().max())
-            err_lib = float((fused - lib).abs().max())
-            check(max(err, err_dense, err_lib) <= MATMUL_ATOL,
-                  f"{name} M={m}: |fused - plain| {err}, |dense-tile - "
-                  f"plain| {err_dense}, |fused - torch.matmul| {err_lib} > "
-                  f"{MATMUL_ATOL}")
-            max_err = max(max_err, err)
-            max_err_dense = max(max_err_dense, err_dense)
-            max_err_lib = max(max_err_lib, err_lib)
-            row = {"leaf": name, "k": k, "n": n, "m": m,
-                   "max_abs_err_plain": err, "max_abs_err_matmul": err_lib}
-            if m == BATCH and "bf16_sums" not in controls:
-                controls["bf16_sums"] = float(
-                    (_bf16_sums(x, w) - plain).abs().max())
-            if m == BATCH:
-                row["ms"] = cuda_ms(
-                    lambda: decompress_matmul_cuda(x, ct, k, n), 20, flush)
-                row["dense_ms"] = cuda_ms(
-                    lambda: dense_matmul_cuda(x, w), 20, flush)
-                row["plain_ms"] = cuda_ms(
-                    lambda: decompress_matmul_plain(x, ct, k, n,
-                                                       codec_obj), 3, flush)
-                row["dense_plain_ms"] = cuda_ms(
-                    lambda: dense_matmul_plain(x, w), 3, flush)
-                row["library_ms"] = cuda_ms(lambda: torch.matmul(x, w), 20,
-                                            flush)
-                xo = m * k * 2 + m * n * 4
-                flops_ms = 2 * m * k * n / F32_FLOPS * 1e3
-                row["bound_ms"] = max((comp_bytes + xo) / HBM_BYTES_PER_S
-                                      * 1e3, flops_ms)
-                row["dense_bound_ms"] = max((k * n * 2 + xo)
-                                            / HBM_BYTES_PER_S * 1e3, flops_ms)
-                for key, src in (("fused", "ms"), ("fused_plain", "plain_ms"),
-                                 ("dense", "dense_ms"),
-                                 ("dense_plain", "dense_plain_ms"),
-                                 ("library", "library_ms"),
-                                 ("fused_bound", "bound_ms"),
-                                 ("dense_bound", "dense_bound_ms")):
-                    totals[key] += row[src]
-                log(f"matmul {name} {k}x{n} M={m}: fused {row['ms']:.4f} ms "
-                    f"(bound {row['bound_ms']:.4f}), dense-tile "
-                    f"{row['dense_ms']:.4f} ms (bound "
-                    f"{row['dense_bound_ms']:.4f}), plain "
-                    f"{row['plain_ms']:.4f} ms, torch.matmul bf16 "
-                    f"{row['library_ms']:.4f} ms; err {err:.3g}")
-            rows.append(row)
+    controls, plans = {}, {}
+    src = {"fused": "ms", "fused_plain": "plain_ms", "dense": "dense_ms",
+           "dense_t": "dense_t_ms", "dense_plain": "dense_plain_ms",
+           "library": "library_ms", "fused_bound": "bound_ms",
+           "dense_bound": "dense_bound_ms", "fused_dev": "dev_ms",
+           "dense_dev": "dense_dev_ms", "dense_t_dev": "dense_t_dev_ms",
+           "library_dev": "library_dev_ms"}
+    totals = {}
+    ms_all = (1, BATCH, BATCH * PROMPT)
+    for model, leaves in (("llama3_2_1b", LEAVES),
+                          ("minitron_4b", MINITRON_LEAVES)):
+        for m_t in (BATCH, BATCH * PROMPT):
+            totals[(model, m_t)] = dict.fromkeys(src, 0.0)
+        for name, (k, n) in leaves.items():
+            w = (torch.nn.init.trunc_normal_(
+                torch.empty((k, n), device="cuda"), 0.0, 1.0, -2.0, 2.0,
+                generator=gen) / math.sqrt(k)).to(torch.bfloat16)
+            [ct] = codec_obj.tile_weights_for_fusion_many([w], shards=2)
+            check(ct is not None, f"{name}: tiles did not compress")
+            ct = slice_stacked(ct, 0)
+            w_dec = codec_obj.untile_matmul_weight(ct, k, n)
+            check(torch.equal(w_dec, w), f"{name}: tile decode not lossless")
+            # the layout a stream handle materializes (stride_k == 1)
+            w_t = w_dec.t().contiguous().t()
+            comp_bytes = needed_bytes(ct.streams)
+            x_all = torch.randn((ms_all[-1], k), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+            by_m = {}
+            for m in ms_all:
+                x = x_all[:m]
+                fused = decompress_matmul_cuda(x, ct, k, n)
+                f_plan = last_plan()
+                dense = dense_matmul_cuda(x, w_dec)
+                d_plan = last_plan()
+                dense_t = dense_matmul_cuda(x, w_t)
+                torch.cuda.synchronize()
+                label = f"{model} {name} M={m}"
+                for entry, pl in (("fused", f_plan), ("dense", d_plan)):
+                    check(pl["split"] == plan(m, k, n).split,
+                          f"{label}: {entry} plan {pl}")
+                    branch = "split" if pl["split"] else "serial"
+                    plans.setdefault(f"{entry} {branch}", pl)
+                for other, what in ((dense, "dense-tile"),
+                                    (dense_t, "dense-tile transposed")):
+                    check(torch.equal(fused.view(torch.int32),
+                                      other.view(torch.int32)),
+                          f"{label}: fused != {what} entry bitwise")
+                plain = decompress_matmul_plain(x, ct, k, n, codec_obj)
+                lib = torch.matmul(x.float(), w.float())
+                err = float((fused - plain).abs().max())
+                err_dense = float((dense - dense_matmul_plain(x, w_dec))
+                                  .abs().max())
+                err_lib = float((fused - lib).abs().max())
+                check(max(err, err_dense, err_lib) <= MATMUL_ATOL,
+                      f"{label}: |fused - plain| {err}, |dense-tile - "
+                      f"plain| {err_dense}, |fused - torch.matmul| "
+                      f"{err_lib} > {MATMUL_ATOL}")
+                max_err = max(max_err, err)
+                max_err_dense = max(max_err_dense, err_dense)
+                max_err_lib = max(max_err_lib, err_lib)
+                by_m[m] = fused
+                row = {"model": model, "leaf": name, "k": k, "n": n, "m": m,
+                       "plan": f_plan, "dense_plan": d_plan,
+                       "max_abs_err_plain": err,
+                       "max_abs_err_matmul": err_lib}
+                if m == BATCH and "bf16_sums" not in controls:
+                    controls["bf16_sums"] = float(
+                        (_bf16_sums(x, w) - plain).abs().max())
+                if m != 1:
+                    row.update(_time_leaf(
+                        f"{model} {name}", k, n, m, x, ct, w, w_t,
+                        comp_bytes, codec_obj, flush,
+                        plain=model == "llama3_2_1b"))
+                    for key, s_key in src.items():
+                        totals[(model, m)][key] += row.get(s_key, 0.0)
+                rows.append(row)
+            # the engine contract: a row's bits do not depend on M (nor on
+            # the branch M takes)
+            for m in ms_all[:-1]:
+                check(torch.equal(by_m[ms_all[-1]][:m].view(torch.int32),
+                                  by_m[m].view(torch.int32)),
+                      f"{model} {name}: rows at M={ms_all[-1]} differ from "
+                      f"M={m}")
     # the kernel's other branches: fp16 / fp32 weights, f32 activations,
-    # ragged K and N (zero-padded tiles), m == n (no high stream)
+    # ragged K and N (zero-padded tiles), m == n (no high stream), each at
+    # a split-K M and a serial M
     from repro_torch.core.params import EnecParams
     for w_dt, (k, n), x_dt, fixed in (
             (torch.float16, (256, 384), torch.bfloat16, False),
             (torch.float32, (256, 384), torch.float32, False),
             (torch.bfloat16, (250, 120), torch.float32, False),
+            (torch.bfloat16, (250, 120), torch.bfloat16, False),
             (torch.bfloat16, (256, 128), torch.bfloat16, True)):
         w = (torch.randn((k, n), generator=gen, device="cuda") * 0.02).to(w_dt)
         p = None
@@ -607,36 +742,71 @@ def phase_matmul():
         [ct] = codec_obj.tile_weights_for_fusion_many([w], p=p)
         ct = slice_stacked(ct, 0)
         check(not fixed or ct.streams.high.shape[-1] == 0, "m == n case")
-        x = torch.randn((5, k), generator=gen, device="cuda").to(x_dt)
-        fused = decompress_matmul_cuda(x, ct, k, n)
-        dense = dense_matmul_cuda(x, w)
-        torch.cuda.synchronize()
-        label = f"{w_dt} {k}x{n} x {x_dt}{' m==n' if fixed else ''}"
-        check(torch.equal(fused.view(torch.int32), dense.view(torch.int32)),
-              f"{label}: fused != dense-tile entry bitwise")
-        plain = decompress_matmul_plain(x, ct, k, n, codec_obj)
-        err = float((fused - plain).abs().max())
-        check(err <= MATMUL_ATOL, f"{label}: |fused - plain| {err}")
-        max_err = max(max_err, err)
-        rows.append({"case": label, "max_abs_err_plain": err})
-        if w_dt == torch.float32:
-            controls["tf32_inputs"] = float(
-                (dense_matmul_plain(_tf32(x), _tf32(w)) - plain)
-                .abs().max())
+        x_all = torch.randn((264, k), generator=gen, device="cuda").to(x_dt)
+        by_m = {}
+        for m in (5, 40, 264):   # both branches of both entries
+            x = x_all[:m]
+            fused = decompress_matmul_cuda(x, ct, k, n)
+            f_plan = last_plan()
+            plans.setdefault("fused split" if f_plan["split"]
+                             else "fused serial", f_plan)
+            dense = dense_matmul_cuda(x, w)
+            dense_t = dense_matmul_cuda(x, w.t().contiguous().t())
+            torch.cuda.synchronize()
+            label = (f"{w_dt} {k}x{n} x {x_dt}{' m==n' if fixed else ''} "
+                     f"M={m}")
+            for other, what in ((dense, "dense-tile"),
+                                (dense_t, "dense-tile transposed")):
+                check(torch.equal(fused.view(torch.int32),
+                                  other.view(torch.int32)),
+                      f"{label}: fused != {what} entry bitwise")
+            plain = decompress_matmul_plain(x, ct, k, n, codec_obj)
+            err = float((fused - plain).abs().max())
+            check(err <= MATMUL_ATOL, f"{label}: |fused - plain| {err}")
+            max_err = max(max_err, err)
+            by_m[m] = fused
+            rows.append({"case": label, "max_abs_err_plain": err})
+            if w_dt == torch.float32 and m == 5:
+                controls["tf32_inputs"] = float(
+                    (dense_matmul_plain(_tf32(x), _tf32(w)) - plain)
+                    .abs().max())
+        for m in (5, 40):
+            check(torch.equal(by_m[264][:m].view(torch.int32),
+                              by_m[m].view(torch.int32)),
+                  f"{label}: rows at M=264 differ from M={m}")
     for name, c in controls.items():
         check(c > MATMUL_ATOL, f"control {name} errs by {c} <= "
               f"{MATMUL_ATOL}: the tolerance would not catch it")
-    log(f"matmul: {len(rows)} shape/M cases, fused == dense-tile bitwise, max "
-        f"|fused - plain| {max_err:.3g}, |dense-tile - plain| "
-        f"{max_err_dense:.3g}, |fused - torch.matmul| {max_err_lib:.3g} <= "
-        f"{MATMUL_ATOL}; controls (must exceed it) {controls}; one layer's "
-        f"7 leaves at M={BATCH}: fused {totals['fused']:.4f} ms, bound "
-        f"{totals['fused_bound']:.4f} ms")
-    RESULTS["matmul"] = {"rows": rows, "totals_m_batch": totals,
+    host_us = _host_us_per_call(codec_obj, gen)
+    log(f"matmul host time a call (llama wk, M={BATCH}, 200 calls, one "
+        f"synchronize): {host_us}")
+    resources = {"ptxas": _ptxas_resources(), "plans": plans,
+                 "host_us_per_call": host_us}
+    for kind, line in resources["ptxas"].items():
+        log(f"matmul ptxas {kind}: {line}")
+    for kind, pl in plans.items():
+        log(f"matmul plan {kind}: {pl}")
+    t = totals[("llama3_2_1b", BATCH)]
+    log(f"matmul: {len(rows)} shape/M cases, fused == dense-tile (row-major "
+        f"and transposed) bitwise, rows independent of M, max |fused - "
+        f"plain| {max_err:.3g}, |dense-tile - plain| {max_err_dense:.3g}, "
+        f"|fused - torch.matmul| {max_err_lib:.3g} <= {MATMUL_ATOL}; "
+        f"controls (must exceed it) {controls}")
+    for (model, m), tt in totals.items():
+        log(f"matmul one {model} layer's 7 leaves at M={m} (ms [spin "
+            f"window]): fused {tt['fused']:.4f} [{tt['fused_dev']:.4f}] "
+            f"(bound {tt['fused_bound']:.4f}), dense-tile {tt['dense']:.4f} "
+            f"[{tt['dense_dev']:.4f}] / transposed {tt['dense_t']:.4f} "
+            f"[{tt['dense_t_dev']:.4f}] (bound {tt['dense_bound']:.4f}), "
+            f"torch.matmul {tt['library']:.4f} [{tt['library_dev']:.4f}]")
+    RESULTS["matmul"] = {"rows": rows, "totals_m_batch": t,
+                         "totals": {f"{mo} M={m}": tt
+                                    for (mo, m), tt in totals.items()},
                          "max_abs_err": max_err,
                          "max_abs_err_dense": max_err_dense,
                          "max_abs_err_matmul": max_err_lib,
-                         "atol": MATMUL_ATOL, "controls": controls}
+                         "atol": MATMUL_ATOL, "controls": controls,
+                         "resources": resources}
     del flush_buf
     torch.cuda.empty_cache()
 
@@ -1169,14 +1339,23 @@ def kernels_line(launches):
          "replaces": "src/repro/kernels/decompress_matmul.py:66",
          "max_abs_err": mm["max_abs_err"], "ms": t["fused"],
          "plain_ms": t["fused_plain"], "bound_ms": t["fused_bound"],
-         "bound_by": "bytes", "library_ms": t["library"]},
+         "bound_by": "bytes", "library_ms": t["library"],
+         "timed": {c: {k: v[k] for k in ("fused", "fused_bound", "library")}
+                   for c, v in mm["totals"].items()},
+         "resources": {k: v for k, v in mm["resources"]["ptxas"].items()
+                       if k.startswith("fused")}},
         {"name": "dense_tile_matmul", "route": "cuda",
          "source": src + "decompress_matmul.cu",
          "replaces": "src/repro/kernels/ref.py:31",
          "max_abs_err": mm["max_abs_err_dense"],
          "ms": t["dense"], "plain_ms": t["dense_plain"],
          "bound_ms": t["dense_bound"], "bound_by": "bytes",
-         "library_ms": t["library"]},
+         "library_ms": t["library"],
+         "timed": {c: {k: v[k] for k in ("dense", "dense_t", "dense_bound",
+                                         "library")}
+                   for c, v in mm["totals"].items()},
+         "resources": {k: v for k, v in mm["resources"]["ptxas"].items()
+                       if k.startswith("dense")}},
         {"name": "enec_encode", "route": "cuda",
          "source": src + "enec_encode.cu",
          "replaces": "src/repro/kernels/enec_encode.py:89",

@@ -140,6 +140,114 @@ __device__ __forceinline__ void decode_staged(const Stage& S, const Params& P,
   }
 }
 
+// ---- decode with the block size and stream widths known at compile time --
+// The fused matmul's tiles are always 16384-element blocks, so the fold
+// structure of each packed stream (folds, lanes and byte base of every
+// level) is a constant of the width: unpack_fixed<W, N> is unpack_elem with
+// its fold loops unrolled, reached through one uniform switch on the width.
+
+namespace fixed {
+
+__host__ __device__ constexpr int folds_of(int a, int len) {
+  int f = 0;
+  while (a < 8 && len > 1) { a <<= 1; len >>= 1; ++f; }
+  return f;
+}
+
+__host__ __device__ constexpr int log2_of(int x) {
+  int r = 0;
+  while (x > 1) { x >>= 1; ++r; }
+  return r;
+}
+
+// One level of unpack_elem's loop: A bits a lane over LEN lanes at BASE.
+template <int A, int LEN, int BASE>
+__device__ __forceinline__ void level(const uint8_t* s, int elem, int lo,
+                                      int cnt, int dst, uint32_t& v) {
+  constexpr int F = folds_of(A, LEN);
+  constexpr int SUB = LEN >> F;
+  constexpr int W = A << F;
+  const int j = elem & (SUB - 1);
+  int pos = lo;
+  if constexpr (F > 0)
+    pos += A * int(__brev(unsigned(elem >> log2_of(SUB))) >> (32 - F));
+  const int hi = pos + cnt;
+  if (pos < 8) {
+    const int take = min(hi, 8) - pos;
+    v |= ((uint32_t(s[BASE + j]) >> pos) & ((1u << take) - 1u)) << dst;
+    dst += take;
+  }
+  if constexpr (W > 8) {
+    if (hi > 8) {
+      const int lo2 = max(pos, 8) - 8;
+      level<W - 8, SUB, BASE + SUB>(s, j, lo2, hi - 8 - lo2, dst, v);
+    }
+  }
+}
+
+template <int WIDTH, int N>
+__device__ __forceinline__ uint32_t unpack(const uint8_t* s, int i) {
+  uint32_t v = 0;
+#pragma unroll
+  for (int k = 0; k < (WIDTH >> 3); ++k)
+    v |= uint32_t(s[k * N + i]) << (8 * k);
+  if constexpr ((WIDTH & 7) != 0)
+    level<WIDTH & 7, N, (WIDTH >> 3) * N>(s, i, 0, WIDTH & 7,
+                                          8 * (WIDTH >> 3), v);
+  return v;
+}
+
+}  // namespace fixed
+
+// The `width`-bit value of element i of an N-lane packed stream, through
+// the unrolled unpack for the widths ENEC's streams take (1..8 for the
+// exponent streams; 8, 11, 24 for bf16 / fp16 / fp32 sign+mantissa).
+template <int N>
+__device__ __forceinline__ uint32_t unpack_fixed(const uint8_t* s, int i,
+                                                 int width) {
+  switch (width) {
+    case 1: return fixed::unpack<1, N>(s, i);
+    case 2: return fixed::unpack<2, N>(s, i);
+    case 3: return fixed::unpack<3, N>(s, i);
+    case 4: return fixed::unpack<4, N>(s, i);
+    case 5: return fixed::unpack<5, N>(s, i);
+    case 6: return fixed::unpack<6, N>(s, i);
+    case 7: return fixed::unpack<7, N>(s, i);
+    case 8: return fixed::unpack<8, N>(s, i);
+    case 11: return fixed::unpack<11, N>(s, i);
+    case 24: return fixed::unpack<24, N>(s, i);
+    default: return unpack_elem(s, i, width, N);
+  }
+}
+
+// decode_staged for blocks of exactly N elements (P.n_elems == N): the same
+// values in the same calls to store, with the unrolled unpacks and the
+// group index by a shift when L is a power of two.
+template <int N, typename Store>
+__device__ __forceinline__ void decode_staged_fixed(const Stage& S,
+                                                    const Params& P, int b,
+                                                    int l, Store store) {
+  const int mod = (1 << P.n) - 1;
+  const int c = (b - l) & mod;
+  const int hw = P.n - P.m;
+  const uint32_t mant_mask = (1u << P.mant_bits) - 1u;
+  const int lshift = (P.L & (P.L - 1)) ? -1 : __ffs(P.L) - 1;
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    const int grp = lshift >= 0 ? i >> lshift : i / P.L;
+    uint32_t y = unpack_fixed<N>(S.low, i, P.m);
+    if (hw > 0 && ((S.mask[grp >> 3] >> (grp & 7)) & 1)) {
+      const int src = S.rank[grp] * P.L + (i - grp * P.L);
+      y |= unpack_fixed<N>(S.high, src, hw) << P.m;
+    }
+    const uint32_t e = uint32_t(l + ((c - int(y)) & mod)) & 0xFFFFu;
+    const uint32_t raw = unpack_fixed<N>(S.raw, i, P.mant_bits + 1);
+    uint32_t bits = (((raw >> P.mant_bits) & 1u) << (P.total_bits - 1)) |
+                    (e << P.mant_bits) | (raw & mant_mask);
+    if (P.total_bits == 16) bits &= 0xFFFFu;
+    store(i, bits);
+  }
+}
+
 __device__ __forceinline__ float bits_to_float(uint32_t bits, int mant_bits) {
   if (mant_bits == 7) return __uint_as_float(bits << 16);           // bf16
   if (mant_bits == 10) return __half2float(__ushort_as_half((unsigned short)bits));

@@ -28,6 +28,8 @@ from repro.core.dtypes import FORMATS as JAX_FORMATS
 from repro_torch.core.dtypes import BF16, FORMATS, to_container
 from repro_torch.core.params import EnecParams
 from repro_torch.kernels.decompress_matmul import (DENSE_LAUNCHES,
+                                                  FUSED_LAUNCHES,
+                                                  decompress_matmul_cuda,
                                                   decompress_matmul_plain,
                                                   dense_matmul_cuda,
                                                   dense_matmul_plain)
@@ -208,9 +210,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                        vec)
     with pytest.raises(ValueError):
         dense_matmul_cuda(torch.zeros(2, 128), torch.zeros(128, 128))
+    _, _, tct = _fused_pair(256, 128, 1, seed=5)
+    with pytest.raises(ValueError):
+        decompress_matmul_cuda(torch.zeros(2, 256, dtype=torch.bfloat16),
+                               tct, 256, 128)
     with pytest.raises(ValueError):
         enec_encode.encode_blocks_cuda(
             to_container(torch.from_numpy(bits.astype(np.int32)), BF16), BF16,
             p, vec)
     assert enec_decode.LAUNCHES.n == 0 and DENSE_LAUNCHES.n == 0
+    assert FUSED_LAUNCHES.n == 0
     assert enec_encode.LAUNCHES.n == 0
