@@ -50,10 +50,13 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
            least ``--min-bytes`` moved host to device as dense bytes, and
            restore decode dispatches equal to the restore plan's buckets.
    scan    the standalone prefix-sum kernel through ``ops.idd_scan``:
-           bitwise equal to ``torch.cumsum`` and the plain version on the
-           shapes of tests/test_kernels.py, bool input, the llama embed's
-           (16032, 1024) blocks x groups and (8, 2**20) long rows of
-           full-range values; timed at the last two beside torch.cumsum.
+           bitwise equal to ``torch.cumsum`` and the plain version in both
+           branches of its plan (one warp a row; the look-back scan across
+           CTAs) on the shapes of tests/test_kernels.py, bool input, the
+           llama embed's (16032, 1024) blocks x groups, (8, 2**20) long
+           rows of full-range values and ragged last tiles, again after
+           the timed runs; timed at the embed's and the long rows' shapes
+           beside torch.cumsum, with the ptxas resources and the plans.
    kv_attention
            decode attention over an ENEC-compressed KV prefix through
            ``ops.compress_kv_prefix`` + ``ops.decode_attention_kv_enec``:
@@ -61,8 +64,11 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
            back losslessly), the kernel within the reference test's
            tolerance of its plain version and of dense attention on the
            decoded K/V, on that test's grid, an m == n case and two
-           full-width shapes (B 8, S 32768, KV 8, grp 3 and 8); the
-           full-width ones timed beside SDPA on the dense bf16 K/V.
+           full-width shapes (B 8, S 32768, KV 8, grp 3 and 8), under the
+           planner's split-KV grid and other partitions of the chunks;
+           the full-width ones on at least one CTA an SM, bitwise equal
+           across two calls, timed beside SDPA on the dense bf16 K/V,
+           with the ptxas resources and the plans.
    serve_minitron
            minitron_4b at full width through ``launch.serve.main`` in
            fused, stream and dense modes (batch 4, prompt 64, 16 new
@@ -149,6 +155,7 @@ SCAN_LONG = (8, 1 << 20)
 # (64 over 8); the tolerance is that test's (f32 sums in another order,
 # through exp and one division)
 KV_GRID = ((1, 128, 1, 1), (2, 256, 2, 4), (1, 512, 4, 8))
+KV_GRP12 = (1, 384, 2, 12)     # two blocks of 8 queries in the kernel
 KV_FULL = {"minitron_4b": (8, 32768, 8, 3), "qwen3_32b": (8, 32768, 8, 8)}
 KV_ATOL, KV_RTOL = 2e-5, 1e-4
 # At S = 32768 the outputs are ~2e-3, so KV_ATOL alone would pass a kernel
@@ -530,20 +537,24 @@ def _bf16_sums(x, w):
     return acc
 
 
-def _ptxas_resources() -> dict:
-    """Registers, spills and static shared memory of each matmul kernel
-    instantiation, from the build's ``ptxas -v`` output."""
+def _ptxas_resources(source: str = "decompress_matmul",
+                     kinds: dict = None) -> dict:
+    """Registers, spills and static shared memory of each kernel of one
+    source's build, from its ``ptxas -v`` output, keyed by ``kinds`` (a
+    mangled-name fragment -> label; the matmul's four instantiations by
+    default)."""
     import re
     from repro_torch.kernels import build
-    kinds = {"ILb1ELb1E": "fused split", "ILb1ELb0E": "fused serial",
-             "ILb0ELb1E": "dense split", "ILb0ELb0E": "dense serial"}
+    if kinds is None:
+        kinds = {"ILb1ELb1E": "fused split", "ILb1ELb0E": "fused serial",
+                 "ILb0ELb1E": "dense split", "ILb0ELb0E": "dense serial"}
     out, kind, spill = {}, None, ""
-    for line in build.BUILD_LOG.get("decompress_matmul", {}).get(
+    for line in build.BUILD_LOG.get(source, {}).get(
             "ptxas", "").splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            kind = next((v for k, v in kinds.items()
-                         if "matmul_kernel" + k in m.group(1)), m.group(1))
+            kind = next((v for k, v in kinds.items() if k in m.group(1)),
+                        m.group(1))
         elif "spill" in line:
             spill = line.split(":", 1)[-1].strip()
         elif "Used" in line and kind:
@@ -1002,58 +1013,100 @@ def _int_err(a, b) -> int:
 
 def phase_scan():
     """Kernel 3 through its entry point ``ops.idd_scan``, bitwise against
-    ``torch.cumsum`` and the plain version; timed at the embed's and the
-    long rows' shapes."""
+    ``torch.cumsum`` and the plain version, in both branches of its plan
+    (warp rows: the reference test's shapes, bool input, the embed's
+    (16032, 1024), rows of 4096, 32 x SMs rows of 8320; look-back: the
+    (8, 2**20) long rows of full-range values, a ragged last tile in
+    int32 and in bool); the look-back again after the timed runs (the
+    status words' epochs and the ticket reset); timed at the embed's and
+    the long rows' shapes."""
+    import importlib
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.idd_scan import idd_scan_cuda, idd_scan_plain
+    scan_mod = importlib.import_module("repro_torch.kernels.idd_scan")
     from repro_torch.launch import serve
     gen = torch.Generator(device="cuda").manual_seed(4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def bits(shape):
         return torch.rand(shape, generator=gen, device="cuda") < 0.3
 
+    def full_range(shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
+                             device="cuda", dtype=torch.int32)
+
     cases = [(f"{shape} int32", bits(shape).to(torch.int32))
              for shape in SCAN_SHAPES]
     cases += [("(3, 2048) bool", bits((3, 2048))),
+              ("(64, 4096) int32", full_range((64, 4096))),
+              (f"({32 * sms}, 8320) int32", full_range((32 * sms, 8320))),
+              ("(3, 24704) bool", bits((3, 3 * 8192 + 128))),
+              ("(2, 24704) int32", full_range((2, 3 * 8192 + 128))),
               (f"{SCAN_EMBED} int32", bits(SCAN_EMBED).to(torch.int32)),
               # full-range values: the sums wrap mod 2**32 many times
-              (f"{SCAN_LONG} int32", torch.randint(
-                  -2 ** 31, 2 ** 31, SCAN_LONG, generator=gen, device="cuda",
-                  dtype=torch.int32))]
+              (f"{SCAN_LONG} int32", full_range(SCAN_LONG))]
     serve.reset_launch_counts()          # this path's run starts here ...
     got = [ops.idd_scan(x) for _, x in cases]
     torch.cuda.synchronize()
     launches = serve.launch_counts()     # ... and ends here
-    max_err = 0
+    max_err, branches = 0, {}
     for (label, x), out in zip(cases, got):
         want = torch.cumsum(x.to(torch.int32), -1, dtype=torch.int32)
         check(out.dtype == torch.int32 and torch.equal(out, want),
               f"scan kernel != torch.cumsum ({label})")
-        check(torch.equal(out, idd_scan_plain(x)),
+        check(torch.equal(out, scan_mod.idd_scan_plain(x)),
               f"scan kernel != plain ({label})")
         max_err = max(max_err, _int_err(out, want))
+        p = scan_mod.plan(*x.shape, x.dtype == torch.bool, sms)
+        branches[label] = {"lookback": p.lookback, "grid": p.grid,
+                           "tiles_per_row": p.tiles_per_row}
     check(launches["idd_scan"] == len(cases),
           f"{launches['idd_scan']} scan launches for {len(cases)} calls")
+    check({b["lookback"] for b in branches.values()} == {False, True},
+          f"the scan cases do not reach both branches: {branches}")
+    check(branches[f"{SCAN_LONG} int32"]["grid"] > SCAN_LONG[0],
+          f"the long rows ran on {branches[f'{SCAN_LONG} int32']['grid']} "
+          f"CTAs")
     log(f"scan: {len(cases)} cases bitwise equal to torch.cumsum and the "
-        f"plain version; launches {launches}")
+        f"plain version; plans {branches}; launches {launches}")
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     timed = {}
     for label, x in cases[-2:]:
-        row = {"ms": cuda_ms(lambda: idd_scan_cuda(x), 20, flush_buf.zero_),
-               "plain_ms": cuda_ms(lambda: idd_scan_plain(x), 20,
+        row = {"ms": cuda_ms(lambda: scan_mod.idd_scan_cuda(x), 20,
+                             flush_buf.zero_),
+               "plain_ms": cuda_ms(lambda: scan_mod.idd_scan_plain(x), 20,
                                    flush_buf.zero_),
                "library_ms": cuda_ms(lambda: torch.cumsum(
                    x, -1, dtype=torch.int32), 20, flush_buf.zero_),
                "bound_ms": x.numel() * (x.element_size() + 4)
-               / HBM_BYTES_PER_S * 1e3}
+               / HBM_BYTES_PER_S * 1e3, "plan": branches[label],
+               # the device's work alone (a spin kernel ahead of the window)
+               "dev_ms": cuda_ms(lambda: scan_mod.idd_scan_cuda(x), 20,
+                                 flush_buf.zero_, spin=True),
+               "library_dev_ms": cuda_ms(lambda: torch.cumsum(
+                   x, -1, dtype=torch.int32), 20, flush_buf.zero_,
+                   spin=True)}
         timed[label] = row
         log(f"scan {label}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, torch.cumsum {row['library_ms']:.4f} "
             f"ms, bound {row['bound_ms']:.4f} ms, "
-            f"{row['bound_ms'] / row['ms']:.3f} of bound")
+            f"{row['bound_ms'] / row['ms']:.3f} of bound; spin window: kernel "
+            f"{row['dev_ms']:.4f} ms, torch.cumsum "
+            f"{row['library_dev_ms']:.4f} ms; plan {row['plan']}")
+    # after the timed launches (new epochs on the same status words)
+    for label, x in cases[-4:]:
+        check(torch.equal(scan_mod.idd_scan_cuda(x), torch.cumsum(
+            x.to(torch.int32), -1, dtype=torch.int32)),
+            f"scan kernel != torch.cumsum after the timed runs ({label})")
+    resources = _ptxas_resources("idd_scan", {
+        "scan_rows_kernelIiE": "rows int32", "scan_rows_kernelIhE":
+        "rows bool", "scan_lookback_kernelIiE": "lookback int32",
+        "scan_lookback_kernelIhE": "lookback bool"})
+    for kind, line in resources.items():
+        log(f"scan ptxas {kind}: {line}")
     RESULTS["scan"] = {"cases": [label for label, _ in cases],
                        "max_abs_err": max_err, "timed": timed,
+                       "plans": branches, "resources": resources,
                        "row_shape": f"{SCAN_EMBED} int32"}
     del cases, got, flush_buf
     torch.cuda.empty_cache()
@@ -1064,10 +1117,10 @@ def phase_scan():
 # phase kv_attention: decode attention over an ENEC-compressed KV prefix
 # ---------------------------------------------------------------------------
 
-def _kv_case(shape, gen, m_equals_n=False):
+def _kv_case(shape, gen, m_equals_n=False, group=None):
     """Seeded bf16 q, K, V (normal x 0.3, as the reference test makes them)
     and params searched over K and V together (or m == n over their
-    exponent range)."""
+    exponent range; or the searched ones with group length ``group``)."""
     import torch
     from repro_torch.core import params, stats
     from repro_torch.core.dtypes import BF16
@@ -1089,6 +1142,8 @@ def _kv_case(shape, gen, m_equals_n=False):
     else:
         p = params.widen_for_range(
             params.search(st.hist, BF16, block_elems=128 * 128), lo, hi)
+    if group is not None:
+        p = EnecParams(b=p.b, n=p.n, m=p.m, L=group, l=p.l)
     return q, k, v, p
 
 
@@ -1110,17 +1165,33 @@ def _kv_tiles(kv):
         torch.int16)
 
 
+def _kv_plan_summary(pl) -> dict:
+    """How a kernel-5 plan cuts its pairs: pairs held whole by one CTA,
+    pairs split across CTAs, the most CTAs sharing one pair, and CTAs
+    whose range cuts a pair mid-way."""
+    parts = [len(pl.contributors(p)) for p in range(pl.pairs)]
+    cuts = sum(1 for a, e in pl.ranges()
+               if a % pl.n_chunks or e % pl.n_chunks)
+    return {"grid": pl.grid, "whole_pairs": parts.count(1),
+            "split_pairs": len(parts) - parts.count(1),
+            "max_ctas_a_pair": max(parts), "ctas_cutting_a_pair": cuts}
+
+
 def phase_kv_attention():
     """Kernel 5 through its entry points ``ops.compress_kv_prefix`` and
     ``ops.decode_attention_kv_enec``: the compressed prefix byte-identical
     to the plain encoder, the attention within tolerance of its plain
-    version and of dense attention on the decoded K/V; the two full-width
-    shapes timed beside SDPA on the dense K/V."""
+    version and of dense attention on the decoded K/V, under the planner's
+    grid and under other partitions of the items (one CTA, ranges that cut
+    pairs mid-way, one item a CTA); at the two full-width shapes a grid of
+    at least one CTA an SM, the bits equal across two calls, and the times
+    beside SDPA on the dense K/V."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import codec
     from repro_torch.core.dtypes import BF16
     from repro_torch.kernels import ops
+    from repro_torch.kernels import decode_attention_kv as dak
     from repro_torch.kernels.decode_attention_kv import (
         decode_attention_kv_enec_cuda, decode_attention_kv_plain)
     from repro_torch.kernels.enec_decode import decode_blocks_plain
@@ -1129,20 +1200,26 @@ def phase_kv_attention():
     gen = torch.Generator(device="cuda").manual_seed(5)
     cases = [(f"grid {shape}", _kv_case(shape, gen)) for shape in KV_GRID]
     cases.append((f"m == n {KV_GRID[1]}", _kv_case(KV_GRID[1], gen, True)))
+    # 16 groups a block: a 2-byte mask stream, staged by plain loads (not
+    # 16-byte aligned), and a partial mask word in the warps' rank
+    cases.append((f"L 1024 {KV_GRID[1]}", _kv_case(KV_GRID[1], gen,
+                                                   group=1024)))
+    cases.append((f"grp 12 {KV_GRP12}", _kv_case(KV_GRP12, gen)))
     cases += [(f"{name} {shape}", _kv_case(shape, gen))
               for name, shape in KV_FULL.items()]
     serve.reset_launch_counts()          # this path's run starts here ...
-    runs = []
+    runs, plans = [], []
     for _, (q, k, v, p) in cases:
         ks, vs = ops.compress_kv_prefix(k, p), ops.compress_kv_prefix(v, p)
         runs.append((ks, vs, ops.decode_attention_kv_enec(q, ks, vs, p)))
+        plans.append(dak.launch_plan(q, ks, p)[1])
     torch.cuda.synchronize()
     launches = serve.launch_counts()     # ... and ends here
     check(launches["decode_attention_kv"] == len(cases)
           and launches["enec_encode"] == 2 * len(cases),
           f"kv_attention launches {launches} for {len(cases)} cases")
     rows, max_err = {}, 0.0
-    for (label, (q, k, v, p)), (ks, vs, out) in zip(cases, runs):
+    for (label, (q, k, v, p)), (ks, vs, out), lp in zip(cases, runs, plans):
         for kv, s in ((k, ks), (v, vs)):
             tiles = _kv_tiles(kv)
             want = encode_blocks_plain(tiles, BF16, p)
@@ -1170,13 +1247,36 @@ def phase_kv_attention():
             check(rel <= KV_REL, f"{label}: |{name}| / max|dense| {rel} > "
                   f"{KV_REL}")
         max_err = max(max_err, err_plain, err_dense)
+        b, s, n_kv, hd = k.shape
+        grp = q.shape[2]
+        lp |= _kv_plan_summary(dak.Plan(b * n_kv, s // 128, grp, lp["grid"]))
         row = {"shape": label, "params": list(p.astuple()),
                "ratio_k": BF16.total_bits * k.numel() / 8
                / needed_bytes(ks), "max_abs_err_plain": err_plain,
                "max_abs_err_dense": err_dense,
                "max_abs_err_plain_dense": err_plain_dense,
-               "max_abs_out": scale}
+               "max_abs_out": scale, "plan": lp}
+        # other partitions of the same items (after the main path's run):
+        # one CTA, ranges that cut pairs mid-way, one item a CTA
+        items = b * n_kv * (s // 128)
+        grids = ({1, 3, 5, items} if items <= 64 else {2 * lp["sm_count"]})
+        grids.discard(lp["grid"])
+        for g in sorted(g for g in grids if g <= items):
+            alt = decode_attention_kv_enec_cuda(q, ks, vs, p, grid=g)
+            summ = _kv_plan_summary(dak.Plan(b * n_kv, s // 128, grp, g))
+            err = float((alt - plain).abs().max())
+            check(torch.allclose(alt, plain, atol=KV_ATOL, rtol=KV_RTOL)
+                  and err / scale <= KV_REL, f"{label}: grid {g} ({summ}) "
+                  f"|kernel - plain| {err} beyond the limits")
+            row.setdefault("other_grids", {})[g] = summ | {"max_abs_err": err}
+            max_err = max(max_err, err)
         if label.split()[0] in KV_FULL:
+            check(lp["grid"] >= lp["sm_count"], f"{label}: grid {lp['grid']} "
+                  f"below the {lp['sm_count']} SMs")
+            again = decode_attention_kv_enec_cuda(q, ks, vs, p)
+            check(torch.equal(again.view(torch.int32), out.view(torch.int32)),
+                  f"{label}: two calls differ in their bits")
+            del again
             c = ks.mask.shape[2]
             control = float((_dense_attention(q, k[:, :-128], v[:, :-128])
                              - dense).abs().max()) / scale
@@ -1190,8 +1290,6 @@ def phase_kv_attention():
                 q, ks, vs, p), 5, flush_buf.zero_)
             row["plain_ms"] = cuda_ms(lambda: decode_attention_kv_plain(
                 q, ks, vs, p), 2, flush_buf.zero_)
-            b, s, n_kv, hd = k.shape
-            grp = q.shape[2]
             q4 = q.reshape(b, n_kv * grp, 1, hd)
             k4 = k.permute(0, 2, 1, 3).contiguous()
             v4 = v.permute(0, 2, 1, 3).contiguous()
@@ -1203,6 +1301,12 @@ def phase_kv_attention():
                 lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                        enable_gqa=True),
                 5, flush_buf.zero_)
+            row["dev_ms"] = cuda_ms(lambda: decode_attention_kv_enec_cuda(
+                q, ks, vs, p), 5, flush_buf.zero_, spin=True)
+            row["library_dev_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                       enable_gqa=True),
+                5, flush_buf.zero_, spin=True)
             in_bytes = (needed_bytes(ks) + needed_bytes(vs)
                         + q.numel() * q.element_size())
             out_bytes = out.numel() * out.element_size()
@@ -1219,17 +1323,25 @@ def phase_kv_attention():
                 f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
                 f"({row['bound_by']}; {in_bytes + out_bytes} bytes, K "
                 f"ratio {row['ratio_k']:.4f}), {row['bound_ms'] / row['ms']:.4f}"
-                f" of bound; control {control:.3g}")
+                f" of bound; spin window: kernel {row['dev_ms']:.4f} ms, SDPA "
+                f"{row['library_dev_ms']:.4f} ms; control {control:.3g}; plan "
+                f"{lp}")
             del q4, k4, v4, sdpa, flush_buf
         rows[label] = row
         del plain, dense
     log(f"kv_attention: {len(cases)} cases, compressed prefix byte-identical "
         f"to the plain encoder, kernel within atol {KV_ATOL} / rtol "
-        f"{KV_RTOL} and {KV_REL} relative of plain and dense attention, max "
-        f"|err| {max_err:.3g}; launches {launches}")
+        f"{KV_RTOL} and {KV_REL} relative of plain and dense attention at "
+        f"every grid, the full-width calls bitwise equal across two calls, "
+        f"max |err| {max_err:.3g}; launches {launches}")
+    resources = _ptxas_resources("decode_attention_kv", {
+        "decode_attention_kv_kernelILi1E": "grp <= 8",
+        "decode_attention_kv_kernelILi2E": "grp 9..16"})
+    for kind, line in resources.items():
+        log(f"kv_attention ptxas {kind}: {line}")
     RESULTS["kv_attention"] = {"rows": rows, "max_abs_err": max_err,
                                "atol": KV_ATOL, "rtol": KV_RTOL,
-                               "rel": KV_REL}
+                               "rel": KV_REL, "resources": resources}
     del cases, runs
     torch.cuda.empty_cache()
     return {"kv_attention": launches}
@@ -1368,7 +1480,8 @@ def kernels_line(launches):
          "max_abs_err": sc["max_abs_err"], "shape": sc["row_shape"],
          "ms": sc_row["ms"], "plain_ms": sc_row["plain_ms"],
          "bound_ms": sc_row["bound_ms"], "bound_by": "bytes",
-         "library_ms": sc_row["library_ms"], "timed": sc["timed"]},
+         "library_ms": sc_row["library_ms"], "timed": sc["timed"],
+         "plan": sc_row["plan"], "resources": sc["resources"]},
         {"name": "decode_attention_kv", "route": "cuda",
          "source": src + "decode_attention_kv.cu",
          "replaces": "src/repro/kernels/decode_attention_kv.py:105",
@@ -1377,8 +1490,10 @@ def kernels_line(launches):
          "bound_ms": kv_row["bound_ms"], "bound_by": kv_row["bound_by"],
          "library_ms": kv_row["library_ms"],
          "timed": {label: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
-                                             "library_ms")}
-                   for label, r in kv["rows"].items() if "ms" in r}},
+                                             "library_ms", "dev_ms",
+                                             "library_dev_ms", "plan")}
+                   for label, r in kv["rows"].items() if "ms" in r},
+         "plan": kv_row["plan"], "resources": kv["resources"]},
     ]
     for row in rows:
         path = KERNEL_PATH[row["name"]]

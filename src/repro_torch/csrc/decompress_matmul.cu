@@ -61,8 +61,11 @@
 #include <cuda_runtime.h>
 
 #include "enec_block.cuh"
+#include "ptx.cuh"
 
 namespace {
+
+using namespace ptx;
 
 constexpr int kTile = 128;
 constexpr int kThreads = enec::kThreads;   // 512: 16 warps
@@ -132,100 +135,6 @@ __host__ __device__ inline Layout make_layout(bool fused, const Args& a) {
   L.misc = L.rank + rank_bytes;
   L.total = L.misc + 32;   // mbarriers, 8 bytes a stage
   return L;
-}
-
-// ---- PTX helpers ----------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>   // wait until at most kPending groups are pending
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait for the phase of `parity` to complete; traps (a launch error, not
-// a hang) if the expected bytes never arrive.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  for (long long tries = 0; !done; ++tries) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (tries > (1ll << 26)) __trap();
-  }
-}
-
-__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
-                                         int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p,
-                                            bool trans) {
-  if (trans)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_u32(p)));
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---- the tile product, shared by both entries -------------------------------
@@ -389,28 +298,6 @@ __device__ __forceinline__ void stage_w_tile(uint8_t* dst, const Args& a,
             ok ? reinterpret_cast<const uint32_t*>(w)[idx] : 0u;
     }
   }
-}
-
-// One stream of block `blk`: bulk copy on the mbarrier when aligned
-// (issued by thread 0, bytes already expected), else cp.async / loads.
-__device__ __forceinline__ void stage_stream(uint8_t* dst, const uint8_t* base,
-                                             int w, size_t blk,
-                                             uint64_t* bar) {
-  if (w == 0) return;
-  const uint8_t* src = base + blk * w;
-  if (((reinterpret_cast<uintptr_t>(base) | unsigned(w)) & 15) == 0) {
-    if (threadIdx.x == 0) bulk_g2s(dst, src, w, bar);
-  } else if (((reinterpret_cast<uintptr_t>(src) | unsigned(w)) & 3) == 0) {
-    for (int k = threadIdx.x; k < (w >> 2); k += blockDim.x)
-      cp_async4(dst + 4 * k, src + 4 * k);
-  } else {
-    for (int k = threadIdx.x; k < w; k += blockDim.x) dst[k] = src[k];
-  }
-}
-
-__device__ __forceinline__ int bulk_bytes(const uint8_t* base, int w) {
-  return (w && ((reinterpret_cast<uintptr_t>(base) | unsigned(w)) & 15) == 0)
-             ? w : 0;
 }
 
 // ---- the kernel -------------------------------------------------------------

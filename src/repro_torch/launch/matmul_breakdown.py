@@ -104,8 +104,10 @@ _TL_READ = ('\nextern "C" void matmul_timeline(unsigned long long* out) {\n'
             '  cudaMemcpyFromSymbol(out, g_tl, sizeof(g_tl));\n}\n')
 
 
-def _variant(name: str, subs) -> str:
-    src = (build.CSRC / "decompress_matmul.cu").read_text()
+def _variant(name: str, subs, source: str = "decompress_matmul") -> str:
+    """``csrc/<source>.cu`` with each (old, new) substitution made once;
+    raises if a line it names is gone."""
+    src = (build.CSRC / f"{source}.cu").read_text()
     for old, new in subs:
         if old not in src:
             raise RuntimeError(f"{name}: the kernel source no longer has "
@@ -114,30 +116,37 @@ def _variant(name: str, subs) -> str:
     return src
 
 
-def build_variants(names) -> dict:
-    """nvcc every variant in parallel; returns name -> ctypes.CDLL."""
-    OUT.mkdir(parents=True, exist_ok=True)
+def build_sources(texts: dict, source: str, out: Path) -> dict:
+    """nvcc each edited copy (name -> text of ``csrc/<source>.cu``) in
+    parallel into ``out/<name>/``; returns name -> ctypes.CDLL."""
+    out.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name in names:
-        d = OUT / name
+    for name, text in texts.items():
+        d = out / name
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir()
         for h in build.CSRC.glob("*.cuh"):
             shutil.copy(h, d)
-        src = (_variant(name, _TIMELINE) + _TL_READ if name == "timeline"
-               else _variant(name, ABLATIONS[name]))
-        (d / "decompress_matmul.cu").write_text(src)
+        (d / f"{source}.cu").write_text(text)
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(d / "lib.so"),
-               str(d / "decompress_matmul.cu")]
+               str(d / f"{source}.cu")]
         jobs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in jobs.items():
-        out, _ = proc.communicate()
+        log, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        libs[name] = ctypes.CDLL(str(OUT / name / "lib.so"))
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        libs[name] = ctypes.CDLL(str(out / name / "lib.so"))
     return libs
+
+
+def build_variants(names) -> dict:
+    """nvcc every variant in parallel; returns name -> ctypes.CDLL."""
+    return build_sources(
+        {name: (_variant(name, _TIMELINE) + _TL_READ if name == "timeline"
+                else _variant(name, ABLATIONS[name])) for name in names},
+        "decompress_matmul", OUT)
 
 
 def device_ms(fn, reps: int, flush) -> float:
@@ -158,19 +167,21 @@ def device_ms(fn, reps: int, flush) -> float:
 
 
 class _Use:
-    """Route the wrappers to one build of the kernel."""
+    """Route ``build.load(source)`` to one build of that kernel; ``reset``
+    clears the wrapper's cached bindings on the way in and out."""
 
-    def __init__(self, lib):
-        self.lib, self.orig = lib, build.load
+    def __init__(self, lib, source="decompress_matmul",
+                 reset=lambda: DM._FNS.clear()):
+        self.lib, self.source, self.reset = lib, source, reset
+        self.orig = build.load
 
     def __enter__(self):
-        build.load = lambda n: self.lib if n == "decompress_matmul" \
-            else self.orig(n)
-        DM._FNS.clear()
+        build.load = lambda n: self.lib if n == self.source else self.orig(n)
+        self.reset()
 
     def __exit__(self, *exc):
         build.load = self.orig
-        DM._FNS.clear()
+        self.reset()
 
 
 def _cases(m: int):

@@ -6,7 +6,8 @@ serial k walk give exactly the bits of the plain canonical contraction
 and sizes the workspace by its formula, and the kernel's walks (CTA c of
 a grid of g takes tiles c, c + g, ...; a serial CTA one strip's k tiles
 for a block of rows) cover every tile once.  The breakdown tool's edited
-copies of the kernel source still apply.
+copies of the kernel source (and of the compressed-KV attention
+kernel's) still apply.
 
 The CUDA kernel itself runs only on the card; ``chip_smoke.py`` holds it
 against the plain version there, bitwise across its two branches and M.
@@ -23,7 +24,7 @@ from repro.core.codec_api import Codec as JaxCodec
 from repro.core.api import slice_stacked as jax_slice
 from repro.kernels.decompress_matmul import decompress_matmul as jax_fused
 from repro_torch.kernels.decompress_matmul import SPLIT_MAX_M, TILE, plan
-from repro_torch.launch import matmul_breakdown
+from repro_torch.launch import kv_attention_breakdown, matmul_breakdown
 from repro_torch.kernels.ref import tiled_matmul_ref
 
 # f32 sums of the same products in another order (K <= 512 here)
@@ -199,4 +200,16 @@ def test_breakdown_variants_apply_to_kernel_source(name):
     subs = (matmul_breakdown._TIMELINE if name == "timeline"
             else matmul_breakdown.ABLATIONS[name])
     src = matmul_breakdown._variant(name, subs)
+    assert all(new in src for _, new in subs)
+
+
+@pytest.mark.parametrize("name", sorted(kv_attention_breakdown.ABLATIONS)
+                         + ["timeline"])
+def test_kv_breakdown_variants_apply_to_kernel_source(name):
+    """The same for the compressed-KV attention kernel's breakdown
+    (``launch/kv_attention_breakdown.py``): every edit still finds its line
+    in ``csrc/decode_attention_kv.cu``."""
+    subs = (kv_attention_breakdown._TIMELINE if name == "timeline"
+            else kv_attention_breakdown.ABLATIONS[name])
+    src = kv_attention_breakdown.variant_source(name)
     assert all(new in src for _, new in subs)
