@@ -12,16 +12,24 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
 2. decode  the ENEC decode kernel against the plain decoder, bitwise:
            bf16 / fp16 / fp32, N in {2048, 16384}, the (m, n, L) grid,
            all / no anomalous groups, m == n, per-block (b, l) across the
-           wrap boundary; then the decode of the full-width 128256x2048
-           embed, timed beside the plain version and its bound.
+           wrap boundary, each under its plan and under grids 1, 3 and
+           2 x SMs, the generic branch for lanes-branch cases and the
+           other unit size, streams off 16-byte alignment; then the
+           decode of the full-width 128256x2048 embed under the same
+           overrides, timed (with and without a spin kernel ahead of the
+           window, each unit size and the generic branch) beside the plain
+           version, its bound and a device copy_ of the same bytes; one
+           llama layer's 7 stream-mode leaf decodes timed the same way;
+           ptxas resources and the plan.
    encode  the ENEC encode kernel against the plain encoder, byte for byte
            in all five streams, on the same grid (per-block b across the
-           wrap); each result decoded back to its input by the decode
-           kernel; then the encode of the full-width embed, timed beside
-           the plain version and its bound; after phase 4, the fused
-           set-up's own launches (the whole tree in one bucket, per-block
-           b of every stack) re-planned and held against the plain
-           encoder byte for byte.
+           wrap) under the same overrides and an unaligned input; each
+           result decoded back to its input by the decode kernel; then the
+           encode of the full-width embed, timed as the decode is; after
+           phase 4, the fused set-up's own launches (the whole tree in one
+           bucket, per-block b of every stack) re-planned, held against
+           the plain encoder byte for byte and timed beside their bound
+           and a device copy_.
 3. matmul  both entries of the decode+matmul kernel at every leaf shape
            of llama3_2_1b and minitron_4b and M in {1, batch,
            batch*prompt}: the fused entry bitwise equal to the dense-tile
@@ -30,7 +38,9 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
            same row at M = 1 and M = batch (split-K at M <= 16, the serial
            walk above: the engine's contract); within a stated tolerance
            of the plain version and of torch.matmul; fp16 / fp32 / f32-x /
-           ragged / m == n cases in both branches; timed at M = batch and
+           ragged / m == n cases in both branches; the logits head on
+           the full-width llama tied head (embed.T) with each row bitwise
+           equal at M = 1, 2, batch, timed; timed at M = batch and
            M = batch*prompt (both layouts of the dense-tile entry), each
            with and without a spin kernel ahead of the window; the ptxas
            registers of the four kernel builds, each branch's grid,
@@ -79,8 +89,9 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
 6. a ``{"kernels": [...]}`` JSON line, then the card line and the last
    line ``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` is
    its count in the run of its ``path`` (fused, the main path, for the
-   decoder, the encoder and the fused entry; dense for the dense-tile
-   entry; ``scan`` and ``kv_attention`` for kernels 3 and 5);
+   decoder, the encoder, the fused entry and the dense-tile entry, which
+   runs the logits head; ``scan`` and ``kv_attention`` for kernels 3 and
+   5);
    ``launches_by_path`` gives its count in each run (the three llama
    modes, ``ckpt_save``, ``ckpt_restore``, ``scan``, ``kv_attention`` and
    the three ``minitron_*`` modes).  Every count is set to 0 just before
@@ -127,14 +138,16 @@ KERNELS = ("enec_decode", "decompress_matmul", "dense_tile_matmul",
 def step_launches(matmuls: int, flat: int) -> dict:
     """Kernel launches of one decode step of each served mode, read from
     the code: ``matmuls`` matmul leaves a step (layers x 7, each through
-    ``weight_matmul``) and ``flat`` flat L=1 streams that ``lm.decode_fn``
-    materializes a step (the embed, and an untied head)."""
+    ``weight_matmul``), ``flat`` flat L=1 streams that ``lm.decode_fn``
+    materializes a step (the embed, and an untied head), and the logits
+    head, one dense-tile launch in every mode (``layers.lm_logits``)."""
     zero = dict.fromkeys(KERNELS, 0)
     return {"fused": zero | {"enec_decode": flat,
-                             "decompress_matmul": matmuls},
+                             "decompress_matmul": matmuls,
+                             "dense_tile_matmul": 1},
             "stream": zero | {"enec_decode": flat + matmuls,
-                              "dense_tile_matmul": matmuls},
-            "dense": zero | {"dense_tile_matmul": matmuls}}
+                              "dense_tile_matmul": matmuls + 1},
+            "dense": zero | {"dense_tile_matmul": matmuls + 1}}
 
 
 STEP_LAUNCHES = step_launches(N_LAYERS * len(LEAVES), 1)   # tied embed
@@ -322,33 +335,117 @@ def _decode_both(streams, n_elems, fmt, p, b_vec=None, l_vec=None):
     return got, want
 
 
+def _sms() -> int:
+    import torch
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _other_launches(pl, sms: int) -> list:
+    """The overrides a codec kernel call is held under besides its plan:
+    grids 1, 3 and 2 x SMs (as many as it has blocks) and, where the plan
+    takes the lanes branch, the generic branch."""
+    runs = [{"grid": g} for g in (1, 3, 2 * sms)
+            if g <= pl.nblocks and g != pl.grid]
+    if pl.lanes:
+        runs.append({"lanes": False})
+    return runs
+
+
+def _decode_variants(streams, n_elems, fmt, p, b_vec, l_vec, want, label,
+                     sms: int, runs=None) -> list:
+    """The decode kernel under every override of ``_other_launches`` (or
+    ``runs``), each bitwise equal to ``want``."""
+    import torch
+    from repro_torch.kernels import enec_decode
+    nblocks = streams.mask.shape[0]
+    b_vec, l_vec = _vecs(nblocks, p, b_vec, l_vec)
+    pl, _ = enec_decode.launch_plan(nblocks, n_elems, fmt, p, "cuda")
+    if runs is None:
+        runs = _other_launches(pl, sms)
+    for kw in runs:
+        got = enec_decode.decode_blocks_cuda(streams, n_elems, fmt, p, b_vec,
+                                             l_vec, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"decode kernel {kw} != plain "
+              f"({label})")
+    return runs
+
+
+def _vecs(nblocks, p, b_vec=None, l_vec=None):
+    import torch
+    if b_vec is None:
+        b_vec = torch.full((nblocks,), p.b, dtype=torch.int32, device="cuda")
+    if l_vec is None:
+        l_vec = torch.full((nblocks,), p.l, dtype=torch.int32, device="cuda")
+    return b_vec, l_vec
+
+
+def _unaligned(t, offset: int):
+    """A contiguous copy of ``t`` whose data starts ``offset`` bytes past
+    an aligned allocation (the stream-staging fallbacks: 4-byte cp.async at
+    offset 4, byte loads at offset 1)."""
+    import torch
+    nbytes = t.numel() * t.element_size()
+    buf = torch.empty(nbytes + 16, dtype=torch.uint8, device=t.device)
+    out = buf[offset:offset + nbytes].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _copy_ms(nbytes: int, flush=None) -> float:
+    """A device ``copy_`` of nbytes / 2 bytes (nbytes read and written in
+    all): the card's practical floor for a kernel moving nbytes."""
+    import torch
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    ms = cuda_ms(lambda: dst.copy_(src), 10, flush)
+    del src, dst
+    return ms
+
+
 def phase_decode():
     import torch
     from repro_torch.core import codec
+    from repro_torch.core.api import slice_stacked
     from repro_torch.core.codec_api import Codec
     from repro_torch.kernels import enec_decode
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = 0
+    sms = _sms()
+    cases = variants = 0
+    branches = set()
     for bits, fmt, p, label, b_vec, l_vec in _grid(gen):
         streams = codec.encode_blocks(bits, fmt, p, b_vec=b_vec)
         got, want = _decode_both(streams, bits.shape[1], fmt, p, b_vec, l_vec)
         check(torch.equal(got, want), f"decode kernel != plain ({label})")
         check(torch.equal(got.to(fmt.work_dtype) & fmt.bits_mask, bits),
               f"decode is not lossless ({label})")
+        variants += len(_decode_variants(streams, bits.shape[1], fmt, p,
+                                         b_vec, l_vec, want, label, sms))
+        branches.add(enec_decode.lanes_ok(fmt, bits.shape[1], p))
+        if cases == 0:   # streams off 16-byte alignment: cp.async, loads
+            for off in (4, 1):
+                moved = streams._replace(**{
+                    k: _unaligned(getattr(streams, k), off)
+                    for k in ("mask", "low", "high", "raw")})
+                variants += len(_decode_variants(
+                    moved, bits.shape[1], fmt, p, b_vec, l_vec, want,
+                    f"{label}, streams at offset {off}", sms,
+                    runs=[{}, {"lanes": False}, {"grid": 3}]))
         cases += 1
-    log(f"decode: {cases} cases bitwise equal to the plain decoder")
+    check(branches == {False, True}, f"the grid reaches branches {branches}")
+    log(f"decode: {cases} cases bitwise equal to the plain decoder under "
+        f"the plan and {variants} other launches (grids 1, 3, 2 x SMs; "
+        f"generic branch; unaligned streams)")
 
     # the main path's decode: the full-width tied embed, flat L=1 stack
     embed = (torch.nn.init.trunc_normal_(
         torch.empty((128256, 2048), device="cuda"), 0.0, 1.0, -2.0, 2.0,
         generator=gen) * 0.02).to(torch.bfloat16)
-    [ct] = Codec().compress_stacked_many([embed[None]], shards=2)
+    codec_obj = Codec()
+    [ct] = codec_obj.compress_stacked_many([embed[None]], shards=2)
     flat = codec.flatten_blocks(ct.streams)
     nblocks = flat.mask.shape[0]
-    b_vec = torch.full((nblocks,), ct.params.b, dtype=torch.int32,
-                       device="cuda")
-    l_vec = torch.full((nblocks,), ct.params.l, dtype=torch.int32,
-                       device="cuda")
+    b_vec, l_vec = _vecs(nblocks, ct.params)
     got, want = _decode_both(flat, ct.block_elems, ct.fmt, ct.params,
                              b_vec, l_vec)
     check(torch.equal(got, want), "embed decode kernel != plain")
@@ -357,26 +454,122 @@ def phase_decode():
     check(torch.equal(got.reshape(-1)[:embed.numel()],
                       embed.reshape(-1).view(torch.int16)),
           "embed decode is not lossless")
-    del got, want
-    ms = cuda_ms(lambda: enec_decode.decode_blocks_cuda(
-        flat, ct.block_elems, ct.fmt, ct.params, b_vec, l_vec), reps=10)
+    del got
+    pl, plan_info = enec_decode.launch_plan(nblocks, ct.block_elems, ct.fmt,
+                                            ct.params, "cuda")
+    check(pl.lanes, f"the embed's plan {plan_info} is not the lanes branch")
+    embed_runs = _decode_variants(flat, ct.block_elems, ct.fmt, ct.params,
+                                  b_vec, l_vec, want, "embed", sms)
+    del want
+    timed = {}
+
+    def dec(**kw):
+        return lambda: enec_decode.decode_blocks_cuda(
+            flat, ct.block_elems, ct.fmt, ct.params, b_vec, l_vec, **kw)
+
+    ms = cuda_ms(dec(), reps=10)
+    dev_ms = cuda_ms(dec(), reps=10, spin=True)
+    timed["generic"] = {
+        "ms": cuda_ms(dec(lanes=False), reps=10),
+        "dev_ms": cuda_ms(dec(lanes=False), reps=10, spin=True),
+        "plan": enec_decode.launch_plan(nblocks, ct.block_elems, ct.fmt,
+                                        ct.params, "cuda", lanes=False)[1]}
     plain_ms = cuda_ms(lambda: enec_decode.decode_blocks_plain(
         flat, ct.block_elems, ct.fmt, ct.params, b_vec, l_vec), reps=2)
     in_bytes = needed_bytes(flat) + 8 * nblocks        # + per-block b, l
     out_bytes = nblocks * ct.block_elems * 2
     bound = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    copy_ms = _copy_ms(in_bytes + out_bytes)
+    hl = flat.high_len.to(torch.int64)
+    hw = ct.params.n - ct.params.m
+    staged_high = int(sum(
+        min(flat.high.shape[1], -(-e // 16) * 16) for e in
+        [_high_extent(int(c), hw, ct.block_elems, flat.high.shape[1])
+         for c in (hl // max(hw, 1)).tolist()])) if hw else 0
     log(f"decode embed 128256x2048 bf16 ({nblocks} blocks, params "
         f"{ct.params.astuple()}, ratio {ct.ratio():.4f}): kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-        f"(bytes {in_bytes + out_bytes}), {bound / ms:.3f} of bound")
-    RESULTS["decode"] = {"cases": cases, "embed_ms": ms,
+        f"{ms:.4f} ms [spin {dev_ms:.4f}], plain {plain_ms:.4f} ms, bound "
+        f"{bound:.4f} ms (bytes {in_bytes + out_bytes}), device copy_ of "
+        f"the same bytes {copy_ms:.4f} ms, {bound / ms:.3f} of bound; "
+        f"generic branch "
+        f"{timed['generic']['ms']:.4f} [spin "
+        f"{timed['generic']['dev_ms']:.4f}] ms; plan {plan_info}; high "
+        f"bytes staged {staged_high} of {flat.high.numel()} static, "
+        f"{int(((hl + 7) // 8).sum())} exact; held under {embed_runs}")
+
+    # one llama layer's 7 leaves as stream mode decodes them (one launch a
+    # leaf, flat blocks of one layer of the stacked streams)
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    layer = {"ms": 0.0, "dev_ms": 0.0, "bound_ms": 0.0, "bytes": 0}
+    for name, (k, n) in LEAVES.items():
+        w = (torch.nn.init.trunc_normal_(
+            torch.empty((2, k, n), device="cuda"), 0.0, 1.0, -2.0, 2.0,
+            generator=gen) / math.sqrt(k)).to(torch.bfloat16)
+        [lct] = codec_obj.compress_stacked_many([w], shards=2)
+        lflat = codec.flatten_blocks(slice_stacked(lct, 0).streams)
+        lflat_one, lp_one = lflat.map(lambda t: t[:1]), lct.params
+        lb, ll = _vecs(lflat.mask.shape[0], lct.params)
+        lwant = enec_decode.decode_blocks_plain(lflat, lct.block_elems,
+                                                lct.fmt, lct.params, lb, ll)
+        _decode_variants(lflat, lct.block_elems, lct.fmt, lct.params, lb,
+                         ll, lwant, f"layer leaf {name}", sms, runs=[{}])
+        fn = (lambda f=lflat, c=lct, b=lb, l=ll:
+              enec_decode.decode_blocks_cuda(f, c.block_elems, c.fmt,
+                                             c.params, b, l))
+        nbytes = (needed_bytes(lflat) + 8 * lflat.mask.shape[0]
+                  + lflat.mask.shape[0] * lct.block_elems * 2)
+        layer["ms"] += cuda_ms(fn, 20, flush_buf.zero_)
+        layer["dev_ms"] += cuda_ms(fn, 20, flush_buf.zero_, spin=True)
+        layer["bytes"] += nbytes
+        del w, lct, lwant
+    layer["bound_ms"] = layer["bytes"] / HBM_BYTES_PER_S * 1e3
+    # host time a call (one-block decodes back to back, one synchronize):
+    # what each of stream mode's 113 decodes a step costs the host
+    one = codec.flatten_blocks(lflat_one)
+    ob, ol = _vecs(1, lp_one)
+    enec_decode.decode_blocks_cuda(one, 16384, ct.fmt, lp_one, ob, ol)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        enec_decode.decode_blocks_cuda(one, 16384, ct.fmt, lp_one, ob, ol)
+    torch.cuda.synchronize()
+    layer["host_us_per_call"] = (time.perf_counter() - t0) / 200 * 1e6
+    layer["copy_ms"] = 7 * _copy_ms(layer["bytes"] // 7, flush_buf.zero_)
+    log(f"decode one llama layer's 7 stream-mode leaves (7 launches, L2 "
+        f"flushed): {layer['ms']:.4f} ms [spin {layer['dev_ms']:.4f}], "
+        f"bound {layer['bound_ms']:.4f} ms (bytes {layer['bytes']}), 7 "
+        f"device copy_s of a seventh of the bytes each "
+        f"{layer['copy_ms']:.4f} ms; host {layer['host_us_per_call']:.1f} "
+        f"us a call")
+    resources = _ptxas_resources("enec_decode", {
+        "decode_lanes_kernel": "lanes", "decode_generic_kernel": "generic"})
+    for kind, line in resources.items():
+        log(f"decode ptxas {kind}: {line}")
+    RESULTS["decode"] = {"cases": cases, "variants": variants,
+                         "embed_ms": ms, "embed_dev_ms": dev_ms,
                          "embed_plain_ms": plain_ms, "embed_bound_ms": bound,
+                         "embed_copy_ms": copy_ms,
                          "embed_bytes": in_bytes + out_bytes,
                          "embed_max_abs_err": embed_err,
                          "embed_params": list(ct.params.astuple()),
-                         "embed_ratio": ct.ratio()}
-    del embed, ct, flat
+                         "embed_ratio": ct.ratio(), "embed_plan": plan_info,
+                         "embed_high_bytes_staged": staged_high,
+                         "embed_timed": timed, "layer_stream": layer,
+                         "resources": resources}
+    del embed, ct, flat, flush_buf
     torch.cuda.empty_cache()
+
+
+def _high_extent(c: int, hw: int, n: int, w_high: int) -> int:
+    """csrc/enec_block.cuh: high_extent (the high bytes a decode stages)."""
+    if c <= 0 or hw == 0:
+        return 0
+    if hw % 8 == 0:
+        return (hw // 8 - 1) * n + c
+    w, sub = hw, n
+    while w < 8 and sub > 1:
+        w, sub = w * 2, sub // 2
+    return c if c <= sub else w_high
 
 
 # ---------------------------------------------------------------------------
@@ -398,31 +591,60 @@ def _encode_both(bits, fmt, p, b_vec=None):
     return got, want
 
 
+def _encode_variants(raw, fmt, p, b_vec, want, label, sms: int,
+                     runs=None) -> list:
+    """The encode kernel under every override of ``_other_launches`` (or
+    ``runs``), each byte-identical to ``want`` in all five streams."""
+    import torch
+    from repro_torch.kernels import enec_encode
+    nblocks, n_elems = raw.shape
+    pl, _ = enec_encode.launch_plan(nblocks, n_elems, fmt, p, "cuda")
+    if runs is None:
+        runs = _other_launches(pl, sms)
+    for kw in runs:
+        got = enec_encode.encode_blocks_cuda(raw, fmt, p, b_vec, **kw)
+        torch.cuda.synchronize()
+        for name in got._fields:
+            check(torch.equal(getattr(got, name), getattr(want, name)),
+                  f"encode kernel {kw} != plain in {name} ({label})")
+    return runs
+
+
 def phase_encode():
     import torch
     from repro_torch.core import params, stats
-    from repro_torch.core.dtypes import BF16
+    from repro_torch.core.dtypes import BF16, to_container
     from repro_torch.kernels import enec_decode, enec_encode
     gen = torch.Generator(device="cuda").manual_seed(2)
-    cases = 0
+    sms = _sms()
+    cases = variants = 0
+    branches = set()
     for bits, fmt, p, label, b_vec, l_vec in _grid(gen):
         got, want = _encode_both(bits, fmt, p, b_vec)
         for name in got._fields:
             check(torch.equal(getattr(got, name), getattr(want, name)),
                   f"encode kernel != plain in {name} ({label})")
-        nb = bits.shape[0]
-        b = b_vec if b_vec is not None else torch.full(
-            (nb,), p.b, dtype=torch.int32, device="cuda")
-        l_ = l_vec if l_vec is not None else torch.full(
-            (nb,), p.l, dtype=torch.int32, device="cuda")
+        b, l_ = _vecs(bits.shape[0], p, b_vec, l_vec)
         dec = enec_decode.decode_blocks_cuda(got, bits.shape[1], fmt, p, b,
                                              l_)
         torch.cuda.synchronize()
         check(torch.equal(dec.to(fmt.work_dtype) & fmt.bits_mask, bits),
               f"encode kernel -> decode kernel is not lossless ({label})")
+        raw = to_container(bits, fmt).contiguous()
+        variants += len(_encode_variants(raw, fmt, p, b, want, label, sms))
+        branches.add(enec_encode.lanes_ok(fmt, bits.shape[1], p))
+        if cases == 0:   # input off 16-byte alignment: cp.async, loads
+            for off in (4, 2):
+                variants += len(_encode_variants(
+                    _unaligned(raw, off), fmt, p, b, want,
+                    f"{label}, input at offset {off}", sms,
+                    runs=[{}, {"lanes": False}, {"grid": 3}]))
         cases += 1
+    check(branches == {False, True}, f"the grid reaches branches {branches}")
     log(f"encode: {cases} cases byte-identical to the plain encoder in all "
-        f"five streams, each decoded back to its input by the decode kernel")
+        f"five streams under the plan and {variants} other launches (grids "
+        f"1, 3, 2 x SMs; generic branch; unaligned input), each decoded "
+        f"back to its input by the decode kernel")
 
     # the main path's largest encode: the full-width tied embed
     embed = (torch.nn.init.trunc_normal_(
@@ -444,25 +666,109 @@ def phase_encode():
     embed_err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
                     if a.numel() else 0 for a, b in zip(got, want))
     written = sum(a.numel() * a.element_size() for a in got)
-    del got, want
+    del got
+    pl, plan_info = enec_encode.launch_plan(nblocks, 16384, BF16, p, "cuda")
+    check(pl.lanes, f"the embed's plan {plan_info} is not the lanes branch")
+    embed_runs = _encode_variants(raw, BF16, p, b_vec, want, "embed", sms)
+    del want
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    ms = cuda_ms(lambda: enec_encode.encode_blocks_cuda(raw, BF16, p, b_vec),
-                 10, flush_buf.zero_)
+
+    def enc(**kw):
+        return lambda: enec_encode.encode_blocks_cuda(raw, BF16, p, b_vec,
+                                                      **kw)
+
+    ms = cuda_ms(enc(), 10, flush_buf.zero_)
+    dev_ms = cuda_ms(enc(), 10, flush_buf.zero_, spin=True)
+    generic = {"ms": cuda_ms(enc(lanes=False), 10, flush_buf.zero_),
+               "dev_ms": cuda_ms(enc(lanes=False), 10, flush_buf.zero_,
+                                 spin=True),
+               "plan": enec_encode.launch_plan(nblocks, 16384, BF16, p,
+                                               "cuda", lanes=False)[1]}
     plain_ms = cuda_ms(lambda: enec_encode.encode_blocks_plain(
         raw, BF16, p, b_vec), 2, flush_buf.zero_)
     in_bytes = raw.numel() * 2 + 4 * nblocks            # + per-block b
     bound = (in_bytes + written) / HBM_BYTES_PER_S * 1e3
+    copy_ms = _copy_ms(in_bytes + written, flush_buf.zero_)
+    resources = _ptxas_resources("enec_encode", {
+        "encode_kernelILb1E": "lanes", "encode_kernelILb0E": "generic"})
+    for kind, line in resources.items():
+        log(f"encode ptxas {kind}: {line}")
     log(f"encode embed 128256x2048 bf16 ({nblocks} blocks, params "
-        f"{p.astuple()}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound:.4f} ms (bytes {in_bytes + written}), "
-        f"{bound / ms:.3f} of bound")
-    RESULTS["encode"] = {"cases": cases, "embed_ms": ms,
+        f"{p.astuple()}): kernel {ms:.4f} ms [spin {dev_ms:.4f}], plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes "
+        f"{in_bytes + written}), device copy_ of the same bytes "
+        f"{copy_ms:.4f} ms, {bound / ms:.3f} of bound; generic branch "
+        f"{generic['ms']:.4f} [spin {generic['dev_ms']:.4f}] ms; plan "
+        f"{plan_info}; held under {embed_runs}")
+    RESULTS["encode"] = {"cases": cases, "variants": variants,
+                         "embed_ms": ms, "embed_dev_ms": dev_ms,
                          "embed_plain_ms": plain_ms, "embed_bound_ms": bound,
+                         "embed_copy_ms": copy_ms,
                          "embed_bytes": in_bytes + written,
                          "embed_max_abs_err": embed_err,
-                         "embed_params": list(p.astuple())}
+                         "embed_params": list(p.astuple()),
+                         "embed_plan": plan_info, "embed_generic": generic,
+                         "resources": resources}
     del embed, raw, flush_buf
     torch.cuda.empty_cache()
+
+
+def _setup_launches():
+    """The fused set-up's encode launches, re-planned as ``serve.main``
+    plans them on the same seeded llama3_2_1b weights: (bucket, blocks,
+    fmt, params, b_vec) for each."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.codec_api import Codec
+    from repro_torch.models import build_model
+    from repro_torch.runtime.streaming import serving_encode_plans
+    params = build_model(get_config("llama3_2_1b")).init(seed=0,
+                                                         device="cuda")
+    codec_obj = Codec()
+    for plan in serving_encode_plans(params, mode="fused",
+                                     min_bytes=MIN_BYTES, shards=2,
+                                     codec=codec_obj):
+        for bucket, (blocks, fmt, p, b_vec) in zip(
+                plan.buckets, codec_obj.encode_launches(plan)):
+            yield bucket, blocks, fmt, p, b_vec
+
+
+def _time_encode_launch(blocks, fmt, p, b_vec, written: int) -> dict:
+    """One encode launch through ``ops.encode_blocks`` (its input already
+    in the kernel's container type), in both windows, beside its bound and
+    a device copy_ of the same bytes."""
+    import torch
+    from repro_torch.core.dtypes import to_container
+    from repro_torch.kernels import ops
+    if blocks.dtype != fmt.bits_dtype:
+        blocks = to_container(blocks, fmt)
+    blocks = blocks.contiguous()
+    b_vec = b_vec.to(torch.int32).contiguous()
+    nbytes = blocks.numel() * blocks.element_size() + 4 * len(b_vec) \
+        + written
+    run = (lambda: ops.encode_blocks(blocks, fmt, p, b_vec))
+    return {"ms": cuda_ms(run, 3), "dev_ms": cuda_ms(run, 3, spin=True),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "copy_ms": _copy_ms(nbytes), "bytes": nbytes}
+
+
+def time_setup_encode() -> list:
+    """Each of the fused set-up's encode launches timed, with no byte
+    check: the same measurement on any tree's ``repro_torch`` (a parent
+    commit's package first on ``sys.path``), for before and after in one
+    call."""
+    import torch
+    from repro_torch.kernels import ops
+    rows = []
+    for _, blocks, fmt, p, b_vec in _setup_launches():
+        got = ops.encode_blocks(blocks, fmt, p, b_vec)
+        written = sum(a.numel() * a.element_size() for a in got)
+        del got
+        rows.append({"blocks": blocks.shape[0]}
+                    | _time_encode_launch(blocks, fmt, p, b_vec, written))
+        del blocks, b_vec
+        torch.cuda.empty_cache()
+    log(f"encode: the fused set-up's launch(es) timed: {rows}")
+    return rows
 
 
 def phase_setup_encode(fused):
@@ -470,50 +776,46 @@ def phase_setup_encode(fused):
     re-planned as ``serve.main`` plans them (``fused`` is phase 4's fused
     run, whose bucket count they must repeat); each bucket's one launch,
     over its whole block count with its per-block ``b``, byte-identical to
-    the plain encoder in all five streams (compared in chunks of rows)."""
+    the plain encoder in all five streams (compared in chunks of rows),
+    then timed beside its bound and a device copy_ of the same bytes."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.core.codec_api import Codec
     from repro_torch.kernels import enec_encode, ops
-    from repro_torch.models import build_model
-    from repro_torch.runtime.streaming import serving_encode_plans
-    cfg = get_config("llama3_2_1b")
-    params = build_model(cfg).init(seed=0, device="cuda")
-    codec_obj = Codec()
     launches = []
-    for plan in serving_encode_plans(params, mode="fused",
-                                     min_bytes=MIN_BYTES, shards=2,
-                                     codec=codec_obj):
-        for bucket, (blocks, fmt, p, b_vec) in zip(
-                plan.buckets, codec_obj.encode_launches(plan)):
-            got = ops.encode_blocks(blocks, fmt, p, b_vec)
-            torch.cuda.synchronize()
-            nblocks = blocks.shape[0]
-            chunk = 16384
-            for s in range(0, nblocks, chunk):
-                want = enec_encode.encode_blocks_plain(
-                    blocks[s:s + chunk], fmt, p, b_vec[s:s + chunk])
-                for name in want._fields:
-                    check(torch.equal(getattr(got, name)[s:s + chunk],
-                                      getattr(want, name)),
-                          f"set-up encode launch != plain in {name} "
-                          f"(blocks {s}..{s + chunk} of {nblocks})")
-                del want
-            launches.append({
-                "key": [bucket.fmt_name, list(bucket.params_key),
-                        bucket.block_elems],
-                "stacks": bucket.n_tensors, "blocks": nblocks,
-                "input_bytes": blocks.numel() * blocks.element_size(),
-                "distinct_b": int(torch.unique(b_vec).numel())})
-            del got, blocks, b_vec
+    for bucket, blocks, fmt, p, b_vec in _setup_launches():
+        got = ops.encode_blocks(blocks, fmt, p, b_vec)
+        torch.cuda.synchronize()
+        nblocks = blocks.shape[0]
+        chunk = 16384
+        for s in range(0, nblocks, chunk):
+            want = enec_encode.encode_blocks_plain(
+                blocks[s:s + chunk], fmt, p, b_vec[s:s + chunk])
+            for name in want._fields:
+                check(torch.equal(getattr(got, name)[s:s + chunk],
+                                  getattr(want, name)),
+                      f"set-up encode launch != plain in {name} "
+                      f"(blocks {s}..{s + chunk} of {nblocks})")
+            del want
+        written = sum(a.numel() * a.element_size() for a in got)
+        del got
+        launches.append({
+            "key": [bucket.fmt_name, list(bucket.params_key),
+                    bucket.block_elems],
+            "stacks": bucket.n_tensors, "blocks": nblocks,
+            "input_bytes": blocks.numel() * blocks.element_size(),
+            "distinct_b": int(torch.unique(b_vec).numel()),
+            "plan": enec_encode.launch_plan(nblocks, blocks.shape[1], fmt, p,
+                                            "cuda")[1]}
+            | _time_encode_launch(blocks, fmt, p, b_vec, written))
+        del blocks, b_vec
+        torch.cuda.empty_cache()
     check(len(launches) == fused["encode_buckets"],
           f"re-planned set-up has {len(launches)} buckets, the fused run "
           f"{fused['encode_buckets']}")
     log(f"encode: the fused set-up's {len(launches)} launch(es) "
         f"{launches} byte-identical to the plain encoder in all five "
-        f"streams")
+        f"streams (ms [spin window] beside the bound and a device copy_ of "
+        f"the same bytes)")
     RESULTS["encode"]["setup_launches"] = launches
-    del params
     torch.cuda.empty_cache()
 
 
@@ -600,6 +902,56 @@ def _time_leaf(name, k, n, m, x, ct, w, w_t, comp_bytes, codec_obj, flush,
         f" torch.matmul bf16 {row['library_ms']:.4f} "
         f"[{row['library_dev_ms']:.4f}]"
         + (f", plain {row['plain_ms']:.4f}" if plain else ""))
+    return row
+
+
+def _head_rows(gen, flush) -> dict:
+    """The logits head as a decode step runs it (``layers.lm_logits``: the
+    dense-tile entry on the tied full-width llama head ``embed.T``, the
+    transposed view it takes as it is): each row's logits bitwise equal at
+    M = 1, 2 and 4 (the engine's contract), within MATMUL_ATOL of the plain
+    tiled matmul and of torch.matmul; timed beside its bound and
+    torch.matmul on the same bf16 operands."""
+    import torch
+    from repro_torch.kernels.ref import tiled_matmul_ref
+    from repro_torch.models.layers import lm_logits
+    vocab, d = 128256, 2048
+    embed = (torch.nn.init.trunc_normal_(
+        torch.empty((vocab, d), device="cuda"), 0.0, 1.0, -2.0, 2.0,
+        generator=gen) * 0.02).to(torch.bfloat16)
+    x = torch.randn((BATCH, 1, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    by_m = {m: lm_logits(x[:m], embed.T) for m in (1, 2, BATCH)}
+    torch.cuda.synchronize()
+    full = by_m[BATCH]
+    check(tuple(full.shape) == (BATCH, 1, vocab), f"head {full.shape}")
+    for m in (1, 2):
+        check(torch.equal(by_m[m].view(torch.int32),
+                          full[:m].view(torch.int32)),
+              f"head rows at M={m} differ from M={BATCH}")
+    x2 = x.reshape(BATCH, d)
+    err = float((full[:, 0] - tiled_matmul_ref(x2, embed.T)).abs().max())
+    err_lib = float((full[:, 0] - torch.matmul(x2.float(), embed.T.float()))
+                    .abs().max())
+    check(max(err, err_lib) <= MATMUL_ATOL, f"head |kernel - plain| {err}, "
+          f"|kernel - torch.matmul| {err_lib} > {MATMUL_ATOL}")
+    row = {"max_abs_err_plain": err, "max_abs_err_matmul": err_lib,
+           "ms": cuda_ms(lambda: lm_logits(x, embed.T), 20, flush),
+           "dev_ms": cuda_ms(lambda: lm_logits(x, embed.T), 20, flush,
+                             spin=True),
+           "library_ms": cuda_ms(lambda: torch.matmul(x2, embed.T), 20,
+                                 flush),
+           "library_dev_ms": cuda_ms(lambda: torch.matmul(x2, embed.T), 20,
+                                     flush, spin=True),
+           "bound_ms": (vocab * d * 2 + BATCH * d * 2 + BATCH * vocab * 4)
+           / HBM_BYTES_PER_S * 1e3}
+    log(f"matmul head: llama tied head {d}x{vocab} (embed.T) at M={BATCH}: "
+        f"rows bitwise equal at M = 1, 2, {BATCH}; |kernel - plain| "
+        f"{err:.3g}, |kernel - torch.matmul| {err_lib:.3g}; dense-tile "
+        f"{row['ms']:.4f} ms [spin {row['dev_ms']:.4f}], torch.matmul bf16 "
+        f"{row['library_ms']:.4f} [{row['library_dev_ms']:.4f}], bound "
+        f"{row['bound_ms']:.4f} ms")
+    del embed, by_m, full
     return row
 
 
@@ -788,6 +1140,7 @@ def phase_matmul():
     for name, c in controls.items():
         check(c > MATMUL_ATOL, f"control {name} errs by {c} <= "
               f"{MATMUL_ATOL}: the tolerance would not catch it")
+    head = _head_rows(gen, flush)
     host_us = _host_us_per_call(codec_obj, gen)
     log(f"matmul host time a call (llama wk, M={BATCH}, 200 calls, one "
         f"synchronize): {host_us}")
@@ -817,7 +1170,7 @@ def phase_matmul():
                          "max_abs_err_dense": max_err_dense,
                          "max_abs_err_matmul": max_err_lib,
                          "atol": MATMUL_ATOL, "controls": controls,
-                         "resources": resources}
+                         "resources": resources, "head": head}
     del flush_buf
     torch.cuda.empty_cache()
 
@@ -1420,11 +1773,10 @@ def phase_serve_minitron():
 # ---------------------------------------------------------------------------
 
 # the served path whose own run gives each kernel's ``launches``: the
-# default fused mode (the main path) runs the decoder and the fused entry,
-# and its set-up the encoder; the dense-tile entry runs in the dense and
-# stream modes only
+# default fused mode (the main path) runs the decoder, the fused entry and
+# the dense-tile entry (the logits head), and its set-up the encoder
 KERNEL_PATH = {"enec_decode": "fused", "decompress_matmul": "fused",
-               "dense_tile_matmul": "dense", "enec_encode": "fused",
+               "dense_tile_matmul": "fused", "enec_encode": "fused",
                "idd_scan": "scan", "decode_attention_kv": "kv_attention"}
 
 
@@ -1445,7 +1797,10 @@ def kernels_line(launches):
          "max_abs_err": d["embed_max_abs_err"],
          "ms": d["embed_ms"], "plain_ms": d["embed_plain_ms"],
          "bound_ms": d["embed_bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": None, "dev_ms": d["embed_dev_ms"],
+         "copy_ms": d["embed_copy_ms"], "plan": d["embed_plan"],
+         "timed": d["embed_timed"], "layer_stream": d["layer_stream"],
+         "resources": d["resources"]},
         {"name": "decompress_matmul", "route": "cuda",
          "source": src + "decompress_matmul.cu",
          "replaces": "src/repro/kernels/decompress_matmul.py:66",
@@ -1462,7 +1817,7 @@ def kernels_line(launches):
          "max_abs_err": mm["max_abs_err_dense"],
          "ms": t["dense"], "plain_ms": t["dense_plain"],
          "bound_ms": t["dense_bound"], "bound_by": "bytes",
-         "library_ms": t["library"],
+         "library_ms": t["library"], "head": mm["head"],
          "timed": {c: {k: v[k] for k in ("dense", "dense_t", "dense_bound",
                                          "library")}
                    for c, v in mm["totals"].items()},
@@ -1474,7 +1829,10 @@ def kernels_line(launches):
          "max_abs_err": enc["embed_max_abs_err"],
          "ms": enc["embed_ms"], "plain_ms": enc["embed_plain_ms"],
          "bound_ms": enc["embed_bound_ms"], "bound_by": "bytes",
-         "library_ms": None, "setup_launches": enc["setup_launches"]},
+         "library_ms": None, "setup_launches": enc["setup_launches"],
+         "dev_ms": enc["embed_dev_ms"], "copy_ms": enc["embed_copy_ms"],
+         "plan": enc["embed_plan"], "generic": enc["embed_generic"],
+         "resources": enc["resources"]},
         {"name": "idd_scan", "route": "cuda", "source": src + "idd_scan.cu",
          "replaces": "src/repro/kernels/idd_scan.py:73",
          "max_abs_err": sc["max_abs_err"], "shape": sc["row_shape"],

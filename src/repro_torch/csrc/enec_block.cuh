@@ -81,6 +81,28 @@ __host__ __device__ __forceinline__ int align16(int x) {
   return (x + 15) & ~15;
 }
 
+// The bytes of a block's halving-packed high stream (hw bits a lane over
+// n lanes, w_high bytes in all) that hold its first c lanes, the rows of
+// the anomalous groups (c = high_len / hw = count * L); the other lanes
+// are zero and no decoder reads them for a value it keeps.  Byte planes
+// hold lane i at byte k * n + i; below 8 bits, lane i < SUB (the first
+// level's lane count after its folds) is the low bits of byte i, so the
+// first c lanes sit in bytes [0, c).  Past SUB the lanes fold into every
+// byte: the whole stream.  (A prefix of high_len / 8 bytes, the exact
+// wire length, would not do: the halving layout spreads the first c lanes
+// over c bytes.)
+__host__ __device__ inline int high_extent(int c, int hw, int n,
+                                           int w_high) {
+  if (c <= 0 || hw == 0) return 0;
+  if ((hw & 7) == 0) return ((hw >> 3) - 1) * n + c;
+  if (hw < 8) {
+    int w = hw, sub = n;
+    while (w < 8 && sub > 1) { w <<= 1; sub >>= 1; }
+    return c <= sub ? c : w_high;
+  }
+  return w_high;
+}
+
 // Shared-memory layout of one staged block.
 struct Stage {
   uint8_t *mask, *low, *high, *raw;
@@ -379,9 +401,10 @@ struct WarpRank {
 // divergent branch: at the searched params most warps hold an anomalous
 // group).  The exponent l + ((c - y) & mod) is taken on both lanes of a
 // pair at once: c + mod + 1 - y >= 1 never borrows from the upper lane,
-// and with l < 2**16 - 512 the sum never carries into it, so it is the
-// reference's value mod 2**16; the bf16 bits (sign << 15 | e << 7 |
-// mantissa) mod 2**16 by masks on the pairs.
+// and with l taken mod 512 (0 <= l < 512: the bf16 bits keep only e's low
+// 9 bits, and 2**n divides 512 for n <= 9) the sum never carries into it;
+// the bf16 bits (sign << 15 | e << 7 | mantissa) mod 2**16 by masks on the
+// pairs.
 template <int A, int HW, int N, int NB, typename Rank, typename Store4>
 __device__ __forceinline__ void emit_lanes(const Stage (&S)[NB],
                                            const uint32_t (&word)[NB][2],
@@ -436,9 +459,9 @@ __device__ __forceinline__ void decode_bf16(const Stage (&S)[NB],
   constexpr int SUB = N >> F;
   constexpr int W = A << F;
   const uint32_t mod = (1u << P.n) - 1u;
-  // c + mod + 1 on both lanes (c = (b - l) & mod), l on both lanes
+  // c + mod + 1 on both lanes (c = (b - l) & mod), l mod 512 on both lanes
   const uint32_t cb2 = ((uint32_t(b - l) & mod) + mod + 1u) * 0x10001u;
-  const uint32_t l2 = uint32_t(l) * 0x10001u;
+  const uint32_t l2 = (uint32_t(l) & 511u) * 0x10001u;
   const uint32_t mod2 = mod * 0x10001u;
   const int hw = P.n - P.m;
   const int lshift = __ffs(P.L) - 1;
@@ -474,11 +497,11 @@ __device__ __forceinline__ void decode_bf16(const Stage (&S)[NB],
 
 }  // namespace lanes
 
-// decode_staged for NB bf16 blocks of exactly N elements each, L a power
-// of two >= 4 and 0 <= l < 2**16 - 512, decoded together: store4(nb, i0,
-// lo, hi) for elements i0 .. i0 + 3 of block nb as two pairs of 16-bit
-// lanes (lo = i0 | i0 + 1 << 16, hi = i0 + 2 | i0 + 3 << 16), every i0 %
-// 4 == 0 once; the same bits as decode_staged.  Thread t emits only i0 ==
+// decode_staged for NB bf16 blocks of exactly N elements each, n <= 9 and
+// L a power of two >= 4, any (b, l), decoded together: store4(nb, i0, lo,
+// hi) for elements i0 .. i0 + 3 of block nb as two pairs of 16-bit lanes
+// (lo = i0 | i0 + 1 << 16, hi = i0 + 2 | i0 + 3 << 16), every i0 % 4 == 0
+// once; the same bits as decode_staged.  Thread t emits only i0 ==
 // 4 t (mod 4 blockDim.x) when that divides N / 2**F (so at 512 threads
 // warp w writes whole 128-element rows w, w + 16, ..).  rank(nb, g, r)
 // gives group g's anomaly bit and rank (lanes::WarpRank on the card; it
@@ -502,6 +525,7 @@ __device__ __forceinline__ void decode_staged_lanes_bf16(
     default: lanes::decode_bf16<9, N>(S, P, b, l, rank, store4); return;
   }
 }
+
 
 __device__ __forceinline__ float bits_to_float(uint32_t bits, int mant_bits) {
   if (mant_bits == 7) return __uint_as_float(bits << 16);           // bf16

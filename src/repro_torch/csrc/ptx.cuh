@@ -1,6 +1,7 @@
 // PTX helpers for Hopper (sm_90a) shared by the fused decode+matmul
-// (decompress_matmul.cu) and the compressed-KV attention
-// (decode_attention_kv.cu): asynchronous copies into shared memory
+// (decompress_matmul.cu), the compressed-KV attention
+// (decode_attention_kv.cu) and the block decoder and encoder
+// (enec_decode.cu, enec_encode.cu): asynchronous copies into shared memory
 // (16- and 4-byte cp.async, cp.async.bulk completing on an mbarrier), the
 // mbarrier itself, and the bf16 tensor-core fragments (ldmatrix, mma.sync
 // m16n8k16 with f32 accumulators).
@@ -77,34 +78,39 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
       : "memory");
 }
 
-// One stream of block `blk` (w bytes a block): bulk copy on the mbarrier
-// when aligned (issued by thread `issuer`, bytes already expected), else
+// One stream of block `blk` (w bytes a block), or only its first `nbytes`
+// (<= w): bulk copy on the mbarrier when aligned (issued by thread
+// `issuer`, bytes already expected; nbytes rounded up to 16), else
 // cp.async / loads by the calling threads: the whole block, or the `nt`
 // threads numbered t = 0 .. nt - 1 that call it.
 __device__ __forceinline__ void stage_stream(uint8_t* dst, const uint8_t* base,
                                              int w, size_t blk,
                                              uint64_t* bar, int issuer = 0,
-                                             int t = -1, int nt = 0) {
-  if (w == 0) return;
+                                             int t = -1, int nt = 0,
+                                             int nbytes = -1) {
+  const int nb = nbytes < 0 ? w : nbytes;
+  if (nb == 0) return;
   if (t < 0) {
     t = threadIdx.x;
     nt = blockDim.x;
   }
   const uint8_t* src = base + blk * w;
   if (((reinterpret_cast<uintptr_t>(base) | unsigned(w)) & 15) == 0) {
-    if (threadIdx.x == issuer) bulk_g2s(dst, src, w, bar);
+    if (threadIdx.x == issuer) bulk_g2s(dst, src, (nb + 15) & ~15, bar);
   } else if (((reinterpret_cast<uintptr_t>(src) | unsigned(w)) & 3) == 0) {
-    for (int k = t; k < (w >> 2); k += nt)
+    for (int k = t; k < ((nb + 3) >> 2); k += nt)
       cp_async4(dst + 4 * k, src + 4 * k);
   } else {
-    for (int k = t; k < w; k += nt) dst[k] = src[k];
+    for (int k = t; k < nb; k += nt) dst[k] = src[k];
   }
 }
 
 // The bytes stage_stream moves by bulk copy (what the mbarrier expects).
-__device__ __forceinline__ int bulk_bytes(const uint8_t* base, int w) {
-  return (w && ((reinterpret_cast<uintptr_t>(base) | unsigned(w)) & 15) == 0)
-             ? w : 0;
+__device__ __forceinline__ int bulk_bytes(const uint8_t* base, int w,
+                                          int nbytes = -1) {
+  const int nb = nbytes < 0 ? w : nbytes;
+  return (nb && ((reinterpret_cast<uintptr_t>(base) | unsigned(w)) & 15) == 0)
+             ? (nb + 15) & ~15 : 0;
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p,

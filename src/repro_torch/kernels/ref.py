@@ -46,29 +46,42 @@ def decode_blocks_ref(streams, n_elems: int, fmt, p, b_vec=None,
     return codec.decode_blocks(streams, n_elems, fmt, p, b_vec, l_vec)
 
 
+def tile_product(xt: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+    """One k tile's f32 partial: xt (M, 128) @ wt (128, N') -> (M, N').
+
+    The products are formed elementwise and summed by a fixed pairwise
+    tree over k (k and k + 64 first, ...), all elementwise tensor ops, so
+    every output element's bits depend only on its own row and column:
+    never on M, on the strides or on the library's choice of a matmul
+    kernel for the shape (a CPU ``@`` gives a row other bits at M = 1 than
+    inside a larger M)."""
+    t = xt[:, :, None] * wt[None, :, :]
+    while t.shape[1] > 1:
+        h = t.shape[1] // 2
+        t = t[:, :h] + t[:, h:]
+    return t[:, 0]
+
+
 def tiled_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Canonical serve matmul: x (M, K) @ w (K, N) -> (M, N) f32 in the
     fused kernel's schedule — 128x128 weight tiles, zero-padded ragged
-    edges, one f32 partial product per tile added to the strip's sum in
-    k order.  Every weight mode's ``matmul`` on the CPU is this function,
-    which makes dense / stream / fused logits bit-identical there."""
+    edges, one f32 partial product per tile (:func:`tile_product`) added
+    to the strip's sum in k order.  Every weight mode's ``matmul`` and the
+    logits head on the CPU are this function, which makes dense / stream /
+    fused logits bit-identical there, and each row's bits independent of
+    M and of the weight's strides."""
     m, k = x.shape
     k2, n = w.shape
     assert k == k2, (x.shape, w.shape)
     kp, np_ = -(-k // TILE) * TILE, -(-n // TILE) * TILE
     xf = F.pad(x.float(), (0, kp - k))
-    # row-major whatever w's strides (a stream handle materializes a
-    # transposed view): the CPU matmul's sum order follows the strides
-    wf = F.pad(w.float(), (0, np_ - n, 0, kp - k)).contiguous()
-    strips = []
-    for ni in range(np_ // TILE):
-        acc = None
-        for ki in range(kp // TILE):
-            part = xf[:, ki * TILE:(ki + 1) * TILE] @ \
-                wf[ki * TILE:(ki + 1) * TILE, ni * TILE:(ni + 1) * TILE]
-            acc = part if acc is None else acc + part
-        strips.append(acc)
-    return torch.cat(strips, dim=1)[:, :n]
+    wf = F.pad(w.float(), (0, np_ - n, 0, kp - k))
+    acc = None       # every strip at once: columns never mix
+    for ki in range(kp // TILE):
+        ks = slice(ki * TILE, (ki + 1) * TILE)
+        part = tile_product(xf[:, ks], wf[ks])
+        acc = part if acc is None else acc + part
+    return acc[:, :n]
 
 
 def decompress_matmul_ref(x: torch.Tensor, ct: CompressedTensor, k: int,

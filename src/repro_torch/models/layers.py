@@ -14,6 +14,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.runtime.weights import WeightHandle
 
 ACT_DTYPE = torch.bfloat16
@@ -24,15 +25,17 @@ def weight_matmul(w, x: torch.Tensor) -> torch.Tensor:
     """Contract x's last axis against the (K, N) weight ``w`` -> f32.
 
     A WeightHandle runs its mode's canonical tiled contraction (dense /
-    stream / fused give bitwise-equal results); a plain tensor is
-    multiplied in f32.
+    stream / fused give bitwise-equal results); a plain tensor runs the
+    same contraction (``kernels/ops.py:tiled_matmul``), so an unassigned
+    tree gives the dense mode's bits and every row's bits are independent
+    of how many rows are multiplied together.
     """
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     if isinstance(w, WeightHandle):
         out = w.matmul(x2)
     else:
-        out = x2.float() @ w.float()
+        out = ops.tiled_matmul(x2, w)
     return out.reshape(lead + (out.shape[-1],))
 
 
@@ -255,5 +258,11 @@ def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor):
 
 
 def lm_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
-    """x (B, T, D) @ head (D, V) -> f32 logits."""
-    return torch.matmul(x.float(), head.float())
+    """x (B, T, D) @ head (D, V) -> f32 logits, through the canonical tiled
+    matmul (``kernels/ops.py:tiled_matmul``: the dense-tile kernel entry on
+    the card, which takes the tied head ``embed.T`` as it is; the plain
+    tiled matmul on the CPU), so a row's logits have the same bits at every
+    batch size and in every weight mode."""
+    b, t, d = x.shape
+    out = ops.tiled_matmul(x.reshape(b * t, d).contiguous(), head)
+    return out.reshape(b, t, out.shape[-1])

@@ -137,13 +137,13 @@ def _apply_position_step(p, cfg, x, cache, lengths):
 
 
 def _head(params, cfg, embed):
-    """The (D, V) head.  An untied head comes in its dense row-major
-    layout in every weight mode: a stream handle materializes it as a
-    transposed view, and ``torch.matmul``'s sum order follows the
-    strides, so the modes' logits would differ in their last bits."""
+    """The (D, V) head, in whatever layout the weight mode gives it (a
+    stream handle materializes an untied head as a transposed view; the
+    tied head is ``embed.T``): ``lm_logits``' canonical tiled matmul gives
+    each layout the same bits, so no mode copies the head."""
     if cfg.tie_embeddings:
         return embed.T
-    return _dense_leaf(params["head"]).contiguous()
+    return _dense_leaf(params["head"])
 
 
 def forward(params, cfg, tokens: torch.Tensor):

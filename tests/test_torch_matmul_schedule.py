@@ -25,7 +25,7 @@ from repro.core.api import slice_stacked as jax_slice
 from repro.kernels.decompress_matmul import decompress_matmul as jax_fused
 from repro_torch.kernels.decompress_matmul import SPLIT_MAX_M, TILE, plan
 from repro_torch.launch import kv_attention_breakdown, matmul_breakdown
-from repro_torch.kernels.ref import tiled_matmul_ref
+from repro_torch.kernels.ref import tile_product, tiled_matmul_ref
 
 # f32 sums of the same products in another order (K <= 512 here)
 MATMUL_RTOL, MATMUL_ATOL = 1e-5, 1e-5
@@ -70,7 +70,7 @@ def _partial(xf, wf, p, t, row0, rows):
     n_tile, kt = divmod(t, p.k_tiles)
     ks, ns = slice(kt * TILE, (kt + 1) * TILE), \
         slice(n_tile * TILE, (n_tile + 1) * TILE)
-    return xf[row0:row0 + rows, ks] @ wf[ks, ns]
+    return tile_product(xf[row0:row0 + rows, ks], wf[ks, ns])
 
 
 def split_k_model(x, w, grid):
