@@ -48,17 +48,36 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
            call of each entry and of torch.matmul.
 4. serve   llama3_2_1b at full width from seeded synthetic weights,
            compressed on the card by the encode kernel, through
-           ``launch.serve.main`` in fused, stream and dense modes (batch 4,
-           prompt 64, 16 new tokens): equal greedy tokens, bitwise-equal
-           logits, the kernel launch counts per decode step, encode
-           launches equal to the set-up's encode buckets; plus a
-           smoke-size model on the card against the plain CPU path.
+           ``launch.serve.main`` (the continuous-batching engine, each
+           batch bucket's decode step a CUDA graph) in fused, stream and
+           dense modes (4 requests, prompt 64, 16 new tokens): equal
+           greedy tokens, bitwise-equal logits, the kernel launches of
+           each decode step (a replay's, by its capture's count) and of
+           each bucket's warm-up as read from the code, the run's
+           launches exactly the prefills', steps' and warm-ups', encode
+           launches equal to the set-up's encode buckets; TPOT of the
+           captured step and the device ms of a replay; plus a smoke-size
+           model on the card against the plain CPU path.
 5. ckpt    the fused run again through ``serve.main``, first with
            ``--save-ckpt DIR`` (an enec-v2 checkpoint in a temporary
            directory), then with ``--ckpt DIR``: the restored run's tokens
            and logits bitwise equal to phase 4's fused run, no leaf of at
            least ``--min-bytes`` moved host to device as dense bytes, and
            restore decode dispatches equal to the restore plan's buckets.
+   engine  ``runtime/engine.py`` on full-width llama3_2_1b in fused,
+           stream and dense modes and on minitron_4b fused (4 requests x
+           prompt 64 x 16 new tokens, 4 slots): (a) each request's logits
+           bitwise equal to the request served alone by the eager
+           one-shot loop (``one_shot_alone``); (b) llama only, a staggered
+           join (request 0 alone two steps, then 1, then 2 and 3: buckets
+           1, 2 and 4 captured and replayed), (a) for every request; (c)
+           the bucket-4 replays bitwise equal to the eager bucket-4 loop
+           (``eager_bucket_loop``); (d) each step's launches by the
+           replay accounting equal ``STEP_LAUNCHES``; (e) the captured
+           buckets within {1, 2, 4}; (f) TPOT of the eager loops and of
+           the captured engine and the device ms a replay, in one run.
+           First, inside a capture, kernel 3 and kernel 2's first arrival
+           counters on a new stream must refuse.
    scan    the standalone prefix-sum kernel through ``ops.idd_scan``:
            bitwise equal to ``torch.cumsum`` and the plain version in both
            branches of its plan (one warp a row; the look-back scan across
@@ -80,12 +99,12 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
            across two calls, timed beside SDPA on the dense bf16 K/V,
            with the ptxas resources and the plans.
    serve_minitron
-           minitron_4b at full width through ``launch.serve.main`` in
-           fused, stream and dense modes (batch 4, prompt 64, 16 new
-           tokens): equal greedy tokens, bitwise-equal logits, launches
-           per decode step as read from the code (the untied head is a
-           second flat stream beside the embed), encode launches equal to
-           the set-up's buckets.
+           minitron_4b at full width through ``launch.serve.main`` (the
+           engine) in fused, stream and dense modes (4 requests, prompt
+           64, 16 new tokens): equal greedy tokens, bitwise-equal logits,
+           launches per decode step and per warm-up as read from the code
+           (the untied head is a second flat stream beside the embed),
+           encode launches equal to the set-up's buckets.
 6. a ``{"kernels": [...]}`` JSON line, then the card line and the last
    line ``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` is
    its count in the run of its ``path`` (fused, the main path, for the
@@ -93,9 +112,12 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    runs the logits head; ``scan`` and ``kv_attention`` for kernels 3 and
    5);
    ``launches_by_path`` gives its count in each run (the three llama
-   modes, ``ckpt_save``, ``ckpt_restore``, ``scan``, ``kv_attention`` and
-   the three ``minitron_*`` modes).  Every count is set to 0 just before
-   its run and read just after it.
+   modes, ``ckpt_save``, ``ckpt_restore``, ``engine_fused``, ``scan``,
+   ``kv_attention`` and the three ``minitron_*`` modes), and
+   ``launches_per_captured_step`` its launches in one replay of each
+   engine case's bucket-4 graph.  Every count is set to 0 just before its
+   run and read just after it; a graph's replays add what its capture
+   counted (``runtime/captured.py``).
 
 Details go to ``chiprun_out/chip_smoke.json``.  The script needs CUDA and
 the repository's ``src/``; without either it exits nonzero and prints no
@@ -1240,10 +1262,8 @@ def phase_serve():
               f"{mode} logits not bitwise equal to fused")
     for mode, out in runs.items():
         step = out["step_launches"][0]
-        check(all(s == step for s in out["step_launches"]),
-              f"{mode}: launches vary between decode steps")
         want = STEP_LAUNCHES[mode]
-        check(step == want, f"{mode}: per-step launches {step} != {want}")
+        _check_engine_run(f"serve {mode}", out, want)
         for name, n in want.items():
             check(n == 0 or out["path_launches"][name] > 0,
                   f"{mode}: kernel {name} was never launched in its run")
@@ -1259,7 +1279,9 @@ def phase_serve():
         log(f"serve {mode}: set-up {out['setup_s']:.3f} s "
             f"({out['encode_buckets']} encode buckets), TTFT "
             f"{out['ttft_s'] * 1e3:.2f} ms, TPOT {out['tpot_s'] * 1e3:.2f} "
-            f"ms, {out['tok_s']:.2f} tok/s, wire ratio "
+            f"ms (captured step; device {out['step_device_ms']:.3f} ms a "
+            f"replay; captures {_capture_ms(out)} ms), "
+            f"{out['tok_s']:.2f} tok/s, wire ratio "
             f"{out['wire_ratio']:.4f}, hbm ratio "
             f"{out['stream_stats']['hbm_ratio']:.4f}, launches/step {step}, "
             f"launches in this run {out['path_launches']}, mode_mix "
@@ -1270,14 +1292,44 @@ def phase_serve():
     RESULTS["serve"] = {
         "card": card, "smoke_max_err": smoke_err,
         "modes": {m: {k: o[k] for k in ("ttft_s", "tpot_s", "tok_s",
-                                        "setup_s", "wire_ratio",
-                                        "encode_buckets",
+                                        "step_device_ms", "setup_s",
+                                        "wire_ratio", "encode_buckets",
                                         "path_launches", "prefill_launches",
-                                        "mode_mix")}
+                                        "mode_mix", "step_s",
+                                        "step_device_ms_all",
+                                        "step_buckets", "capture_s")}
                   | {"step_launches": o["step_launches"][0],
                      "hbm_ratio": o["stream_stats"]["hbm_ratio"]}
                   for m, o in runs.items()}}
     return launches, runs["fused"]
+
+
+def _capture_ms(out) -> dict:
+    return {b: round(t * 1e3, 2) for b, t in out["capture_s"].items()}
+
+
+def _check_engine_run(label, out, want_step):
+    """A ``serve.main`` run through the engine: each decode step's
+    launches (a graph replay's, by the count its capture took) and each
+    bucket's warm-up equal one step's launches as read from the code; the
+    run launched the prefills', the steps' and the warm-ups' kernels and
+    nothing else; buckets within {1, 2, 4}, each captured once and
+    replayed by every step; a device time for every replay."""
+    steps, warm = out["step_launches"], out["warmup_launches"]
+    check(steps and all(st == want_step for st in steps),
+          f"{label}: launches a decode step {steps[:2]} != {want_step}")
+    check(all(w == want_step for w in warm.values()),
+          f"{label}: warm-up launches {warm} != one step's {want_step}")
+    run = {k: out["prefill_launches"][k] + sum(st[k] for st in steps)
+           + sum(w[k] for w in warm.values()) for k in KERNELS}
+    check(run == out["launches"], f"{label}: the run launched "
+          f"{out['launches']}, prefills + steps + warm-ups {run}")
+    buckets = out["engine"]["engine"]["compiled_buckets"]
+    check(set(buckets) <= {1, 2, 4} and buckets == sorted(warm),
+          f"{label}: buckets {buckets}, warm-ups {sorted(warm)}")
+    check(all(ms is not None and ms > 0
+              for ms in out["step_device_ms_all"]),
+          f"{label}: a replay without a device time")
 
 
 # ---------------------------------------------------------------------------
@@ -1319,8 +1371,7 @@ def phase_ckpt(fused):
         check(torch.equal(out["logits"].view(torch.int32),
                           fused["logits"].view(torch.int32)),
               f"{path}: logits not bitwise equal to the fresh fused run")
-        check(out["step_launches"][0] == STEP_LAUNCHES["fused"],
-              f"{path}: per-step launches {out['step_launches'][0]}")
+        _check_engine_run(path, out, STEP_LAUNCHES["fused"])
     save, restore = runs["ckpt_save"]["save"], runs["ckpt_restore"]["restore"]
     sizes = _leaf_bytes()
     big = [n for n in restore["dense_records"] if sizes[n] >= MIN_BYTES]
@@ -1701,6 +1752,305 @@ def phase_kv_attention():
 
 
 # ---------------------------------------------------------------------------
+# phase engine: the continuous-batching engine, its step a CUDA graph
+# ---------------------------------------------------------------------------
+
+def _prompts(vocab: int):
+    """``serve.main``'s prompts: (BATCH, PROMPT) from seed 1."""
+    import torch
+    gen = torch.Generator().manual_seed(1)
+    return torch.randint(0, vocab, (BATCH, PROMPT), generator=gen).numpy()
+
+
+def _sync_s(t0: float) -> float:
+    import torch
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def one_shot_alone(model, params, prompt, max_len: int):
+    """The eager one-shot loop for one request served alone: a batch-1
+    prefill, then ``decode_fn`` and argmax for each further token.
+    Returns the logits of each token and the host seconds of each decode
+    step (to its token on the host)."""
+    import torch
+    tok_in = torch.as_tensor(prompt, dtype=torch.int64,
+                             device="cuda")[None, :]
+    logits, cache = model.prefill_fn(params, {"tokens": tok_in}, max_len)
+    tok = torch.argmax(logits, -1)
+    outs, secs = [logits[0]], []
+    for _ in range(TOKENS - 1):
+        t0 = time.perf_counter()
+        logits, cache = model.decode_fn(params, cache, tok)
+        tok = torch.argmax(logits, -1)
+        tok.tolist()
+        secs.append(time.perf_counter() - t0)
+        outs.append(logits[0])
+    return outs, secs
+
+
+def eager_bucket_loop(model, params, prompts, max_len: int):
+    """The engine's step without the graph: each prompt prefilled alone
+    into its slot of a ring of ``len(prompts)`` slots, then
+    ``lm.decode_step`` run eagerly on the whole bucket.  Returns each
+    slot's logits per token and the host seconds of each step."""
+    import torch
+    n = len(prompts)
+    state = model.init_step_state(n, max_len, device="cuda")
+    outs = [[] for _ in range(n)]
+    for slot, prompt in enumerate(prompts):
+        tok_in = torch.as_tensor(prompt, dtype=torch.int64,
+                                 device="cuda")[None, :]
+        logits, cache = model.prefill_fn(params, {"tokens": tok_in},
+                                         max_len)
+        for ring, part in zip(state["entries"], cache["entries"]):
+            for k in ("k", "v"):
+                ring[k][:, slot].copy_(part[k][:, 0])
+        state["tokens"][slot] = torch.argmax(logits[0], -1)
+        state["lengths"][slot] = len(prompt)
+        outs[slot].append(logits[0])
+    secs = []
+    for _ in range(TOKENS - 1):
+        t0 = time.perf_counter()
+        model.decode_step(params, state, n)
+        state["tokens"].tolist()
+        secs.append(time.perf_counter() - t0)
+        for slot in range(n):
+            outs[slot].append(state["logits"][slot].clone())
+    return outs, secs
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+    return len(a) == len(b) and all(
+        torch.equal(x.view(torch.int32), y.view(torch.int32))
+        for x, y in zip(a, b))
+
+
+def _capture_guards() -> dict:
+    """Host state a replay would not renew is refused inside a capture:
+    kernel 3 (its look-back epoch is a host argument) and kernel 2's
+    arrival counters on a stream that has none yet."""
+    import torch
+    from repro_torch.kernels import ops
+    out = {}
+    x = torch.randint(0, 9, (4, 1024), dtype=torch.int32, device="cuda")
+    a = torch.randn((4, 256), device="cuda").bfloat16()
+    w = torch.randn((256, 256), device="cuda").bfloat16()
+    ops.idd_scan(x)
+    ops.tiled_matmul(a, w)
+    torch.cuda.synchronize()
+    for name, fn in (("idd_scan", lambda: ops.idd_scan(x)),
+                     ("matmul_counters", lambda: ops.tiled_matmul(a, w))):
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+                fn()
+        except RuntimeError as e:
+            check("capture" in str(e), f"{name}: refused with {e}")
+            out[name] = str(e)
+        else:
+            fail(f"{name}: ran inside a CUDA graph capture")
+        torch.cuda.synchronize()
+    log(f"engine: inside a capture, kernel 3 and kernel 2's first arrival "
+        f"counters on a new stream refuse: {out}")
+    return out
+
+
+# kernel groups of a captured step's profile, by the kernel's name
+PROFILE_GROUPS = (("kernel 2 fused", "matmul_kernel<true"),
+                  ("kernel 2' dense-tile", "matmul_kernel<false"),
+                  ("kernel 1 decode", "decode_"))
+
+
+def _replay_profile(engine, replays: int = 5) -> dict:
+    """Device time of a captured step by kernel group, from a
+    ``torch.profiler`` trace of ``replays`` replays of the engine's
+    largest bucket (the last requests' inputs; freed slots decode at
+    length 0): each group's ms a step, the step's kernel count and the
+    rest ("other", PyTorch's own kernels).  "not measured" when the trace
+    holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    bucket = max(engine.captured.graphs)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(replays):
+                engine.captured.run(bucket, engine._load)
+            torch.cuda.synchronize()
+    except RuntimeError as e:
+        return {"not measured": str(e)}
+    groups = dict.fromkeys([g for g, _ in PROFILE_GROUPS] + ["other"], 0.0)
+    kernels = 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us <= 0:
+            continue
+        kernels += ev.count
+        group = next((g for g, key in PROFILE_GROUPS if key in ev.key),
+                     "other")
+        groups[group] += us / 1e3 / replays
+    if kernels == 0:
+        return {"not measured": "the trace holds no device time"}
+    return {"bucket": bucket, "ms": groups,
+            "total_ms": sum(groups.values()),
+            "kernels_per_step": kernels / replays}
+
+
+def _engine_case(arch: str, mode: str, staggered: bool) -> dict:
+    """One model and mode at full width through ``runtime/engine.py``:
+    (a) each of 4 requests' logits, served together (bucket 4), bitwise
+    equal to the request served alone by the eager one-shot loop; (b) with
+    ``staggered``, request 0 alone for two steps, then 1, then 2 and 3
+    (buckets 1, 2, 4 all captured and replayed), (a) again; (c) the
+    bucket-4 replays bitwise equal to the eager bucket-4 loop; (d) each
+    step's launches, by the replay's count, equal one step's launches read
+    from the code; (e) the captured buckets within {1, 2, 4}; (f) TPOT of
+    the eager loops and of the captured engine, and the device ms a
+    replay (CUDA events around it), in this one run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.codec_api import Codec, use_codec
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    from repro_torch.runtime.streaming import assign_weight_modes
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    codec = Codec()
+    want_step = (STEP_LAUNCHES if arch == "llama3_2_1b"
+                 else MINITRON_STEP_LAUNCHES)[mode]
+    label = f"engine {arch} {mode}"
+    with use_codec(codec):
+        params = assign_weight_modes(
+            model.init(seed=0, device="cuda"), mode=mode,
+            min_bytes=MIN_BYTES, shards=2, codec=codec)
+        prompts = _prompts(cfg.vocab_size)
+        ecfg = EngineConfig(max_slots=BATCH, queue_depth=2 * BATCH,
+                            max_prompt_len=PROMPT, max_new_tokens=TOKENS,
+                            collect_logits=True)
+        alone = [one_shot_alone(model, params, p, ecfg.max_len)
+                 for p in prompts]
+        bucket_outs, bucket_secs = eager_bucket_loop(model, params, prompts,
+                                                     ecfg.max_len)
+        runs = {}
+        schedules = {"together": [(0, range(BATCH))]}
+        if staggered:
+            schedules["staggered"] = [(0, [0]), (2, [1]), (2, [2, 3])]
+        for name, schedule in schedules.items():
+            engine = Engine(model, params, ecfg, codec=codec)
+            serve.reset_launch_counts()      # this run starts here ...
+            reqs = []
+            for steps_before, idx in schedule:
+                for _ in range(steps_before):
+                    engine.step()
+                reqs += [engine.submit(prompts[i], TOKENS, name=f"r{i}")
+                         for i in idx]
+            engine.run_until_idle()
+            runs[name] = (engine, reqs, serve.launch_counts())   # ... ends
+    for name, (engine, reqs, counts) in runs.items():
+        for i, req in enumerate(reqs):
+            check(req.state == "done", f"{label} {name}: r{i} {req.state}")
+            check(_bits_equal(req.logits, alone[i][0]),
+                  f"{label} {name}: r{i} logits differ from the request "
+                  f"served alone by the eager one-shot loop")
+        check(all(st == want_step for st in engine.step_launches),
+              f"{label} {name}: step launches {engine.step_launches[:2]} "
+              f"!= {want_step}")
+        check(all(w == want_step
+                  for w in engine.captured.warmup_launches.values()),
+              f"{label} {name}: warm-up launches != one step's")
+        run = {k: engine.prefill_launches[k]
+               + sum(st[k] for st in engine.step_launches)
+               + sum(w[k] for w in engine.captured.warmup_launches.values())
+               for k in KERNELS}
+        check(run == counts, f"{label} {name}: launched {counts}, "
+              f"prefills + steps + warm-ups {run}")
+        buckets = engine.stats()["engine"]["compiled_buckets"]
+        check(set(buckets) <= {1, 2, 4}, f"{label}: buckets {buckets}")
+        check(all(b in buckets for b in engine.step_buckets),
+              f"{label} {name}: a step ran a bucket it did not capture")
+    engine, reqs, _ = runs["together"]
+    check(engine.stats()["engine"]["compiled_buckets"] == [BATCH],
+          f"{label}: together captured "
+          f"{engine.stats()['engine']['compiled_buckets']}")
+    for i, req in enumerate(reqs):
+        check(_bits_equal(req.logits, bucket_outs[i]),
+              f"{label}: r{i}'s bucket-{BATCH} replays differ from the "
+              f"eager bucket-{BATCH} loop")
+    if staggered:
+        st_engine = runs["staggered"][0]
+        check(st_engine.stats()["engine"]["compiled_buckets"] == [1, 2, 4],
+              f"{label}: staggered captured "
+              f"{st_engine.stats()['engine']['compiled_buckets']}")
+        for b in (1, 2, 4):
+            check(sum(1 for x in st_engine.step_buckets if x == b) >= 2,
+                  f"{label}: bucket {b} replayed fewer than twice")
+
+    def steady(eng):
+        return [(t, ms) for t, ms, c in zip(eng.step_times_s,
+                                            eng.step_device_ms,
+                                            eng.step_captured) if not c]
+
+    res = {}
+    for name, (eng, reqs, counts) in runs.items():
+        rows = steady(eng)
+        res[name] = {
+            "tpot_ms": 1e3 * sum(t for t, _ in rows) / len(rows),
+            "device_ms": sum(ms for _, ms in rows) / len(rows),
+            "step_ms": [1e3 * t for t in eng.step_times_s],
+            "step_device_ms": eng.step_device_ms,
+            "step_buckets": eng.step_buckets,
+            "capture_ms": {b: 1e3 * t
+                           for b, t in eng.captured.capture_s.items()},
+            "ttft_ms": 1e3 * sum(r.ttft_s() for r in reqs) / len(reqs),
+            "launches_per_step": eng.step_launches[0], "launches": counts,
+            "compiled_buckets": eng.stats()["engine"]["compiled_buckets"]}
+    res["profile"] = _replay_profile(runs["together"][0])
+    res["eager_bucket_tpot_ms"] = 1e3 * sum(bucket_secs) / len(bucket_secs)
+    res["eager_alone_tpot_ms"] = 1e3 * sum(
+        sum(secs) for _, secs in alone) / sum(len(s) for _, s in alone)
+    res["device_share"] = (res["together"]["device_ms"]
+                           / res["together"]["tpot_ms"])
+    log(f"{label}: (a) {BATCH} requests bitwise equal to each served alone "
+        f"by the eager one-shot loop"
+        + (", (b) and under the staggered join (buckets 1, 2, 4 captured "
+           "and replayed)" if staggered else "")
+        + f", (c) bucket-{BATCH} replays bitwise equal to the eager "
+        f"bucket-{BATCH} loop, (d) launches a step "
+        f"{res['together']['launches_per_step']} by the replay accounting, "
+        f"(e) buckets {res['together']['compiled_buckets']}"
+        + (f" / {res['staggered']['compiled_buckets']}" if staggered else "")
+        + f"; (f) TPOT eager alone {res['eager_alone_tpot_ms']:.3f}, eager "
+        f"bucket-{BATCH} {res['eager_bucket_tpot_ms']:.3f}, captured "
+        f"{res['together']['tpot_ms']:.3f} ms, device "
+        f"{res['together']['device_ms']:.3f} ms a replay (busy share "
+        f"{res['device_share']:.3f}), captures "
+        f"{res['together']['capture_ms']} ms; a replay's profile "
+        f"{res['profile']} on {card_line()}")
+    del runs, params, alone, bucket_outs
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_engine():
+    """The engine on full-width llama3_2_1b in fused, stream and dense
+    modes (4 requests x prompt 64 x 16 new tokens, 4 slots; staggered
+    joins too) and on minitron_4b fused, checks (a)-(f) of
+    :func:`_engine_case`, after the capture guards."""
+    guards = _capture_guards()
+    cases = {f"llama3_2_1b {m}": _engine_case("llama3_2_1b", m, True)
+             for m in ("fused", "stream", "dense")}
+    cases["minitron_4b fused"] = _engine_case("minitron_4b", "fused", False)
+    RESULTS["engine"] = {"card": card_line(), "guards": guards,
+                         "cases": cases}
+    return {"engine_fused": cases["llama3_2_1b fused"]["together"][
+        "launches"]}
+
+
+# ---------------------------------------------------------------------------
 # phase serve_minitron: minitron_4b at full width
 # ---------------------------------------------------------------------------
 
@@ -1734,11 +2084,8 @@ def phase_serve_minitron():
               f"minitron {mode} logits not bitwise equal to fused")
     for mode, out in runs.items():
         step = out["step_launches"][0]
-        check(all(s == step for s in out["step_launches"]),
-              f"minitron {mode}: launches vary between decode steps")
-        want = MINITRON_STEP_LAUNCHES[mode]
-        check(step == want, f"minitron {mode}: per-step launches {step} != "
-              f"{want}")
+        _check_engine_run(f"minitron {mode}", out,
+                          MINITRON_STEP_LAUNCHES[mode])
         enc = out["path_launches"]["enec_encode"]
         check(enc == out["encode_dispatches"] == out["encode_buckets"],
               f"minitron {mode}: {enc} encode launches, set-up reports "
@@ -1749,7 +2096,9 @@ def phase_serve_minitron():
         log(f"serve minitron_4b {mode}: set-up {out['setup_s']:.3f} s "
             f"({out['encode_buckets']} encode buckets), TTFT "
             f"{out['ttft_s'] * 1e3:.2f} ms, TPOT {out['tpot_s'] * 1e3:.2f} "
-            f"ms, {out['tok_s']:.2f} tok/s, wire ratio "
+            f"ms (captured step; device {out['step_device_ms']:.3f} ms a "
+            f"replay; captures {_capture_ms(out)} ms), "
+            f"{out['tok_s']:.2f} tok/s, wire ratio "
             f"{out['wire_ratio']:.4f}, hbm ratio "
             f"{out['stream_stats']['hbm_ratio']:.4f}, launches/step {step}, "
             f"launches in this run {out['path_launches']}, mode_mix "
@@ -1759,9 +2108,10 @@ def phase_serve_minitron():
     RESULTS["serve_minitron"] = {
         "card": card,
         "modes": {m: {k: o[k] for k in ("ttft_s", "tpot_s", "tok_s",
-                                        "setup_s", "wire_ratio",
-                                        "encode_buckets", "path_launches",
-                                        "prefill_launches", "mode_mix")}
+                                        "step_device_ms", "setup_s",
+                                        "wire_ratio", "encode_buckets",
+                                        "path_launches", "prefill_launches",
+                                        "mode_mix", "step_s", "capture_s")}
                   | {"step_launches": o["step_launches"][0],
                      "hbm_ratio": o["stream_stats"]["hbm_ratio"],
                      "raw_bytes": o["stream_stats"]["raw_bytes"],
@@ -1853,7 +2203,11 @@ def kernels_line(launches):
                    for label, r in kv["rows"].items() if "ms" in r},
          "plan": kv_row["plan"], "resources": kv["resources"]},
     ]
+    per_step = RESULTS["engine"]["cases"]
     for row in rows:
+        row["launches_per_captured_step"] = {
+            case: c["together"]["launches_per_step"][row["name"]]
+            for case, c in per_step.items()}
         path = KERNEL_PATH[row["name"]]
         row["launches"] = launches[path][row["name"]]
         check(row["launches"] > 0, f"{row['name']} was not launched in its "
@@ -1885,6 +2239,7 @@ def main():
     phase_setup_encode(fused)
     launches.update(phase_ckpt(fused))
     del fused
+    launches.update(phase_engine())
     launches.update(phase_scan())
     launches.update(phase_kv_attention())
     launches.update(phase_serve_minitron())

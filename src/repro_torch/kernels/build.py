@@ -18,6 +18,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("enec_decode", "decompress_matmul", "enec_encode", "idd_scan",
@@ -31,13 +33,53 @@ BUILD_LOG: dict = {}     # name -> {"seconds", "cached", "ptxas"}
 
 
 class LaunchCounter:
-    """Plain count of one kernel entry's launches."""
+    """Plain count of one kernel entry's launches, kept in Python by the
+    entry's wrapper.  Every counter registers itself under ``name``, so a
+    CUDA graph, whose replays run no Python, can add what its capture
+    counted (:func:`counts`, :func:`restore`, :func:`add`)."""
 
-    def __init__(self):
+    def __init__(self, name: str):
+        self.name = name
         self.n = 0
+        _COUNTERS[name] = self
 
     def reset(self):
         self.n = 0
+
+
+_COUNTERS: dict = {}     # name -> LaunchCounter
+
+
+def counts() -> dict:
+    """Every launch counter's value, by name."""
+    return {name: c.n for name, c in _COUNTERS.items()}
+
+
+def restore(values: dict) -> None:
+    """Set the counters back to ``values`` (a capture launched nothing)."""
+    for name, n in values.items():
+        _COUNTERS[name].n = n
+
+
+def add(delta: dict) -> None:
+    """Add ``delta`` to the counters (a replay launched what its capture
+    recorded)."""
+    for name, n in delta.items():
+        _COUNTERS[name].n += n
+
+
+def capturing() -> bool:
+    """Is the current CUDA stream capturing a graph?"""
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
+def refuse_in_capture(what: str) -> None:
+    """Raise if a CUDA graph is being captured on the current stream: for
+    host-side state that a replay would not renew."""
+    if capturing():
+        raise RuntimeError(f"{what} cannot be made or run inside a CUDA "
+                           f"graph capture")
 
 
 def _nvcc() -> str:
@@ -66,6 +108,7 @@ def build_all() -> dict:
     with _lock:
         if _libs:
             return _libs
+        refuse_in_capture("the kernels' build")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         digest = _digest()
         jobs = {}

@@ -14,7 +14,7 @@ dense K/V to device memory.  ``kernels/ops.py`` routes a call by device.
 ranges, one a CTA, on a grid sized to the card (flash-decoding split-KV),
 and sizes the workspace of the partials; the kernel obeys it.  The
 per-pair arrival counters of the ordered combine are kept per (device,
-stream), as kernel 2's are.
+stream), as kernel 2's are, and are not made inside a graph capture.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ from .ref import KV_TOK as TOK
 from .ref import check_kv_attention_args
 from .ref import decode_attention_kv_ref as decode_attention_kv_plain  # noqa
 
-LAUNCHES = build.LaunchCounter()
+LAUNCHES = build.LaunchCounter("decode_attention_kv")
 MAX_GRP = 16             # query heads a kv head the kernel takes (two
                          # 8-wide mma blocks)
 
@@ -143,6 +143,8 @@ def _counters(device, stream: int, pairs: int) -> torch.Tensor:
     key = (device, stream)
     ctr = _COUNTERS.get(key)
     if ctr is None or ctr.numel() < pairs:
+        build.refuse_in_capture(
+            f"kernel 5's arrival counters for stream {stream:#x}")
         ctr = torch.zeros(max(pairs, 256), dtype=torch.int32, device=device)
         _COUNTERS[key] = ctr
     return ctr

@@ -12,7 +12,10 @@ product and the ordered sum, so their results are bitwise equal.
 it: a workspace means ordered split-K, none the serial k walk) and sizes
 the workspace.  The per-strip arrival counters are kept per (device,
 stream): calls on one stream run in order and share them, calls on two
-streams never do.
+streams never do.  They are made on a stream's first call; made inside a
+CUDA graph capture they would come from the graph's private pool and be
+captured as a memset, so that raises (warm up on the capturing stream
+first, as ``runtime/captured.py`` does).
 """
 from __future__ import annotations
 
@@ -35,8 +38,8 @@ TILE = MATMUL_TILE
 # the kernel's CTAs hold at most 32 rows), the serial k walk above
 # (prefill), where split-K's partials would outweigh the tiles.
 SPLIT_MAX_M = 16
-FUSED_LAUNCHES = build.LaunchCounter()
-DENSE_LAUNCHES = build.LaunchCounter()
+FUSED_LAUNCHES = build.LaunchCounter("decompress_matmul")
+DENSE_LAUNCHES = build.LaunchCounter("dense_tile_matmul")
 
 _c = ctypes
 _FUSED_ARGTYPES = ([_c.c_void_p, _c.c_int] + [_c.c_void_p] * 4
@@ -86,6 +89,9 @@ def _outputs(m: int, k: int, n: int, device, stream: int):
     key = (device, stream)
     ctr = _COUNTERS.get(key)
     if ctr is None or ctr.numel() < p.n_tiles:
+        build.refuse_in_capture(
+            f"kernel 2's arrival counters for stream {stream:#x} (a warm-up "
+            f"call of the same shapes on the capturing stream makes them)")
         ctr = torch.zeros(max(p.n_tiles, 256), dtype=torch.int32,
                           device=device)
         _COUNTERS[key] = ctr

@@ -27,7 +27,7 @@ from repro_torch.core.params import EnecParams
 from . import build
 from .ref import decode_blocks_ref as decode_blocks_plain  # noqa: F401
 
-LAUNCHES = build.LaunchCounter()
+LAUNCHES = build.LaunchCounter("enec_decode")
 LANES_BLOCK = 16384      # the lanes branch's block size
 
 _c = ctypes

@@ -26,7 +26,7 @@ from . import build, enec_decode
 from .enec_decode import Plan, lanes_ok, plan  # noqa: F401
 from .ref import encode_blocks_ref as encode_blocks_plain  # noqa: F401
 
-LAUNCHES = build.LaunchCounter()
+LAUNCHES = build.LaunchCounter("enec_encode")
 MIN_BLOCK = 64           # the packer needs >= 8 lanes at every level
 
 _c = ctypes

@@ -32,7 +32,7 @@ STEP = 1024              # warp rows: elements a warp step
 WARP_MAX_N = 8192        # rows up to this length: one warp a row
 ROWS_PER_SM = 32         # ... or at least this many rows an SM
 EPOCH_LIMIT = 1 << 30    # the status words keep 30 bits of epoch
-LAUNCHES = build.LaunchCounter()
+LAUNCHES = build.LaunchCounter("idd_scan")
 
 _c = ctypes
 _ARGTYPES = [_c.c_void_p, _c.c_int, _c.c_void_p, _c.c_int, _c.c_int,
@@ -111,7 +111,11 @@ def _workspace(device, stream: int, words: int):
 
 def idd_scan_cuda(x: torch.Tensor) -> torch.Tensor:
     """Inclusive int32 prefix sum along the last axis of (B, N) int32 or
-    bool ``x`` on the card, bitwise equal to ``torch.cumsum``."""
+    bool ``x`` on the card, bitwise equal to ``torch.cumsum``.  It refuses
+    a CUDA graph capture: the look-back's epoch is a host argument, which a
+    replay would repeat against status words that already hold it."""
+    build.refuse_in_capture("kernel 3 (its look-back epoch is a host "
+                            "argument)")
     if x.device.type != "cuda":
         raise ValueError(f"idd_scan_cuda needs a CUDA tensor, got {x.device}")
     check_shape(x)

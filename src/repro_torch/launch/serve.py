@@ -1,8 +1,8 @@
-"""One-shot serving launcher of the PyTorch port (counterpart of
+"""Serving launcher of the PyTorch port (counterpart of
 ``repro/launch/serve.py``): seeded synthetic weights, compressed on the
 device under the chosen weight-execution mode (or restored from an ENEC
-checkpoint), then a few requests served as one greedy batch (prefill, then
-decode steps).
+checkpoint), then served through the continuous-batching engine
+(``runtime/engine.py``).
 
 Modes (runtime/streaming.py):
   dense   raw weights, canonical tiled matmul (dense-tile kernel entry)
@@ -11,6 +11,15 @@ Modes (runtime/streaming.py):
   fused   ENEC tile streams decoded inside the matmul kernel (default)
 All three give bitwise-equal logits on one device.  Compression runs
 through the codec's encode plans: the ENEC encode kernel on the card.
+
+Serving: ``--batch N`` submits N requests at once into the engine's
+bounded admission queue (``--queue-depth``); they join a
+``--concurrency``-slot KV ring (default N), each prefilled alone, and
+decode together, one step per token, the slot prefix of each step a power
+of two.  On the card each such bucket's step is a CUDA graph, captured on
+its first use and replayed after (``runtime/captured.py``).
+``--deadline-ms`` gives each request a total deadline: expired work is
+shed before its prefill or evicted at a step.
 
 Checkpoints: ``--save-ckpt DIR`` writes an enec-v2 checkpoint of the
 compressed weights (in the serving layout of the mode) and serves;
@@ -29,9 +38,13 @@ cross host to device, and no weight is initialised.
 One :class:`~repro_torch.core.codec_api.Codec` owns the run: it is ambient
 for the whole of ``main`` (``use_codec``), so the encode plans, the
 checkpoint manager, the h2d ledger and every handle's decode count on it.
-``main`` returns the run's tokens, logits, timings, kernel launch counts,
-plan counts and the save / restore figures, so a calling script can
-compare runs.  The continuous-batching engine is not ported yet.
+``main`` returns the run's tokens (batch, tokens) and logits (tokens,
+batch, vocab) when every request completed, TTFT (mean over requests,
+queueing included), TPOT (mean host time of the steps that replayed a
+graph, after their tokens reached the host; the capturing steps are
+reported apart), the device ms of a replay, tok/s, kernel launch counts
+(the run, the prefills, each decode step), the engine's stats and the
+set-up, save and restore figures, so a calling script can compare runs.
 """
 from __future__ import annotations
 
@@ -51,6 +64,7 @@ from repro_torch.kernels.decompress_matmul import (DENSE_LAUNCHES,
 from repro_torch.kernels.idd_scan import LAUNCHES as IDD_SCAN_LAUNCHES
 from repro_torch.models import build_model
 from repro_torch.models.lm import abstract_params
+from repro_torch.runtime.engine import Engine, EngineConfig
 from repro_torch.runtime.streaming import (assign_weight_modes, mode_mix,
                                            stream_stats, tree_leaves)
 from repro_torch.runtime.weights import FusedWeight, StreamedWeight
@@ -105,10 +119,17 @@ def parse_args(argv=None):
                     help="smallest leaf worth compressing")
     ap.add_argument("--shards", type=int, default=2,
                     help="TP shard count of the stream block dim")
-    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=4,
+                    help="requests submitted at once")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=8,
                     help="new tokens per request (1 from the prefill)")
+    ap.add_argument("--concurrency", type=int, default=0,
+                    help="KV slots of the engine (default: --batch)")
+    ap.add_argument("--queue-depth", type=int, default=16,
+                    help="admission queue depth (at least --batch)")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="total deadline per request (0: none)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0, help="weight seed")
     ck = ap.add_mutually_exclusive_group()
@@ -212,44 +233,74 @@ def _serve(args, cfg, model, codec, dev) -> dict:
     gen = torch.Generator().manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size,
                             (args.batch, args.prompt_len), generator=gen)
-    prompts = prompts.to(dev)
-    max_len = args.prompt_len + args.tokens
+    ecfg = EngineConfig(
+        max_slots=max(1, args.concurrency or args.batch),
+        queue_depth=max(args.queue_depth, args.batch),
+        max_prompt_len=args.prompt_len, max_new_tokens=args.tokens,
+        default_deadline_s=(args.deadline_ms / 1e3 if args.deadline_ms
+                            else None),
+        collect_logits=True)
+    engine = Engine(model, params, ecfg, codec=codec, device=dev)
 
     base = launch_counts()
     t0 = time.perf_counter()
-    logits, cache = model.prefill_fn(params, {"tokens": prompts}, max_len)
-    tok = torch.argmax(logits, dim=-1)
-    _sync(dev)
-    ttft = time.perf_counter() - t0
-    prefill_launches = _since(base)
-    all_logits, all_tokens, step_s, step_launches = [logits], [tok], [], []
-    for _ in range(args.tokens - 1):
-        before = launch_counts()
-        t1 = time.perf_counter()
-        logits, cache = model.decode_fn(params, cache, tok)
-        tok = torch.argmax(logits, dim=-1)
-        _sync(dev)
-        step_s.append(time.perf_counter() - t1)
-        step_launches.append(_since(before))
-        all_logits.append(logits)
-        all_tokens.append(tok)
+    reqs = [engine.submit(prompts[i].numpy(), args.tokens, name=f"seq{i}")
+            for i in range(args.batch)]
+    engine.run_until_idle()
     wall = time.perf_counter() - t0
     launches = _since(base)
+    engine.shutdown(deadline_s=30.0)
 
-    tpot = sum(step_s) / len(step_s) if step_s else 0.0
-    tok_s = args.batch * args.tokens / wall
+    finished = [r for r in reqs if r.state in ("done", "timed_out")]
+    ttfts = [r.ttft_s() for r in finished]
+    ttft = sum(ttfts) / len(ttfts) if ttfts else 0.0
+    # TPOT: the steps that replayed a graph (on the CPU, the steps after
+    # each bucket's first); the steps that captured are reported apart
+    steady = [t for t, c in zip(engine.step_times_s, engine.step_captured)
+              if not c] or engine.step_times_s
+    tpot = sum(steady) / len(steady) if steady else 0.0
+    dev_ms = [m for m, c in zip(engine.step_device_ms,
+                                engine.step_captured)
+              if m is not None and not c]
+    step_dev_ms = sum(dev_ms) / len(dev_ms) if dev_ms else None
+    tok_s = sum(len(r.tokens) for r in finished) / wall
+    st = engine.stats()
+    est = st["engine"]
+    device_ms = "n/a" if step_dev_ms is None else f"{step_dev_ms:.3f}ms"
+    evicted = sum(est[f"evicted_{k}"] for k in ("deadline", "fault",
+                                                "abort"))
     print(f"[serve] batch={args.batch} prompt={args.prompt_len} "
-          f"tokens={args.tokens} TTFT={ttft * 1e3:.2f}ms "
-          f"TPOT={tpot * 1e3:.2f}ms tok/s={tok_s:.2f} mode={args.mode}")
-    print(f"[serve] launches={launches} prefill={prefill_launches} "
-          f"per_decode_step={step_launches[0] if step_launches else {}}")
-    tokens = torch.stack(all_tokens, dim=1)
-    print(f"[serve] seq0={tokens[0].tolist()}")
-    return {"tokens": tokens, "logits": torch.stack(all_logits),
+          f"tokens={args.tokens} slots={ecfg.max_slots} "
+          f"TTFT={ttft * 1e3:.2f}ms TPOT={tpot * 1e3:.2f}ms "
+          f"step_device={device_ms} tok/s={tok_s:.2f} mode={args.mode}")
+    print(f"[serve] engine: steps={est['steps']} prefills={est['prefills']} "
+          f"buckets={est['compiled_buckets']} done={est['done']} "
+          f"timed_out={est['timed_out']} shed={est['shed']} "
+          f"evicted={evicted} rejected={est['rejected']} "
+          f"governor={engine.governor.state} health={engine.health.state}")
+    print(f"[serve] launches={launches} prefill={engine.prefill_launches} "
+          f"per_decode_step="
+          f"{engine.step_launches[0] if engine.step_launches else {}}")
+    complete = len(finished) == len(reqs) and all(
+        len(r.tokens) == args.tokens for r in reqs)
+    tokens = logits = None
+    if complete:
+        tokens = torch.tensor([r.tokens for r in reqs])
+        logits = torch.stack([torch.stack([r.logits[t] for r in reqs])
+                              for t in range(args.tokens)])
+        print(f"[serve] seq0={tokens[0].tolist()}")
+    return {"tokens": tokens, "logits": logits,
             "ttft_s": ttft, "tpot_s": tpot, "tok_s": tok_s,
-            "setup_s": setup_s, "launches": launches,
-            "prefill_launches": prefill_launches,
-            "step_launches": step_launches, "mode_mix": mode_mix(params),
+            "step_device_ms": step_dev_ms, "setup_s": setup_s,
+            "launches": launches,
+            "prefill_launches": engine.prefill_launches,
+            "step_launches": engine.step_launches,
+            "warmup_launches": engine.captured.warmup_launches,
+            "step_s": engine.step_times_s,
+            "step_device_ms_all": engine.step_device_ms,
+            "step_buckets": engine.step_buckets,
+            "capture_s": engine.captured.capture_s, "engine": st,
+            "mode_mix": mode_mix(params),
             "stream_stats": stats, "wire_ratio": ratio,
             "encode_buckets": encode["planned_buckets"],
             "encode_dispatches": encode["dispatches"],

@@ -74,8 +74,9 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
     half = head_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32, device=device) / half
-    return torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                  device=device), exps)
+    # theta as a CPU scalar: a device copy of it would synchronise, which
+    # a CUDA graph capture of the decode step refuses
+    return torch.pow(torch.tensor(theta, dtype=torch.float32), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

@@ -1,5 +1,6 @@
 """Decoder-only LM, dense family (port of the dense path of
-``repro/models/lm.py``): init, prefill and one-token decode.
+``repro/models/lm.py``): init, prefill and one-token decode, and the
+serving engine's decode step over fixed buffers (:func:`decode_step`).
 
 Parameters are a nested dict with the reference's layout: ``embed``,
 ``period`` (a list with one dict per program position whose leaves are
@@ -211,3 +212,32 @@ def decode_fn(params, cfg, cache, tokens: torch.Tensor):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(x, _head(params, cfg, embed))[:, 0]
     return logits, dict(cache, lengths=cache["lengths"] + 1)
+
+
+def init_step_state(cfg, slots: int, max_len: int, device="cuda"):
+    """The buffers of :func:`decode_step`, allocated once: the KV ring of
+    ``slots`` slots (``init_cache``), each slot's last token (int64) and
+    the step's f32 logits."""
+    state = init_cache(cfg, slots, max_len, device=device)
+    dev = state["lengths"].device
+    state["tokens"] = torch.zeros((slots,), dtype=torch.int64, device=dev)
+    state["logits"] = torch.zeros((slots, cfg.vocab_size),
+                                  dtype=torch.float32, device=dev)
+    return state
+
+
+def decode_step(params, cfg, state, bucket: int) -> None:
+    """One decode step over the slots ``[0, bucket)`` of
+    :func:`init_step_state`'s buffers, in place: :func:`decode_fn` on a
+    view of the ring (it writes each row's K/V at its length), then the
+    step's logits, each row's greedy token and its length + 1 are copied
+    into the buffers.  Nothing it allocates outlives it, so a CUDA graph
+    of it (``runtime/captured.py``) replays on fixed addresses; its bits
+    are :func:`decode_fn`'s on the same rows."""
+    sub = {"entries": [{k: e[k][:, :bucket] for k in ("k", "v")}
+                       for e in state["entries"]],
+           "lengths": state["lengths"][:bucket]}
+    logits, _ = decode_fn(params, cfg, sub, state["tokens"][:bucket])
+    state["logits"][:bucket].copy_(logits)
+    state["tokens"][:bucket].copy_(torch.argmax(logits, dim=-1))
+    state["lengths"][:bucket].add_(1)

@@ -16,6 +16,8 @@ class Model(NamedTuple):
     prefill_fn: Callable      # (params, batch, max_len) -> (logits, cache)
     decode_fn: Callable       # (params, cache, tokens) -> (logits, cache)
     init_cache: Callable      # (batch, max_len, device=) -> cache
+    init_step_state: Callable  # (slots, max_len, device=) -> step buffers
+    decode_step: Callable     # (params, state, bucket) -> None, in place
 
 
 def build_model(cfg: ArchConfig) -> Model:
@@ -28,4 +30,7 @@ def build_model(cfg: ArchConfig) -> Model:
         decode_fn=lambda params, cache, tokens: lm.decode_fn(
             params, cfg, cache, tokens),
         init_cache=partial(lm.init_cache, cfg),
+        init_step_state=partial(lm.init_step_state, cfg),
+        decode_step=lambda params, state, bucket: lm.decode_step(
+            params, cfg, state, bucket),
     )
