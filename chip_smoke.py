@@ -105,6 +105,16 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
            launches per decode step and per warm-up as read from the code
            (the untied head is a second flat stream beside the embed),
            encode launches equal to the set-up's buckets.
+   moe     phi3_5_moe at published widths cut to 8 layers (``MOE_LAYERS``;
+           the dense tree of 32 does not fit the card) through
+           ``runtime/engine.py``: dense, stream and fused (each bucket's
+           step a CUDA graph), then fused with an expert store at budgets
+           0, one step's working set and unbounded (every step eager);
+           checks (a)-(f) of :func:`phase_moe`; TTFT, TPOT, device ms a
+           step, the store's hit rate, miss-decode ms and h2d GB a step,
+           peak device memory beside MemAvailable; kernel 1 on a layer's
+           routed experts, 2' on one expert (M = 4, 16) and 4 on an
+           expert leaf, each against its plain version and its bound.
 6. a ``{"kernels": [...]}`` JSON line, then the card line and the last
    line ``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` is
    its count in the run of its ``path`` (fused, the main path, for the
@@ -113,7 +123,8 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    5);
    ``launches_by_path`` gives its count in each run (the three llama
    modes, ``ckpt_save``, ``ckpt_restore``, ``engine_fused``, ``scan``,
-   ``kv_attention`` and the three ``minitron_*`` modes), and
+   ``kv_attention``, the three ``minitron_*`` modes and the six ``moe_*``
+   runs), and
    ``launches_per_captured_step`` its launches in one replay of each
    engine case's bucket-4 graph.  Every count is set to 0 just before its
    run and read just after it; a graph's replays add what its capture
@@ -2121,6 +2132,559 @@ def phase_serve_minitron():
 
 
 # ---------------------------------------------------------------------------
+# phase moe: phi3_5_moe at published widths, experts from a store
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "phi3_5_moe_42b_a6_6b"
+# depth cut 32 -> 8: the bitwise checks need the dense tree on the card,
+# 83.7 GB at 32 layers, and the set-up holds the dense and compressed
+# trees together (~21.3 + 20 GB at 8 layers, ~80 GB at 16)
+MOE_LAYERS = 8
+MOE_GEOMS = 2            # expert leaf geometries: (D, F) and (F, D)
+
+
+def moe_step_launches(n_layers: int, n_experts: int) -> dict:
+    """Kernel launches of one MoE decode step without a store, read from
+    the code: a layer runs its 4 attention matmuls, the f32 router (a
+    stream in the compressing modes, materialized by kernel 1, then the
+    dense-tile entry) and 3 products of EVERY expert (the expert stacks
+    are streams materialized per layer in stream and fused modes); the
+    embed and the untied head are flat streams, and the head one
+    dense-tile launch."""
+    zero = dict.fromkeys(KERNELS, 0)
+    dense_tiles = n_layers * (1 + 3 * n_experts) + 1
+    return {"dense": zero | {"dense_tile_matmul": dense_tiles + 4 * n_layers},
+            "stream": zero | {"enec_decode": n_layers * 8 + 2,
+                              "dense_tile_matmul": dense_tiles
+                              + 4 * n_layers},
+            "fused": zero | {"enec_decode": n_layers * 4 + 2,
+                             "decompress_matmul": 4 * n_layers,
+                             "dense_tile_matmul": dense_tiles}}
+
+
+def _mem_available_gb() -> float:
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def _moe_engine_run(label, model, params, codec, store=None) -> dict:
+    """One engine run of the phase's traffic (4 requests x prompt 64 x 16
+    new tokens, 4 slots, all submitted together): each request's logits,
+    TTFT, TPOT, device ms a step, the launches of the run and of each
+    step, the peak device memory from the engine's creation to its end,
+    and with a store its counters, each fetch's decode launches and h2d
+    bytes (``fetches``), miss-decode seconds and h2d bytes a step."""
+    import torch
+    from repro_torch.kernels import enec_decode
+    from repro_torch.launch import serve
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    cfg = model.cfg
+    ecfg = EngineConfig(max_slots=BATCH, queue_depth=2 * BATCH,
+                        max_prompt_len=PROMPT, max_new_tokens=TOKENS,
+                        collect_logits=True)
+    fetches = []
+    if store is not None:
+        fetch = store.fetch_step
+
+        def traced(names, layer, routed):
+            routed = sorted({int(r) for r in routed})
+            miss = [(n, layer, j) for n in names for j in routed
+                    if (n, layer, j) not in store._lru]
+            d0 = enec_decode.LAUNCHES.n
+            h0 = codec.transfer_stats()["h2d_bytes"]
+            out = fetch(names, layer, routed)
+            fetches.append({
+                "routed": len(routed), "missed": len(miss),
+                "launches": enec_decode.LAUNCHES.n - d0,
+                "buckets": store.last_fetch["buckets"] if miss else 0,
+                "geoms": len({store.meta(n)["expert_shape"]
+                              for n, _, _ in miss}),
+                "h2d": codec.transfer_stats()["h2d_bytes"] - h0,
+                "stream_bytes": sum(store._headers[k].stream_nbytes
+                                    for k in miss)})
+            return out
+
+        store.fetch_step = traced
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prompts = _prompts(cfg.vocab_size)
+    engine = Engine(model, params, ecfg, codec=codec, expert_store=store)
+    serve.reset_launch_counts()          # this run starts here ...
+    reqs = [engine.submit(prompts[i], TOKENS, name=f"r{i}")
+            for i in range(BATCH)]
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    launches = serve.launch_counts()      # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    if store is not None:
+        store.fetch_step = fetch
+    for i, req in enumerate(reqs):
+        check(req.state == "done" and len(req.logits) == TOKENS,
+              f"{label}: r{i} {req.state} with {len(req.logits)} tokens")
+    steady = [(t, ms) for t, ms, c in zip(engine.step_times_s,
+                                          engine.step_device_ms,
+                                          engine.step_captured) if not c]
+    out = {"logits": [[t.clone() for t in r.logits] for r in reqs],
+           "tokens": [list(r.tokens) for r in reqs],
+           "ttft_ms": 1e3 * sum(r.ttft_s() for r in reqs) / len(reqs),
+           "tpot_ms": 1e3 * sum(t for t, _ in steady) / len(steady),
+           "device_ms": sum(ms for _, ms in steady) / len(steady),
+           "step_ms": [1e3 * t for t in engine.step_times_s],
+           "step_device_ms": engine.step_device_ms,
+           "steps": len(engine.step_times_s), "prefills": len(reqs),
+           "launches": launches, "step_launches": engine.step_launches,
+           "warmup_launches": engine.captured.warmup_launches,
+           "prefill_launches": engine.prefill_launches,
+           "eager": engine.captured.eager,
+           "compiled_buckets": engine.stats()["engine"]["compiled_buckets"],
+           "peak_gb": peak / 1e9, "mem_available_gb": _mem_available_gb()}
+    if store is not None:
+        st = store.stats()
+        out.update(experts=st, fetches=fetches,
+                   hit_rate=st["hits"] / max(1, st["hits"] + st["misses"]),
+                   miss_decode_ms=1e3 * sum(engine.step_decode_s)
+                   / len(engine.step_decode_s),
+                   h2d_gb_step=sum(engine.step_h2d_bytes)
+                   / len(engine.step_h2d_bytes) / 1e9,
+                   step_decode_ms=[1e3 * s for s in engine.step_decode_s],
+                   step_h2d_gb=[b / 1e9 for b in engine.step_h2d_bytes])
+    del engine, reqs
+    return out
+
+
+def _check_moe_launches(label, run, want_step, n_layers):
+    """Without a store: every replay's and warm-up's launches equal one
+    step's read from the code, and the run launched the prefills', steps'
+    and warm-ups' kernels and nothing else.  With one: the run's decode,
+    fused and dense-tile launches follow from its forwards (prefills and
+    steps: the router of every layer, the embed and the head) and its
+    fetches (one decode launch per bucket, at most one per leaf geometry
+    touched; three dense-tile launches per routed expert); every miss
+    moved its record's stream bytes host to device, and nothing else."""
+    if want_step is not None:
+        check(all(st == want_step for st in run["step_launches"]),
+              f"{label}: launches a step {run['step_launches'][:1]} != "
+              f"{want_step}")
+        check(all(w == want_step for w in run["warmup_launches"].values()),
+              f"{label}: warm-up launches != one step's")
+        total = {k: run["prefill_launches"][k]
+                 + sum(st[k] for st in run["step_launches"])
+                 + sum(w[k] for w in run["warmup_launches"].values())
+                 for k in KERNELS}
+        check(total == run["launches"], f"{label}: launched "
+              f"{run['launches']}, prefills + steps + warm-ups {total}")
+        return
+    fetches = run["fetches"]
+    forwards = run["prefills"] + run["steps"]
+    check(len(fetches) == forwards * n_layers,
+          f"{label}: {len(fetches)} fetches for {forwards} forwards")
+    for f in fetches:
+        check(f["launches"] == f["buckets"] <= f["geoms"]
+              if f["missed"] else f["launches"] == 0,
+              f"{label}: a fetch of {f['missed']} misses over "
+              f"{f['geoms']} geometries took {f['launches']} decode "
+              f"launches ({f['buckets']} buckets)")
+        check(f["h2d"] == f["stream_bytes"],
+              f"{label}: a fetch moved {f['h2d']} bytes host to device, "
+              f"its misses' streams are {f['stream_bytes']}")
+    want = dict.fromkeys(KERNELS, 0) | {
+        "enec_decode": forwards * (n_layers + 2)
+        + sum(f["launches"] for f in fetches),
+        "decompress_matmul": forwards * 4 * n_layers,
+        "dense_tile_matmul": forwards * (n_layers + 1)
+        + sum(3 * f["routed"] for f in fetches)}
+    check(run["launches"] == want, f"{label}: launched {run['launches']}, "
+          f"the forwards and fetches account for {want}")
+
+
+def _moe_kernel_times(store, codec) -> dict:
+    """Kernel 1 on one layer's routed experts (the 8 experts of a decode
+    step at batch 4, all three leaves, as one fetch stages them), kernel
+    2's dense-tile entry on one 4096 x 6400 expert at M = 4 and 16, and
+    kernel 4 on the set-up's stacked encode of one expert leaf (L*E
+    slices), each held against its plain version on every block
+    of its launch and timed beside its bound; 2' also beside
+    torch.matmul."""
+    import torch
+    from repro_torch.core import codec as block_codec
+    from repro_torch.core.dtypes import to_container
+    from repro_torch.kernels import enec_decode, enec_encode, ref
+    from repro_torch.kernels.decompress_matmul import dense_matmul_cuda
+    from repro_torch.runtime.experts import _expert_block_elems
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    names = store.names()
+    routed = min(2 * BATCH, store.meta(names[0])["n_experts"])
+    keys = [(n, 0, j) for n in names for j in range(routed)]
+    plan = codec.plan_decode([store._stage(k) for k in keys])
+    dec = {"records": len(keys), "buckets": len(plan.buckets), "ms": 0.0,
+           "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0}
+    for members in plan._groups:
+        flat = block_codec.BlockStreams(*(torch.cat(f) for f in zip(
+            *[m["flat"] for m in members])))
+        nb = [m["flat"].mask.shape[0] for m in members]
+        b_vec = torch.cat([torch.full((n,), m["ct"].params.b,
+                                      dtype=torch.int32, device="cuda")
+                           for n, m in zip(nb, members)])
+        l_vec = torch.cat([torch.full((n,), m["ct"].params.l,
+                                      dtype=torch.int32, device="cuda")
+                           for n, m in zip(nb, members)])
+        ct0 = members[0]["ct"]
+        args = (flat, ct0.block_elems, ct0.fmt, ct0.params, b_vec, l_vec)
+        got = enec_decode.decode_blocks_cuda(*args)
+        dec["ms"] += cuda_ms(lambda: enec_decode.decode_blocks_cuda(*args),
+                             10, flush)
+        dec["bound_ms"] += 1e3 * (needed_bytes(flat) + got.numel()
+                                  * got.element_size()) / HBM_BYTES_PER_S
+        # the plain decoder record by record (its intermediates are several
+        # times a bucket's output), each against its rows of the launch
+        off = 0
+        for n in nb:
+            part = flat.map(lambda a, o=off, k=n: a[o:o + k])
+            pargs = (part, ct0.block_elems, ct0.fmt, ct0.params,
+                     b_vec[off:off + n], l_vec[off:off + n])
+            check(torch.equal(got[off:off + n],
+                              enec_decode.decode_blocks_plain(*pargs)),
+                  "moe: kernel 1 on the routed experts differs from the "
+                  "plain decoder")
+            dec["plain_ms"] += cuda_ms(
+                lambda: enec_decode.decode_blocks_plain(*pargs), 1, flush)
+            off += n
+        del got, flat
+    expert = store.materialize_leaf(names[0])[0, 0]      # (4096, 6400)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    mm = {}
+    for m in (BATCH, 16):
+        x = torch.randn((m, expert.shape[0]), generator=gen,
+                        device="cuda").bfloat16()
+        got = dense_matmul_cuda(x, expert)
+        want = ref.tiled_matmul_ref(x, expert)
+        err = float((got - want).abs().max())
+        check(err <= MATMUL_ATOL, f"moe: kernel 2' on an expert at M = {m} "
+              f"errs {err} from the plain version")
+        k, n = expert.shape
+        mm[m] = {"ms": cuda_ms(lambda: dense_matmul_cuda(x, expert), 20,
+                               flush),
+                 "plain_ms": cuda_ms(lambda: ref.tiled_matmul_ref(x, expert),
+                                     3, flush),
+                 "library_ms": cuda_ms(lambda: torch.matmul(x, expert), 20,
+                                       flush),
+                 "bound_ms": 1e3 * max((k * n * 2 + m * k * 2 + m * n * 4)
+                                       / HBM_BYTES_PER_S,
+                                       2 * m * k * n / BF16_FLOPS),
+                 "bound_by": "bytes", "max_abs_err": err}
+    del flush_buf, expert, x
+    # kernel 4: the set-up's stacked encode of one expert leaf (L*E slices)
+    leaf = store.materialize_leaf(names[0])
+    n_elems = leaf[0, 0].numel()
+    plan = codec.plan_encode([leaf.reshape((-1,) + leaf.shape[2:])],
+                             stacked=True,
+                             block_elems=_expert_block_elems(codec, n_elems))
+    del leaf
+    (blocks, fmt, p, b_vec), = codec.encode_launches(plan)
+    bits = to_container(blocks, fmt).contiguous()
+    streams = enec_encode.encode_blocks_cuda(bits, fmt, p, b_vec)
+    plain = (lambda: enec_encode.encode_blocks_plain(bits, fmt, p, b_vec))
+    want = plain()
+    check(all(torch.equal(a, b) for a, b in zip(streams, want)),
+          "moe: kernel 4 on an expert leaf differs from the plain encoder")
+    del want
+    enc = _time_encode_launch(blocks, fmt, p, b_vec, needed_bytes(streams))
+    enc["plain_ms"] = cuda_ms(plain, 1)
+    enc.update(blocks=int(blocks.shape[0]), max_abs_err=0)
+    return {"decode": dec, "dense_tile": mm, "encode": enc}
+
+
+def _rebudget(store, budget) -> None:
+    """Empty ``store``'s cache and give it ``budget`` bytes (``None``:
+    unbounded): the phase serves its budgets from one store's records."""
+    store.budget_bytes = 0
+    store._trim()
+    store.budget_bytes = budget
+
+
+def _moe_store_capture_refused(store) -> str:
+    """(c) a store fetch inside a CUDA graph capture raises."""
+    import torch
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+            store.fetch_step(store.names(), 0, [0])
+    except RuntimeError as e:
+        check("capture" in str(e), f"moe: the fetch refused with {e}")
+        torch.cuda.synchronize()
+        return str(e)
+    fail("moe: an expert store fetch ran inside a CUDA graph capture")
+
+
+def phase_moe():
+    """phi3_5_moe at published widths (d_model 4096, 32/8 heads, 16
+    experts top-2, moe_d_ff 6400, vocab 32064, untied head), cut to
+    ``MOE_LAYERS`` layers, served through the engine in dense, stream and
+    fused mode (each bucket's step a CUDA graph) and, fused, with an expert
+    store at budgets 0, one step's working set and unbounded (every step
+    eager).  Checks (a) each request's logits bitwise equal across the six
+    runs and to the request served alone in dense and at budget 0; (b) the
+    captured modes' replays bitwise equal to the eager bucket-4 step, with
+    a replay's launches read from the code; (c) a store fetch refuses a
+    capture; (d) each fetch takes at most one decode launch per leaf
+    geometry it touches and moves its misses' stream bytes host to device;
+    (e) a checkpoint with per-expert records, restored into a bounded
+    store, serves the same bits with no dense h2d of an expert; (f) the
+    peak device memory of the bounded store runs below the dense run's, and
+    the unbounded store's at most the budget-0 run's plus its cache (it
+    ends holding every routed expert decoded, the dense expert bytes; its
+    peak against dense is logged, not held), all logged beside
+    MemAvailable."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.codec_api import Codec, use_codec
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import abstract_params
+    from repro_torch.runtime.experts import (ExpertStore,
+                                             install_expert_store)
+    from repro_torch.runtime.streaming import assign_weight_modes
+    # the earlier phases' trees are gone, none of them held by a cycle
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    left_gb = torch.cuda.memory_allocated() / 1e9
+    log(f"moe: {left_gb:.3f} GB allocated from the earlier phases")
+    check(left_gb < 1.0, f"moe: the earlier phases left {left_gb:.3f} GB "
+          f"allocated on the card")
+    card = card_line()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    model = build_model(cfg)
+    want_step = moe_step_launches(MOE_LAYERS, cfg.n_experts)
+    prompts = _prompts(cfg.vocab_size)
+    max_len = PROMPT + TOKENS
+    runs, res, launches = {}, {}, {}
+
+    def summary(run) -> dict:
+        return {k: v for k, v in run.items()
+                if k not in ("logits", "fetches", "step_launches")}
+
+    for mode in ("dense", "stream", "fused"):
+        codec = Codec()
+        with use_codec(codec):
+            t0 = time.perf_counter()
+            params = assign_weight_modes(
+                model.init(seed=0, device="cuda"), mode=mode,
+                min_bytes=MIN_BYTES, shards=2, codec=codec)
+            setup_s = _sync_s(t0)
+            run = _moe_engine_run(f"moe {mode}", model, params, codec)
+            run["setup_s"] = setup_s
+            _check_moe_launches(f"moe {mode}", run, want_step[mode],
+                                MOE_LAYERS)
+            check(run["compiled_buckets"] == [BATCH],
+                  f"moe {mode}: buckets {run['compiled_buckets']}")
+            bucket_outs, bucket_secs = eager_bucket_loop(model, params,
+                                                         prompts, max_len)
+            for i in range(BATCH):
+                check(_bits_equal(run["logits"][i], bucket_outs[i]),
+                      f"moe {mode}: r{i}'s bucket-{BATCH} replays differ "
+                      f"from the eager bucket-{BATCH} step")
+            run["eager_bucket_tpot_ms"] = 1e3 * sum(bucket_secs) / len(
+                bucket_secs)
+            if mode == "dense":
+                alone = [one_shot_alone(model, params, p, max_len)
+                         for p in prompts]
+                for i, (outs, _) in enumerate(alone):
+                    check(_bits_equal(run["logits"][i], outs),
+                          f"moe dense: r{i} differs from it served alone")
+            del params, bucket_outs
+        launches[f"moe_{mode}"] = run["launches"]
+        runs[mode] = run
+        torch.cuda.empty_cache()
+        log(f"moe {mode}: set-up {setup_s:.2f} s, TTFT {run['ttft_ms']:.2f} "
+            f"ms, TPOT {run['tpot_ms']:.3f} ms (captured; eager bucket-"
+            f"{BATCH} step {run['eager_bucket_tpot_ms']:.3f} ms), device "
+            f"{run['device_ms']:.3f} ms a replay, peak "
+            f"{run['peak_gb']:.2f} GB, MemAvailable "
+            f"{run['mem_available_gb']:.1f} GB; launches a step "
+            f"{run['step_launches'][0]} on {card}")
+
+    ref = runs["dense"]["logits"]
+    for mode in ("stream", "fused"):
+        for i in range(BATCH):
+            check(_bits_equal(runs[mode]["logits"][i], ref[i]),
+                  f"moe {mode}: r{i} not bitwise equal to dense")
+
+    # the store runs: one tree (experts installed into a store before the
+    # fused mode assignment), served at three budgets from a cold cache
+    codec = Codec()
+    with use_codec(codec):
+        t0 = time.perf_counter()
+        store = ExpertStore(budget_bytes=None, codec=codec, device="cuda")
+        before = serve.launch_counts()
+        params, _ = install_expert_store(model.init(seed=0, device="cuda"),
+                                         store=store, min_bytes=MIN_BYTES)
+        install_s = _sync_s(t0)
+        install_launches = {k: v - before[k]
+                            for k, v in serve.launch_counts().items()}
+        params = assign_weight_modes(params, mode="fused",
+                                     min_bytes=MIN_BYTES, shards=2,
+                                     codec=codec)
+        setup_s = _sync_s(t0)
+        torch.cuda.empty_cache()
+        per_expert = sum(store.expert_nbytes(n) for n in store.names())
+        ws = 2 * BATCH * per_expert * MOE_LAYERS     # <= 8 experts a layer
+        budgets = {"store_0": 0, "store_ws": ws, "store_unbounded": None}
+        guard = _moe_store_capture_refused(store)
+        for name, budget in budgets.items():
+            _rebudget(store, budget)
+            store.reset_stats()
+            codec.reset_transfer_stats()
+            run = _moe_engine_run(f"moe {name}", model, params, codec, store)
+            run["setup_s"] = setup_s
+            run["budget_bytes"] = budget
+            _check_moe_launches(f"moe {name}", run, None, MOE_LAYERS)
+            check(run["eager"] and run["compiled_buckets"] == [BATCH],
+                  f"moe {name}: eager {run['eager']}, buckets "
+                  f"{run['compiled_buckets']}")
+            check(budget is None or run["experts"]["resident_bytes"]
+                  <= budget, f"moe {name}: resident bytes over budget")
+            launches[f"moe_{name}"] = run["launches"]
+            runs[name] = run
+            log(f"moe {name}: budget {budget} B, TTFT {run['ttft_ms']:.2f} "
+                f"ms, TPOT {run['tpot_ms']:.3f} ms (eager), device "
+                f"{run['device_ms']:.3f} ms a step, hit rate "
+                f"{run['hit_rate']:.4f} ({run['experts']['hits']} hits, "
+                f"{run['experts']['misses']} misses, "
+                f"{run['experts']['evictions']} evictions), miss-decode "
+                f"{run['miss_decode_ms']:.3f} ms a step, h2d "
+                f"{run['h2d_gb_step']:.4f} GB a step, peak "
+                f"{run['peak_gb']:.2f} GB, MemAvailable "
+                f"{run['mem_available_gb']:.1f} GB on {card}")
+        # (a) at budget 0, each request served alone
+        _rebudget(store, 0)
+        alone0 = [one_shot_alone(model, params, p, max_len)[0]
+                  for p in prompts]
+        for i in range(BATCH):
+            check(_bits_equal(alone0[i], ref[i]),
+                  f"moe store_0: r{i} served alone differs from dense")
+        # the transfer's yardstick: a pinned copy of one step's misses
+        step_bytes = int(max(runs["store_0"]["step_h2d_gb"][1:]) * 1e9)
+        src = torch.empty(step_bytes, dtype=torch.uint8, pin_memory=True)
+        dst = torch.empty(step_bytes, dtype=torch.uint8, device="cuda")
+        pinned_ms = cuda_ms(lambda: dst.copy_(src, non_blocking=True), 3)
+        del src, dst
+        kernels = _moe_kernel_times(store, codec)
+        # (e) save with per-expert records, restore into a bounded store
+        tmp = tempfile.mkdtemp(prefix="moe_ckpt_")
+        try:
+            mgr = CheckpointManager(tmp, serving_layout="fused",
+                                    serving_min_bytes=MIN_BYTES,
+                                    serving_shards=2, expert_records=True,
+                                    codec=codec, device="cuda")
+            t0 = time.perf_counter()
+            mgr.save(0, {"params": params}, blocking=True)
+            save_s = time.perf_counter() - t0
+            disk = sum(p.stat().st_size for p in Path(tmp).rglob("*")
+                       if p.is_file())
+            del params, store
+            torch.cuda.empty_cache()
+            codec.reset_transfer_stats()
+            t0 = time.perf_counter()
+            store2 = ExpertStore(budget_bytes=ws, codec=codec,
+                                 device="cuda")
+            params, _ = mgr.load_for_serving(
+                abstract_params(cfg), mode="fused", prefix="params",
+                min_bytes=MIN_BYTES, shards=2, expert_store=store2)
+            restore_s = _sync_s(t0)
+            h2d = codec.link_stats()["h2d"]
+            dense_experts = [n for n in mgr.last_dense_records
+                             if "/moe/e_" in n]
+            check(not dense_experts, f"moe ckpt: the restore moved expert "
+                  f"records {dense_experts[:3]} dense host to device")
+            check(store2.stats()["resident_bytes"] == 0
+                  and not store2._headers,
+                  "moe ckpt: the restore staged a cold expert")
+            run = _moe_engine_run("moe ckpt", model, params, codec, store2)
+            _check_moe_launches("moe ckpt", run, None, MOE_LAYERS)
+            for i in range(BATCH):
+                check(_bits_equal(run["logits"][i], ref[i]),
+                      f"moe ckpt: r{i} not bitwise equal to dense")
+            res["ckpt"] = {"save_s": save_s, "restore_s": restore_s,
+                           "bytes_on_disk": disk,
+                           "restore_h2d_compressed_bytes":
+                           h2d["compressed_bytes"],
+                           "restore_h2d_dense_bytes": h2d["dense_bytes"],
+                           "dense_records": list(mgr.last_dense_records),
+                           "run": summary(run)}
+            del params, store2, mgr
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    log(f"moe ckpt: saved {res['ckpt']['bytes_on_disk'] / 1e9:.2f} GB in "
+        f"{res['ckpt']['save_s']:.1f} s, restored in "
+        f"{res['ckpt']['restore_s']:.1f} s (h2d "
+        f"{res['ckpt']['restore_h2d_compressed_bytes'] / 1e9:.3f} GB "
+        f"compressed, {res['ckpt']['restore_h2d_dense_bytes']} B dense, "
+        f"from {res['ckpt']['dense_records']}, no expert), served bitwise "
+        f"equal at the working-set budget")
+    for name in budgets:
+        for i in range(BATCH):
+            check(_bits_equal(runs[name]["logits"][i], ref[i]),
+                  f"moe {name}: r{i} not bitwise equal to dense")
+    # (f) the bounded stores' serving peak below the dense run's.  The
+    # unbounded store ends holding every routed expert decoded (the dense
+    # expert bytes), so its peak is that cache plus one fetch's staged
+    # streams: it is held to the budget-0 run's peak plus its cache (the
+    # store holds no expert twice), and its peak against dense is logged
+    dense_peak = runs["dense"]["peak_gb"]
+    for name in ("store_0", "store_ws"):
+        check(runs[name]["peak_gb"] < dense_peak,
+              f"moe {name}: peak {runs[name]['peak_gb']:.2f} GB not below "
+              f"dense {dense_peak:.2f} GB")
+    unbounded = runs["store_unbounded"]
+    cache_gb = unbounded["experts"]["resident_bytes"] / 1e9
+    check(unbounded["peak_gb"] <= runs["store_0"]["peak_gb"] + cache_gb,
+          f"moe store_unbounded: peak {unbounded['peak_gb']:.3f} GB over "
+          f"the budget-0 run's {runs['store_0']['peak_gb']:.3f} GB plus its "
+          f"{cache_gb:.3f} GB cache")
+    tokens = runs["dense"]["tokens"]
+    check(all(runs[n]["tokens"] == tokens for n in runs),
+          "moe: greedy tokens differ between runs")
+    check(all(bool(torch.isfinite(t).all()) and t.shape == (cfg.vocab_size,)
+              for r in ref for t in r), "moe: non-finite or mis-shaped "
+          "logits")
+    log(f"moe: (a) {BATCH} requests bitwise equal across dense / stream / "
+        f"fused / store 0 / working set / unbounded and served alone "
+        f"(dense, budget 0); (b) replays equal the eager step; (c) a fetch "
+        f"refuses a capture; (d) fetch launches and h2d bytes; (e) ckpt; "
+        f"(f) peak GB dense {dense_peak:.2f}, store 0 "
+        f"{runs['store_0']['peak_gb']:.2f}, working set "
+        f"{runs['store_ws']['peak_gb']:.2f}, unbounded "
+        f"{unbounded['peak_gb']:.2f} ({cache_gb:.2f} of it cached experts; "
+        f"{'below' if unbounded['peak_gb'] < dense_peak else 'NOT below'} "
+        f"dense); pinned copy of one "
+        f"step's misses ({step_bytes / 1e9:.3f} GB) {pinned_ms:.3f} ms; "
+        f"kernel 1 on a layer's 8 routed experts {kernels['decode']}; "
+        f"kernel 2' on an expert {kernels['dense_tile']}; kernel 4 on an "
+        f"expert leaf {kernels['encode']}; set-up: store "
+        f"install {install_s:.2f} s ({install_launches}), all "
+        f"{setup_s:.2f} s; seq0 {tokens[0]} on {card}")
+    RESULTS["moe"] = {
+        "card": card, "layers": MOE_LAYERS, "guard": guard,
+        "runs": {n: summary(r) for n, r in runs.items()},
+        "step_launches": want_step, "pinned_copy": {
+            "bytes": step_bytes, "ms": pinned_ms},
+        "kernels": kernels, "install_s": install_s,
+        "install_launches": install_launches, "store_setup_s": setup_s,
+        "working_set_bytes": ws} | res
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 # the served path whose own run gives each kernel's ``launches``: the
 # default fused mode (the main path) runs the decoder, the fused entry and
@@ -2150,6 +2714,7 @@ def kernels_line(launches):
          "library_ms": None, "dev_ms": d["embed_dev_ms"],
          "copy_ms": d["embed_copy_ms"], "plan": d["embed_plan"],
          "timed": d["embed_timed"], "layer_stream": d["layer_stream"],
+         "moe_routed_experts": RESULTS["moe"]["kernels"]["decode"],
          "resources": d["resources"]},
         {"name": "decompress_matmul", "route": "cuda",
          "source": src + "decompress_matmul.cu",
@@ -2168,6 +2733,7 @@ def kernels_line(launches):
          "ms": t["dense"], "plain_ms": t["dense_plain"],
          "bound_ms": t["dense_bound"], "bound_by": "bytes",
          "library_ms": t["library"], "head": mm["head"],
+         "moe_expert": RESULTS["moe"]["kernels"]["dense_tile"],
          "timed": {c: {k: v[k] for k in ("dense", "dense_t", "dense_bound",
                                          "library")}
                    for c, v in mm["totals"].items()},
@@ -2182,6 +2748,7 @@ def kernels_line(launches):
          "library_ms": None, "setup_launches": enc["setup_launches"],
          "dev_ms": enc["embed_dev_ms"], "copy_ms": enc["embed_copy_ms"],
          "plan": enc["embed_plan"], "generic": enc["embed_generic"],
+         "moe_expert_leaf": RESULTS["moe"]["kernels"]["encode"],
          "resources": enc["resources"]},
         {"name": "idd_scan", "route": "cuda", "source": src + "idd_scan.cu",
          "replaces": "src/repro/kernels/idd_scan.py:73",
@@ -2243,6 +2810,7 @@ def main():
     launches.update(phase_scan())
     launches.update(phase_kv_attention())
     launches.update(phase_serve_minitron())
+    launches.update(phase_moe())
     line = kernels_line(launches)
     RESULTS["kernels"] = line["kernels"]
     RESULTS["seconds"] = time.perf_counter() - t0

@@ -31,11 +31,20 @@ straight into ``StreamedWeight`` / ``FusedWeight`` handles: only
 compressed bytes cross host to device (the codec's ``h2d`` ledger), and the
 dense weight never exists on the host.
 
+``expert_records=True`` (with a serving layout) saves each ``(L, E,
+...)`` MoE expert stack as ``L*E`` per-expert wire records named
+``{leaf}::x{layer:04d}.{expert:04d}`` (manifest handle ``kind:
+"expert"``); a tree holding ``ExpertRef`` handles re-emits its store's
+records verbatim.  ``load`` reassembles the dense stacks;
+``load_for_serving`` puts the records straight into an
+:class:`~repro_torch.runtime.experts.ExpertStore`, with no upload and no
+decode of a cold expert.
+
 Trees are walked in the reference's flatten order (sorted dict keys), so
 record names, indices and the pack round-robin match it.  Not ported yet
-(ROADMAP Queue 1 items 8, 10 and 12), each raising a clear error:
+(ROADMAP Queue 1 items 8 and 12), each raising a clear error:
 ``policy="degraded"`` with its quarantine and ``RestoreReport``, the fault
-injection hooks, per-expert records and placement on a mesh.
+injection hooks and placement on a mesh.
 """
 from __future__ import annotations
 
@@ -58,6 +67,7 @@ from repro_torch.core import wire as enec_wire
 from repro_torch.core.api import (SUPPORTED_FLOAT_DTYPES, CompressedTensor,
                                   slice_stacked)
 from repro_torch.core.codec_api import Codec, current_codec
+from repro_torch.runtime import experts as rt_experts
 from repro_torch.runtime import streaming as rt_streaming
 from repro_torch.runtime.retry import RetryPolicy
 from repro_torch.runtime.weights import (DenseWeight, finish_materialize,
@@ -114,6 +124,16 @@ def _read_range(path, offset: int, length: int) -> bytes:
         return f.read(length)
 
 
+@dataclasses.dataclass
+class _ExpertPart:
+    """One per-expert record queued for the batched decode of a ``load``:
+    its manifest handle spec (parent, layer, expert) and its compressed
+    tensor on the device.  The decode pass reassembles every part of a
+    parent into the dense ``(L, E, ...)`` stack."""
+    spec: dict
+    ct: CompressedTensor
+
+
 def _where(e: dict, packs) -> str:
     """The record's coordinates for an error message."""
     parts = [f"record={e['name']}"]
@@ -131,7 +151,7 @@ class CheckpointManager:
     serving_layout: Optional[str] = None   # None | "stream" | "fused"
     serving_min_bytes: int = rt_streaming.MIN_STREAM_BYTES
     serving_shards: int = 1
-    expert_records: bool = False
+    expert_records: bool = False           # per-expert MoE records
     codec: Optional[Codec] = None          # default: ambient codec at init
     retry: Optional[RetryPolicy] = None    # default: RetryPolicy()
     device: Any = "cuda"                   # where restored tensors live
@@ -141,10 +161,6 @@ class CheckpointManager:
     def __post_init__(self):
         self.root = Path(self.root)
         self.device = resolve_device(self.device)
-        if self.expert_records:
-            raise CheckpointError(
-                "per-expert records are not ported yet (ROADMAP Queue 1, "
-                "item 10)")
         if self.serving_layout not in (None, "stream", "fused"):
             raise ValueError(
                 f"serving_layout must be None, 'stream' or 'fused', "
@@ -152,6 +168,7 @@ class CheckpointManager:
         self.root.mkdir(parents=True, exist_ok=True)
         self.last_decode_plan = None   # DecodePlan of the latest load
         self.last_dense_records = []   # records the latest load moved dense
+        self.last_expert_store = None  # ExpertStore of the latest serving load
         if self.retry is None:
             self.retry = RetryPolicy()
         if self.codec is None:
@@ -196,12 +213,19 @@ class CheckpointManager:
              ("np",  host_array, dtype)     raw host bytes (non-float)
              ("ct",  CompressedTensor)      plain enec/raw/const record
              ("hct", ct, spec, raw_bytes)   stacked serving-layout record
+             ("xct", meta, records)         per-expert record group (MoE)
         """
         payload: list = [None] * len(leaves)
         float_slots, serve_jobs = [], []
         dense_specs: dict = {}   # slot -> handle spec for fallback leaves
         for i, (name, leaf) in enumerate(zip(names, leaves)):
             if is_handle(leaf):
+                if isinstance(leaf, rt_experts.ExpertRef):
+                    # the store holds the exact per-expert wire records:
+                    # re-emitted verbatim, no re-encode
+                    payload[i] = ("xct", leaf.store.meta(leaf.name),
+                                  leaf.store.records_for(leaf.name))
+                    continue
                 if isinstance(leaf, DenseWeight):
                     leaf = leaves[i] = leaf.w   # re-wrapped on restore
                     dense_specs[i] = {"kind": "dense"}
@@ -219,6 +243,16 @@ class CheckpointManager:
                 continue
             if self.serving_layout is not None and i not in dense_specs \
                     and name.split("/", 1)[0] not in _NON_SERVING_ROOTS:
+                if (self.expert_records
+                        and rt_experts.is_expert_leaf(name, leaf)
+                        and leaf.numel() * leaf.element_size()
+                        >= self.serving_min_bytes):
+                    enc = rt_experts.encode_expert_leaf(name, leaf,
+                                                        self.codec)
+                    if enc is not None:
+                        payload[i] = ("xct",) + enc
+                        continue
+                    # const / incompressible: a monolithic record
                 job = rt_streaming.serving_job(name, leaf,
                                                self.serving_layout,
                                                self.serving_min_bytes)
@@ -264,8 +298,28 @@ class CheckpointManager:
         return payload, dense_specs
 
     def _build_record(self, index, name, item, dense_specs):
-        """(manifest entry sans pack/offset, framed blob, raw bytes)."""
+        """List of (manifest entry sans pack/offset, framed blob, raw
+        bytes): one for an ordinary leaf, one per expert for an ``xct``
+        record group."""
         tag = item[0]
+        if tag == "xct":
+            _, meta, records = item
+            eshape = [int(s) for s in meta["expert_shape"]]
+            per_raw = _leaf_nbytes(eshape, meta["dtype"])
+            out = []
+            for l, j, body in records:
+                entry = {"name": f"{name}::x{l:04d}.{j:04d}",
+                         "index": index, "shape": eshape,
+                         "dtype": meta["dtype"], "mode": "enec",
+                         "handle": {"kind": "expert", "parent": name,
+                                    "layer": int(l), "expert": int(j),
+                                    "n_layers": int(meta["n_layers"]),
+                                    "n_experts": int(meta["n_experts"]),
+                                    "expert_shape": eshape,
+                                    "dtype": meta["dtype"]},
+                         "bytes": len(body)}
+                out.append((entry, enec_wire.frame(body), per_raw))
+            return out
         if tag == "np":
             _, leaf, dtype = item
             entry = {"name": name, "index": index, "shape": list(leaf.shape),
@@ -292,7 +346,7 @@ class CheckpointManager:
         if spec is not None and "handle" not in entry:
             entry["handle"] = spec
         entry["bytes"] = len(blob)
-        return entry, enec_wire.frame(blob), raw
+        return [(entry, enec_wire.frame(blob), raw)]
 
     def _save_host(self, step: int, names, payload, dense_specs) -> None:
         t0 = time.time()
@@ -323,22 +377,23 @@ class CheckpointManager:
             nonlocal raw_total, comp_total
             i, fut = pending.popleft()
             pack = i % n_packs
-            entry, framed, raw = fut.result()
-            entry["pack"] = pack
-            entry["offset"] = offsets[pack]
-            entry["length"] = len(framed)
+            for entry, framed, raw in fut.result():
+                entry["pack"] = pack
+                entry["offset"] = offsets[pack]
+                entry["length"] = len(framed)
 
-            def write_framed(f=files[pack], pos=offsets[pack], fr=framed):
-                # seek to the record's offset on every attempt, so a retried
-                # write after a partial one lays the frame down once
-                f.seek(pos)
-                f.write(fr)
+                def write_framed(f=files[pack], pos=offsets[pack],
+                                 fr=framed):
+                    # seek to the record's offset on every attempt, so a
+                    # retried write after a partial one lays it down once
+                    f.seek(pos)
+                    f.write(fr)
 
-            self.retry.call(write_framed)
-            offsets[pack] += len(framed)
-            raw_total += raw
-            comp_total += entry["bytes"]
-            manifest["leaves"].append(entry)
+                self.retry.call(write_framed)
+                offsets[pack] += len(framed)
+                raw_total += raw
+                comp_total += entry["bytes"]
+                manifest["leaves"].append(entry)
 
         try:
             with ThreadPoolExecutor(max_workers=workers) as ex:
@@ -456,13 +511,35 @@ class CheckpointManager:
     # -- reading records ----------------------------------------------------
 
     @staticmethod
-    def _require_records(names, by_name, cdir, what="records"):
-        missing = [n for n in names if n not in by_name]
+    def _require_records(names, by_name, cdir, what="records", groups=None):
+        missing = [n for n in names
+                   if n not in by_name and not (groups and n in groups)]
         if missing:
             raise CheckpointError(
                 f"checkpoint {cdir.name} lacks {what} for {missing[:5]}"
                 + ("…" if len(missing) > 5 else "")
                 + f" [record={missing[0]}]")
+
+    @staticmethod
+    def _expert_groups(manifest) -> dict:
+        """parent leaf name -> its per-expert record entries."""
+        groups: dict = {}
+        for e in manifest["leaves"]:
+            spec = e.get("handle")
+            if spec is not None and spec.get("kind") == "expert":
+                groups.setdefault(spec["parent"], []).append(e)
+        return groups
+
+    @staticmethod
+    def _expand_entries(names, by_name, groups):
+        """Record entries to read for ``names``, expert groups inlined."""
+        out = []
+        for n in names:
+            if n in by_name:
+                out.append(by_name[n])
+            else:
+                out.extend(groups[n])
+        return out
 
     @staticmethod
     def _check_leaf(e, shape, like, packs, dtype=None):
@@ -571,8 +648,14 @@ class CheckpointManager:
             vals[e["name"]] = val.to(like.dtype)
             return
         ct = self._record_ct(e, blob, packs)
-        obj = (handle_from_spec(e["handle"], ct)
-               if "handle" in e and e.get("stack") else ct)
+        spec = e.get("handle")
+        if spec is not None and spec.get("kind") == "expert":
+            # one slice of a per-expert record group, reassembled into
+            # its dense parent stack after the batched decode
+            pending.append((e, like, _ExpertPart(spec, ct)))
+            return
+        obj = (handle_from_spec(spec, ct)
+               if spec is not None and e.get("stack") else ct)
         pending.append((e, like, obj))
 
     def _decode_pending(self, pending, vals, packs):
@@ -580,16 +663,43 @@ class CheckpointManager:
         decoder launches; the plan's summary is kept on
         ``last_decode_plan``."""
         plan = self.codec.plan_decode(
-            [obj.ct if is_handle(obj) else obj for _, _, obj in pending])
+            [obj.ct if is_handle(obj) or isinstance(obj, _ExpertPart)
+             else obj for _, _, obj in pending])
         decs = self.codec.execute(plan)
         # keep only the summary: the execution state pins the streams
         self.last_decode_plan = dataclasses.replace(
             plan, _groups=[], _passthrough={}, _leaves=[])
+        parents: dict = {}
         for (e, like, obj), dec in zip(pending, decs):
+            if isinstance(obj, _ExpertPart):
+                g = parents.setdefault(obj.spec["parent"],
+                                       {"like": like, "spec": obj.spec,
+                                        "decs": {}})
+                g["decs"][(int(obj.spec["layer"]),
+                           int(obj.spec["expert"]))] = dec
+                continue
             val = finish_materialize(obj, dec) if is_handle(obj) else dec
             self._check_leaf(e, val.shape, like, packs)
             # a const record decodes to a broadcast view: give it storage
             vals[e["name"]] = val.to(like.dtype).contiguous()
+        for parent, g in parents.items():
+            sp = g["spec"]
+            nl, ne = int(sp["n_layers"]), int(sp["n_experts"])
+            eshape = tuple(int(s) for s in sp["expert_shape"])
+            self._check_leaf({"name": parent}, (nl, ne) + eshape, g["like"],
+                             None)
+            buf = torch.empty((nl, ne) + eshape,
+                              dtype=getattr(torch, sp["dtype"]),
+                              device=self.device)
+            for l in range(nl):
+                for j in range(ne):
+                    dec = g["decs"].get((l, j))
+                    if dec is None:
+                        raise CheckpointError(
+                            f"{parent}: expert record grid incomplete — "
+                            f"missing layer {l} expert {j}")
+                    buf[l, j] = dec
+            vals[parent] = buf.to(g["like"].dtype)
 
     @staticmethod
     def _check_policy(policy, mesh=None):
@@ -611,13 +721,20 @@ class CheckpointManager:
         cdir, manifest = self._step_dir(step)
         names, leaves = _tree_paths(like_tree)
         by_name = {e["name"]: e for e in manifest["leaves"]}
-        self._require_records(names, by_name, cdir)
+        groups = self._expert_groups(manifest)
+        self._require_records(names, by_name, cdir, groups=groups)
         like_by_name = dict(zip(names, leaves))
+        for parent in groups:
+            if parent in like_by_name:
+                # sub-records validate against their parent
+                for e in groups[parent]:
+                    like_by_name[e["name"]] = like_by_name[parent]
         packs = manifest.get("packs")
         vals: dict = {}
         pending: list = []
         for e, payload in self._iter_records(
-                cdir, manifest, [by_name[n] for n in names]):
+                cdir, manifest, self._expand_entries(names, by_name,
+                                                     groups)):
             self._queue_record(e, payload, pending, vals,
                                like_by_name[e["name"]], packs)
         self._decode_pending(pending, vals, packs)
@@ -644,7 +761,8 @@ class CheckpointManager:
                          step: Optional[int] = None, prefix: str = "",
                          min_bytes: int = rt_streaming.MIN_STREAM_BYTES,
                          shards: int = rt_streaming.STREAM_SHARDS,
-                         policy: str = "strict", mesh=None):
+                         policy: str = "strict", mesh=None,
+                         expert_store=None):
         """Restore ONLY the weight records into a serving handle tree.
 
         ``like_params`` gives the structure, shapes and dtypes (``meta``
@@ -654,7 +772,14 @@ class CheckpointManager:
         ``mode`` deserialize straight into handles, moving only compressed
         bytes to the device; everything else is decoded in one batched
         pass and handed to ``assign_weight_modes``, which passes the
-        adopted handles through.  Returns ``(tree, manifest)``."""
+        adopted handles through.
+
+        Per-expert records (``expert_records=True`` saves) go straight into
+        an :class:`~repro_torch.runtime.experts.ExpertStore`
+        (``expert_store``, or a new unbounded one on the manager's device,
+        kept on ``last_expert_store``) as wire bytes: no cold expert is
+        uploaded or decoded.  The tree gets an ``ExpertRef`` for each
+        stack.  Returns ``(tree, manifest)``."""
         if mode not in rt_streaming.WEIGHT_MODES:
             raise ValueError(f"unknown weight mode {mode!r}")
         self._check_policy(policy, mesh)
@@ -663,15 +788,36 @@ class CheckpointManager:
         names, leaves = _tree_paths(like_params)
         full = [f"{prefix}/{n}" if prefix else n for n in names]
         by_name = {e["name"]: e for e in manifest["leaves"]}
-        self._require_records(full, by_name, cdir, what="weight records")
+        groups = {p: es for p, es in self._expert_groups(manifest).items()
+                  if p in set(full)}
+        est = expert_store
+        if est is None and groups:
+            est = rt_experts.ExpertStore(codec=self.codec,
+                                         device=self.device)
+        self.last_expert_store = est if groups else None
+        self._require_records(full, by_name, cdir, what="weight records",
+                              groups=groups)
         like_by_name = dict(zip(full, leaves))
+        for parent, es in groups.items():
+            for e in es:
+                like_by_name[e["name"]] = like_by_name[parent]
         packs = manifest.get("packs")
         vals: dict = {}
         pending: list = []
-        for e, payload in self._iter_records(cdir, manifest,
-                                             [by_name[n] for n in full]):
+        for e, payload in self._iter_records(
+                cdir, manifest, self._expand_entries(full, by_name, groups)):
             name, spec = e["name"], e.get("handle")
             like = like_by_name[name]
+            if spec is not None and spec.get("kind") == "expert":
+                # the compressed bytes go straight into the store: cold
+                # experts stay wire records until routing asks for them
+                est.add_meta(spec["parent"], n_layers=spec["n_layers"],
+                             n_experts=spec["n_experts"],
+                             expert_shape=spec["expert_shape"],
+                             dtype=spec["dtype"])
+                est.add_record(spec["parent"], spec["layer"],
+                               spec["expert"], bytes(payload))
+                continue
             if spec and spec["kind"] != "dense" and e.get("stack") \
                     and self._spec_serves_mode(spec, mode):
                 if spec["kind"] == "stream":
@@ -697,6 +843,18 @@ class CheckpointManager:
                 continue
             self._queue_record(e, payload, pending, vals, like, packs)
         self._decode_pending(pending, vals, packs)
+        for parent in groups:
+            m = est.meta(parent)
+            self._check_leaf({"name": parent},
+                             (m["n_layers"], m["n_experts"])
+                             + tuple(m["expert_shape"]),
+                             like_by_name[parent], None, dtype=m["dtype"])
+            miss = est.missing(parent)
+            if miss:
+                raise CheckpointError(
+                    f"{parent}: expert record grid incomplete — missing "
+                    f"{miss[:5]}" + ("…" if len(miss) > 5 else ""))
+            vals[parent] = est.ref(parent)
         tree = rt_streaming.tree_map_with_path(
             lambda p, _: vals.pop(f"{prefix}/{p}" if prefix else p),
             like_params)

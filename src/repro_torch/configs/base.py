@@ -11,8 +11,9 @@ import dataclasses
 import importlib
 from typing import Optional, Tuple
 
-# the archs this package carries so far: the dense family
-ARCH_IDS = ("llama3_2_1b", "minitron_4b", "qwen3_32b", "stablelm_3b")
+# the archs this package carries so far: the dense and MoE families
+ARCH_IDS = ("llama3_2_1b", "minitron_4b", "phi3_5_moe_42b_a6_6b",
+            "qwen3_32b", "qwen3_moe_235b_a22b", "stablelm_3b")
 
 
 @dataclasses.dataclass(frozen=True)

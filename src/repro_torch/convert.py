@@ -3,7 +3,8 @@
 ``params_from_jax`` takes the reference's parameter tree as numpy arrays
 (``jax.device_get(params)``) and returns the port's tree of tensors on
 ``device``, bit for bit, so both packages compute the same function on the
-same weights.  bf16 arrays travel through an ``int16`` view (numpy has no
+same weights (an MoE tree's ``moe`` subtree too: the router stays f32 and
+the expert stacks stay ``(L, E, ...)``).  bf16 arrays travel through an ``int16`` view (numpy has no
 bf16 of its own).  A missing, extra or mis-shaped leaf raises with its
 path named.
 """

@@ -37,8 +37,10 @@ stream bytes and nothing more.
 """
 from __future__ import annotations
 
+import dataclasses
 import struct
 import zlib
+from typing import Optional
 
 import numpy as np
 import torch
@@ -64,7 +66,8 @@ _FRAME_HDR = struct.Struct("<IHHQI")   # magic, version, flags, len, crc
 assert _FRAME_HDR.size == FRAME_HEADER_BYTES
 
 __all__ = ["WireError", "h2d", "frame", "read_frame", "iter_frames",
-           "record_overhead_bytes", "to_wire", "from_wire", "wire_stack"]
+           "record_overhead_bytes", "to_wire", "from_wire", "wire_stack",
+           "RecordHeader", "parse_header", "split_streams", "enec_tensor"]
 
 
 class WireError(ValueError):
@@ -216,18 +219,40 @@ def _torch_dtype(name: str):
     return dt if isinstance(dt, torch.dtype) else None
 
 
-def from_wire(buf, codec=None, *, device="cuda", record=None, pack=None,
-              offset=None) -> CompressedTensor:
-    """Parse one record from an EXACT buffer slice (a framed payload or a
-    whole v1 blob).  Every field is validated; short buffers, trailing
-    bytes, unknown tags and impossible stream lengths raise
-    :class:`WireError` with the given coordinates.  Streams are uploaded
-    to ``device`` through :func:`h2d`, so ``codec``'s ledger (default: the
-    ambient codec's) sees exactly the compressed bytes."""
+@dataclasses.dataclass
+class RecordHeader:
+    """A record's header, parsed and validated on the host.  For an enec
+    record, ``stream_offset`` is where its streams start (``high_len``,
+    then mask, low, raw and the exact high bytes, to the record's end);
+    for a raw / const record, where its payload starts."""
+    mode: str
+    fmt_name: str
+    stack: int
+    shape: tuple
+    dtype_str: str
+    block_elems: int
+    shards: int
+    params: Optional[EnecParams]
+    nblocks: int
+    widths: Optional[dict]
+    high_len: Optional[np.ndarray]   # (nblocks,) int64 bits
+    stream_offset: int
+    total: int
+
+    @property
+    def stream_nbytes(self) -> int:
+        return self.total - self.stream_offset
+
+
+def parse_header(buf, *, record=None, pack=None,
+                 offset=None) -> RecordHeader:
+    """Validate one record from an EXACT buffer slice (a framed payload or
+    a whole v1 blob) without moving its streams: every field is checked,
+    and short buffers, trailing bytes, unknown tags and impossible stream
+    lengths raise :class:`WireError` with the given coordinates."""
     def _err(msg):
         return WireError(msg, record=record, pack=pack, offset=offset)
 
-    dev = resolve_device(device)
     view = memoryview(buf)
     total, off = len(view), 0
     try:
@@ -262,19 +287,17 @@ def from_wire(buf, codec=None, *, device="cuda", record=None, pack=None,
     itemsize = torch.empty((), dtype=dtype).element_size()
 
     if mode in ("raw", "const"):
-        raw = np.frombuffer(view, np.uint8, total - off, off)
         expect = itemsize * (1 if mode == "const"
                              else int(np.prod(shape, dtype=np.int64)))
-        if raw.nbytes != expect:
-            raise _err(f"{mode} record carries {raw.nbytes} payload bytes, "
+        if total - off != expect:
+            raise _err(f"{mode} record carries {total - off} payload bytes, "
                        f"expected {expect} for shape {shape} dtype "
                        f"{dtype_str}")
-        return CompressedTensor(
-            streams=None, raw_bytes=h2d(raw, dev, codec,
-                                        dense=(mode == "raw")),
-            fmt_name=_FMT_FROM_TAG.get(fmt_tag, "bf16"), params=None,
-            shape=shape, dtype_str=dtype_str, block_elems=block_elems,
-            shards=shards, mode=mode)
+        return RecordHeader(
+            mode=mode, fmt_name=_FMT_FROM_TAG.get(fmt_tag, "bf16"),
+            stack=stack, shape=shape, dtype_str=dtype_str,
+            block_elems=block_elems, shards=shards, params=None, nblocks=0,
+            widths=None, high_len=None, stream_offset=off, total=total)
 
     if fmt_tag not in _FMT_FROM_TAG:
         raise _err(f"unknown float format tag {fmt_tag}")
@@ -293,71 +316,114 @@ def from_wire(buf, codec=None, *, device="cuda", record=None, pack=None,
     if shards < 1 or nblocks % (max(stack, 1) * shards):
         raise _err(f"nblocks={nblocks} not divisible by stack={stack} * "
                    f"shards={shards} — corrupt header")
-
-    def take(nb, what):
-        nonlocal off
-        need = nblocks * nb
-        if off + need > total:
-            raise _err(f"{what} stream truncated: need {need} bytes at "
-                       f"offset {off}, record has {total - off} left")
-        arr = np.frombuffer(view, np.uint8, need, off).reshape(nblocks, nb)
-        off += need
-        return arr
-
+    stream_offset = off
     if off + 4 * nblocks > total:
         raise _err("high_len vector truncated")
     high_len = np.frombuffer(view, np.uint32, nblocks, off).astype(np.int64)
     off += 4 * nblocks
     widths = block_codec.stream_shapes(block_elems, fmt, p)
-    mask = take(widths["mask"], "mask")
-    low = take(widths["low"], "low")
-    raw = take(widths["raw"], "raw")
-    width = n - m
-    max_bits = block_elems * width
+    for what in ("mask", "low", "raw"):
+        need = nblocks * widths[what]
+        if off + need > total:
+            raise _err(f"{what} stream truncated: need {need} bytes at "
+                       f"offset {off}, record has {total - off} left")
+        off += need
+    max_bits = block_elems * (n - m)
     bad = np.nonzero(high_len > max_bits)[0]
     if bad.size:
         raise _err(f"block {int(bad[0])}: high_len {int(high_len[bad[0]])} "
                    f"bits exceeds the {max_bits}-bit block bound — corrupt "
                    f"record")
-    nbytes = (high_len + 7) // 8
-    need = int(nbytes.sum())
+    need = int(((high_len + 7) // 8).sum())
     if off + need > total:
         raise _err(f"high stream truncated: need {need} bytes at offset "
                    f"{off}, record has {total - off} left")
-    exact = np.frombuffer(view, np.uint8, need, off)
     off += need
     if off != total:
         raise _err(f"record has {total - off} trailing bytes after the high "
                    f"stream — length mismatch (corrupt or mis-framed)")
+    return RecordHeader(
+        mode="enec", fmt_name=fmt.name, stack=stack, shape=shape,
+        dtype_str=dtype_str, block_elems=block_elems, shards=shards,
+        params=p, nblocks=nblocks, widths=widths, high_len=high_len,
+        stream_offset=stream_offset, total=total)
 
-    lead = ((stack,) if stack else ()) + ((shards,) if shards > 1 else ())
-    flat = nblocks
+
+def split_streams(hdr: RecordHeader, section) -> tuple:
+    """An enec record's stream section (bytes ``[stream_offset, total)``,
+    a uint8 array or tensor) -> its pieces ``(high_len, mask, low, raw,
+    exact)`` as views of it, in wire order."""
+    n, w = hdr.nblocks, hdr.widths
+    off = 4 * n
+    pieces = [section[:off]]
+    for what in ("mask", "low", "raw"):
+        pieces.append(section[off:off + n * w[what]].reshape(n, w[what]))
+        off += n * w[what]
+    pieces.append(section[off:])
+    return tuple(pieces)
+
+
+def enec_tensor(hdr: RecordHeader, high_len, mask, low, raw,
+                exact) -> CompressedTensor:
+    """The device layout of an enec record from its streams, already on
+    one device (``high_len`` int32; the rest uint8, as
+    :func:`split_streams` cuts them): each block's exact high bits are
+    scattered into the halving layout on that device."""
+    dev = mask.device
+    width = hdr.params.n - hdr.params.m
+    bits_dev = high_len.to(torch.int64)
+    straight = bitio.straight_from_exact(
+        exact, (bits_dev + 7) // 8,
+        bitio.straight_nbytes(hdr.block_elems, width))
+    vals = bitio.unpack_straight(straight, hdr.block_elems, width)
+    count = (bits_dev // max(width, 1))[:, None]
+    vals = vals * (torch.arange(hdr.block_elems, device=dev)[None, :]
+                   < count)
+    lead = ((hdr.stack,) if hdr.stack else ()) \
+        + ((hdr.shards,) if hdr.shards > 1 else ())
+    flat = hdr.nblocks
     for d in lead:
         flat //= d
+    streams = BlockStreams(
+        mask=mask, low=low, high=bitio.pack_fixed(vals, width),
+        high_len=high_len, raw=raw)
+    streams = streams.map(
+        lambda a: a.reshape(lead + (flat,) + tuple(a.shape[1:])))
+    ct = CompressedTensor(
+        streams=streams, raw_bytes=None, fmt_name=hdr.fmt_name,
+        params=hdr.params, shape=hdr.shape, dtype_str=hdr.dtype_str,
+        block_elems=hdr.block_elems, shards=hdr.shards, mode="enec")
+    ct._set_wire_bytes(hdr.high_len)
+    return ct
+
+
+def from_wire(buf, codec=None, *, device="cuda", record=None, pack=None,
+              offset=None) -> CompressedTensor:
+    """Parse one record from an EXACT buffer slice (a framed payload or a
+    whole v1 blob), validated by :func:`parse_header`.  Streams are
+    uploaded to ``device`` through :func:`h2d`, so ``codec``'s ledger
+    (default: the ambient codec's) sees exactly the compressed bytes."""
+    dev = resolve_device(device)
+    hdr = parse_header(buf, record=record, pack=pack, offset=offset)
+    view = memoryview(buf)
+    section = np.frombuffer(view, np.uint8, hdr.stream_nbytes,
+                            hdr.stream_offset)
+    if hdr.mode in ("raw", "const"):
+        return CompressedTensor(
+            streams=None, raw_bytes=h2d(section, dev, codec,
+                                        dense=(hdr.mode == "raw")),
+            fmt_name=hdr.fmt_name, params=None, shape=hdr.shape,
+            dtype_str=hdr.dtype_str, block_elems=hdr.block_elems,
+            shards=hdr.shards, mode=hdr.mode)
+    high_len, mask, low, raw, exact = split_streams(hdr, section)
 
     def up(a):
         return h2d(a, dev, codec)
 
-    # exact bits -> the device's halving layout, on the device
-    high_len_dev = up(high_len.astype(np.int32))
-    bits_dev = high_len_dev.to(torch.int64)
-    straight = bitio.straight_from_exact(
-        up(exact), (bits_dev + 7) // 8,
-        bitio.straight_nbytes(block_elems, width))
-    vals = bitio.unpack_straight(straight, block_elems, width)
-    count = (bits_dev // max(width, 1))[:, None]
-    vals = vals * (torch.arange(block_elems, device=dev)[None, :] < count)
-    streams = BlockStreams(
-        mask=up(mask), low=up(low), high=bitio.pack_fixed(vals, width),
-        high_len=high_len_dev, raw=up(raw))
-    streams = streams.map(
-        lambda a: a.reshape(lead + (flat,) + tuple(a.shape[1:])))
-    ct = CompressedTensor(
-        streams=streams, raw_bytes=None, fmt_name=fmt.name, params=p,
-        shape=shape, dtype_str=dtype_str, block_elems=block_elems,
-        shards=shards, mode="enec")
-    ct._set_wire_bytes(high_len)
-    return ct
+    high_len_dev = up(high_len.view(np.uint32).astype(np.int32))
+    exact_dev = up(exact)
+    return enec_tensor(hdr, high_len_dev, up(mask), up(low), up(raw),
+                       exact_dev)
 
 
 def wire_stack(ct: CompressedTensor) -> int:

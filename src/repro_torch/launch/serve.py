@@ -21,8 +21,17 @@ its first use and replayed after (``runtime/captured.py``).
 ``--deadline-ms`` gives each request a total deadline: expired work is
 shed before its prefill or evicted at a step.
 
+MoE expert streaming: ``--expert-cache-mb MB`` (MoE archs) keeps every
+expert as a per-expert compressed record in host memory
+(``runtime/experts.py``) and decodes the experts each step routes to on
+the device, through an LRU cache of that many MB (0 keeps nothing past a
+step); logits are bitwise equal to serving the dense stacks.  A step that
+fetches experts brings the routed ids to the host mid-step, so with a
+store every decode step runs eagerly, also on the card.
+
 Checkpoints: ``--save-ckpt DIR`` writes an enec-v2 checkpoint of the
-compressed weights (in the serving layout of the mode) and serves;
+compressed weights (in the serving layout of the mode; with a store, the
+experts as per-expert records) and serves;
 ``--ckpt DIR`` restores through ``CheckpointManager.load_for_serving``:
 the records become weight handles on the device, only compressed bytes
 cross host to device, and no weight is initialised.
@@ -32,6 +41,8 @@ cross host to device, and no weight is initialised.
         --save-ckpt /tmp/ck
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
         --ckpt /tmp/ck
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+        --arch phi3_5_moe_42b_a6_6b --expert-cache-mb 0
     PYTHONPATH=src python -m repro_torch.launch.serve --batch 4 \\
         --prompt-len 64 --tokens 16          # full width, on the GPU
 
@@ -65,6 +76,7 @@ from repro_torch.kernels.idd_scan import LAUNCHES as IDD_SCAN_LAUNCHES
 from repro_torch.models import build_model
 from repro_torch.models.lm import abstract_params
 from repro_torch.runtime.engine import Engine, EngineConfig
+from repro_torch.runtime.experts import ExpertStore, install_expert_store
 from repro_torch.runtime.streaming import (assign_weight_modes, mode_mix,
                                            stream_stats, tree_leaves)
 from repro_torch.runtime.weights import FusedWeight, StreamedWeight
@@ -130,6 +142,13 @@ def parse_args(argv=None):
                     help="admission queue depth (at least --batch)")
     ap.add_argument("--deadline-ms", type=float, default=0.0,
                     help="total deadline per request (0: none)")
+    ap.add_argument("--expert-cache-mb", type=float, default=None,
+                    metavar="MB",
+                    help="MoE expert streaming: keep expert stacks as "
+                         "per-expert compressed records and decode routed "
+                         "experts through a byte-budgeted LRU cache of this "
+                         "many MB (0 caches nothing; only MoE arches have "
+                         "eligible leaves)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0, help="weight seed")
     ck = ap.add_mutually_exclusive_group()
@@ -142,7 +161,7 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def _restore_params(args, cfg, mode, codec, dev) -> tuple:
+def _restore_params(args, cfg, mode, codec, dev, expert_store) -> tuple:
     """--ckpt: the weights come from the checkpoint; the tree restored
     into is ``meta`` tensors, so nothing is initialised."""
     mgr = CheckpointManager(args.ckpt, codec=codec, device=dev)
@@ -157,7 +176,8 @@ def _restore_params(args, cfg, mode, codec, dev) -> tuple:
     t0 = time.perf_counter()
     params, _ = mgr.load_for_serving(like, mode=mode, prefix=prefix,
                                      min_bytes=args.min_bytes,
-                                     shards=args.shards)
+                                     shards=args.shards,
+                                     expert_store=expert_store)
     _sync(dev)
     h2d = codec.link_stats()["h2d"]
     info = {"seconds": time.perf_counter() - t0, "step": manifest["step"],
@@ -176,13 +196,13 @@ def _restore_params(args, cfg, mode, codec, dev) -> tuple:
     return params, info
 
 
-def _save_params(args, params, mode, codec, dev) -> dict:
+def _save_params(args, params, mode, codec, dev, expert_records) -> dict:
     """--save-ckpt: the handle tree is saved as it is (its stream bundles
     become the records), so the weights are compressed once."""
     mgr = CheckpointManager(
         args.save_ckpt, serving_layout=None if mode == "dense" else mode,
         serving_min_bytes=args.min_bytes, serving_shards=args.shards,
-        codec=codec, device=dev)
+        expert_records=expert_records, codec=codec, device=dev)
     t0 = time.perf_counter()
     mgr.save(0, {"params": params}, blocking=True)
     info = {"seconds": time.perf_counter() - t0}
@@ -210,10 +230,21 @@ def main(argv=None) -> dict:
 def _serve(args, cfg, model, codec, dev) -> dict:
     t0 = time.perf_counter()
     restore = save = None
+    # 0 MB is a legal budget: every routed expert misses and is dropped
+    # after its step
+    store = (None if args.expert_cache_mb is None else
+             ExpertStore(budget_bytes=int(args.expert_cache_mb * 2**20),
+                         codec=codec, device=dev))
     if args.ckpt:
-        params, restore = _restore_params(args, cfg, args.mode, codec, dev)
+        params, restore = _restore_params(args, cfg, args.mode, codec, dev,
+                                          store)
     else:
         params = model.init(seed=args.seed, device=dev)
+        if store is not None:
+            # BEFORE assign_weight_modes: the expert stacks become
+            # ExpertRef handles, which the mode assignment passes through
+            params, _ = install_expert_store(params, store=store,
+                                             min_bytes=args.min_bytes)
         params = assign_weight_modes(params, mode=args.mode,
                                      min_bytes=args.min_bytes,
                                      shards=args.shards, codec=codec)
@@ -221,7 +252,8 @@ def _serve(args, cfg, model, codec, dev) -> dict:
     setup_s = time.perf_counter() - t0
     encode = codec.encode_cache_stats()
     if args.save_ckpt:
-        save = _save_params(args, params, args.mode, codec, dev)
+        save = _save_params(args, params, args.mode, codec, dev,
+                            store is not None)
     ratio = wire_ratio(params)
     stats = stream_stats(params)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
@@ -240,7 +272,8 @@ def _serve(args, cfg, model, codec, dev) -> dict:
         default_deadline_s=(args.deadline_ms / 1e3 if args.deadline_ms
                             else None),
         collect_logits=True)
-    engine = Engine(model, params, ecfg, codec=codec, device=dev)
+    engine = Engine(model, params, ecfg, codec=codec, device=dev,
+                    expert_store=store)
 
     base = launch_counts()
     t0 = time.perf_counter()
@@ -278,6 +311,20 @@ def _serve(args, cfg, model, codec, dev) -> dict:
           f"timed_out={est['timed_out']} shed={est['shed']} "
           f"evicted={evicted} rejected={est['rejected']} "
           f"governor={engine.governor.state} health={engine.health.state}")
+    experts = None
+    if store is not None:
+        experts = store.stats()
+        dec_ms = (1e3 * sum(engine.step_decode_s)
+                  / max(1, len(engine.step_decode_s)))
+        budget = ("inf" if experts["budget_bytes"] is None
+                  else f"{experts['budget_bytes'] / 1e6:.2f}MB")
+        print(f"[serve] experts: hits={experts['hits']} "
+              f"misses={experts['misses']} "
+              f"evictions={experts['evictions']} "
+              f"fetches={experts['fetches']} "
+              f"buckets={experts['fetch_buckets']} "
+              f"resident={experts['resident_bytes'] / 1e6:.2f}MB/{budget} "
+              f"miss-decode={dec_ms:.2f}ms/step (every step eager)")
     print(f"[serve] launches={launches} prefill={engine.prefill_launches} "
           f"per_decode_step="
           f"{engine.step_launches[0] if engine.step_launches else {}}")
@@ -299,6 +346,8 @@ def _serve(args, cfg, model, codec, dev) -> dict:
             "step_s": engine.step_times_s,
             "step_device_ms_all": engine.step_device_ms,
             "step_buckets": engine.step_buckets,
+            "step_decode_s": engine.step_decode_s,
+            "step_h2d_bytes": engine.step_h2d_bytes, "experts": experts,
             "capture_s": engine.captured.capture_s, "engine": st,
             "mode_mix": mode_mix(params),
             "stream_stats": stats, "wire_ratio": ratio,

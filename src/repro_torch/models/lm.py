@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense family (port of the dense path of
+"""Decoder-only LM, dense and MoE families (port of those paths of
 ``repro/models/lm.py``): init, prefill and one-token decode, and the
 serving engine's decode step over fixed buffers (:func:`decode_step`).
 
@@ -18,6 +18,7 @@ from repro_torch import resolve_device
 from repro_torch.runtime.weights import is_handle
 from repro_torch.runtime.weights import resolve as resolve_weights
 
+from . import moe as moe_lib
 from .layers import (ACT_DTYPE, AttnParamsShape, attention_block,
                      attention_decode_block, dense_init, embed_init,
                      embed_tokens, init_attention, init_mlp, lm_logits,
@@ -26,13 +27,15 @@ from .layers import (ACT_DTYPE, AttnParamsShape, attention_block,
 
 class BlockDesc(NamedTuple):
     seq: str               # attn
-    ffn: Optional[str]     # mlp
+    ffn: Optional[str]     # mlp | moe
 
 
 def block_program(cfg) -> list:
-    """cfg -> list[BlockDesc] (one period); the dense family only."""
+    """cfg -> list[BlockDesc] (one period); the dense and MoE families."""
     if cfg.family == "dense":
         return [BlockDesc("attn", "mlp")]
+    if cfg.family == "moe":
+        return [BlockDesc("attn", "moe")]
     raise ValueError(f"{cfg.name}: family {cfg.family!r} is not ported yet")
 
 
@@ -49,21 +52,33 @@ def param_shapes(cfg) -> dict:
     n, d, s = cfg.n_layers // len(program), cfg.d_model, attn_shape(cfg)
     hq, hkv = s.n_heads * s.head_dim, s.n_kv_heads * s.head_dim
     shapes = {"embed": (cfg.vocab_size, d), "final_norm": (d,)}
-    for pos in range(len(program)):
+    for pos, desc in enumerate(program):
         pre = f"period/{pos}"
         shapes.update({
             f"{pre}/pre_norm": (n, d), f"{pre}/post_norm": (n, d),
             f"{pre}/attn/wq": (n, d, hq), f"{pre}/attn/wk": (n, d, hkv),
-            f"{pre}/attn/wv": (n, d, hkv), f"{pre}/attn/wo": (n, hq, d),
-            f"{pre}/mlp/w_gate": (n, d, cfg.d_ff),
-            f"{pre}/mlp/w_up": (n, d, cfg.d_ff),
-            f"{pre}/mlp/w_down": (n, cfg.d_ff, d)})
+            f"{pre}/attn/wv": (n, d, hkv), f"{pre}/attn/wo": (n, hq, d)})
+        if desc.ffn == "mlp":
+            shapes.update({f"{pre}/mlp/w_gate": (n, d, cfg.d_ff),
+                           f"{pre}/mlp/w_up": (n, d, cfg.d_ff),
+                           f"{pre}/mlp/w_down": (n, cfg.d_ff, d)})
+        else:
+            e, f = cfg.n_experts, cfg.moe_d_ff
+            shapes.update({f"{pre}/moe/router": (n, d, e),
+                           f"{pre}/moe/e_gate": (n, e, d, f),
+                           f"{pre}/moe/e_up": (n, e, d, f),
+                           f"{pre}/moe/e_down": (n, e, f, d)})
         if s.qk_norm:
             shapes.update({f"{pre}/attn/q_norm": (n, s.head_dim),
                            f"{pre}/attn/k_norm": (n, s.head_dim)})
     if not cfg.tie_embeddings:
         shapes["head"] = (d, cfg.vocab_size)
     return shapes
+
+
+def param_dtype(path: str) -> torch.dtype:
+    """A leaf's dtype: the MoE router is f32, every other leaf bf16."""
+    return torch.float32 if path.endswith("/router") else ACT_DTYPE
 
 
 def abstract_params(cfg) -> dict:
@@ -74,7 +89,8 @@ def abstract_params(cfg) -> dict:
         node, keys = tree, path.split("/")
         for k in keys[:-1]:
             node = node.setdefault(k, {})
-        node[keys[-1]] = torch.empty(shape, dtype=ACT_DTYPE, device="meta")
+        node[keys[-1]] = torch.empty(shape, dtype=param_dtype(path),
+                                     device="meta")
     tree["period"] = [tree["period"][str(i)]
                       for i in range(len(tree["period"]))]
     return tree
@@ -91,11 +107,15 @@ def init_params(cfg, *, seed: int = 0, device="cuda"):
     n_periods = cfg.n_layers // len(program)
     zeros = lambda *shape: torch.zeros(shape, dtype=ACT_DTYPE, device=dev)  # noqa: E731
     period = []
-    for _ in program:
+    for desc in program:
         p = {"pre_norm": zeros(n_periods, cfg.d_model),
              "attn": init_attention(n_periods, attn_shape(cfg), gen, dev),
-             "post_norm": zeros(n_periods, cfg.d_model),
-             "mlp": init_mlp(n_periods, cfg.d_model, cfg.d_ff, gen, dev)}
+             "post_norm": zeros(n_periods, cfg.d_model)}
+        if desc.ffn == "mlp":
+            p["mlp"] = init_mlp(n_periods, cfg.d_model, cfg.d_ff, gen, dev)
+        else:
+            p["moe"] = moe_lib.init_moe(n_periods, cfg.d_model, cfg.moe_d_ff,
+                                        cfg.n_experts, gen, dev)
         period.append(p)
     params = {"embed": embed_init((cfg.vocab_size, cfg.d_model), gen, dev),
               "period": period, "final_norm": zeros(cfg.d_model)}
@@ -116,24 +136,34 @@ def _dense_leaf(leaf):
     return leaf.materialize() if is_handle(leaf) else leaf
 
 
+def _ffn(p, cfg, h):
+    """The block's FFN on the normed ``h``: the gated MLP or the MoE
+    (its aux losses are the trainer's; serving drops them)."""
+    if "mlp" in p:
+        return mlp_block(p["mlp"], h)
+    out, _ = moe_lib.moe_block(p["moe"], h, cfg.experts_per_token,
+                               cfg.moe_combine_dtype, cfg.moe_dispatch_a2a)
+    return out
+
+
 def _apply_position(p, cfg, x, positions):
-    """Full-sequence forward of one attn+mlp block -> (x, K/V)."""
+    """Full-sequence forward of one attn + mlp/moe block -> (x, K/V)."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
     out, kv = attention_block(p["attn"], h, attn_shape(cfg), positions,
                               cfg.rope_theta, chunk=cfg.attn_chunk)
     x = x + out
-    x = x + mlp_block(p["mlp"], rms_norm(x, p["post_norm"], cfg.norm_eps))
+    x = x + _ffn(p, cfg, rms_norm(x, p["post_norm"], cfg.norm_eps))
     return x, {"k": kv[0], "v": kv[1]}
 
 
 def _apply_position_step(p, cfg, x, cache, lengths):
-    """One-token decode of one attn+mlp block -> (x, K/V)."""
+    """One-token decode of one attn + mlp/moe block -> (x, K/V)."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
     out, kv = attention_decode_block(p["attn"], h, attn_shape(cfg),
                                      (cache["k"], cache["v"]), lengths,
                                      cfg.rope_theta)
     x = x + out
-    x = x + mlp_block(p["mlp"], rms_norm(x, p["post_norm"], cfg.norm_eps))
+    x = x + _ffn(p, cfg, rms_norm(x, p["post_norm"], cfg.norm_eps))
     return x, {"k": kv[0], "v": kv[1]}
 
 

@@ -1,5 +1,5 @@
 """Build a supported architecture behind one functional interface (port
-of ``repro/models/registry.py``, dense family)."""
+of ``repro/models/registry.py``, dense and MoE families)."""
 from __future__ import annotations
 
 from functools import partial

@@ -27,7 +27,10 @@ use and replays it from then on:
 
 On the CPU the same step runs eagerly: that follows the device, it is not
 a fallback.  A capture that fails raises; nothing runs the eager step on
-the card in its place.
+the card in its place.  A step that must bring data to the host in its
+middle (an MoE step fetching routed experts from an expert store,
+``runtime/experts.py``) cannot be one graph; ``CapturedStep(eager=True)``
+runs it eagerly on the card, every time, and says so (:attr:`eager`).
 """
 from __future__ import annotations
 
@@ -76,9 +79,10 @@ class CapturedStep:
     through one CUDA graph per bucket on ``device``, eagerly on the CPU."""
 
     def __init__(self, step: Callable[[int], None], device,
-                 max_slots: int):
+                 max_slots: int, eager: bool = False):
         self.step = step
         self.device = torch.device(device)
+        self.eager = eager               # run every step eagerly
         self.max_graphs = (max_slots - 1).bit_length() + 1
         self.graphs: dict = {}           # bucket -> Replay (None on CPU)
         self.warmup_launches: dict = {}  # bucket -> launches of its warm-up
@@ -89,7 +93,7 @@ class CapturedStep:
 
     @property
     def buckets(self) -> list:
-        """The buckets captured (on the CPU: the buckets run)."""
+        """The buckets captured (on the CPU or eager: the buckets run)."""
         return sorted(self.graphs)
 
     def _capture(self, bucket: int) -> Replay:
@@ -115,13 +119,21 @@ class CapturedStep:
         """One step over ``bucket`` rows; ``load()`` copies the step's
         inputs into its buffers (again after a warm-up, which advanced
         them).  On the card returns the CUDA events recorded around the
-        replay (their ``elapsed_time`` is the step's device time once the
-        replay has finished); on the CPU None."""
+        replay, or around the eager step (their ``elapsed_time`` is the
+        step's device time once it has finished); on the CPU None."""
         load()
         if self.device.type != "cuda":
             self.step(bucket)
             self.graphs.setdefault(bucket, None)
             return None
+        if self.eager:
+            self.graphs.setdefault(bucket, None)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self.step(bucket)
+            end.record()
+            return start, end
         if bucket not in self.graphs:
             self.graphs[bucket] = self._capture(bucket)
             load()

@@ -18,7 +18,11 @@ of the batch goes on.
   the highest occupied slot (capped at ``max_slots``).  On the card each
   bucket's step is one CUDA graph (``runtime/captured.py``), so at most
   ``ceil(log2(max_slots)) + 1`` are captured; free rows inside a bucket
-  decode at length 0 and are ignored.
+  decode at length 0 and are ignored.  With an MoE expert store
+  (``expert_store``) the step brings each layer's routed expert ids to
+  the host to fetch those experts, so it cannot be a graph: it runs
+  eagerly on the card (``CapturedStep(eager=True)``), every step, and
+  ``stats()["experts"]`` carries the store's counters.
 * **Deadlines at every stage.**  Requests whose TTFT deadline passes in the
   queue are shed before a prefill; in-flight requests past their total
   deadline are evicted at step granularity and their slot reclaimed; a
@@ -45,6 +49,7 @@ import contextlib
 import dataclasses
 import threading
 import time
+import weakref
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -145,12 +150,17 @@ class Engine:
                  codec=None, retry: Optional[RetryPolicy] = None,
                  clock: Callable[[], float] = time.monotonic,
                  sleep: Callable[[float], None] = time.sleep,
-                 health: Optional[ServerHealth] = None, device="cuda"):
+                 health: Optional[ServerHealth] = None, device="cuda",
+                 expert_store=None):
         self.model = model
         self.cfg = model.cfg
         self.params = params
         self.config = config
         self.codec = codec
+        # the MoE expert store behind any ExpertRef handles in ``params``
+        # (runtime/experts.py): observed for its counters and each step's
+        # miss-decode seconds; its fetches happen inside moe_block
+        self.expert_store = expert_store
         self.device = resolve_device(device)
         self.clock = clock
         self.sleep = sleep
@@ -172,7 +182,13 @@ class Engine:
         self._lengths = np.zeros((s,), np.int32)   # host-authoritative
         self._tokens = np.zeros((s,), np.int64)
         self._state = None                         # step buffers (lazy)
-        self.captured = CapturedStep(self._step_body, self.device, s)
+        # the captured step holds the engine weakly: a bound method would
+        # make a cycle, and a dropped engine would keep its tree and graph
+        # pool on the card until the cycle collector ran
+        engine = weakref.ref(self)
+        self.captured = CapturedStep(
+            lambda bucket: engine()._step_body(bucket), self.device, s,
+            eager=expert_store is not None)
 
         self.counters = {"submitted": 0, "admitted": 0, "done": 0,
                          "timed_out": 0, "rejected": 0, "shed": 0,
@@ -187,6 +203,11 @@ class Engine:
         self.step_captured: List[bool] = []
         self.step_launches: List[dict] = []
         self.step_device_ms: List[Optional[float]] = []
+        # per decode step: the expert store's miss-decode seconds (0.0 on
+        # a step that hit every expert, and without a store) and the bytes
+        # the run's codec moved host to device
+        self.step_decode_s: List[float] = []
+        self.step_h2d_bytes: List[int] = []
         self.prefill_launches = dict.fromkeys(build.counts(), 0)
         self._draining = False
         if not self.health.ready():
@@ -209,6 +230,10 @@ class Engine:
 
     def _step_body(self, bucket: int) -> None:
         self.model.decode_step(self.params, self._state, bucket)
+
+    def _h2d_bytes(self) -> int:
+        return (self.codec.transfer_stats()["h2d_bytes"]
+                if self.codec is not None else 0)
 
     def _load(self) -> None:
         """The host's tokens and lengths into the step's buffers (freed
@@ -391,8 +416,12 @@ class Engine:
         active = self._active()
         bucket = _next_bucket(max(r.slot for r in active) + 1,
                               self.config.max_slots)
-        captured = bucket not in self.captured.graphs
+        captured = (bucket not in self.captured.graphs
+                    and not self.captured.eager)
         before = build.counts()
+        dec0 = (self.expert_store.decode_seconds()
+                if self.expert_store is not None else 0.0)
+        h2d0 = self._h2d_bytes()
         t0 = self.clock()
         with self._ctx():
             # a transient runtime error rides the same retry policy as
@@ -422,6 +451,10 @@ class Engine:
         self.step_launches.append(launches)
         self.step_device_ms.append(
             None if events is None else events[0].elapsed_time(events[1]))
+        self.step_decode_s.append(
+            (self.expert_store.decode_seconds() - dec0)
+            if self.expert_store is not None else 0.0)
+        self.step_h2d_bytes.append(self._h2d_bytes() - h2d0)
         if self.governor.observe_step(dt):
             for req in self.queue.shed_lowest_priority(
                     self.config.shed_per_trip, reason="overload"):
@@ -494,8 +527,10 @@ class Engine:
     def stats(self) -> dict:
         """Every counter a probe, script or test needs.
         ``compiled_buckets`` lists the buckets whose step was captured (on
-        the CPU: the buckets whose step ran)."""
-        return {
+        the CPU, or with an expert store: the buckets whose step ran);
+        ``experts`` (with an expert store) carries the store's hit / miss
+        / eviction / resident-byte counters."""
+        out = {
             "engine": dict(self.counters,
                            compiled_buckets=self.captured.buckets,
                            active=len(self._active()),
@@ -509,3 +544,6 @@ class Engine:
             "health": {"state": self.health.state,
                        "detail": self.health.detail},
         }
+        if self.expert_store is not None:
+            out["experts"] = self.expert_store.stats()
+        return out

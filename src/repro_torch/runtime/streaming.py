@@ -230,7 +230,8 @@ def assign_weight_modes(params, *, mode: str = "fused",
 
 
 def mode_mix(tree) -> dict:
-    """Handle-kind census of a weight tree."""
+    """Handle-kind census of a weight tree (``weights.handle_kind``: an
+    expert store's handle counts as "expert")."""
     mix: dict = {}
     for _, leaf in tree_leaves(tree):
         k = handle_kind(leaf)
@@ -239,12 +240,20 @@ def mode_mix(tree) -> dict:
 
 
 def stream_stats(tree) -> dict:
-    """Bytes and handle counts of a weight-execution tree."""
+    """Bytes and handle counts of a weight-execution tree.  An expert
+    store's handle (``expert_tensors``) counts its stack's raw bytes and no
+    device bytes: its records live in host memory and the device holds
+    only the store's decode cache (the reference counts its ``(L,)``
+    int32 layer-id vector there, which the port does not have)."""
+    from repro_torch.runtime.experts import ExpertRef
     total_raw = total_dev = 0
     counts = {"streamed_tensors": 0, "fused_tensors": 0, "dense_handles": 0,
-              "flat_stream_tensors": 0}
+              "flat_stream_tensors": 0, "expert_tensors": 0}
     for _, leaf in tree_leaves(tree):
-        if isinstance(leaf, StreamedWeight):
+        if isinstance(leaf, ExpertRef):
+            counts["expert_tensors"] += 1
+            total_raw += leaf.raw_nbytes()
+        elif isinstance(leaf, StreamedWeight):
             counts["streamed_tensors"] += 1
             counts["flat_stream_tensors"] += int(leaf.flat)
             n_layers = leaf.ct.streams.mask.shape[0]

@@ -115,13 +115,19 @@ def is_handle(x) -> bool:
 
 
 def handle_kind(leaf) -> str:
-    """"dense" / "stream" / "fused" for handles, "raw" for tensors."""
+    """"dense" / "stream" / "fused" for handles, "expert" for an expert
+    store's handle (``runtime.experts.ExpertRef``), "raw" for tensors."""
     if isinstance(leaf, DenseWeight):
         return "dense"
     if isinstance(leaf, StreamedWeight):
         return "stream"
     if isinstance(leaf, FusedWeight):
         return "fused"
+    if isinstance(leaf, WeightHandle):
+        # lazy: experts.py imports this module
+        from repro_torch.runtime.experts import ExpertRef
+        if isinstance(leaf, ExpertRef):
+            return "expert"
     return "raw"
 
 
@@ -189,7 +195,7 @@ def materialize_full_many(handles, codec=None) -> list:
 def resolve(tree, codec=None):
     """Per-layer resolution: storage-only handles (StreamedWeight in
     "materialize" execution) become dense tensors; matmul-capable handles
-    pass through for the layers to execute."""
+    and expert handles (fetched inside ``moe_block``) pass through."""
     if isinstance(tree, dict):
         return {k: resolve(v, codec) for k, v in tree.items()}
     if isinstance(tree, StreamedWeight) and tree.execution != "matmul":

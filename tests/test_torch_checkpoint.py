@@ -234,12 +234,16 @@ def test_serve_save_ckpt_then_ckpt_bitwise_on_cpu(tmp_path, mode):
 
 @pytest.mark.parametrize("what", ["degraded", "mesh", "expert_records"])
 def test_unported_restore_options_raise_clearly(saved, tmp_path, what):
-    """Degraded restore, mesh placement and per-expert records wait for
-    later slices: asking for one raises, it is never silently ignored."""
+    """Degraded restore and mesh placement wait for later slices: asking
+    for one raises, it is never silently ignored; a manager that writes
+    per-expert records (ported since) refuses them as well."""
     mgr, _, _, like = saved
     with pytest.raises(CheckpointError, match="not ported yet"):
         if what == "expert_records":
-            CheckpointManager(tmp_path, expert_records=True, device="cpu")
+            CheckpointManager(mgr.root, expert_records=True,
+                              serving_layout="stream",
+                              device="cpu").load_for_serving(
+                like, prefix="params", mesh=object())
         elif what == "degraded":
             mgr.load({"params": like}, policy="degraded")
         else:

@@ -13,7 +13,10 @@ bitwise to ``decode_fn``, and the capture / replay launch accounting of
 itself is exercised by ``chip_smoke.py``'s engine phase on the card).
 """
 import contextlib
+import copy
+import gc
 import importlib
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -560,6 +563,43 @@ def test_capture_replay_launch_accounting(launch_counts):
     assert build.counts() == now
 
 
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def test_dropped_engine_frees_its_tree_without_the_cycle_collector(setup):
+    """An engine and its captured step form no reference cycle: once the
+    last reference to an engine goes, the engine, its step buffers and the
+    weights tree only it holds are freed at once, with the cycle collector
+    off (on the card a cycle kept a dropped engine's tree and graph pool
+    until the collector ran)."""
+    _, model, params, prompts = setup
+    own = copy.deepcopy(params)
+    leaves = [weakref.ref(t) for t in _tensors(own)]
+    assert leaves
+    engine = _engine(model, own, _ecfg())
+    del own
+    engine.submit(prompts[0], N_NEW)
+    engine.run_until_idle()
+    refs = [weakref.ref(engine), weakref.ref(engine.captured),
+            weakref.ref(engine._state["tokens"])]
+    gc.collect()
+    gc.disable()
+    try:
+        del engine
+        assert all(r() is None for r in refs)
+        assert all(r() is None for r in leaves)
+    finally:
+        gc.enable()
+
+
 def test_captured_step_runs_eagerly_on_cpu():
     """On the CPU the step runs eagerly after its inputs are loaded, and
     the buckets it ran are listed; no graph, no events."""
@@ -592,3 +632,91 @@ def test_kernels_refuse_host_state_inside_a_capture(monkeypatch):
                                               torch.device("cpu"), 12345)
     assert ctr and tuple(out.shape) == (4, 256)
     MATMUL._COUNTERS.pop((torch.device("cpu"), 12345))
+
+
+# ---------------------------------------------------------------------------
+# the MoE family through the engine, with and without an expert store
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def moe_setup():
+    jcfg = jax_smoke_config("phi3_5_moe_42b_a6_6b")
+    jparams = jax_build_model(jcfg).init(jax.random.key(0))
+    cfg = get_smoke_config("phi3_5_moe_42b_a6_6b")
+    params = params_from_jax(jax.device_get(jparams), "cpu", cfg=cfg)
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (4, PROMPT_LEN)).astype(np.int32)
+    return build_model(cfg), params, prompts
+
+
+@pytest.mark.parametrize("mode,budget", [
+    ("dense", None), ("stream", None), ("fused", None),
+    ("fused", 0), ("stream", 40_000), ("dense", "unbounded")])
+def test_moe_engine_bitwise_alone_and_in_a_bucket(moe_setup, mode, budget):
+    """The smoke phi3_5_moe through the engine: each request's logits
+    bitwise equal to it served alone by the one-shot loop on the dense
+    stacks, under a staggered join (buckets 1, 2, 4), in every mode and
+    with an expert store at budgets 0, eviction-forcing and unbounded; a
+    store's steps run eagerly and its counters reach ``stats()``."""
+    from repro_torch.runtime.experts import install_expert_store
+    model, params, prompts = moe_setup
+    dense = assign_weight_modes(params, mode=mode, min_bytes=1024, shards=2)
+    store = None
+    tree = params
+    if budget is not None:
+        tree, store = install_expert_store(
+            params, budget_bytes=None if budget == "unbounded" else budget,
+            device="cpu", min_bytes=1024)
+    tree = assign_weight_modes(tree, mode=mode, min_bytes=1024, shards=2)
+    # the bits are under test, not the governor: an eager store step's
+    # time varies with its misses, so the overload thresholds are set out
+    # of reach
+    engine = _engine(model, tree, _ecfg(max_slots=4, watchdog_s=1e9,
+                                        overload_factor=1e9),
+                     expert_store=store)
+    first = engine.submit(prompts[0], N_NEW, name="first")
+    engine.step()
+    engine.step()
+    late = engine.submit(prompts[1], N_NEW, name="late")
+    engine.step()
+    later = [engine.submit(prompts[i], N_NEW, name=f"later{i}")
+             for i in (2, 3)]
+    engine.run_until_idle()
+    for req, prompt in zip([first, late] + later, prompts):
+        assert req.state == "done"
+        ref_toks, ref_logits = _one_shot(model, dense, prompt, N_NEW,
+                                         engine.config.max_len)
+        assert req.tokens == ref_toks
+        _assert_bit_identical(req.logits, ref_logits, f"{mode} {req.name}")
+    st = engine.stats()
+    assert st["engine"]["compiled_buckets"] == [1, 2, 4]
+    assert len(engine.step_decode_s) == st["engine"]["steps"]
+    if store is None:
+        assert "experts" not in st and not engine.captured.eager
+        return
+    assert engine.captured.eager and not any(engine.step_captured)
+    assert st["experts"]["misses"] > 0
+    assert (st["experts"]["evictions"] > 0) == (budget != "unbounded")
+    assert all(s >= 0.0 for s in engine.step_decode_s)
+
+
+def test_store_fetch_refuses_a_capture(moe_setup, monkeypatch):
+    """A store fetch brings routed ids to the host mid-step: inside a CUDA
+    graph capture it raises, before touching the store."""
+    from repro_torch.runtime.experts import install_expert_store
+    from repro_torch.models import moe
+    model, params, _ = moe_setup
+    tree, store = install_expert_store(params, device="cpu")
+    p = {k: v.layer(0) if hasattr(v, "layer") else v[0]
+         for k, v in tree["period"][0]["moe"].items()}
+    x = torch.zeros((1, 1, model.cfg.d_model), dtype=torch.bfloat16)
+    monkeypatch.setattr(build, "capturing", lambda: True)
+    with pytest.raises(RuntimeError, match="expert store's fetch.*capture"):
+        moe.moe_block(p, x, model.cfg.experts_per_token)
+    with pytest.raises(RuntimeError, match="expert store's fetch.*capture"):
+        store.fetch_step(store.names(), 0, [0])
+    assert store.stats()["misses"] == 0
+    monkeypatch.setattr(build, "capturing", lambda: False)
+    out, _ = moe.moe_block(p, x, model.cfg.experts_per_token)
+    assert store.stats()["misses"] == 3 * model.cfg.experts_per_token
+    assert tuple(out.shape) == (1, 1, model.cfg.d_model)

@@ -28,13 +28,21 @@ DECODE_STEPS = 8
 # |logit| ~ 3.5 on the others, so the bound is 2**-8 times the larger of 1
 # and the reference logits' magnitude.
 LOGIT_ATOL = 2.0 ** -8
+# The MoE smoke configs route each token through the same experts in both
+# packages (tests/test_torch_moe.py holds the routed ids equal), and their
+# residual reaches |x| in [2, 4), where one bf16 ulp is 2**-6: one flipped
+# residual element of qwen3_moe's layer 1 moves a prefill logit by 0.016,
+# 1.08x the dense bound.  Their bound is two bf16 ulps of the logits.
+MOE_ARCHS = ("phi3_5_moe_42b_a6_6b", "qwen3_moe_235b_a22b")
 
 
-def _logit_atol(want) -> float:
-    return LOGIT_ATOL * max(1.0, float(np.abs(want).max()))
+def _logit_atol(want, arch: str = "") -> float:
+    ulps = 2.0 if arch in MOE_ARCHS else 1.0
+    return ulps * LOGIT_ATOL * max(1.0, float(np.abs(want).max()))
 
 
-ARCHS = ("llama3_2_1b", "qwen3_32b", "stablelm_3b", "minitron_4b")
+ARCHS = ("llama3_2_1b", "qwen3_32b", "stablelm_3b", "minitron_4b") \
+    + MOE_ARCHS
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -46,7 +54,7 @@ def setup(request):
     cfg = get_smoke_config(request.param)
     params = params_from_jax(host, "cpu", cfg=cfg)
     prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 12))
-    return jmodel, jparams, build_model(cfg), params, prompts
+    return jmodel, jparams, build_model(cfg), params, prompts, request.param
 
 
 def _serve_jax(model, tree, prompts):
@@ -77,7 +85,7 @@ def _serve_torch(model, tree, prompts):
 
 
 def test_three_modes_bitwise_equal_and_match_reference(setup):
-    jmodel, jparams, model, params, prompts = setup
+    jmodel, jparams, model, params, prompts, arch = setup
     want_logits, want_toks = _serve_jax(
         jmodel, jax_assign(jparams, mode="dense", min_bytes=1024, shards=2),
         prompts)
@@ -95,17 +103,43 @@ def test_three_modes_bitwise_equal_and_match_reference(setup):
     logits, toks = outs["fused"]
     np.testing.assert_array_equal(toks.numpy(), want_toks)
     np.testing.assert_allclose(logits.numpy(), want_logits, rtol=0,
-                               atol=_logit_atol(want_logits))
+                               atol=_logit_atol(want_logits, arch))
 
 
 def test_raw_tree_serves_like_the_handles(setup):
     """Unassigned weights (plain tensors) serve the same greedy tokens as
     the handle tree: the plain einsum path and the tiled schedule differ
     only in the order of f32 sums."""
-    _, _, model, params, prompts = setup
+    _, _, model, params, prompts, _ = setup
     raw_logits, raw_toks = _serve_torch(model, params, prompts)
     tree = assign_weight_modes(params, mode="dense", min_bytes=1024)
     logits, toks = _serve_torch(model, tree, prompts)
     assert torch.equal(raw_toks, toks)
     np.testing.assert_allclose(raw_logits.numpy(), logits.numpy(), rtol=0,
                                atol=LOGIT_ATOL)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_serve_with_an_expert_cache_bitwise_equal(arch):
+    """``launch.serve`` on an MoE smoke config, fused, and fused with
+    ``--expert-cache-mb`` 0, an eviction-forcing budget and an unbounded
+    one, gives the same greedy tokens and bitwise-equal logits (the three
+    modes are held equal above); the store's steps run eagerly."""
+    from repro_torch.launch import serve
+    base = ["--arch", arch, "--smoke", "--device", "cpu", "--tokens", "4",
+            "--batch", "2", "--prompt-len", "8", "--min-bytes", "1024",
+            "--mode", "fused"]
+    runs = {"fused": serve.main(base)}
+    for mb in ("0", "0.05", "1000"):
+        runs[mb] = serve.main(base + ["--expert-cache-mb", mb])
+        st = runs[mb]["experts"]
+        assert st["misses"] > 0 and st["fetches"] > 0
+        assert (st["evictions"] > 0) == (mb != "1000")
+        assert runs[mb]["stream_stats"]["expert_tensors"] == 3
+        assert len(runs[mb]["step_decode_s"]) == len(runs[mb]["step_s"])
+    ref = runs["fused"]
+    for name, out in runs.items():
+        assert torch.equal(out["tokens"], ref["tokens"]), name
+        assert torch.equal(out["logits"].view(torch.int32),
+                           ref["logits"].view(torch.int32)), name
+    assert ref["experts"] is None
