@@ -55,15 +55,28 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
            each decode step (a replay's, by its capture's count) and of
            each bucket's warm-up as read from the code, the run's
            launches exactly the prefills', steps' and warm-ups', encode
-           launches equal to the set-up's encode buckets; TPOT of the
-           captured step and the device ms of a replay; plus a smoke-size
-           model on the card against the plain CPU path.
+           launches equal to the set-up's encode buckets (stream mode
+           prefetches by default: a layer's decode is one batched launch
+           per bucket of its schedule); TPOT of the captured step and the
+           device ms of a replay; plus a smoke-size model on the card
+           against the plain CPU path.
 5. ckpt    the fused run again through ``serve.main``, first with
            ``--save-ckpt DIR`` (an enec-v2 checkpoint in a temporary
            directory), then with ``--ckpt DIR``: the restored run's tokens
            and logits bitwise equal to phase 4's fused run, no leaf of at
            least ``--min-bytes`` moved host to device as dense bytes, and
            restore decode dispatches equal to the restore plan's buckets.
+   degraded
+           the ckpt phase's fused tree saved as steps 0 and 1, one byte of
+           one record of step 1 flipped: ``serve.main --ckpt`` (degraded
+           by default) quarantines exactly it, restores it from step 0 and
+           serves logits bitwise equal to phase 4's fused run with health
+           ``degraded``; a strict restore raises and ``--strict`` exits 1
+           with health ``failed``; a decode fault injected through
+           ``runtime/faults.py`` degrades the same way; every restored leaf
+           of at least ``--min-bytes`` moves host to device compressed;
+           then the flipped byte on a stream-layout checkpoint served in
+           stream mode, kernel 1 decoding the fallback record every step.
    engine  ``runtime/engine.py`` on full-width llama3_2_1b in fused,
            stream and dense modes and on minitron_4b fused (4 requests x
            prompt 64 x 16 new tokens, 4 slots): (a) each request's logits
@@ -73,11 +86,23 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
            1, 2 and 4 captured and replayed), (a) for every request; (c)
            the bucket-4 replays bitwise equal to the eager bucket-4 loop
            (``eager_bucket_loop``); (d) each step's launches by the
-           replay accounting equal ``STEP_LAUNCHES``; (e) the captured
+           replay accounting equal one step's, read from the code and
+           the prefetch schedule (``step_launches``); (e) the captured
            buckets within {1, 2, 4}; (f) TPOT of the eager loops and of
            the captured engine and the device ms a replay, in one run.
            First, inside a capture, kernel 3 and kernel 2's first arrival
            counters on a new stream must refuse.
+   overlap the decode-prefetch pipeline (``runtime/overlap.py``, kernel 1
+           on a side stream inside the captured step) on full-width
+           llama3_2_1b and minitron_4b in stream mode through the engine,
+           overlap off and on in one call: (a) logits bitwise equal off
+           against on, captured (buckets 1, 2, 4) and eager, and to each
+           request alone; (b) each replay's launches equal one step's read
+           from the code and the schedule (a layer's prefetch:
+           ``buckets_per_layer`` kernel-1 launches); (c) a profile of 5
+           bucket-4 replays: device ms, busy share, kernel-1 ms, the
+           concatenation's ms and the share of kernel 1 that overlaps
+           other kernels; (d) TPOT, TTFT, peak GB; (e) ``stream_stats``.
    scan    the standalone prefix-sum kernel through ``ops.idd_scan``:
            bitwise equal to ``torch.cumsum`` and the plain version in both
            branches of its plan (one warp a row; the look-back scan across
@@ -114,7 +139,9 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
            step, the store's hit rate, miss-decode ms and h2d GB a step,
            peak device memory beside MemAvailable; kernel 1 on a layer's
            routed experts, 2' on one expert (M = 4, 16) and 4 on an
-           expert leaf, each against its plain version and its bound.
+           expert leaf, each against its plain version and its bound;
+           kernel 2's fused entry on a layer's 4 attention leaves (M = 4)
+           beside its plain version, its bound and torch.matmul.
 6. a ``{"kernels": [...]}`` JSON line, then the card line and the last
    line ``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` is
    its count in the run of its ``path`` (fused, the main path, for the
@@ -122,7 +149,9 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    runs the logits head; ``scan`` and ``kv_attention`` for kernels 3 and
    5);
    ``launches_by_path`` gives its count in each run (the three llama
-   modes, ``ckpt_save``, ``ckpt_restore``, ``engine_fused``, ``scan``,
+   modes, ``ckpt_save``, ``ckpt_restore``, ``degraded``,
+   ``degraded_stream``, ``engine_fused``, ``overlap_llama3_2_1b``,
+   ``overlap_minitron_4b``, ``scan``,
    ``kv_attention``, the three ``minitron_*`` modes and the six ``moe_*``
    runs), and
    ``launches_per_captured_step`` its launches in one replay of each
@@ -168,25 +197,40 @@ KERNELS = ("enec_decode", "decompress_matmul", "dense_tile_matmul",
            "enec_encode", "idd_scan", "decode_attention_kv")
 
 
-def step_launches(matmuls: int, flat: int) -> dict:
+def step_launches(layers: int, flat: int, buckets_per_layer=None) -> dict:
     """Kernel launches of one decode step of each served mode, read from
-    the code: ``matmuls`` matmul leaves a step (layers x 7, each through
+    the code: ``layers`` x 7 matmul leaves a step (each through
     ``weight_matmul``), ``flat`` flat L=1 streams that ``lm.decode_fn``
     materializes a step (the embed, and an untied head), and the logits
-    head, one dense-tile launch in every mode (``layers.lm_logits``)."""
+    head, one dense-tile launch in every mode (``layers.lm_logits``).  A
+    stream-mode layer decodes its 7 leaves one by one (overlap off,
+    ``buckets_per_layer`` None) or in the prefetch's one batched decode of
+    ``buckets_per_layer`` launches (``runtime/overlap.py``)."""
     zero = dict.fromkeys(KERNELS, 0)
+    matmuls = layers * len(LEAVES)
+    decodes = layers * (len(LEAVES) if buckets_per_layer is None
+                        else buckets_per_layer)
     return {"fused": zero | {"enec_decode": flat,
                              "decompress_matmul": matmuls,
                              "dense_tile_matmul": 1},
-            "stream": zero | {"enec_decode": flat + matmuls,
+            "stream": zero | {"enec_decode": flat + decodes,
                               "dense_tile_matmul": matmuls + 1},
             "dense": zero | {"dense_tile_matmul": matmuls + 1}}
 
 
-STEP_LAUNCHES = step_launches(N_LAYERS * len(LEAVES), 1)   # tied embed
 MINITRON_LAYERS = 32
 MINITRON_VOCAB = 256000
-MINITRON_STEP_LAUNCHES = step_launches(MINITRON_LAYERS * len(LEAVES), 2)
+# the flat streams of a step: llama's tied embed; minitron's embed and head
+FLAT = {"llama3_2_1b": 1, "minitron_4b": 2}
+ARCH_LAYERS = {"llama3_2_1b": N_LAYERS, "minitron_4b": MINITRON_LAYERS}
+
+
+def run_step_launches(arch: str, mode: str, out: dict) -> dict:
+    """One decode step's launches of a ``serve.main`` run, its stream
+    mode's prefetch read from the run's schedule (``out["overlap"]``)."""
+    bpl = (out["overlap"]["buckets_per_layer"] if out["overlap"]["enabled"]
+           else None)
+    return step_launches(ARCH_LAYERS[arch], FLAT[arch], bpl)[mode]
 
 # phase scan: the shapes of tests/test_kernels.py::test_idd_scan_matches_
 # cumsum, the llama embed's blocks x groups (16032 blocks of 1024 groups of
@@ -1273,7 +1317,8 @@ def phase_serve():
               f"{mode} logits not bitwise equal to fused")
     for mode, out in runs.items():
         step = out["step_launches"][0]
-        want = STEP_LAUNCHES[mode]
+        want = run_step_launches("llama3_2_1b", mode, out)
+        _check_overlap_schedule(f"serve {mode}", mode, out)
         _check_engine_run(f"serve {mode}", out, want)
         for name, n in want.items():
             check(n == 0 or out["path_launches"][name] > 0,
@@ -1313,6 +1358,21 @@ def phase_serve():
                      "hbm_ratio": o["stream_stats"]["hbm_ratio"]}
                   for m, o in runs.items()}}
     return launches, runs["fused"]
+
+
+def _check_overlap_schedule(label, mode, out):
+    """The default ``--overlap auto`` prefetches exactly in stream mode,
+    where every one of a layer's 7 matmul leaves is a streamed slot and a
+    layer's batched decode takes at most one launch per leaf."""
+    ov = out["overlap"]
+    check(ov["mode"] == "auto" and ov["enabled"] == (mode == "stream"),
+          f"{label}: overlap {ov}")
+    if ov["enabled"]:
+        check(ov["slots"] == len(LEAVES)
+              == out["stream_stats"]["overlap_eligible_tensors"]
+              and 1 <= ov["buckets_per_layer"] <= len(LEAVES),
+              f"{label}: prefetch schedule {ov}, stream_stats "
+              f"{out['stream_stats']}")
 
 
 def _capture_ms(out) -> dict:
@@ -1382,7 +1442,8 @@ def phase_ckpt(fused):
         check(torch.equal(out["logits"].view(torch.int32),
                           fused["logits"].view(torch.int32)),
               f"{path}: logits not bitwise equal to the fresh fused run")
-        _check_engine_run(path, out, STEP_LAUNCHES["fused"])
+        _check_engine_run(path, out,
+                          run_step_launches("llama3_2_1b", "fused", out))
     save, restore = runs["ckpt_save"]["save"], runs["ckpt_restore"]["restore"]
     sizes = _leaf_bytes()
     big = [n for n in restore["dense_records"] if sizes[n] >= MIN_BYTES]
@@ -1927,17 +1988,21 @@ def _engine_case(arch: str, mode: str, staggered: bool) -> dict:
     from repro_torch.launch import serve
     from repro_torch.models import build_model
     from repro_torch.runtime.engine import Engine, EngineConfig
+    from repro_torch.runtime.overlap import build_schedule
     from repro_torch.runtime.streaming import assign_weight_modes
     cfg = get_config(arch)
     model = build_model(cfg)
     codec = Codec()
-    want_step = (STEP_LAUNCHES if arch == "llama3_2_1b"
-                 else MINITRON_STEP_LAUNCHES)[mode]
     label = f"engine {arch} {mode}"
     with use_codec(codec):
         params = assign_weight_modes(
             model.init(seed=0, device="cuda"), mode=mode,
             min_bytes=MIN_BYTES, shards=2, codec=codec)
+        # stream mode prefetches (cfg.overlap "auto"): a layer's decode
+        # launches are its schedule's buckets
+        bpl = (build_schedule(params["period"], cfg.n_layers)
+               .buckets_per_layer if mode == "stream" else None)
+        want_step = step_launches(cfg.n_layers, FLAT[arch], bpl)[mode]
         prompts = _prompts(cfg.vocab_size)
         ecfg = EngineConfig(max_slots=BATCH, queue_depth=2 * BATCH,
                             max_prompt_len=PROMPT, max_new_tokens=TOKENS,
@@ -2062,6 +2127,407 @@ def phase_engine():
 
 
 # ---------------------------------------------------------------------------
+# phase overlap: the decode-prefetch pipeline on a side stream
+# ---------------------------------------------------------------------------
+
+def _intervals_ms(spans) -> float:
+    """Total length of the union of ``(start, end)`` spans."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def _overlapped(spans, others) -> float:
+    """Length of ``spans`` (disjoint: kernels of one stream) covered by the
+    union of ``others``."""
+    merged = []
+    for a, b in sorted(others):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    total = 0.0
+    for a, b in spans:
+        for c, d in merged:
+            if c >= b:
+                break
+            total += max(0.0, min(b, d) - max(a, c))
+    return total
+
+
+def _overlap_profile(engine, replays: int = 5) -> dict:
+    """A ``torch.profiler`` trace of ``replays`` replays of the engine's
+    bucket-4 graph, read from its Chrome trace: device ms a replay (first
+    kernel start to last kernel end), the kernels' busy share of that span,
+    kernel 1's ms a replay, the ms of ``torch.cat`` copies a replay (the
+    prefetch's per-block vectors; a bucket's member streams are views),
+    the share of kernel 1's time during which another kernel runs (two
+    kernels at once are on two streams; the trace's stream ids of a
+    graph's kernels are the executor's, not the capture's), and the ms a
+    replay of the kernels under each stream id.  "not measured" when the
+    trace holds no kernels."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    bucket = max(engine.captured.graphs)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(replays):
+            engine.captured.run(bucket, engine._load)
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        trace = json.loads(Path(path).read_text())
+    finally:
+        os.remove(path)
+    kern = [e for e in trace.get("traceEvents", [])
+            if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    if not kern:
+        return {"not measured": "the trace holds no kernels"}
+    spans = [(float(e["ts"]) / 1e3, (float(e["ts"]) + float(e["dur"])) / 1e3,
+              e.get("args", {}).get("stream", e.get("tid")),
+              "decode_lanes" in e["name"] or "decode_generic" in e["name"])
+             for e in kern]
+    k1 = [(a, b) for a, b, _, is_k1 in spans if is_k1]
+    others = [(a, b) for a, b, _, is_k1 in spans if not is_k1]
+    by_stream: dict = {}
+    for a, b, s, _ in spans:
+        by_stream[str(s)] = by_stream.get(str(s), 0.0) + (b - a) / replays
+    start = min(a for a, _, _, _ in spans)
+    end = max(b for _, b, _, _ in spans)
+    k1_ms = sum(b - a for a, b in k1)
+    # the prefetch's concatenation of a bucket's member streams
+    cat_ms = sum((float(e["dur"]) / 1e3) for e in kern
+                 if "CatArray" in e["name"])
+    return {"bucket": bucket, "kernels_per_step": len(spans) / replays,
+            "cat_ms": cat_ms / replays,
+            "span_ms": (end - start) / replays,
+            "busy_share": _intervals_ms([(a, b) for a, b, _, _ in spans])
+            / (end - start),
+            "kernel1_ms": k1_ms / replays,
+            "kernel1_launches": len(k1) / replays,
+            "kernel1_overlapped_share": (_overlapped(k1, others) / k1_ms
+                                         if k1_ms else 0.0),
+            "ms_by_stream": by_stream}
+
+
+def _overlap_case(arch: str) -> dict:
+    """One model at full width in stream mode through ``runtime/engine.py``
+    with overlap off and on (4 requests x prompt 64 x 16 new tokens, 4
+    slots), on one weight tree: (a) each request's logits bitwise equal
+    off against on, captured (a staggered join: buckets 1, 2, 4) and
+    eager (the one-shot loop alone), and captured equal to alone; (b) each
+    replay's and warm-up's kernel-1 launches (and every other kernel's)
+    equal one step's read from the code and the schedule; (c) a profile of
+    5 bucket-4 replays (``_overlap_profile``); (d) TPOT and device ms of
+    the bucket-4 replays, TTFT, peak device GB; (e) ``stream_stats``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.codec_api import Codec, use_codec
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    from repro_torch.runtime.overlap import build_schedule
+    from repro_torch.runtime.streaming import (assign_weight_modes,
+                                               stream_stats)
+    cfg = get_config(arch)
+    label = f"overlap {arch}"
+    codec = Codec()
+    res = {}
+    with use_codec(codec):
+        params = assign_weight_modes(
+            build_model(cfg).init(seed=0, device="cuda"), mode="stream",
+            min_bytes=MIN_BYTES, shards=2, codec=codec)
+        stats = stream_stats(params)
+        sched = build_schedule(params["period"], cfg.n_layers)
+        check(stats["overlap_eligible_tensors"] == len(sched.slots)
+              == len(LEAVES) and stats["flat_stream_tensors"] == FLAT[arch],
+              f"{label}: stream_stats {stats}, slots {sched.slots}")
+        bpl = sched.buckets_per_layer
+        prompts = _prompts(cfg.vocab_size)
+        ecfg = EngineConfig(max_slots=BATCH, queue_depth=2 * BATCH,
+                            max_prompt_len=PROMPT, max_new_tokens=TOKENS,
+                            collect_logits=True)
+        for ov in ("off", "on"):
+            model = build_model(dataclasses.replace(cfg, overlap=ov))
+            want = step_launches(cfg.n_layers, FLAT[arch],
+                                 bpl if ov == "on" else None)["stream"]
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            alone = [one_shot_alone(model, params, p, ecfg.max_len)
+                     for p in prompts]
+            runs = {}
+            for name, schedule in (
+                    ("staggered", [(0, [0]), (2, [1]), (2, [2, 3])]),
+                    ("together", [(0, range(BATCH))])):
+                engine = Engine(model, params, ecfg, codec=codec)
+                serve.reset_launch_counts()      # this run starts here ...
+                reqs = []
+                for steps_before, idx in schedule:
+                    for _ in range(steps_before):
+                        engine.step()
+                    reqs += [engine.submit(prompts[i], TOKENS, name=f"r{i}")
+                             for i in idx]
+                engine.run_until_idle()
+                counts = serve.launch_counts()   # ... and ends here
+                for i, req in enumerate(reqs):
+                    check(req.state == "done" and _bits_equal(
+                        req.logits, alone[i][0]), f"{label} {ov} {name}: "
+                        f"r{i} differs from it served alone")
+                check(all(st == want for st in engine.step_launches)
+                      and all(w == want for w in
+                              engine.captured.warmup_launches.values()),
+                      f"{label} {ov} {name}: launches a step "
+                      f"{engine.step_launches[:1]} != {want}")
+                total = {k: engine.prefill_launches[k]
+                         + sum(st[k] for st in engine.step_launches)
+                         + sum(w[k] for w in
+                               engine.captured.warmup_launches.values())
+                         for k in KERNELS}
+                check(total == counts, f"{label} {ov} {name}: launched "
+                      f"{counts}, prefills + steps + warm-ups {total}")
+                runs[name] = (engine, reqs, counts)
+            check(runs["staggered"][0].stats()["engine"]["compiled_buckets"]
+                  == [1, 2, 4], f"{label} {ov}: staggered buckets")
+            engine, reqs, counts = runs["together"]
+            profile = _overlap_profile(engine)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            rows = [(t, ms) for t, ms, c in zip(engine.step_times_s,
+                                                engine.step_device_ms,
+                                                engine.step_captured)
+                    if not c]
+            res[ov] = {
+                "tpot_ms": 1e3 * sum(t for t, _ in rows) / len(rows),
+                "device_ms": sum(ms for _, ms in rows) / len(rows),
+                "ttft_ms": 1e3 * sum(r.ttft_s() for r in reqs) / len(reqs),
+                "eager_alone_tpot_ms": 1e3 * sum(
+                    sum(secs) for _, secs in alone) / sum(
+                    len(secs) for _, secs in alone),
+                "capture_ms": {b: 1e3 * t for b, t in
+                               engine.captured.capture_s.items()},
+                "peak_gb": peak, "launches_per_step": want,
+                "launches": counts, "profile": profile,
+                "logits": {"alone": [o for o, _ in alone],
+                           **{n: [r.logits for r in rq]
+                              for n, (_, rq, _) in runs.items()}}}
+            res[ov]["busy_share"] = res[ov]["device_ms"] / res[ov]["tpot_ms"]
+            del runs, engine, reqs, alone
+    for key in ("alone", "staggered", "together"):
+        for i in range(BATCH):
+            check(_bits_equal(res["off"]["logits"][key][i],
+                              res["on"]["logits"][key][i]),
+                  f"{label}: r{i} {key} differs between overlap off and on")
+    for ov in ("off", "on"):
+        res[ov].pop("logits")
+        p = res[ov]["profile"]
+        log(f"{label} {ov}: (a) bitwise equal off/on, captured and eager, "
+            f"and to each request alone; (b) launches a step "
+            f"{res[ov]['launches_per_step']}; (d) TPOT "
+            f"{res[ov]['tpot_ms']:.3f} ms, device {res[ov]['device_ms']:.3f}"
+            f" ms a replay (busy {res[ov]['busy_share']:.3f}), TTFT "
+            f"{res[ov]['ttft_ms']:.2f} ms, eager alone "
+            f"{res[ov]['eager_alone_tpot_ms']:.3f} ms, peak "
+            f"{res[ov]['peak_gb']:.2f} GB, captures {res[ov]['capture_ms']}"
+            f"; (c) profile {p} on {card_line()}")
+    check(res["on"]["profile"].get("kernel1_launches", 0) > 0
+          or "not measured" in res["on"]["profile"],
+          f"{label}: kernel 1 not in the overlap-on trace")
+    res["stream_stats"] = stats
+    res["buckets_per_layer"] = bpl
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_overlap():
+    """The decode-prefetch pipeline (``runtime/overlap.py``) on
+    llama3_2_1b and minitron_4b at full width in stream mode through the
+    engine, overlap off against on in one call: checks (a)-(e) of
+    :func:`_overlap_case`.  Returns each case's overlap-on run's launches
+    (path ``overlap_<arch>``)."""
+    cases = {arch: _overlap_case(arch)
+             for arch in ("llama3_2_1b", "minitron_4b")}
+    RESULTS["overlap"] = {"card": card_line(), "cases": cases}
+    return {f"overlap_{arch}": c["on"]["launches"]
+            for arch, c in cases.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase degraded: the degraded checkpoint restore
+# ---------------------------------------------------------------------------
+
+def _restore_run(args, label, want_logits) -> dict:
+    """``serve.main`` restoring from a checkpoint: the run's launches, its
+    tokens and logits bitwise equal to ``want_logits``, each decode step
+    and warm-up launching alike, and every restored leaf of at least
+    ``--min-bytes`` moved host to device compressed."""
+    import torch
+    from repro_torch.launch import serve
+    serve.reset_launch_counts()          # this run starts here ...
+    out = serve.main(args)
+    out["path_launches"] = serve.launch_counts()   # ... and ends here
+    check(torch.equal(out["logits"].view(torch.int32),
+                      want_logits.view(torch.int32)),
+          f"degraded {label}: logits not bitwise equal to a clean run")
+    steps = out["step_launches"]
+    check(all(st == steps[0] for st in steps)
+          and all(w == steps[0] for w in out["warmup_launches"].values()),
+          f"degraded {label}: decode steps launched differently")
+    restore = out["restore"]
+    sizes = _leaf_bytes()
+    big = [n for n in restore["dense_records"] if sizes[n] >= MIN_BYTES]
+    check(not big, f"degraded {label}: leaves of >= {MIN_BYTES} bytes moved "
+          f"dense host to device: {big}")
+    return out
+
+
+def phase_degraded(fused):
+    """The degraded restore (``policy="degraded"``) of llama3_2_1b at full
+    width.  The ckpt phase's fused tree is saved as steps 0 and 1, then
+    (a) one byte of one record of step 1's pack is flipped: ``serve.main
+    --ckpt`` quarantines exactly that record, restores it from step 0 and
+    serves logits bitwise equal to ``fused`` (phase serve's fresh run, to
+    which a clean restore is held bitwise by phase ckpt) with health
+    ``degraded``; (c) a strict ``load_for_serving`` raises and
+    ``serve.main --strict`` exits 1 with health ``failed``; the byte is
+    flipped back and (b) a decode fault injected through
+    ``runtime/faults.py`` on a record the restore decodes does the same as
+    (a); (d) every restored leaf of at least ``--min-bytes`` moves host to
+    device compressed.  Then (a) again on a stream-layout checkpoint
+    served in stream mode, so kernel 1 decodes the fallback record in
+    every step's prefetch."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint.ckpt import CheckpointError, CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.codec_api import Codec, use_codec
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import abstract_params
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.streaming import assign_weight_modes
+    cfg = get_config("llama3_2_1b")
+    base = ["--batch", str(BATCH), "--prompt-len", str(PROMPT), "--tokens",
+            str(TOKENS), "--min-bytes", str(MIN_BYTES)]
+    tmp = Path(tempfile.mkdtemp(prefix="enec-degraded-"))
+    res, launches = {}, {}
+    try:
+        codec = Codec()
+        t0 = time.perf_counter()
+        with use_codec(codec):
+            for layout in ("fused", "stream"):
+                params = assign_weight_modes(
+                    build_model(cfg).init(seed=0, device="cuda"),
+                    mode=layout, min_bytes=MIN_BYTES, shards=2, codec=codec)
+                mgr = CheckpointManager(tmp / layout, serving_layout=layout,
+                                        serving_min_bytes=MIN_BYTES,
+                                        serving_shards=2, codec=codec,
+                                        device="cuda")
+                for step in (0, 1):
+                    mgr.save(step, {"params": params}, blocking=True)
+                del params, mgr
+                torch.cuda.empty_cache()
+        res["save_s"] = time.perf_counter() - t0
+        root = tmp / "fused"
+        victim = "params/period/0/mlp/w_down"
+        name, _, pos = faults.flip_pack_byte(root, victim, step=1)
+        check(name == victim, f"degraded: flipped {name}")
+        want_q = [(victim, "step 0 (fused record)")]
+        # (a) one flipped byte
+        out = _restore_run(base + ["--mode", "fused", "--ckpt", str(root)],
+                           "flipped byte", fused["logits"])
+        got_q = [(q["name"], q["fallback"])
+                 for q in out["restore"]["quarantined"]]
+        check(got_q == want_q and out["health"] == "degraded",
+              f"degraded (a): quarantined {got_q}, health {out['health']}")
+        check("CRC" in out["restore"]["quarantined"][0]["cause"],
+              f"degraded (a): cause {out['restore']['quarantined'][0]}")
+        launches["degraded"] = out["path_launches"]
+        res["flipped"] = {k: out[k] for k in ("restore", "health",
+                                               "tpot_s", "ttft_s")}
+        # (c) strict
+        try:
+            CheckpointManager(root, codec=Codec(), device="cuda") \
+                .load_for_serving(abstract_params(cfg), mode="fused",
+                                  prefix="params", min_bytes=MIN_BYTES,
+                                  shards=2)
+        except CheckpointError as e:
+            check("CRC" in str(e), f"degraded (c): strict raised {e}")
+            res["strict_error"] = str(e)
+        else:
+            fail("degraded (c): a strict restore of the damaged step passed")
+        try:
+            serve.main(base + ["--mode", "fused", "--ckpt", str(root),
+                               "--strict"])
+        except SystemExit as e:
+            check(e.code == 1 and serve.HEALTH.state == "failed",
+                  f"degraded (c): --strict exit {e.code}, health "
+                  f"{serve.HEALTH.state}")
+            res["strict_exit"] = e.code
+        else:
+            fail("degraded (c): serve --strict served a damaged restore")
+        torch.cuda.empty_cache()
+        faults.flip_pack_byte(root, victim, step=1)      # and back
+        # (b) a decode fault on a record the restore decodes (a const
+        # record: fused records are adopted as they are)
+        target = "params/final_norm"
+        with faults.inject(faults.FaultSpec(kind="decode", match=target,
+                                            times=1)) as inj:
+            out = _restore_run(base + ["--mode", "fused", "--ckpt",
+                                       str(root)], "decode fault",
+                               fused["logits"])
+        got_q = [(q["name"], q["fallback"])
+                 for q in out["restore"]["quarantined"]]
+        check(got_q == [(target, "step 0 (const record)")]
+              and inj.stats()[0]["fired"] == 1
+              and out["health"] == "degraded",
+              f"degraded (b): quarantined {got_q}, {inj.stats()}")
+        res["decode_fault"] = {k: out[k] for k in ("restore", "health")}
+        torch.cuda.empty_cache()
+        # (a) on the stream layout: kernel 1 decodes the fallback record
+        root = tmp / "stream"
+        faults.flip_pack_byte(root, victim, step=1)
+        out = _restore_run(base + ["--mode", "stream", "--ckpt", str(root)],
+                           "stream layout", fused["logits"])
+        got_q = [(q["name"], q["fallback"])
+                 for q in out["restore"]["quarantined"]]
+        check(got_q == [(victim, "step 0 (stream record)")]
+              and out["health"] == "degraded"
+              and out["path_launches"]["enec_decode"] > 0,
+              f"degraded stream: quarantined {got_q}, launches "
+              f"{out['path_launches']}")
+        launches["degraded_stream"] = out["path_launches"]
+        res["stream"] = {k: out[k] for k in ("restore", "health", "tpot_s",
+                                              "step_launches")}
+        res["stream"]["step_launches"] = out["step_launches"][0]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"degraded: (a) {victim} flipped at step 1 -> quarantined, restored "
+        f"from step 0, logits bitwise equal, health degraded (fused "
+        f"layout, and the stream layout with kernel 1 decoding the "
+        f"fallback each step); (b) a decode fault on {target} the same; (c) "
+        f"strict raised and --strict exited 1, health failed; (d) h2d "
+        f"{res['flipped']['restore']['h2d_compressed_bytes'] / 1e6:.3f} MB "
+        f"compressed, {res['flipped']['restore']['h2d_dense_bytes']} B "
+        f"dense; saves {res['save_s']:.1f} s; launches {launches} on "
+        f"{card_line()}")
+    RESULTS["degraded"] = res
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase serve_minitron: minitron_4b at full width
 # ---------------------------------------------------------------------------
 
@@ -2095,8 +2561,9 @@ def phase_serve_minitron():
               f"minitron {mode} logits not bitwise equal to fused")
     for mode, out in runs.items():
         step = out["step_launches"][0]
+        _check_overlap_schedule(f"minitron {mode}", mode, out)
         _check_engine_run(f"minitron {mode}", out,
-                          MINITRON_STEP_LAUNCHES[mode])
+                          run_step_launches("minitron_4b", mode, out))
         enc = out["path_launches"]["enec_encode"]
         check(enc == out["encode_dispatches"] == out["encode_buckets"],
               f"minitron {mode}: {enc} encode launches, set-up reports "
@@ -2143,21 +2610,27 @@ MOE_LAYERS = 8
 MOE_GEOMS = 2            # expert leaf geometries: (D, F) and (F, D)
 
 
-def moe_step_launches(n_layers: int, n_experts: int) -> dict:
+def moe_step_launches(n_layers: int, n_experts: int, bpl: dict) -> dict:
     """Kernel launches of one MoE decode step without a store, read from
     the code: a layer runs its 4 attention matmuls, the f32 router (a
     stream in the compressing modes, materialized by kernel 1, then the
     dense-tile entry) and 3 products of EVERY expert (the expert stacks
     are streams materialized per layer in stream and fused modes); the
     embed and the untied head are flat streams, and the head one
-    dense-tile launch."""
+    dense-tile launch.  The streamed leaves of a layer (8 in stream mode,
+    the router and the 3 expert stacks in fused mode) are prefetched by
+    one batched decode of ``bpl[mode]`` launches (the schedule's
+    ``buckets_per_layer``; ``runtime/overlap.py``), once ``bpl`` has the
+    mode."""
     zero = dict.fromkeys(KERNELS, 0)
     dense_tiles = n_layers * (1 + 3 * n_experts) + 1
     return {"dense": zero | {"dense_tile_matmul": dense_tiles + 4 * n_layers},
-            "stream": zero | {"enec_decode": n_layers * 8 + 2,
+            "stream": zero | {"enec_decode": n_layers * bpl.get("stream", 0)
+                              + 2,
                               "dense_tile_matmul": dense_tiles
                               + 4 * n_layers},
-            "fused": zero | {"enec_decode": n_layers * 4 + 2,
+            "fused": zero | {"enec_decode": n_layers * bpl.get("fused", 0)
+                             + 2,
                              "decompress_matmul": 4 * n_layers,
                              "dense_tile_matmul": dense_tiles}}
 
@@ -2398,6 +2871,51 @@ def _moe_kernel_times(store, codec) -> dict:
     return {"decode": dec, "dense_tile": mm, "encode": enc}
 
 
+def _moe_attention_times(params) -> dict:
+    """Kernel 2's fused entry on layer 0's 4 attention leaves of the fused
+    tree (4096 x 4096 / 1024, M = BATCH): within MATMUL_ATOL of the plain
+    version, timed beside the plain version, its bound (the compressed
+    tile streams at true length, x and out once) and torch.matmul on the
+    dense bf16 weight; each leaf and their sum."""
+    import torch
+    from repro_torch.kernels.decompress_matmul import (
+        decompress_matmul_cuda, decompress_matmul_plain)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    rows, total = {}, dict.fromkeys(keys, 0.0)
+    total["max_abs_err"] = 0.0
+    for name in ("wq", "wk", "wv", "wo"):
+        h = params["period"][0]["attn"][name].layer(0)
+        k, n = h.k, h.n
+        w = h.materialize()
+        x = torch.randn((BATCH, k), generator=gen,
+                        device="cuda").bfloat16()
+        got = decompress_matmul_cuda(x, h.ct, k, n)
+        err = float((got - decompress_matmul_plain(x, h.ct, k, n)).abs()
+                    .max())
+        check(err <= MATMUL_ATOL, f"moe: kernel 2 on attention {name} errs "
+              f"{err} from the plain version")
+        row = {"k": k, "n": n, "max_abs_err": err,
+               "ms": cuda_ms(lambda: decompress_matmul_cuda(x, h.ct, k, n),
+                             20, flush),
+               "plain_ms": cuda_ms(lambda: decompress_matmul_plain(
+                   x, h.ct, k, n), 3, flush),
+               "library_ms": cuda_ms(lambda: torch.matmul(x, w), 20, flush),
+               "bound_ms": 1e3 * max(
+                   (needed_bytes(h.ct.streams) + BATCH * k * 2
+                    + BATCH * n * 4) / HBM_BYTES_PER_S,
+                   2 * BATCH * k * n / BF16_FLOPS),
+               "bound_by": "bytes"}
+        rows[name] = row
+        for key in keys:
+            total[key] += row[key]
+        total["max_abs_err"] = max(total["max_abs_err"], err)
+    del flush_buf
+    return {"leaves": rows, "total": total}
+
+
 def _rebudget(store, budget) -> None:
     """Empty ``store``'s cache and give it ``budget`` bytes (``None``:
     unbounded): the phase serves its budgets from one store's records."""
@@ -2452,6 +2970,7 @@ def phase_moe():
     from repro_torch.models.lm import abstract_params
     from repro_torch.runtime.experts import (ExpertStore,
                                              install_expert_store)
+    from repro_torch.runtime.overlap import build_schedule
     from repro_torch.runtime.streaming import assign_weight_modes
     # the earlier phases' trees are gone, none of them held by a cycle
     torch.cuda.synchronize()
@@ -2463,7 +2982,7 @@ def phase_moe():
     card = card_line()
     cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
     model = build_model(cfg)
-    want_step = moe_step_launches(MOE_LAYERS, cfg.n_experts)
+    bpl = {}
     prompts = _prompts(cfg.vocab_size)
     max_len = PROMPT + TOKENS
     runs, res, launches = {}, {}, {}
@@ -2480,8 +2999,18 @@ def phase_moe():
                 model.init(seed=0, device="cuda"), mode=mode,
                 min_bytes=MIN_BYTES, shards=2, codec=codec)
             setup_s = _sync_s(t0)
+            if mode != "dense":
+                # (the schedule holds the tree: keep only its numbers)
+                sched = build_schedule(params["period"], MOE_LAYERS)
+                slots, bpl[mode] = sched.slots, sched.buckets_per_layer
+                del sched
+                check(len(slots) == (8 if mode == "stream" else 4),
+                      f"moe {mode}: prefetch slots {slots}")
+            if mode == "fused":
+                attention = _moe_attention_times(params)
             run = _moe_engine_run(f"moe {mode}", model, params, codec)
             run["setup_s"] = setup_s
+            want_step = moe_step_launches(MOE_LAYERS, cfg.n_experts, bpl)
             _check_moe_launches(f"moe {mode}", run, want_step[mode],
                                 MOE_LAYERS)
             check(run["compiled_buckets"] == [BATCH],
@@ -2578,6 +3107,7 @@ def phase_moe():
         pinned_ms = cuda_ms(lambda: dst.copy_(src, non_blocking=True), 3)
         del src, dst
         kernels = _moe_kernel_times(store, codec)
+        kernels["fused_attention"] = attention
         # (e) save with per-expert records, restore into a bounded store
         tmp = tempfile.mkdtemp(prefix="moe_ckpt_")
         try:
@@ -2669,14 +3199,17 @@ def phase_moe():
         f"dense); pinned copy of one "
         f"step's misses ({step_bytes / 1e9:.3f} GB) {pinned_ms:.3f} ms; "
         f"kernel 1 on a layer's 8 routed experts {kernels['decode']}; "
-        f"kernel 2' on an expert {kernels['dense_tile']}; kernel 4 on an "
+        f"kernel 2' on an expert {kernels['dense_tile']}; kernel 2 fused "
+        f"on a layer's 4 attention leaves at M = {BATCH} "
+        f"{kernels['fused_attention']['total']}; kernel 4 on an "
         f"expert leaf {kernels['encode']}; set-up: store "
         f"install {install_s:.2f} s ({install_launches}), all "
         f"{setup_s:.2f} s; seq0 {tokens[0]} on {card}")
     RESULTS["moe"] = {
         "card": card, "layers": MOE_LAYERS, "guard": guard,
         "runs": {n: summary(r) for n, r in runs.items()},
-        "step_launches": want_step, "pinned_copy": {
+        "step_launches": want_step, "buckets_per_layer": bpl,
+        "pinned_copy": {
             "bytes": step_bytes, "ms": pinned_ms},
         "kernels": kernels, "install_s": install_s,
         "install_launches": install_launches, "store_setup_s": setup_s,
@@ -2724,6 +3257,7 @@ def kernels_line(launches):
          "bound_by": "bytes", "library_ms": t["library"],
          "timed": {c: {k: v[k] for k in ("fused", "fused_bound", "library")}
                    for c, v in mm["totals"].items()},
+         "moe_attention": RESULTS["moe"]["kernels"]["fused_attention"],
          "resources": {k: v for k, v in mm["resources"]["ptxas"].items()
                        if k.startswith("fused")}},
         {"name": "dense_tile_matmul", "route": "cuda",
@@ -2805,8 +3339,10 @@ def main():
     launches, fused = phase_serve()
     phase_setup_encode(fused)
     launches.update(phase_ckpt(fused))
+    launches.update(phase_degraded(fused))
     del fused
     launches.update(phase_engine())
+    launches.update(phase_overlap())
     launches.update(phase_scan())
     launches.update(phase_kv_attention())
     launches.update(phase_serve_minitron())

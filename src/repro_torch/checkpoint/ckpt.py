@@ -21,8 +21,16 @@ Layout (one directory per step):
   truncated or flipped record with :class:`CheckpointError` naming the
   record, its pack and its byte offset;
 * retried: every pack and manifest read and every pack write goes through
-  the manager's :class:`~repro_torch.runtime.retry.RetryPolicy`;
-* keep-last-k retention and stale-tmp GC.
+  the manager's :class:`~repro_torch.runtime.retry.RetryPolicy` and the
+  fault-injection hooks of ``runtime/faults.py``;
+* degraded: under ``policy="degraded"`` a record that still fails (a bad
+  frame, exhausted retries, a decode fault) is quarantined on a
+  :class:`RestoreReport` and restored from the newest earlier step with an
+  intact copy, while the other records keep the batched decode;
+  ``policy="strict"`` (the default) raises on the first bad record;
+* keep-last-k retention (counting only steps whose manifest parses, so a
+  step that may hold the only intact copy of a record is never deleted)
+  and stale-tmp GC.
 
 ``serving_layout="stream"|"fused"`` stores each policy-eligible weight in
 its serving stream layout (the bundles ``assign_weight_modes`` builds), so
@@ -42,9 +50,7 @@ decode of a cold expert.
 
 Trees are walked in the reference's flatten order (sorted dict keys), so
 record names, indices and the pack round-robin match it.  Not ported yet
-(ROADMAP Queue 1 items 8 and 12), each raising a clear error:
-``policy="degraded"`` with its quarantine and ``RestoreReport``, the fault
-injection hooks and placement on a mesh.
+(ROADMAP Queue 1 item 12): placement on a mesh, which raises a clear error.
 """
 from __future__ import annotations
 
@@ -68,6 +74,7 @@ from repro_torch.core.api import (SUPPORTED_FLOAT_DTYPES, CompressedTensor,
                                   slice_stacked)
 from repro_torch.core.codec_api import Codec, current_codec
 from repro_torch.runtime import experts as rt_experts
+from repro_torch.runtime import faults as rt_faults
 from repro_torch.runtime import streaming as rt_streaming
 from repro_torch.runtime.retry import RetryPolicy
 from repro_torch.runtime.weights import (DenseWeight, finish_materialize,
@@ -75,7 +82,7 @@ from repro_torch.runtime.weights import (DenseWeight, finish_materialize,
                                          is_handle)
 
 MANIFEST_FORMAT = "enec-v2"
-RESTORE_POLICIES = ("strict",)
+RESTORE_POLICIES = ("strict", "degraded")
 
 # tree roots that hold optimizer state: never stored in a serving layout
 _NON_SERVING_ROOTS = frozenset({"opt", "opt_state", "optimizer"})
@@ -113,17 +120,6 @@ def _fsync_path(path) -> None:
         os.close(fd)
 
 
-def _read_file(path) -> bytes:
-    with open(path, "rb") as f:
-        return f.read()
-
-
-def _read_range(path, offset: int, length: int) -> bytes:
-    with open(path, "rb") as f:
-        f.seek(offset)
-        return f.read(length)
-
-
 @dataclasses.dataclass
 class _ExpertPart:
     """One per-expert record queued for the batched decode of a ``load``:
@@ -132,6 +128,49 @@ class _ExpertPart:
     parent into the dense ``(L, E, ...)`` stack."""
     spec: dict
     ct: CompressedTensor
+
+
+@dataclasses.dataclass
+class QuarantinedRecord:
+    """One record a restore could not use: its coordinates (name, pack,
+    byte offset, length), why it was rejected, and, once the fallback
+    succeeded, where the replacement came from."""
+    name: str
+    pack: str
+    offset: int
+    length: int
+    cause: str
+    fallback: str = ""
+
+    def describe(self) -> str:
+        line = (f"{self.name} [{self.pack} @ {self.offset}, "
+                f"{self.length}B]: {self.cause}")
+        if self.fallback:
+            line += f" -> {self.fallback}"
+        return line
+
+
+@dataclasses.dataclass
+class RestoreReport:
+    """What a restore survived: the quarantined records with cause and
+    fallback, and the manager's retry counters.  Every ``load`` and
+    ``load_for_serving`` leaves its report on
+    ``CheckpointManager.last_restore_report``; an empty quarantine list
+    means the restore was clean."""
+    step: int
+    policy: str
+    quarantined: list = dataclasses.field(default_factory=list)
+    retry: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def degraded(self) -> bool:
+        return bool(self.quarantined)
+
+    def summary(self) -> str:
+        head = (f"RestoreReport(step={self.step}, policy={self.policy}, "
+                f"quarantined={len(self.quarantined)}, retry={self.retry})")
+        return "\n".join([head] + ["  " + q.describe()
+                                   for q in self.quarantined])
 
 
 def _where(e: dict, packs) -> str:
@@ -169,6 +208,7 @@ class CheckpointManager:
         self.last_decode_plan = None   # DecodePlan of the latest load
         self.last_dense_records = []   # records the latest load moved dense
         self.last_expert_store = None  # ExpertStore of the latest serving load
+        self.last_restore_report = None   # RestoreReport of the latest load
         if self.retry is None:
             self.retry = RetryPolicy()
         if self.codec is None:
@@ -383,9 +423,10 @@ class CheckpointManager:
                 entry["length"] = len(framed)
 
                 def write_framed(f=files[pack], pos=offsets[pack],
-                                 fr=framed):
+                                 fr=framed, name=manifest["packs"][pack]):
                     # seek to the record's offset on every attempt, so a
                     # retried write after a partial one lays it down once
+                    rt_faults.check_write(name)
                     f.seek(pos)
                     f.write(fr)
 
@@ -462,7 +503,7 @@ class CheckpointManager:
     def _try_manifest(self, cdir) -> Optional[dict]:
         path = cdir / "manifest.json"
         try:
-            raw = self.retry.call(lambda: _read_file(path))
+            raw = self.retry.call(lambda: rt_faults.read_file(path))
             return json.loads(raw.decode())
         except (OSError, ValueError):
             return None
@@ -492,7 +533,7 @@ class CheckpointManager:
             if not path.exists():
                 raise CheckpointError(f"{cdir} has no manifest.json")
             try:
-                raw = self.retry.call(lambda: _read_file(path))
+                raw = self.retry.call(lambda: rt_faults.read_file(path))
                 return cdir, json.loads(raw.decode())
             except (json.JSONDecodeError, UnicodeDecodeError) as e:
                 raise CheckpointError(f"{path} is corrupt: {e}") from e
@@ -552,24 +593,49 @@ class CheckpointManager:
                 f"{e['name']}: ckpt dtype {dtype} vs model "
                 f"{_dtype_name(like.dtype)}" + _where(e, packs))
 
-    def _iter_records(self, cdir, manifest, entries):
+    def _quarantine(self, report, e, manifest, cause) -> QuarantinedRecord:
+        """Record one failed record on ``report`` with its coordinates."""
+        packs = manifest.get("packs")
+        pack = (packs[e["pack"]] if packs is not None and "pack" in e
+                else f"t_{e.get('index', 0):05d}.enec")
+        q = QuarantinedRecord(
+            name=e["name"], pack=pack, offset=int(e.get("offset", 0)),
+            length=int(e.get("length", e.get("bytes", -1))), cause=cause)
+        report.quarantined.append(q)
+        return q
+
+    def _iter_records(self, cdir, manifest, entries, report=None):
         """Yield ``(entry, payload)`` for ``entries``, validated (frame
         length + CRC for enec-v2 packs, declared size for v1 files), in
-        pack/offset order; only the requested records are read."""
+        pack/offset order; only the requested records are read.  Every
+        read goes through the retry policy and the fault hooks.  Without
+        a ``report`` (strict) the first record that still fails raises;
+        with one it is quarantined and skipped, and the caller arranges
+        its fallback."""
         fmt = manifest.get("format", "enec-v1")
         if fmt == "enec-v1":
             for e in entries:
                 path = cdir / f"t_{e['index']:05d}.enec"
                 try:
-                    blob = self.retry.call(lambda p=path: _read_file(p))
+                    blob = self.retry.call(
+                        lambda p=path: rt_faults.read_file(p))
+                    if "bytes" in e and len(blob) != e["bytes"]:
+                        raise CheckpointError(
+                            f"{path.name}: {len(blob)} bytes on disk, "
+                            f"manifest declares {e['bytes']} — truncated or "
+                            f"corrupt [record={e['name']}, pack={path.name}, "
+                            f"offset=0]")
                 except OSError as err:
-                    raise CheckpointError(
-                        f"{path.name} ({e['name']}): {err}") from err
-                if "bytes" in e and len(blob) != e["bytes"]:
-                    raise CheckpointError(
-                        f"{path.name}: {len(blob)} bytes on disk, manifest "
-                        f"declares {e['bytes']} — truncated or corrupt "
-                        f"[record={e['name']}, pack={path.name}, offset=0]")
+                    if report is None:
+                        raise CheckpointError(
+                            f"{path.name} ({e['name']}): {err}") from err
+                    self._quarantine(report, e, manifest, str(err))
+                    continue
+                except CheckpointError as err:
+                    if report is None:
+                        raise
+                    self._quarantine(report, e, manifest, str(err))
+                    continue
                 self.codec.count_link("disk", len(blob),
                                       dense=e.get("mode") == "npraw")
                 yield e, blob
@@ -584,8 +650,8 @@ class CheckpointManager:
             for e in sorted(es, key=lambda e: e["offset"]):
                 try:
                     buf = self.retry.call(
-                        lambda e=e: _read_range(path, e["offset"],
-                                                e["length"]))
+                        lambda e=e: rt_faults.read_range(path, e["offset"],
+                                                         e["length"]))
                     payload, end = enec_wire.read_frame(
                         buf, record=e["name"], pack=path.name,
                         base_offset=e["offset"])
@@ -596,9 +662,12 @@ class CheckpointManager:
                     if isinstance(err, enec_wire.WireError):
                         err.with_context(record=e["name"], pack=path.name,
                                          offset=e["offset"])
-                    raise CheckpointError(
-                        f"{path.name} @ {e['offset']} ({e['name']}): "
-                        f"{err}") from err
+                    if report is None:
+                        raise CheckpointError(
+                            f"{path.name} @ {e['offset']} ({e['name']}): "
+                            f"{err}") from err
+                    self._quarantine(report, e, manifest, str(err))
+                    continue
                 self.codec.count_link("disk", len(payload),
                                       dense=e.get("mode") == "npraw")
                 yield e, payload
@@ -701,24 +770,130 @@ class CheckpointManager:
                     buf[l, j] = dec
             vals[parent] = buf.to(g["like"].dtype)
 
+    def _apply_decode_faults(self, pending, manifest, by_name, report):
+        """The decode fault hook: records an active "decode" fault matches
+        leave the batched plan before it is built, quarantined (degraded)
+        or fatal (strict), so the others still decode in one pass.  No-op
+        without an active injector."""
+        if rt_faults.active() is None:
+            return pending
+        out = []
+        for item in pending:
+            name = item[0]["name"]
+            try:
+                rt_faults.check_decode(name)
+            except rt_faults.InjectedFault as err:
+                if report is None:
+                    raise CheckpointError(
+                        f"decode failed for {name}: {err}") from err
+                self._quarantine(report, by_name.get(name, {"name": name}),
+                                 manifest, f"decode failed: {err}")
+                continue
+            out.append(item)
+        return out
+
+    def _intact_steps(self, before: Optional[int] = None) -> list:
+        """``(step, cdir, manifest)`` of every committed step whose
+        manifest parses, newest first; ``before`` excludes that step and
+        every newer one (a fallback never reads forward in time)."""
+        out = []
+        for p in sorted(self.root.glob("step_*"), reverse=True):
+            if not p.is_dir():
+                continue
+            try:
+                s = int(p.name.split("_")[-1])
+            except ValueError:
+                continue
+            if before is not None and s >= before:
+                continue
+            man = self._try_manifest(p)
+            if man is not None:
+                out.append((s, p, man))
+        return out
+
+    def _fallback_restore(self, report, manifest, like_by_name, vals,
+                          pending, process=None):
+        """Restore each quarantined record from the newest earlier step
+        holding an intact copy: read, validated, shape-checked and
+        decode-fault-checked like a first-class record.  ``process``
+        stages a recovered record (the serving restore's adopt-or-queue);
+        by default it is queued for the batched decode.  A record with no
+        intact source anywhere raises: a degraded restore never makes up
+        weights."""
+        steps = self._intact_steps(before=manifest.get("step"))
+        for q in report.quarantined:
+            if q.fallback or q.name not in like_by_name:
+                continue
+            like = like_by_name[q.name]
+            for s, fcdir, fman in steps:
+                fe = next((e for e in fman["leaves"]
+                           if e["name"] == q.name), None)
+                if fe is None:
+                    continue
+                n_pend = len(pending)
+                try:
+                    got = False
+                    for e2, payload in self._iter_records(fcdir, fman,
+                                                          [fe]):
+                        if process is not None:
+                            process(e2, payload, like, fman, pending, vals)
+                        else:
+                            self._queue_record(e2, payload, pending, vals,
+                                               like, fman.get("packs"))
+                        got = True
+                    if not got:
+                        raise CheckpointError(
+                            f"{q.name}: record unreadable at step {s}")
+                    new = pending[n_pend:]
+                    if new:
+                        pending[n_pend:] = self._apply_decode_faults(
+                            new, fman, {q.name: fe}, None)
+                except (OSError, CheckpointError, enec_wire.WireError):
+                    # this step cannot supply the record: undo its staging
+                    # and look further back
+                    del pending[n_pend:]
+                    vals.pop(q.name, None)
+                    continue
+                kind = ((fe.get("handle") or {}).get("kind")
+                        or fe.get("mode", "?"))
+                q.fallback = f"step {s} ({kind} record)"
+                break
+            if not q.fallback:
+                raise CheckpointError(
+                    "restore failed — no intact source for quarantined "
+                    "record(s):\n" + report.summary())
+
     @staticmethod
-    def _check_policy(policy, mesh=None):
+    def _begin_report(policy, manifest, mesh=None) -> RestoreReport:
         if policy not in RESTORE_POLICIES:
-            raise CheckpointError(
-                f"restore policy {policy!r} is not ported yet (ROADMAP "
-                f"Queue 1, item 8); the port restores with policy='strict'")
+            raise ValueError(f"unknown restore policy {policy!r}; "
+                             f"expected one of {RESTORE_POLICIES}")
         if mesh is not None:
             raise CheckpointError("restoring onto a mesh is not ported yet "
                                   "(ROADMAP Queue 1, item 12)")
+        return RestoreReport(step=int(manifest.get("step", -1)),
+                             policy=policy)
+
+    def _finish_report(self, report) -> None:
+        report.retry = self.retry.stats()
+        self.last_restore_report = report
 
     def load(self, like_tree, step: Optional[int] = None, *,
              policy: str = "strict"):
         """Restore the dense tree shaped like ``like_tree`` (tensors, or
-        ``meta`` tensors for shape and dtype) onto the manager's device;
-        the first bad record raises.  Returns ``(tree, manifest)``."""
-        self._check_policy(policy)
+        ``meta`` tensors for shape and dtype) onto the manager's device.
+        Returns ``(tree, manifest)``.
+
+        ``policy="strict"`` (default) raises on the first bad record;
+        ``policy="degraded"`` quarantines a record that fails I/O,
+        validation or decode and restores it from the newest earlier step
+        with an intact copy (``last_restore_report`` lists each one with
+        its cause and fallback).  A record with no intact source anywhere
+        still raises: degraded trades freshness, never correctness."""
         self.last_dense_records = []
         cdir, manifest = self._step_dir(step)
+        report = self._begin_report(policy, manifest)
+        rep = report if policy == "degraded" else None
         names, leaves = _tree_paths(like_tree)
         by_name = {e["name"]: e for e in manifest["leaves"]}
         groups = self._expert_groups(manifest)
@@ -726,18 +901,28 @@ class CheckpointManager:
         like_by_name = dict(zip(names, leaves))
         for parent in groups:
             if parent in like_by_name:
-                # sub-records validate against their parent
+                # sub-records validate (and fall back) against their parent
                 for e in groups[parent]:
                     like_by_name[e["name"]] = like_by_name[parent]
         packs = manifest.get("packs")
         vals: dict = {}
         pending: list = []
         for e, payload in self._iter_records(
-                cdir, manifest, self._expand_entries(names, by_name,
-                                                     groups)):
-            self._queue_record(e, payload, pending, vals,
-                               like_by_name[e["name"]], packs)
+                cdir, manifest, self._expand_entries(names, by_name, groups),
+                report=rep):
+            try:
+                self._queue_record(e, payload, pending, vals,
+                                   like_by_name[e["name"]], packs)
+            except CheckpointError as err:
+                if rep is None:
+                    raise
+                self._quarantine(rep, e, manifest, str(err))
+        pending = self._apply_decode_faults(pending, manifest, by_name, rep)
+        if rep is not None and rep.quarantined:
+            self._fallback_restore(rep, manifest, like_by_name, vals,
+                                   pending)
         self._decode_pending(pending, vals, packs)
+        self._finish_report(report)
         tree = rt_streaming.tree_map_with_path(lambda p, _: vals.pop(p),
                                                like_tree)
         return tree, manifest
@@ -745,16 +930,24 @@ class CheckpointManager:
     # -- restore straight into serving handles ----------------------------
 
     @staticmethod
-    def _spec_serves_mode(spec: dict, mode: str) -> bool:
+    def _spec_serves_mode(spec: dict, mode: str,
+                          degraded: bool = False) -> bool:
         """Can a stored serving-layout record be adopted as-is under
-        ``mode``?"""
+        ``mode``?  ``degraded`` relaxes the answer for a quarantined
+        record's fallback copy: every compressed handle kind runs the
+        canonical contraction with the same bits, so a damaged fused
+        record may adopt an earlier step's stream record and the other
+        way round (slower, never different).  The main pass keeps the
+        strict answer."""
         kind = spec.get("kind")
         if mode == "fused":
             return kind == "fused" or (
                 kind == "stream"
-                and spec.get("execution", "materialize") == "materialize")
+                and (degraded
+                     or spec.get("execution", "materialize")
+                     == "materialize"))
         if mode == "stream":
-            return kind == "stream"
+            return kind == "stream" or (degraded and kind == "fused")
         return False
 
     def load_for_serving(self, like_params, *, mode: str = "fused",
@@ -774,6 +967,14 @@ class CheckpointManager:
         pass and handed to ``assign_weight_modes``, which passes the
         adopted handles through.
 
+        ``policy="degraded"`` serves through damage: a record that fails
+        I/O, validation or decode is quarantined and restored from the
+        newest earlier step with an intact copy, adopted as a handle when
+        its layout serves ``mode`` (any compressed kind, for a fallback)
+        and decoded otherwise; the rest restores batched as before, and
+        the logits do not change.  ``last_restore_report`` lists each
+        quarantined record's cause and fallback.
+
         Per-expert records (``expert_records=True`` saves) go straight into
         an :class:`~repro_torch.runtime.experts.ExpertStore`
         (``expert_store``, or a new unbounded one on the manager's device,
@@ -782,9 +983,10 @@ class CheckpointManager:
         stack.  Returns ``(tree, manifest)``."""
         if mode not in rt_streaming.WEIGHT_MODES:
             raise ValueError(f"unknown weight mode {mode!r}")
-        self._check_policy(policy, mesh)
         self.last_dense_records = []
         cdir, manifest = self._step_dir(step)
+        report = self._begin_report(policy, manifest, mesh)
+        rep = report if policy == "degraded" else None
         names, leaves = _tree_paths(like_params)
         full = [f"{prefix}/{n}" if prefix else n for n in names]
         by_name = {e["name"]: e for e in manifest["leaves"]}
@@ -801,13 +1003,15 @@ class CheckpointManager:
         for parent, es in groups.items():
             for e in es:
                 like_by_name[e["name"]] = like_by_name[parent]
-        packs = manifest.get("packs")
         vals: dict = {}
         pending: list = []
-        for e, payload in self._iter_records(
-                cdir, manifest, self._expand_entries(full, by_name, groups)):
-            name, spec = e["name"], e.get("handle")
-            like = like_by_name[name]
+
+        def serve_record(e, payload, like, man, pending, vals):
+            """Adopt a serving-layout record as a handle, else queue it for
+            the batched decode: the main pass's path and the fallback's,
+            so a recovered record takes the path it would have taken
+            undamaged."""
+            name, spec, packs = e["name"], e.get("handle"), man.get("packs")
             if spec is not None and spec.get("kind") == "expert":
                 # the compressed bytes go straight into the store: cold
                 # experts stay wire records until routing asks for them
@@ -817,9 +1021,13 @@ class CheckpointManager:
                              dtype=spec["dtype"])
                 est.add_record(spec["parent"], spec["layer"],
                                spec["expert"], bytes(payload))
-                continue
+                return
+            # a record quarantined already is an earlier step's copy
+            is_fallback = rep is not None and any(
+                q.name == name for q in rep.quarantined)
             if spec and spec["kind"] != "dense" and e.get("stack") \
-                    and self._spec_serves_mode(spec, mode):
+                    and self._spec_serves_mode(spec, mode,
+                                               degraded=is_fallback):
                 if spec["kind"] == "stream":
                     leaf_shape = (tuple(spec["layer_shape"])
                                   if spec.get("flat") else
@@ -831,18 +1039,35 @@ class CheckpointManager:
                 self._check_leaf(e, leaf_shape, like, packs,
                                  dtype=spec["dtype"])
                 ct = self._record_ct(e, payload, packs)
-                # adopt only at the shard width the policy would pick;
-                # otherwise decode and let the policy re-lay it out
+                # adopt only at the shard width the policy would pick (a
+                # fallback at whatever width it has: every width gives the
+                # same bits); otherwise decode and let the policy re-lay
+                # it out
                 req_shards = (rt_streaming.fused_shards(
                     int(spec["k"]), int(spec["n"]), shards)
                     if spec["kind"] == "fused" else shards)
-                if ct.shards == req_shards:
+                if ct.shards == req_shards or is_fallback:
                     vals[name] = handle_from_spec(spec, ct)
                 else:
                     pending.append((e, like, handle_from_spec(spec, ct)))
-                continue
+                return
             self._queue_record(e, payload, pending, vals, like, packs)
-        self._decode_pending(pending, vals, packs)
+
+        for e, payload in self._iter_records(
+                cdir, manifest, self._expand_entries(full, by_name, groups),
+                report=rep):
+            try:
+                serve_record(e, payload, like_by_name[e["name"]], manifest,
+                             pending, vals)
+            except CheckpointError as err:
+                if rep is None:
+                    raise
+                self._quarantine(rep, e, manifest, str(err))
+        pending = self._apply_decode_faults(pending, manifest, by_name, rep)
+        if rep is not None and rep.quarantined:
+            self._fallback_restore(rep, manifest, like_by_name, vals,
+                                   pending, process=serve_record)
+        self._decode_pending(pending, vals, manifest.get("packs"))
         for parent in groups:
             m = est.meta(parent)
             self._check_leaf({"name": parent},
@@ -855,6 +1080,7 @@ class CheckpointManager:
                     f"{parent}: expert record grid incomplete — missing "
                     f"{miss[:5]}" + ("…" if len(miss) > 5 else ""))
             vals[parent] = est.ref(parent)
+        self._finish_report(report)
         tree = rt_streaming.tree_map_with_path(
             lambda p, _: vals.pop(f"{prefix}/{p}" if prefix else p),
             like_params)

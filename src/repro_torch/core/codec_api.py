@@ -20,7 +20,9 @@ decompresses tensors through an explicit schedule:
 The reference pads each bucket's block count to a power of two to bound
 XLA's compile cache.  The CUDA kernels take any block count and the port
 has no compile cache, so a bucket encodes or decodes its true block count:
-``block_bucket == nblocks`` always.
+``block_bucket == nblocks`` always.  That is what the reference's
+``plan_decode(exact=True)`` does for the prefetch of ``runtime/overlap.py``,
+so the port's planner needs no such switch.
 
 Each codec owns its counters: encode / decode dispatches
 (:meth:`encode_cache_stats`, :meth:`decode_cache_stats`) and the per-link
@@ -149,6 +151,70 @@ def _stacked_from_bits(ct: CompressedTensor, n_layers: int,
     return flat.view(ct.fmt.float_dtype).reshape((n_layers,) + ct.shape)
 
 
+def adjacent(ts: Sequence[torch.Tensor]) -> bool:
+    """Are ``ts`` (non-empty, contiguous) consecutive rows of one storage,
+    each starting where the one before it ends?"""
+    ptr, off = ts[0].untyped_storage().data_ptr(), ts[0].storage_offset()
+    for t in ts:
+        if t.numel() == 0 or not t.is_contiguous() \
+                or t.untyped_storage().data_ptr() != ptr \
+                or t.storage_offset() != off:
+            return False
+        off += t.numel()
+    return True
+
+
+def _joined(ts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``ts`` stacked along their first dim: a view when they are
+    :func:`adjacent` (a bucket laid out by ``runtime/overlap.py``), else a
+    copy."""
+    if len(ts) == 1:
+        return ts[0]
+    if not adjacent(ts):
+        return torch.cat(ts)
+    shape = (sum(t.shape[0] for t in ts),) + tuple(ts[0].shape[1:])
+    strides = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        strides[i] = strides[i + 1] * shape[i + 1]
+    return ts[0].as_strided(shape, strides, ts[0].storage_offset())
+
+
+def _layer_groups(members) -> list:
+    """An encode launch's member stacks, grouped by layer count in member
+    order.  The launch lays each group out layer by layer: layer l of every
+    member of the group, then layer l+1.  So the stacks of one bucket are
+    adjacent rows of each layer, and a decode of one layer of all of them
+    (the prefetch of ``runtime/overlap.py``) reads one view of the streams,
+    with nothing copied.  A member's stack is a view of the launch's
+    output, the same bytes in any layout."""
+    groups: Dict[int, list] = {}
+    for m in members:
+        groups.setdefault(m["n_layers"], []).append(m)
+    return list(groups.values())
+
+
+def _laid_out(members, part) -> torch.Tensor:
+    """Every member's ``part(m)`` (its ``(L * b, ...)`` rows, layer-major)
+    in one new tensor, in the launch's layout (:func:`_layer_groups`)."""
+    first = part(members[0])
+    rest = tuple(first.shape[1:])
+    out = first.new_empty((sum(m["blocks"].shape[0] for m in members),)
+                          + rest)
+    off = 0
+    for group in _layer_groups(members):
+        n_layers = group[0]["n_layers"]
+        width = sum(m["per_layer_blocks"] for m in group)
+        rows = out[off:off + n_layers * width].view((n_layers, width) + rest)
+        col = 0
+        for m in group:
+            plb = m["per_layer_blocks"]
+            rows[:, col:col + plb].copy_(
+                part(m).reshape((n_layers, plb) + rest))
+            col += plb
+        off += n_layers * width
+    return out
+
+
 def _per_block(members, like, value, nblocks_of) -> torch.Tensor:
     """(B,) int32 vector of ``value(m)`` over each member's blocks."""
     return torch.cat([torch.full((nblocks_of(m),), value(m),
@@ -236,11 +302,13 @@ class Codec:
         return ops.encode_blocks(blocks, fmt, p, b_vec)
 
     def _decode(self, flat: BlockStreams, fmt: FloatFormat, p: EnecParams,
-                block_elems: int, b_vec=None, l_vec=None) -> torch.Tensor:
+                block_elems: int, b_vec=None, l_vec=None,
+                out=None) -> torch.Tensor:
         from repro_torch.kernels import ops
         self._decode_stats["dispatches"] += 1
         self._decode_stats["blocks"] += flat.mask.shape[0]
-        return ops.decode_blocks(flat, block_elems, fmt, p, b_vec, l_vec)
+        return ops.decode_blocks(flat, block_elems, fmt, p, b_vec, l_vec,
+                                 out=out)
 
     # -- plan_encode ------------------------------------------------------
 
@@ -345,9 +413,11 @@ class Codec:
 
     # -- execute ----------------------------------------------------------
 
-    def execute(self, plan):
+    def execute(self, plan, out=None):
         """Run a plan: exactly ``len(plan.buckets)`` launches.  Returns one
-        entry per input."""
+        entry per input.  ``out`` (decode plans only): one (nblocks,
+        block_elems) bit tensor per bucket, in bucket order, that the
+        bucket decodes into; each result is then a view of it."""
         if isinstance(plan, EncodePlan):
             if plan.config != self.config:
                 raise ValueError("plan was built under a different "
@@ -357,20 +427,25 @@ class Codec:
             if plan.config != self.config:
                 raise ValueError("plan was built under a different "
                                  "CodecConfig; re-plan with this codec")
-            return self._execute_decode(plan)
+            return self._execute_decode(plan, out)
         raise TypeError(f"not a plan: {type(plan).__name__}")
 
     @staticmethod
     def encode_launches(plan: EncodePlan):
         """The encoder call :meth:`execute` makes for each bucket of
         ``plan``, in bucket order, as its arguments ``(blocks, fmt, p,
-        b_vec)``: every member stack's blocks concatenated, and the
-        per-block ``b`` of each."""
+        b_vec)``: every member stack's blocks and the per-block ``b`` of
+        each, in the launch's layout (:func:`_layer_groups`)."""
         for members in plan._groups:
-            blocks = (members[0]["blocks"] if len(members) == 1 else
-                      torch.cat([m["blocks"] for m in members]))
-            b_vec = _per_block(members, blocks, lambda m: m["p"].b,
-                               lambda m: m["blocks"].shape[0])
+            def b_of(m):
+                return torch.full((m["blocks"].shape[0],), m["p"].b,
+                                  dtype=torch.int32,
+                                  device=m["blocks"].device)
+            if len(members) == 1:
+                blocks, b_vec = members[0]["blocks"], b_of(members[0])
+            else:
+                blocks = _laid_out(members, lambda m: m["blocks"])
+                b_vec = _laid_out(members, b_of)
             yield blocks, members[0]["fmt"], members[0]["p"], b_vec
 
     def _execute_encode(self, plan: EncodePlan):
@@ -379,20 +454,27 @@ class Codec:
         for members, args in zip(plan._groups, self.encode_launches(plan)):
             streams = self._encode(*args)
             offset = 0
-            for m in members:
-                nb = m["blocks"].shape[0]
-                n_layers, plb = m["n_layers"], m["per_layer_blocks"]
-                lead = ((n_layers, shards, plb // shards) if shards > 1
-                        else (n_layers, plb))
-                s = streams.map(lambda a: a[offset:offset + nb].reshape(
-                    lead + a.shape[1:]))
-                offset += nb
-                results[m["slot"]] = CompressedTensor(
-                    streams=s, raw_bytes=None, fmt_name=m["fmt"].name,
-                    params=m["p"], shape=m["layer_shape"],
-                    dtype_str=m["dtype_str"],
-                    block_elems=m["blocks"].shape[1], shards=shards,
-                    mode="enec")
+            for group in _layer_groups(members):
+                n_layers = group[0]["n_layers"]
+                width = sum(m["per_layer_blocks"] for m in group)
+                rows = streams.map(lambda a: a[offset:offset + n_layers
+                                               * width].reshape(
+                    (n_layers, width) + a.shape[1:]))
+                offset += n_layers * width
+                col = 0
+                for m in group:
+                    plb = m["per_layer_blocks"]
+                    lead = ((n_layers, shards, plb // shards) if shards > 1
+                            else (n_layers, plb))
+                    s = rows.map(lambda a: a[:, col:col + plb].reshape(
+                        lead + a.shape[2:]))
+                    col += plb
+                    results[m["slot"]] = CompressedTensor(
+                        streams=s, raw_bytes=None, fmt_name=m["fmt"].name,
+                        params=m["p"], shape=m["layer_shape"],
+                        dtype_str=m["dtype_str"],
+                        block_elems=m["blocks"].shape[1], shards=shards,
+                        mode="enec")
 
         # never-worse escape: ONE transfer of every stack's high_len, which
         # also fills the nbytes_wire caches
@@ -432,16 +514,15 @@ class Codec:
                 out.append(raw_tensor(x, plan.shards))
         return out
 
-    def _execute_decode(self, plan: DecodePlan):
+    def _execute_decode(self, plan: DecodePlan, out=None):
         results: List[Any] = [None] * plan.n_inputs
         for slot, kind in plan._passthrough.items():
             leaf = plan._leaves[slot]
             results[slot] = self.decompress_array(leaf) if kind == "ct" \
                 else leaf
-        for members in plan._groups:
-            flat = (members[0]["flat"] if len(members) == 1 else
-                    BlockStreams(*(torch.cat(f) for f in
-                                   zip(*[m["flat"] for m in members]))))
+        for k, members in enumerate(plan._groups):
+            flat = BlockStreams(*(_joined(f) for f in
+                                  zip(*[m["flat"] for m in members])))
             nblocks_of = lambda m: m["flat"].mask.shape[0]   # noqa: E731
             b_vec = _per_block(members, flat.mask,
                                lambda m: m["ct"].params.b, nblocks_of)
@@ -449,7 +530,8 @@ class Codec:
                                lambda m: m["ct"].params.l, nblocks_of)
             ct0 = members[0]["ct"]
             bits = self._decode(flat, ct0.fmt, ct0.params, ct0.block_elems,
-                                b_vec, l_vec)
+                                b_vec, l_vec,
+                                out=None if out is None else out[k])
             offset = 0
             for m in members:
                 nb = nblocks_of(m)

@@ -106,7 +106,8 @@ def h2d(arr: np.ndarray, device, codec=None, *,
     ``codec`` (default: the ambient codec); ``dense=True`` books them as
     dense bytes (raw leaves and raw escapes)."""
     from .codec_api import current_codec    # codec_api imports api
-    arr = np.ascontiguousarray(arr)
+    # ascontiguousarray makes a 0-d array (1,); the leaf keeps its shape
+    arr = np.ascontiguousarray(arr).reshape(np.shape(arr))
     (codec or current_codec()).count_h2d(arr.nbytes, dense=dense)
     return torch.from_numpy(arr.copy()).to(device)
 

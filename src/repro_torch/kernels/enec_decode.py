@@ -160,14 +160,17 @@ def _check_stream(t: torch.Tensor, name: str, rows: int, width: int, dev):
 def decode_blocks_cuda(streams: codec.BlockStreams, n_elems: int,
                        fmt: FloatFormat, p: EnecParams,
                        b_vec: torch.Tensor, l_vec: torch.Tensor, *,
-                       grid: int = None,
-                       lanes: bool = None) -> torch.Tensor:
+                       grid: int = None, lanes: bool = None,
+                       out: torch.Tensor = None) -> torch.Tensor:
     """Decode flat ``(B, ...)`` streams on the card -> (B, N) bits in
     ``fmt.bits_dtype``.  ``b_vec``/``l_vec``: (B,) int32 per-block
     inverse-map parameters; ``streams.high_len`` (B,) int32, each block's
     high-stream length in bits (the kernel copies only the high bytes it
     needs).  ``grid`` / ``lanes`` override the plan (the chip checks hold
-    every grid and both branches against the plain decoder)."""
+    every grid and both branches against the plain decoder).  ``out``: a
+    contiguous (B, N) tensor of ``fmt.bits_dtype`` on the streams' device
+    to decode into (the prefetch pipeline's fixed slot buffers), else a
+    new one."""
     dev = streams.mask.device
     if dev.type != "cuda":
         raise ValueError(f"decode_blocks_cuda needs CUDA tensors, got {dev}")
@@ -186,7 +189,15 @@ def decode_blocks_cuda(streams: codec.BlockStreams, n_elems: int,
     b_vec, l_vec, high_len = (v.contiguous() for v in (b_vec, l_vec,
                                                        high_len))
     args = launch_args(nblocks, n_elems, fmt, p, dev, grid, lanes)
-    out = torch.empty((nblocks, n_elems), dtype=fmt.bits_dtype, device=dev)
+    if out is None:
+        out = torch.empty((nblocks, n_elems), dtype=fmt.bits_dtype,
+                          device=dev)
+    elif out.device != dev or out.dtype != fmt.bits_dtype \
+            or tuple(out.shape) != (nblocks, n_elems) \
+            or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous {fmt.bits_dtype} "
+                         f"({nblocks}, {n_elems}) tensor on {dev}; got "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
     high = streams.high if widths["high"] else streams.mask
     err = entry("enec_decode", "enec_decode_launch", _ARGTYPES)(
         streams.mask.data_ptr(), streams.low.data_ptr(), high.data_ptr(),

@@ -41,17 +41,20 @@ def encode_blocks(bits: torch.Tensor, fmt: FloatFormat, p: EnecParams,
 
 
 def decode_blocks(streams: BlockStreams, n_elems: int, fmt: FloatFormat,
-                  p: EnecParams, b_vec=None, l_vec=None) -> torch.Tensor:
-    """Decode flat (B, ...) streams -> (B, N) bit containers."""
+                  p: EnecParams, b_vec=None, l_vec=None,
+                  out=None) -> torch.Tensor:
+    """Decode flat (B, ...) streams -> (B, N) bit containers, into ``out``
+    when one is given."""
     if _on_cpu(streams.mask):
-        return ref.decode_blocks_ref(streams, n_elems, fmt, p, b_vec, l_vec)
+        bits = ref.decode_blocks_ref(streams, n_elems, fmt, p, b_vec, l_vec)
+        return bits if out is None else out.copy_(bits)
     nblocks, dev = streams.mask.shape[0], streams.mask.device
     if b_vec is None:
         b_vec = torch.full((nblocks,), p.b, dtype=torch.int32, device=dev)
     if l_vec is None:
         l_vec = torch.full((nblocks,), p.l, dtype=torch.int32, device=dev)
     return enec_decode.decode_blocks_cuda(streams, n_elems, fmt, p, b_vec,
-                                          l_vec)
+                                          l_vec, out=out)
 
 
 def decompress_matmul(x: torch.Tensor, ct: CompressedTensor, k: int,

@@ -29,12 +29,25 @@ step); logits are bitwise equal to serving the dense stacks.  A step that
 fetches experts brings the routed ids to the host mid-step, so with a
 store every decode step runs eagerly, also on the card.
 
+Overlap: ``--overlap {off,on,auto}`` (default auto, as the reference)
+sets ``cfg.overlap``: with streamed weights in the layer loop (stream mode,
+and MoE expert stacks in fused mode) each layer's weights are decoded by
+one batched decode issued a layer ahead, on a side stream on the card
+(``runtime/overlap.py``); logits are bitwise equal either way.
+
 Checkpoints: ``--save-ckpt DIR`` writes an enec-v2 checkpoint of the
 compressed weights (in the serving layout of the mode; with a store, the
 experts as per-expert records) and serves;
 ``--ckpt DIR`` restores through ``CheckpointManager.load_for_serving``:
 the records become weight handles on the device, only compressed bytes
-cross host to device, and no weight is initialised.
+cross host to device, and no weight is initialised.  The restore runs
+under ``policy="degraded"``, which collects every quarantined record and
+its fallback from an earlier step (a ``RestoreReport``); by default
+(``--degraded``) the server then serves with health ``degraded``, and
+under ``--strict`` it prints the report and exits 1 with health
+``failed``.  :data:`HEALTH` is the process's readiness state
+(``restoring`` -> ``ready`` | ``degraded`` | ``failed``; the engine drives
+it after that).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
@@ -60,13 +73,14 @@ set-up, save and restore figures, so a calling script can compare runs.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from pathlib import Path
 
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.checkpoint.ckpt import CheckpointManager
+from repro_torch.checkpoint.ckpt import CheckpointError, CheckpointManager
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.codec_api import Codec, use_codec
 from repro_torch.kernels import decode_attention_kv, enec_decode, enec_encode
@@ -75,8 +89,10 @@ from repro_torch.kernels.decompress_matmul import (DENSE_LAUNCHES,
 from repro_torch.kernels.idd_scan import LAUNCHES as IDD_SCAN_LAUNCHES
 from repro_torch.models import build_model
 from repro_torch.models.lm import abstract_params
-from repro_torch.runtime.engine import Engine, EngineConfig
+from repro_torch.runtime.engine import Engine, EngineConfig, ServerHealth
 from repro_torch.runtime.experts import ExpertStore, install_expert_store
+from repro_torch.runtime.overlap import (OVERLAP_MODES, build_schedule,
+                                         overlap_enabled)
 from repro_torch.runtime.streaming import (assign_weight_modes, mode_mix,
                                            stream_stats, tree_leaves)
 from repro_torch.runtime.weights import FusedWeight, StreamedWeight
@@ -88,6 +104,10 @@ COUNTERS = {"enec_decode": enec_decode.LAUNCHES,
             "enec_encode": enec_encode.LAUNCHES,
             "idd_scan": IDD_SCAN_LAUNCHES,
             "decode_attention_kv": decode_attention_kv.LAUNCHES}
+
+
+# readiness of this serving process, the answer to a load balancer's probe
+HEALTH = ServerHealth()
 
 
 def launch_counts() -> dict:
@@ -149,6 +169,11 @@ def parse_args(argv=None):
                          "experts through a byte-budgeted LRU cache of this "
                          "many MB (0 caches nothing; only MoE arches have "
                          "eligible leaves)")
+    ap.add_argument("--overlap", default="auto", choices=OVERLAP_MODES,
+                    help="decode-prefetch pipeline for streamed weights: "
+                         "decode layer l+1 while layer l computes; auto "
+                         "enables it whenever streamed leaves are present; "
+                         "logits are bitwise equal either way")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0, help="weight seed")
     ck = ap.add_mutually_exclusive_group()
@@ -158,12 +183,24 @@ def parse_args(argv=None):
     ck.add_argument("--save-ckpt", default=None, metavar="DIR",
                     help="write an enec-v2 checkpoint of the compressed "
                          "weights (the mode's serving layout), then serve")
+    pol = ap.add_mutually_exclusive_group()
+    pol.add_argument("--strict", action="store_true",
+                     help="refuse a damaged restore: print the quarantine "
+                          "list and exit 1 instead of serving fallbacks")
+    pol.add_argument("--degraded", action="store_true",
+                     help="serve through damage with per-record fallbacks "
+                          "from earlier steps and print the RestoreReport "
+                          "(default)")
     return ap.parse_args(argv)
 
 
 def _restore_params(args, cfg, mode, codec, dev, expert_store) -> tuple:
     """--ckpt: the weights come from the checkpoint; the tree restored
-    into is ``meta`` tensors, so nothing is initialised."""
+    into is ``meta`` tensors, so nothing is initialised.  The restore runs
+    under ``policy="degraded"``, so the whole quarantine list is collected
+    in one pass; the caller decides between serving and exiting
+    (``--strict``).  Returns ``(params, info, report)``, ``report`` the
+    :class:`~repro_torch.checkpoint.ckpt.RestoreReport`."""
     mgr = CheckpointManager(args.ckpt, codec=codec, device=dev)
     manifest = mgr.manifest()
     # a training checkpoint holds {"params": ..., "opt": ...}; a serving
@@ -176,24 +213,30 @@ def _restore_params(args, cfg, mode, codec, dev, expert_store) -> tuple:
     t0 = time.perf_counter()
     params, _ = mgr.load_for_serving(like, mode=mode, prefix=prefix,
                                      min_bytes=args.min_bytes,
-                                     shards=args.shards,
+                                     shards=args.shards, policy="degraded",
                                      expert_store=expert_store)
     _sync(dev)
     h2d = codec.link_stats()["h2d"]
+    report = mgr.last_restore_report
     info = {"seconds": time.perf_counter() - t0, "step": manifest["step"],
             "ratio": manifest["ratio"],
             "h2d_compressed_bytes": h2d["compressed_bytes"],
             "h2d_dense_bytes": h2d["dense_bytes"],
             "dense_records": list(mgr.last_dense_records),
             "decode_dispatches": codec.decode_cache_stats()["dispatches"],
-            "plan_buckets": len(mgr.last_decode_plan.buckets)}
+            "plan_buckets": len(mgr.last_decode_plan.buckets),
+            "quarantined": [dataclasses.asdict(q)
+                            for q in report.quarantined],
+            "retry": report.retry}
     print(f"[serve] restored step {info['step']} from {args.ckpt} in "
           f"{info['seconds']:.2f}s (h2d "
           f"{info['h2d_compressed_bytes'] / 1e6:.1f} MB compressed, "
           f"{info['h2d_dense_bytes'] / 1e6:.1f} MB dense; ratio "
           f"{info['ratio']:.4f}x; {info['decode_dispatches']} decode "
-          f"dispatches, {info['plan_buckets']} plan buckets)")
-    return params, info
+          f"dispatches, {info['plan_buckets']} plan buckets; io retries "
+          f"{report.retry.get('retries', 0)}/"
+          f"{report.retry.get('attempts', 0)} attempts)")
+    return params, info, report
 
 
 def _save_params(args, params, mode, codec, dev, expert_records) -> dict:
@@ -220,8 +263,10 @@ def _save_params(args, params, mode, codec, dev, expert_records) -> dict:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    HEALTH.reset()      # back-to-back runs in one process start afresh
     dev = resolve_device(args.device)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    cfg = dataclasses.replace(cfg, overlap=args.overlap)
     codec = Codec()     # owns this run's encodes, decodes and ledger
     with use_codec(codec):
         return _serve(args, cfg, build_model(cfg), codec, dev)
@@ -235,9 +280,31 @@ def _serve(args, cfg, model, codec, dev) -> dict:
     store = (None if args.expert_cache_mb is None else
              ExpertStore(budget_bytes=int(args.expert_cache_mb * 2**20),
                          codec=codec, device=dev))
+    policy = "strict" if args.strict else "degraded"
     if args.ckpt:
-        params, restore = _restore_params(args, cfg, args.mode, codec, dev,
-                                          store)
+        HEALTH.transition("restoring")
+        try:
+            params, restore, report = _restore_params(
+                args, cfg, args.mode, codec, dev, store)
+        except (CheckpointError, FileNotFoundError) as e:
+            HEALTH.transition("failed", str(e))
+            print(f"[serve] restore FAILED: {e}")
+            raise SystemExit(1)
+        if report.degraded:
+            print("[serve]", report.summary())
+            if policy == "strict":
+                HEALTH.transition(
+                    "failed", f"{len(report.quarantined)} quarantined "
+                              f"record(s) under --strict")
+                print(f"[serve] --strict: refusing to serve with "
+                      f"{len(report.quarantined)} quarantined record(s); "
+                      f"exiting 1")
+                raise SystemExit(1)
+            HEALTH.transition(
+                "degraded",
+                f"{len(report.quarantined)} record(s) on fallback")
+        else:
+            HEALTH.transition("ready")
     else:
         params = model.init(seed=args.seed, device=dev)
         if store is not None:
@@ -248,6 +315,7 @@ def _serve(args, cfg, model, codec, dev) -> dict:
         params = assign_weight_modes(params, mode=args.mode,
                                      min_bytes=args.min_bytes,
                                      shards=args.shards, codec=codec)
+        HEALTH.transition("ready")
     _sync(dev)
     setup_s = time.perf_counter() - t0
     encode = codec.encode_cache_stats()
@@ -256,11 +324,22 @@ def _serve(args, cfg, model, codec, dev) -> dict:
                             store is not None)
     ratio = wire_ratio(params)
     stats = stream_stats(params)
+    n_periods = cfg.n_layers // len(params["period"])
+    overlap = {"mode": args.overlap, "enabled": overlap_enabled(
+        args.overlap, params["period"])}
+    if overlap["enabled"]:
+        schedule = build_schedule(params["period"], n_periods)
+        overlap.update(slots=len(schedule.slots),
+                       buckets_per_layer=schedule.buckets_per_layer)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"[serve] arch={cfg.name} mode={args.mode} device={name} "
           f"setup={setup_s:.2f}s encode_buckets="
           f"{encode['planned_buckets']} mode_mix={mode_mix(params)}")
-    print(f"[serve] stream_stats={stats} wire_ratio={ratio:.4f}")
+    print(f"[serve] health={HEALTH.state} ready={HEALTH.ready()} "
+          f"policy={policy}")
+    print(f"[serve] mode={args.mode} overlap={args.overlap} "
+          f"prefetch={overlap} stream_stats={stats} "
+          f"wire_ratio={ratio:.4f}")
 
     gen = torch.Generator().manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size,
@@ -273,7 +352,7 @@ def _serve(args, cfg, model, codec, dev) -> dict:
                             else None),
         collect_logits=True)
     engine = Engine(model, params, ecfg, codec=codec, device=dev,
-                    expert_store=store)
+                    expert_store=store, health=HEALTH)
 
     base = launch_counts()
     t0 = time.perf_counter()
@@ -282,6 +361,7 @@ def _serve(args, cfg, model, codec, dev) -> dict:
     engine.run_until_idle()
     wall = time.perf_counter() - t0
     launches = _since(base)
+    health = HEALTH.state        # while serving, before the drain
     engine.shutdown(deadline_s=30.0)
 
     finished = [r for r in reqs if r.state in ("done", "timed_out")]
@@ -351,6 +431,7 @@ def _serve(args, cfg, model, codec, dev) -> dict:
             "capture_s": engine.captured.capture_s, "engine": st,
             "mode_mix": mode_mix(params),
             "stream_stats": stats, "wire_ratio": ratio,
+            "overlap": overlap, "health": health,
             "encode_buckets": encode["planned_buckets"],
             "encode_dispatches": encode["dispatches"],
             "save": save, "restore": restore}

@@ -6,7 +6,11 @@ Parameters are a nested dict with the reference's layout: ``embed``,
 ``period`` (a list with one dict per program position whose leaves are
 stacked over layers), ``final_norm`` and, untied, ``head``.  Weight
 handles (``runtime/weights.py``) may replace leaves; the layer loop is a
-Python loop that takes layer ``i`` of every stacked leaf.
+Python loop that takes layer ``i`` of every stacked leaf.  When
+``cfg.overlap`` allows it and the period holds streamed weights, the loop
+runs as the decode-prefetch pipeline of ``runtime/overlap.py`` (layer
+i+1's batched decode issued before layer i's compute, on a side stream on
+the card); the logits are bitwise equal either way.
 """
 from __future__ import annotations
 
@@ -15,6 +19,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.runtime.overlap import (build_schedule, overlap_enabled,
+                                         pipeline_unrolled)
 from repro_torch.runtime.weights import is_handle
 from repro_torch.runtime.weights import resolve as resolve_weights
 
@@ -177,22 +183,50 @@ def _head(params, cfg, embed):
     return _dense_leaf(params["head"])
 
 
+def _run_layers(params, cfg, x, apply_position, extra=None):
+    """Every period over ``x``: ``apply_position(p, x, pos, extra_i) ->
+    (x, y)`` runs one resolved program position of layer i (``extra_i``:
+    layer i of ``extra``, a pytree of leading-(P,) tensors).  Returns x
+    and, per layer, the list of each position's y.  Serial, or the
+    prefetch pipeline when ``cfg.overlap`` enables it for this period."""
+    n_positions = len(block_program(cfg))
+    n_periods = cfg.n_layers // n_positions
+    period = params["period"]
+
+    def run_period(x, sliced, extra_i):
+        ys = []
+        for pos in range(n_positions):
+            x, y = apply_position(sliced[pos], x, pos, extra_i)
+            ys.append(y)
+        return x, ys
+
+    if overlap_enabled(getattr(cfg, "overlap", "auto"), period):
+        schedule = build_schedule(period, n_periods)
+        return pipeline_unrolled(
+            schedule, lambda x, sliced, extra_i, _i: run_period(
+                x, sliced, extra_i), x, xs_extra=extra)
+    ys = []
+    for i in range(n_periods):
+        sliced = [resolve_weights(layer_slice(p, i)) for p in period]
+        extra_i = None if extra is None else [
+            {k: e[k][i] for k in e} for e in extra]
+        x, y = run_period(x, sliced, extra_i)
+        ys.append(y)
+    return x, ys
+
+
 def forward(params, cfg, tokens: torch.Tensor):
     """Prompt forward. Returns (normed x, per-position stacked K/V, head)."""
     program = block_program(cfg)
-    n_periods = cfg.n_layers // len(program)
     embed = _dense_leaf(params["embed"])
     x = embed_tokens(embed, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    kvs = [[] for _ in program]
-    for i in range(n_periods):
-        for pos in range(len(program)):
-            p = resolve_weights(layer_slice(params["period"][pos], i))
-            x, kv = _apply_position(p, cfg, x, positions)
-            kvs[pos].append(kv)
+    x, kvs = _run_layers(
+        params, cfg, x,
+        lambda p, x, pos, _: _apply_position(p, cfg, x, positions))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    caches = [{k: torch.stack([e[k] for e in entries]) for k in ("k", "v")}
-              for entries in kvs]
+    caches = [{k: torch.stack([layer[pos][k] for layer in kvs])
+               for k in ("k", "v")} for pos in range(len(program))]
     return x, caches, _head(params, cfg, embed)
 
 
@@ -227,18 +261,14 @@ def prefill_fn(params, cfg, batch: dict, max_len: int):
 def decode_fn(params, cfg, cache, tokens: torch.Tensor):
     """One decode step. tokens: (B,) int. Returns (logits (B, V), cache);
     the cache's K/V tensors are updated in place."""
-    program = block_program(cfg)
-    n_periods = cfg.n_layers // len(program)
     embed = _dense_leaf(params["embed"])
     x = embed_tokens(embed, tokens[:, None])
     lengths = cache["lengths"].to(torch.int64)
-    for i in range(n_periods):
-        for pos in range(len(program)):
-            p = resolve_weights(layer_slice(params["period"][pos], i))
-            entry = cache["entries"][pos]
-            x, _ = _apply_position_step(
-                p, cfg, x, {"k": entry["k"][i], "v": entry["v"][i]},
-                lengths)
+    x, _ = _run_layers(
+        params, cfg, x,
+        lambda p, x, pos, entries: _apply_position_step(
+            p, cfg, x, entries[pos], lengths),
+        extra=cache["entries"])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(x, _head(params, cfg, embed))[:, 0]
     return logits, dict(cache, lengths=cache["lengths"] + 1)

@@ -23,7 +23,16 @@ use and replays it from then on:
   loaded with ``copy_`` before each run.
 * The launch counters (``kernels/build.py``) count in Python, so they
   count at capture and not at replay: :func:`record` takes their delta
-  over a capture back out and each :meth:`Replay.replay` adds it.
+  over a capture back out and each :meth:`Replay.replay` adds it.  That
+  holds for the launches of both streams below.
+* A stream-mode step prefetches each layer's weights on a side stream
+  (``runtime/overlap.py``).  Each step owns one (:attr:`side`), made
+  ambient around the warm-up, the capture and every eager run
+  (``overlap.use_side_stream``): the warm-up runs the decode on it before
+  the capture, and inside the capture the pipeline forks it from the
+  capture stream and joins it back through events, so the graph holds the
+  launches of both streams.  Allocations of either stream during the
+  capture come from the one pool.
 
 On the CPU the same step runs eagerly: that follows the device, it is not
 a fallback.  A capture that fails raises; nothing runs the eager step on
@@ -40,6 +49,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.runtime.overlap import use_side_stream
 
 
 def _delta(after: dict, before: dict) -> dict:
@@ -90,6 +100,12 @@ class CapturedStep:
         if self.device.type == "cuda":
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(self.device)
+            self.side = torch.cuda.Stream(self.device)
+
+    def _run_step(self, bucket: int) -> None:
+        """The step on the card, with this step's side stream ambient."""
+        with use_side_stream(self.side):
+            self.step(bucket)
 
     @property
     def buckets(self) -> list:
@@ -105,13 +121,13 @@ class CapturedStep:
         current = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
-            self.step(bucket)                        # the warm-up
+            self._run_step(bucket)                   # the warm-up
         current.wait_stream(self.stream)
         self.warmup_launches[bucket] = _delta(build.counts(), before)
         graph = torch.cuda.CUDAGraph()
         replay = record(graph, torch.cuda.graph(graph, pool=self.pool,
                                                 stream=self.stream),
-                        lambda: self.step(bucket))
+                        lambda: self._run_step(bucket))
         self.capture_s[bucket] = time.perf_counter() - t0
         return replay
 
@@ -131,7 +147,7 @@ class CapturedStep:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            self.step(bucket)
+            self._run_step(bucket)
             end.record()
             return start, end
         if bucket not in self.graphs:

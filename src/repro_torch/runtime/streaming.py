@@ -23,9 +23,12 @@ import torch
 from repro_torch.core.api import (MATMUL_TILE, SUPPORTED_FLOAT_DTYPES,
                                   matmul_tiles)
 from repro_torch.core.codec_api import current_codec
+from repro_torch.runtime.overlap import (OVERLAP_MODES,  # noqa: F401
+                                         overlap_enabled)
 from repro_torch.runtime.weights import (DenseWeight, FusedWeight,
                                          StreamedWeight, handle_kind,
-                                         is_handle)
+                                         is_handle, tree_leaves,
+                                         tree_map_with_path)
 
 MIN_STREAM_BYTES = 1 << 20  # 1 MiB
 STREAM_SHARDS = 16          # production TP width (divisors also work)
@@ -34,31 +37,6 @@ WEIGHT_MODES = ("dense", "stream", "fused")
 
 MATMUL_LEAF_NAMES = frozenset(
     {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"})
-
-
-def tree_leaves(tree, path: str = ""):
-    """(path, leaf) pairs of a nested dict/list tree, handles as leaves,
-    dict keys in sorted order."""
-    if isinstance(tree, dict):
-        for k, v in sorted(tree.items()):
-            yield from tree_leaves(v, f"{path}/{k}" if path else str(k))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from tree_leaves(v, f"{path}/{i}" if path else str(i))
-    else:
-        yield path, tree
-
-
-def tree_map_with_path(fn, tree, path: str = ""):
-    """Rebuild ``tree`` with ``fn(path, leaf)`` at every leaf."""
-    if isinstance(tree, dict):
-        return {k: tree_map_with_path(fn, v, f"{path}/{k}" if path else str(k))
-                for k, v in sorted(tree.items())}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(
-            tree_map_with_path(fn, v, f"{path}/{i}" if path else str(i))
-            for i, v in enumerate(tree))
-    return fn(path, tree)
 
 
 def stream_eligible(pstr: str, shape, dtype,
@@ -240,7 +218,11 @@ def mode_mix(tree) -> dict:
 
 
 def stream_stats(tree) -> dict:
-    """Bytes and handle counts of a weight-execution tree.  An expert
+    """Bytes and handle counts of a weight-execution tree.
+    ``overlap_eligible_tensors`` counts the streamed leaves inside the layer
+    loop, which the decode-prefetch pipeline (``runtime/overlap.py``)
+    decodes a layer ahead; ``flat_stream_tensors`` the L=1 streams of plain
+    2-D leaves (embed, untied head), decoded once a step.  An expert
     store's handle (``expert_tensors``) counts its stack's raw bytes and no
     device bytes: its records live in host memory and the device holds
     only the store's decode cache (the reference counts its ``(L,)``
@@ -248,7 +230,8 @@ def stream_stats(tree) -> dict:
     from repro_torch.runtime.experts import ExpertRef
     total_raw = total_dev = 0
     counts = {"streamed_tensors": 0, "fused_tensors": 0, "dense_handles": 0,
-              "flat_stream_tensors": 0, "expert_tensors": 0}
+              "flat_stream_tensors": 0, "overlap_eligible_tensors": 0,
+              "expert_tensors": 0}
     for _, leaf in tree_leaves(tree):
         if isinstance(leaf, ExpertRef):
             counts["expert_tensors"] += 1
@@ -256,6 +239,7 @@ def stream_stats(tree) -> dict:
         elif isinstance(leaf, StreamedWeight):
             counts["streamed_tensors"] += 1
             counts["flat_stream_tensors"] += int(leaf.flat)
+            counts["overlap_eligible_tensors"] += int(not leaf.flat)
             n_layers = leaf.ct.streams.mask.shape[0]
             per_layer = 1
             for d in leaf.layer_shape:

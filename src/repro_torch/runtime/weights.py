@@ -192,12 +192,56 @@ def materialize_full_many(handles, codec=None) -> list:
             for h, d in zip(handles, decs)]
 
 
-def resolve(tree, codec=None):
+def tree_leaves(tree, path: str = ""):
+    """(path, leaf) pairs of a nested dict/list tree, handles as leaves,
+    dict keys in sorted order: the reference's flatten order, whose
+    positions are the flatten slots of :func:`resolve`'s ``prefetched``."""
+    if isinstance(tree, dict):
+        for k, v in sorted(tree.items()):
+            yield from tree_leaves(v, f"{path}/{k}" if path else str(k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, f"{path}/{i}" if path else str(i))
+    else:
+        yield path, tree
+
+
+def tree_map_with_path(fn, tree, path: str = ""):
+    """Rebuild ``tree`` with ``fn(path, leaf)`` at every leaf, visited in
+    :func:`tree_leaves` order."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{path}/{k}" if path else str(k))
+                for k, v in sorted(tree.items())}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(
+            tree_map_with_path(fn, v, f"{path}/{i}" if path else str(i))
+            for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def resolve(tree, codec=None, *, prefetched=None):
     """Per-layer resolution: storage-only handles (StreamedWeight in
     "materialize" execution) become dense tensors; matmul-capable handles
-    and expert handles (fetched inside ``moe_block``) pass through."""
-    if isinstance(tree, dict):
-        return {k: resolve(v, codec) for k, v in tree.items()}
-    if isinstance(tree, StreamedWeight) and tree.execution != "matmul":
-        return tree.materialize(codec)
-    return tree
+    and expert handles (fetched inside ``moe_block``) pass through.
+
+    ``prefetched`` maps flatten slots (:func:`tree_leaves` positions) to
+    weights already decoded by the prefetch pipeline
+    (``runtime/overlap.py``): a "materialize" handle at that slot becomes
+    the decoded tensor, a "matmul" handle a :class:`DenseWeight` around
+    it (the same canonical contraction, so the bits do not change)."""
+    pre = prefetched or {}
+    slots = iter(range(1 << 62))
+
+    def one(_, leaf):
+        slot = next(slots)
+        if slot in pre:
+            if not isinstance(leaf, StreamedWeight):
+                raise TypeError(f"prefetched slot {slot} is not a "
+                                f"StreamedWeight: {type(leaf).__name__}")
+            w = pre[slot]
+            return DenseWeight(w=w) if leaf.execution == "matmul" else w
+        if isinstance(leaf, StreamedWeight) and leaf.execution != "matmul":
+            return leaf.materialize(codec)
+        return leaf
+
+    return tree_map_with_path(one, tree)

@@ -232,19 +232,24 @@ def test_serve_save_ckpt_then_ckpt_bitwise_on_cpu(tmp_path, mode):
         assert info["h2d_compressed_bytes"] > info["h2d_dense_bytes"]
 
 
-@pytest.mark.parametrize("what", ["degraded", "mesh", "expert_records"])
+@pytest.mark.parametrize("what", ["unknown_policy", "mesh",
+                                  "expert_records"])
 def test_unported_restore_options_raise_clearly(saved, tmp_path, what):
-    """Degraded restore and mesh placement wait for later slices: asking
-    for one raises, it is never silently ignored; a manager that writes
-    per-expert records (ported since) refuses them as well."""
+    """Mesh placement waits for a later slice: asking for it raises, it is
+    never silently ignored; a manager that writes per-expert records
+    (ported since) refuses it as well.  A restore policy that exists in
+    neither package (the degraded one is ported) is rejected by name, as
+    the reference rejects it."""
     mgr, _, _, like = saved
+    if what == "unknown_policy":
+        with pytest.raises(ValueError, match="unknown restore policy"):
+            mgr.load({"params": like}, policy="yolo")
+        return
     with pytest.raises(CheckpointError, match="not ported yet"):
         if what == "expert_records":
             CheckpointManager(mgr.root, expert_records=True,
                               serving_layout="stream",
                               device="cpu").load_for_serving(
                 like, prefix="params", mesh=object())
-        elif what == "degraded":
-            mgr.load({"params": like}, policy="degraded")
         else:
             mgr.load_for_serving(like, prefix="params", mesh=object())

@@ -14,10 +14,12 @@ from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import build_model as jax_build_model
 from repro.runtime.streaming import assign_weight_modes as jax_assign
 from repro.runtime.streaming import mode_mix as jax_mode_mix
+from repro.runtime.streaming import stream_stats as jax_stream_stats
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.models import build_model
-from repro_torch.runtime.streaming import assign_weight_modes, mode_mix
+from repro_torch.runtime.streaming import (assign_weight_modes, mode_mix,
+                                           stream_stats)
 
 DECODE_STEPS = 8
 # Logits may differ from the reference by the f32 sum order inside each
@@ -95,6 +97,11 @@ def test_three_modes_bitwise_equal_and_match_reference(setup):
                                    shards=2)
         jtree = jax_assign(jparams, mode=mode, min_bytes=1024, shards=2)
         assert mode_mix(tree) == jax_mode_mix(jtree), mode
+        # every count (overlap_eligible_tensors too) and the byte ratio
+        stats, want = stream_stats(tree), jax_stream_stats(jtree)
+        assert stats.pop("hbm_ratio") == pytest.approx(
+            want.pop("hbm_ratio"), rel=1e-12), mode
+        assert stats == want, mode
         outs[mode] = _serve_torch(model, tree, prompts)
     for mode in ("stream", "fused"):
         assert torch.equal(outs[mode][0].view(torch.int32),
