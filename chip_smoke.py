@@ -142,6 +142,30 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
            expert leaf, each against its plain version and its bound;
            kernel 2's fused entry on a layer's 4 attention leaves (M = 4)
            beside its plain version, its bound and torch.matmul.
+   families
+           the recurrent and prefix families through ``runtime/engine.py``
+           from seeded synthetic weights: xlstm_125m and paligemma_3b at
+           full width, jamba_v0_1_52b at published widths cut to 8 layers
+           (one period), each in dense, stream and fused mode, 4 requests
+           x prompt 64 x 16 new tokens submitted together and staggered
+           (buckets 1, 2, 4 captured): checks (a)-(e) of
+           :func:`phase_families` (logits bitwise across modes, to the
+           eager step and to each request alone; launches a replay read
+           from the code; xLSTM's state handoff; PaliGemma's prefill with
+           256 prefix embeddings); kernel 2' at every distinct weight
+           shape of the dense trees and the heads, fused kernel 2 at every
+           fused leaf shape, each at M = 4 and 64 against its plain
+           version, timed beside it, its bound and torch.matmul; the
+           decode attention's rows independent of the batch at each
+           family's heads, beside the einsum form it replaced; TTFT,
+           TPOT, device ms a replay, busy share, peak GB and a profile of
+           the replay by kernel.
+   api     the quickstart flow of the tree-level codec API on the ten
+           Table III weight sets: ``search_for_array``, ``compress_tree``
+           (one encode launch per bucket), the wire round trip,
+           ``decompress_tree`` bitwise, ``tree_ratio``; records and
+           ratios equal to the plain CPU path's; compress and decompress
+           GB/s (launch-bound at these sizes).
 6. a ``{"kernels": [...]}`` JSON line, then the card line and the last
    line ``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` is
    its count in the run of its ``path`` (fused, the main path, for the
@@ -152,10 +176,10 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    modes, ``ckpt_save``, ``ckpt_restore``, ``degraded``,
    ``degraded_stream``, ``engine_fused``, ``overlap_llama3_2_1b``,
    ``overlap_minitron_4b``, ``scan``,
-   ``kv_attention``, the three ``minitron_*`` modes and the six ``moe_*``
-   runs), and
+   ``kv_attention``, the three ``minitron_*`` modes, the six ``moe_*``
+   runs, the nine ``families_*`` runs and ``api``), and
    ``launches_per_captured_step`` its launches in one replay of each
-   engine case's bucket-4 graph.  Every count is set to 0 just before its
+   engine case's and each family run's bucket-4 graph.  Every count is set to 0 just before its
    run and read just after it; a graph's replays add what its capture
    counted (``runtime/captured.py``).
 
@@ -1876,8 +1900,8 @@ def eager_bucket_loop(model, params, prompts, max_len: int):
         logits, cache = model.prefill_fn(params, {"tokens": tok_in},
                                          max_len)
         for ring, part in zip(state["entries"], cache["entries"]):
-            for k in ("k", "v"):
-                ring[k][:, slot].copy_(part[k][:, 0])
+            for k, t in part.items():     # K/V and recurrent states
+                ring[k][:, slot].copy_(t[:, 0])
         state["tokens"][slot] = torch.argmax(logits[0], -1)
         state["lengths"][slot] = len(prompt)
         outs[slot].append(logits[0])
@@ -2693,7 +2717,10 @@ def _moe_engine_run(label, model, params, codec, store=None) -> dict:
     launches = serve.launch_counts()      # ... and ends here
     peak = torch.cuda.max_memory_allocated()
     if store is not None:
-        store.fetch_step = fetch
+        # drop the instance attribute (a bound method stored on its own
+        # instance would be a reference cycle holding the store's cache on
+        # the card until the cycle collector ran)
+        del store.fetch_step
     for i, req in enumerate(reqs):
         check(req.state == "done" and len(req.logits) == TOKENS,
               f"{label}: r{i} {req.state} with {len(req.logits)} tokens")
@@ -3218,6 +3245,665 @@ def phase_moe():
 
 
 # ---------------------------------------------------------------------------
+# phase families: xLSTM, PaliGemma and Jamba through the engine
+# ---------------------------------------------------------------------------
+
+# the recurrent and prefix families at published widths; Jamba's depth is
+# cut 32 -> 8 (one period of its program): its dense tree is 106 GB at 32
+# layers, and a set-up holds the dense tree and its compressed copy
+# together (~26.6 + ~20 GB at 8 layers)
+FAMILY_ARCHS = ("xlstm_125m", "paligemma_3b", "jamba_v0_1_52b")
+FAMILY_LAYERS = {"jamba_v0_1_52b": 8}
+PREFIX_EMBEDS = 256          # PaliGemma's image prefix (its prefix_embed)
+# the leaves each sequence block and FFN multiplies by, one kernel-2
+# launch a product in a decode step (``layers.weight_matmul``); an MoE
+# layer's count is 1 + 3 x E (:func:`family_step_launches`)
+FAMILY_MATMUL_LEAVES = {
+    "attn": ("wq", "wk", "wv", "wo"), "mlp": ("w_gate", "w_up", "w_down"),
+    "mamba": ("in_proj", "x_proj", "dt_proj", "out_proj"),
+    "mlstm": ("wq", "wk", "wv", "wi", "wf", "wo_gate", "out_proj"),
+    "slstm": ("w_in", "r_in", "out_proj"),
+    "moe": ("router", "e_gate", "e_up", "e_down")}
+FAMILY_PRODUCTS = {k: len(v) for k, v in FAMILY_MATMUL_LEAVES.items()}
+# the products whose rows the model gives in f32 (mLSTM's gates, Mamba's
+# dt, the router); every other product takes bf16 rows
+F32_ROWS = frozenset({"wi", "wf", "dt_proj", "router"})
+# the decode attention's heads (heads, KV heads, head_dim) in each served
+# family with attention, at the cells' cache and a 1500-position one
+DECODE_ATTN_HEADS = {"llama3_2_1b": (32, 8, 64), "minitron_4b": (24, 8, 128),
+                     "paligemma_3b": (8, 1, 256),
+                     "jamba_v0_1_52b": (32, 8, 128)}
+DECODE_ATTN_CACHES = (PROMPT + TOKENS, 1500)
+
+
+def family_cfg(arch: str):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch in FAMILY_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=FAMILY_LAYERS[arch])
+    return cfg
+
+
+def family_step_launches(cfg, bpl: dict) -> dict:
+    """Kernel launches of one decode step of each served mode, read from
+    the code (``models/lm.py``): the attention and MLP products are the
+    fused entry's in fused mode and the dense-tile entry's otherwise
+    (streamed leaves decode first); the recurrent blocks' products, the
+    MoE router and all 3 x E expert products (every expert on every row:
+    a captured step has no host sync to skip unrouted ones) and the head
+    are dense-tile launches in every mode; kernel 1 decodes the flat
+    streams (the embed, and an untied head) and, in stream and fused mode,
+    each period's streamed leaves: ``bpl[mode]`` launches a period, one
+    prefetch of the schedule's buckets (``runtime/overlap.py``) or, for a
+    stack of one period, which runs serially, one launch a streamed leaf
+    (0 when the mode streams nothing in the layer loop)."""
+    from repro_torch.models.lm import block_program
+    program = block_program(cfg)
+    periods = cfg.n_layers // len(program)
+    fusable = periods * sum(FAMILY_PRODUCTS["attn"] * (d.seq == "attn")
+                            + FAMILY_PRODUCTS["mlp"] * (d.ffn == "mlp")
+                            for d in program)
+    other = periods * sum(
+        (FAMILY_PRODUCTS[d.seq] if d.seq != "attn" else 0)
+        + ((1 + 3 * cfg.n_experts) if d.ffn == "moe" else 0)
+        for d in program)
+    flat = 1 + (not cfg.tie_embeddings)
+    zero = dict.fromkeys(KERNELS, 0)
+    return {"dense": zero | {"dense_tile_matmul": fusable + other + 1},
+            "stream": zero | {"enec_decode": flat + periods
+                              * bpl.get("stream", 0),
+                              "dense_tile_matmul": fusable + other + 1},
+            "fused": zero | {"enec_decode": flat + periods
+                             * bpl.get("fused", 0),
+                             "decompress_matmul": fusable,
+                             "dense_tile_matmul": other + 1}}
+
+
+def _family_engine_run(label, model, params, codec, schedule, want_step):
+    """One engine run: ``schedule`` lists (steps before, request ids), all
+    4 requests x prompt 64 x 16 new tokens.  Checks each replay's and
+    warm-up's launches against ``want_step`` and that the run launched the
+    prefills', steps' and warm-ups' kernels and nothing else; returns the
+    requests' logits, TTFT, TPOT, device ms a replay, busy share, peak GB,
+    the launches and the engine."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    cfg = model.cfg
+    ecfg = EngineConfig(max_slots=BATCH, queue_depth=2 * BATCH,
+                        max_prompt_len=PROMPT, max_new_tokens=TOKENS,
+                        collect_logits=True)
+    prompts = _prompts(cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = Engine(model, params, ecfg, codec=codec)
+    serve.reset_launch_counts()          # this run starts here ...
+    reqs = []
+    for steps_before, idx in schedule:
+        for _ in range(steps_before):
+            engine.step()
+        reqs += [engine.submit(prompts[i], TOKENS, name=f"r{i}")
+                 for i in idx]
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    launches = serve.launch_counts()     # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    for i, req in enumerate(reqs):
+        check(req.state == "done" and len(req.logits) == TOKENS,
+              f"{label}: r{i} {req.state} with {len(req.logits)} tokens")
+    check(engine.step_launches
+          and all(st == want_step for st in engine.step_launches),
+          f"{label}: launches a step {engine.step_launches[:1]} != "
+          f"{want_step}")
+    check(all(w == want_step
+              for w in engine.captured.warmup_launches.values()),
+          f"{label}: warm-up launches != one step's")
+    total = {k: engine.prefill_launches[k]
+             + sum(st[k] for st in engine.step_launches)
+             + sum(w[k] for w in engine.captured.warmup_launches.values())
+             for k in KERNELS}
+    check(total == launches, f"{label}: launched {launches}, prefills + "
+          f"steps + warm-ups {total}")
+    steady = [(t, ms) for t, ms, c in zip(engine.step_times_s,
+                                          engine.step_device_ms,
+                                          engine.step_captured) if not c]
+    check(steady and all(ms is not None and ms > 0 for _, ms in steady),
+          f"{label}: a replay without a device time")
+    tpot = 1e3 * sum(t for t, _ in steady) / len(steady)
+    dev_ms = sum(ms for _, ms in steady) / len(steady)
+    return {"logits": [[t.clone() for t in r.logits] for r in reqs],
+            "tokens": [list(r.tokens) for r in reqs],
+            "ttft_ms": 1e3 * sum(r.ttft_s() for r in reqs) / len(reqs),
+            "tpot_ms": tpot, "device_ms": dev_ms,
+            "busy_share": dev_ms / tpot, "peak_gb": peak / 1e9,
+            "launches": launches,
+            "launches_per_step": engine.step_launches[0],
+            "compiled_buckets": engine.stats()["engine"]["compiled_buckets"],
+            "step_buckets": engine.step_buckets,
+            "capture_ms": {b: 1e3 * t
+                           for b, t in engine.captured.capture_s.items()},
+            "engine": engine}
+
+
+def _xlstm_handoff(model, params) -> dict:
+    """(d) xLSTM's recurrent state after a batch-1 prefill and 16 decode
+    steps against a prefill of the same 80 tokens, teacher-forced: bitwise
+    where the bits match, else the largest gap (the reference's own test
+    holds it within 1e-4)."""
+    import torch
+    prompt = torch.as_tensor(_prompts(model.cfg.vocab_size)[0],
+                             dtype=torch.int64, device="cuda")[None, :]
+    max_len = PROMPT + TOKENS + 1
+    logits, cache = model.prefill_fn(params, {"tokens": prompt}, max_len)
+    fed = []
+    for _ in range(TOKENS):
+        tok = torch.argmax(logits, -1)
+        fed.append(tok)
+        logits, cache = model.decode_fn(params, cache, tok)
+    tf_logits, tf_cache = model.prefill_fn(
+        params, {"tokens": torch.cat([prompt, torch.stack(fed, 1)], 1)},
+        max_len)
+    gaps, equal = {}, True
+    for pos, (e, tf_e) in enumerate(zip(cache["entries"],
+                                        tf_cache["entries"])):
+        for k in e:
+            a, b = e[k], tf_e[k]
+            equal &= torch.equal(a, b)
+            fin = a > -1e29            # the stabilisers' initial -1e30
+            gaps[f"{pos}/{k}"] = float((a - b)[fin].abs().max()) \
+                if fin.any() else 0.0
+    logits_equal = torch.equal(logits.view(torch.int32),
+                               tf_logits.view(torch.int32))
+    worst = max(gaps.values())
+    check(equal or worst <= 1e-4, f"xlstm handoff: state off by {worst}")
+    return {"state_bitwise": bool(equal), "logits_bitwise": logits_equal,
+            "max_state_gap": worst,
+            "logits_gap": float((logits - tf_logits).abs().max())}
+
+
+def _prefix_logits(model, params) -> "torch.Tensor":
+    """(e) PaliGemma's prefill with 256 seeded prefix embeddings (the
+    stubbed SigLIP frontend's output) before each prompt."""
+    import torch
+    gen = torch.Generator().manual_seed(2)
+    pe = torch.randn((BATCH, PREFIX_EMBEDS, model.cfg.d_model),
+                     generator=gen).to("cuda", torch.bfloat16)
+    tokens = torch.as_tensor(_prompts(model.cfg.vocab_size),
+                             dtype=torch.int64, device="cuda")
+    logits, cache = model.prefill_fn(
+        params, {"tokens": tokens, "prefix_embeds": pe},
+        PREFIX_EMBEDS + PROMPT + 1)
+    check(int(cache["lengths"][0]) == PREFIX_EMBEDS + PROMPT,
+          f"prefix prefill lengths {cache['lengths'].tolist()}")
+    return logits
+
+
+def _matmul_row(label, x, w_bytes, k, n, kernel, plain, library, flush,
+                f32: bool) -> dict:
+    """One product held within MATMUL_ATOL of its plain version and timed
+    beside it, torch.matmul and its bound (``w_bytes`` of weight, x and
+    the f32 out once; the products at the peak of their type)."""
+    import torch
+    m = x.shape[0]
+    got, want = kernel(), plain()
+    err = float((got - want).abs().max())
+    check(err <= MATMUL_ATOL, f"{label} at M = {m} errs {err} from the "
+          f"plain version")
+    flops = F32_FLOPS if f32 else BF16_FLOPS
+    bound = 1e3 * max((w_bytes + x.numel() * x.element_size() + m * n * 4)
+                      / HBM_BYTES_PER_S, 2 * m * k * n / flops)
+    return {"k": k, "n": n, "m": m, "max_abs_err": err,
+            "bitwise": bool(torch.equal(got.view(torch.int32),
+                                        want.view(torch.int32))),
+            "ms": cuda_ms(kernel, 20, flush),
+            "plain_ms": cuda_ms(plain, 3, flush),
+            "library_ms": cuda_ms(library, 20, flush),
+            "bound_ms": bound,
+            "bound_by": "bytes" if bound > 1e3 * 2 * m * k * n / flops
+            else "operations"}
+
+
+def _dense(leaf):
+    from repro_torch.runtime.weights import is_handle
+    return leaf.materialize() if is_handle(leaf) else leaf
+
+
+def _family_dense_tile_checks(cfg, params) -> dict:
+    """Kernel 2' on layer 0 of each distinct weight shape of the dense
+    tree (every product of the recurrent blocks, attention, MLP, router
+    and expert) at M = BATCH (a decode step) and PROMPT (a prefill), and
+    on the head at M = BATCH (a prefill takes the last position's
+    logits), each against ``kernels/ref.py:tiled_matmul_ref``."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decompress_matmul import dense_matmul_cuda
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    shapes = {}
+    for p in params["period"]:
+        for block, names in FAMILY_MATMUL_LEAVES.items():
+            for name in names if block in p else ():
+                w = _dense(p[block][name])[0]
+                if w.ndim == 3:                  # (E, K, N): expert 0
+                    w = w[0]
+                f32 = name in F32_ROWS
+                shapes.setdefault((tuple(w.shape), w.dtype, f32),
+                                  (f"{block}/{name}", w, f32, (BATCH, PROMPT)))
+    head = _dense(params["embed"]).T if cfg.tie_embeddings \
+        else _dense(params["head"])
+    shapes["head"] = ("head" + " (embed.T)" * cfg.tie_embeddings, head,
+                      False, (BATCH,))
+    rows = {}
+    for name, w, f32, ms in shapes.values():
+        k, n = w.shape
+        for m in ms:
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            x = x if f32 else x.bfloat16()
+            wl = w if w.dtype == x.dtype else w.to(x.dtype)
+            rows[f"{name} M={m}"] = _matmul_row(
+                f"families {cfg.name}: kernel 2' on {name} {k} x {n}", x,
+                w.numel() * w.element_size(), k, n,
+                lambda: dense_matmul_cuda(x, w),
+                lambda: ref.tiled_matmul_ref(x, w),
+                lambda: torch.matmul(x, wl), flush_buf.zero_, f32)
+            del wl
+    del flush_buf
+    return rows
+
+
+def _family_fused_checks(cfg, params) -> dict:
+    """Fused kernel 2 on layer 0 of each distinct fused leaf shape of the
+    fused tree at M = BATCH and PROMPT, each against
+    ``decompress_matmul_plain`` (the plain decode, then the tiled
+    matmul); bound: the tile streams at true length, x and out once."""
+    import torch
+    from repro_torch.kernels.decompress_matmul import (
+        decompress_matmul_cuda, decompress_matmul_plain)
+    from repro_torch.runtime.weights import FusedWeight
+    from repro_torch.runtime.streaming import tree_leaves
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    shapes = {}
+    for path, leaf in tree_leaves(params["period"]):
+        if isinstance(leaf, FusedWeight):
+            shapes.setdefault((leaf.k, leaf.n), (path, leaf.layer(0)))
+    rows = {}
+    for path, h in shapes.values():
+        k, n = h.k, h.n
+        w = h.materialize()
+        for m in (BATCH, PROMPT):
+            x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+            rows[f"{path} M={m}"] = _matmul_row(
+                f"families {cfg.name}: kernel 2 on {path} {k} x {n}", x,
+                needed_bytes(h.ct.streams), k, n,
+                lambda: decompress_matmul_cuda(x, h.ct, k, n),
+                lambda: decompress_matmul_plain(x, h.ct, k, n),
+                lambda: torch.matmul(x, w), flush_buf.zero_, False)
+        del w
+    del flush_buf
+    return rows
+
+
+def _einsum_decode_attention(q, k_cache, v_cache, lengths):
+    """The control: decode attention with the library's batched products
+    (``einsum``) and sums, the form ``layers.decode_attention`` replaced."""
+    import math
+
+    import torch
+    from repro_torch.models import layers
+    scores = layers._chunk_scores(q, k_cache, 1.0 / math.sqrt(q.shape[3]))
+    k_pos = torch.arange(k_cache.shape[1], device=q.device)
+    scores = scores + torch.where(k_pos < lengths[:, None, None, None],
+                                  0.0, -1e30)
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    probs = p / p.sum(dim=-1, keepdim=True)
+    return layers._chunk_out(probs.to(layers.ACT_DTYPE), v_cache,
+                             q.shape[2])
+
+
+def _graph_ms(fn, stream) -> float:
+    """Device ms of one replay of ``fn`` captured as a CUDA graph on
+    ``stream``, as the engine's step runs it (an eager call's window
+    holds the host's enqueue of each of its kernels).  Every call shares
+    one stream: cuBLAS keeps a workspace for each stream it has run on."""
+    import torch
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()                                 # warm-up, outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    ms = cuda_ms(graph.replay, 20, spin=True)
+    del graph
+    return ms
+
+
+def _decode_attention_rows(card) -> dict:
+    """``layers.decode_attention`` at each attention family's heads and
+    both caches of DECODE_ATTN_CACHES: every row of a batch of 4 (ragged
+    lengths) bitwise equal to the row alone.  The einsum control's rows
+    that differ alone are logged, not held (the witness that the library
+    picks its summation order by the batch's shape); both forms timed at
+    batch 4, each a replay of its CUDA graph (:func:`_graph_ms`)."""
+    import torch
+    from repro_torch.models.layers import decode_attention
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    forms = {"fixed": decode_attention, "einsum": _einsum_decode_attention}
+    stream = torch.cuda.Stream()
+    before = torch.cuda.memory_allocated()
+    rows = {}
+    for arch, (h, kv, hd) in DECODE_ATTN_HEADS.items():
+        for s_len in DECODE_ATTN_CACHES:
+            q = torch.randn((BATCH, 1, h, hd), generator=gen,
+                            device="cuda").bfloat16()
+            k, v = (torch.randn((BATCH, s_len, kv, hd), generator=gen,
+                                device="cuda").bfloat16() for _ in "kv")
+            lengths = torch.tensor([s_len - 3, 40, 7, s_len], device="cuda")
+            row = {}
+            for name, fn in forms.items():
+                full = fn(q, k, v, lengths)
+                row[f"{name}_rows_differing"] = [
+                    i for i in range(BATCH) if not torch.equal(
+                        fn(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                           lengths[i:i + 1]).view(torch.int32),
+                        full[i:i + 1].view(torch.int32))]
+                row[f"{name}_ms"] = _graph_ms(lambda: fn(q, k, v, lengths),
+                                              stream)
+            check(not row["fixed_rows_differing"],
+                  f"decode attention at {arch}'s heads, cache {s_len}: rows "
+                  f"{row['fixed_rows_differing']} differ alone")
+            rows[f"{arch} {h}/{kv}x{hd} S={s_len}"] = row
+    del q, k, v, lengths, full
+    torch.cuda.synchronize()
+    left_gb = (torch.cuda.memory_allocated() - before) / 1e9
+    check(left_gb < 0.1, f"decode attention witness left {left_gb:.3f} GB "
+          f"allocated on the card")
+    log(f"families: decode attention rows independent of the batch at "
+        f"every shape; the einsum control's rows differing alone and both "
+        f"forms' device ms a graph replay at batch 4: {rows}; {left_gb:.3f} "
+        f"GB left allocated, on {card}")
+    return rows
+
+
+def _family_case(arch: str, card: str) -> tuple:
+    """One family in dense, stream and fused modes: checks (a)-(e) of
+    :func:`phase_families`; returns the results and each run's
+    launches."""
+    import torch
+    from repro_torch.core.codec_api import Codec, use_codec
+    from repro_torch.models import build_model
+    from repro_torch.runtime.overlap import build_schedule, overlap_enabled
+    from repro_torch.runtime.streaming import (assign_weight_modes,
+                                               stream_stats, tree_leaves)
+    from repro_torch.runtime.weights import StreamedWeight
+    cfg = family_cfg(arch)
+    model = build_model(cfg)
+    prompts = _prompts(cfg.vocab_size)
+    max_len = PROMPT + TOKENS
+    bpl, runs, res, launches = {}, {}, {}, {}
+    staggered = [(0, [0]), (2, [1]), (2, [2, 3])]
+    for mode in ("dense", "stream", "fused"):
+        codec = Codec()
+        with use_codec(codec):
+            t0 = time.perf_counter()
+            params = assign_weight_modes(
+                model.init(seed=0, device="cuda"), mode=mode,
+                min_bytes=MIN_BYTES, shards=2, codec=codec)
+            setup_s = _sync_s(t0)
+            torch.cuda.empty_cache()
+            n_periods = cfg.n_layers // len(params["period"])
+            if overlap_enabled("auto", params["period"], n_periods):
+                bpl[mode] = build_schedule(params["period"],
+                                           n_periods).buckets_per_layer
+            else:       # serial: each streamed leaf decodes as it runs
+                bpl[mode] = sum(isinstance(leaf, StreamedWeight) for _, leaf
+                                in tree_leaves(params["period"]))
+            want = family_step_launches(cfg, bpl)[mode]
+            label = f"families {arch} {mode}"
+            together = _family_engine_run(f"{label} together", model,
+                                          params, codec,
+                                          [(0, range(BATCH))], want)
+            check(together["compiled_buckets"] == [BATCH],
+                  f"{label}: buckets {together['compiled_buckets']}")
+            profile = _replay_profile(together.pop("engine"))
+            stag = _family_engine_run(f"{label} staggered", model, params,
+                                      codec, staggered, want)
+            stag.pop("engine")
+            check(stag["compiled_buckets"] == [1, 2, 4],
+                  f"{label}: staggered buckets {stag['compiled_buckets']}")
+            # (b) the bucket-4 replays against the eager step
+            bucket_outs, bucket_secs = eager_bucket_loop(model, params,
+                                                         prompts, max_len)
+            for i in range(BATCH):
+                check(_bits_equal(together["logits"][i], bucket_outs[i]),
+                      f"{label}: r{i}'s bucket-{BATCH} replays differ from "
+                      f"the eager bucket-{BATCH} step")
+                check(_bits_equal(stag["logits"][i],
+                                  together["logits"][i]),
+                      f"{label}: r{i} staggered differs from together")
+            del bucket_outs
+            extra = {}
+            if mode == "dense":
+                # (a) each request alone, by the eager one-shot loop
+                alone = [one_shot_alone(model, params, p, max_len)
+                         for p in prompts]
+                for i, (outs, _) in enumerate(alone):
+                    check(_bits_equal(together["logits"][i], outs),
+                          f"{label}: r{i} differs from it served alone")
+                extra["eager_alone_tpot_ms"] = 1e3 * sum(
+                    sum(s) for _, s in alone) / sum(len(s) for _, s in alone)
+                del alone
+                if cfg.family == "ssm":
+                    extra["handoff"] = _xlstm_handoff(model, params)
+            if cfg.prefix_embed:
+                extra["prefix_logits"] = _prefix_logits(model, params)
+            checks = {"dense": _family_dense_tile_checks,
+                      "fused": _family_fused_checks}.get(mode)
+            kernel_rows = checks(cfg, params) if checks else {}
+            stats = stream_stats(params)
+            del params
+        torch.cuda.empty_cache()
+        launches[f"families_{arch}_{mode}"] = together["launches"]
+        run = {k: v for k, v in together.items() if k != "logits"}
+        run.update(setup_s=setup_s, profile=profile,
+                   staggered={k: v for k, v in stag.items()
+                              if k != "logits"},
+                   eager_bucket_tpot_ms=1e3 * sum(bucket_secs)
+                   / len(bucket_secs), want_step=want,
+                   hbm_ratio=stats["hbm_ratio"],
+                   streamed=stats["streamed_tensors"],
+                   fused=stats["fused_tensors"], kernel_checks=kernel_rows)
+        runs[mode] = (together["logits"], together["tokens"], extra)
+        res[mode] = run | {k: v for k, v in extra.items()
+                           if k != "prefix_logits"}
+        log(f"families {arch} {mode}: set-up {setup_s:.2f} s, TTFT "
+            f"{run['ttft_ms']:.2f} ms, TPOT {run['tpot_ms']:.3f} ms "
+            f"(captured; eager bucket-{BATCH} step "
+            f"{run['eager_bucket_tpot_ms']:.3f} ms), device "
+            f"{run['device_ms']:.3f} ms a replay (busy share "
+            f"{run['busy_share']:.3f}), peak {run['peak_gb']:.2f} GB, "
+            f"launches a step {run['launches_per_step']}, a replay's "
+            f"profile {profile}, hbm ratio {stats['hbm_ratio']:.4f}"
+            + (f", handoff {extra['handoff']}" if "handoff" in extra else "")
+            + f" on {card}")
+        if kernel_rows:
+            kname = {"dense": "2' dense-tile", "fused": "2 fused"}[mode]
+            log(f"families {arch} {mode}: kernel {kname} held against its "
+                f"plain version at every distinct shape (max_abs_err, "
+                f"bitwise; ms / plain / library / bound): " + "; ".join(
+                    f"{name} {r['k']}x{r['n']}: {r['max_abs_err']:.3g}, "
+                    f"{r['bitwise']}; {r['ms']:.4f} / {r['plain_ms']:.3f} / "
+                    f"{r['library_ms']:.4f} / {r['bound_ms']:.4f}"
+                    for name, r in kernel_rows.items()) + f" on {card}")
+    ref_logits, ref_tokens, ref_extra = runs["dense"]
+    for mode in ("stream", "fused"):
+        logits, tokens, extra = runs[mode]
+        check(tokens == ref_tokens, f"families {arch} {mode}: greedy tokens "
+              f"differ from dense")
+        for i in range(BATCH):
+            check(_bits_equal(logits[i], ref_logits[i]),
+                  f"families {arch} {mode}: r{i} not bitwise equal to dense")
+        if cfg.prefix_embed:
+            check(torch.equal(extra["prefix_logits"].view(torch.int32),
+                              ref_extra["prefix_logits"].view(torch.int32)),
+                  f"families {arch} {mode}: prefix prefill differs from "
+                  f"dense")
+    check(all(bool(torch.isfinite(t).all()) and t.shape == (cfg.vocab_size,)
+              for r in ref_logits for t in r),
+          f"families {arch}: non-finite or mis-shaped logits")
+    if cfg.prefix_embed:
+        pl = ref_extra["prefix_logits"]
+        check(bool(torch.isfinite(pl).all())
+              and pl.shape == (BATCH, cfg.vocab_size),
+              f"families {arch}: prefix logits {tuple(pl.shape)}")
+    log(f"families {arch}: (a) {BATCH} requests bitwise equal across dense /"
+        f" stream / fused and to each served alone; (b) bucket-{BATCH} "
+        f"replays equal the eager step, the staggered join (buckets 1, 2, "
+        f"4) equal to together; (c) launches a replay as read from the code"
+        + ("; (d) state handoff" if cfg.family == "ssm" else "")
+        + ("; (e) prefix prefill bitwise across modes"
+           if cfg.prefix_embed else "")
+        + f"; seq0 {ref_tokens[0]}")
+    return {"layers": cfg.n_layers, "buckets_per_layer": bpl,
+            "modes": res, "card": card}, launches
+
+
+def phase_families():
+    """xlstm_125m and paligemma_3b at full width and jamba_v0_1_52b at
+    published widths cut to 8 layers (one period), each from seeded
+    synthetic weights, in dense, stream and fused mode through the engine
+    (each bucket's step a CUDA graph): 4 requests x prompt 64 x 16 new
+    tokens, submitted together (bucket 4) and staggered (buckets 1, 2, 4).
+    Checks (a) each request's logits bitwise equal across the three modes
+    and to the request served alone by the eager one-shot loop; (b) the
+    bucket-4 replays bitwise equal to the eager step, and the staggered
+    run to the together run; (c) each replay's launches equal one step's
+    read from the code (:func:`family_step_launches`); (d) xLSTM's
+    recurrent state after a prefill and 16 steps equal to a teacher-forced
+    prefill of the same tokens; (e) PaliGemma's prefill with 256 prefix
+    embeddings bitwise equal across the modes; (f) kernel 2' at every
+    distinct weight shape of the dense tree and the head, and fused
+    kernel 2 at every fused leaf shape, within MATMUL_ATOL of their plain
+    versions (:func:`_family_dense_tile_checks`,
+    :func:`_family_fused_checks`); (g) the decode attention's rows
+    independent of the batch (:func:`_decode_attention_rows`).  Each
+    model and mode logs
+    TTFT, captured TPOT, device ms a replay, busy share, peak GB, and the
+    kernel launches and ms a step by kernel (a profile of 5 replays)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    left_gb = torch.cuda.memory_allocated() / 1e9
+    log(f"families: {left_gb:.3f} GB allocated from the earlier phases")
+    check(left_gb < 1.0, f"families: the earlier phases left {left_gb:.3f} "
+          f"GB allocated on the card")
+    card = card_line()
+    cases, launches = {}, {}
+    for arch in FAMILY_ARCHS:
+        cases[arch], got = _family_case(arch, card)
+        launches.update(got)
+    # after the families: the cuBLAS workspace of its stream stays
+    attention = _decode_attention_rows(card)
+    RESULTS["families"] = {"card": card, "cases": cases,
+                           "decode_attention": attention}
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase api: the quickstart flow of the tree-level codec API
+# ---------------------------------------------------------------------------
+
+def phase_api():
+    """``examples/quickstart.py``'s flow on the card over the ten Table III
+    weight sets (``data/synthetic_weights.py``): ``search_for_array`` on
+    each set, ``Codec.compress_tree`` of all ten (one encode launch per
+    bucket), every record to the wire and back, ``decompress_tree`` bitwise
+    equal to the sets, ``tree_ratio``.  Each set's ratio and wire record
+    must equal the port's plain CPU path's, which
+    tests/test_torch_core_api.py holds byte-identical to the JAX package's.
+    The sets are 1-8 Mi elements, so the compress / decompress rates are
+    set by launches and host work, not by the card's bandwidth."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (Codec, format_for, search_for_array,
+                                  tree_ratio, wire)
+    from repro_torch.data.synthetic_weights import PAPER_MODELS, generate
+    from repro_torch.launch import serve
+    card = card_line()
+    host = {s.name: generate(s, device="cpu") for s in PAPER_MODELS}
+    tree = {n: x.to("cuda") for n, x in host.items()}
+    searched = {}
+    for n, x in host.items():
+        signed = {2: torch.int16, 4: torch.int32}[x.element_size()]
+        unsigned = {2: np.uint16, 4: np.uint32}[x.element_size()]
+        searched[n] = search_for_array(
+            x.view(signed).numpy().view(unsigned),
+            format_for(x.dtype)).astuple()
+    codec = Codec()
+    raw = sum(x.numel() * x.element_size() for x in tree.values())
+    codec.compress_tree(tree)            # a warm-up: the kernels' first use
+    torch.cuda.synchronize()
+    serve.reset_launch_counts()          # this path's run starts here ...
+    plan = codec.plan_encode(tree)
+    t0 = time.perf_counter()
+    ctree = codec.execute(plan)
+    compress_s = _sync_s(t0)
+    enc_launches = serve.launch_counts()
+    check(enc_launches["enec_encode"] == len(plan.buckets),
+          f"api: {enc_launches['enec_encode']} encode launches for "
+          f"{len(plan.buckets)} buckets")
+    records = {n: wire.to_wire(c) for n, c in ctree.items()}
+    back = {n: wire.from_wire(r, codec=codec, device="cuda")
+            for n, r in records.items()}
+    dplan = codec.plan_decode(back)
+    serve.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = codec.execute(dplan)
+    decompress_s = _sync_s(t0)
+    dec_launches = serve.launch_counts()    # ... and ends here
+    check(dec_launches["enec_decode"] == len(dplan.buckets),
+          f"api: {dec_launches['enec_decode']} decode launches for "
+          f"{len(dplan.buckets)} buckets")
+    for n, x in tree.items():
+        check(torch.equal(out[n].view(torch.uint8), x.view(torch.uint8)),
+              f"api: {n} not bitwise equal after the wire round trip")
+    ratio = tree_ratio(ctree)
+    cpu_codec = Codec()
+    cpu_tree = cpu_codec.compress_tree(host)
+    cpu_ratio = tree_ratio(cpu_tree)
+    for n in tree:
+        check(records[n] == wire.to_wire(cpu_tree[n]),
+              f"api: {n}'s record differs from the plain CPU path's")
+    check(ratio == cpu_ratio, f"api: tree_ratio {ratio} != CPU {cpu_ratio}")
+    per_set = {n: c.ratio() for n, c in ctree.items()}
+    res = {"card": card, "ratios": per_set, "tree_ratio": ratio,
+           "searched_params": searched,
+           "params": {n: c.params.astuple() if c.params else None
+                      for n, c in ctree.items()},
+           "raw_bytes": raw, "compress_s": compress_s,
+           "decompress_s": decompress_s,
+           "compress_gb_s": raw / compress_s / 1e9,
+           "decompress_gb_s": raw / decompress_s / 1e9,
+           "encode_buckets": len(plan.buckets),
+           "decode_buckets": len(dplan.buckets)}
+    RESULTS["api"] = res
+    log(f"api: ten Table III sets ({raw / 1e6:.1f} MB) compress_tree in "
+        f"{compress_s * 1e3:.2f} ms ({res['compress_gb_s']:.2f} GB/s, "
+        f"{len(plan.buckets)} encode launches), decompress_tree "
+        f"{decompress_s * 1e3:.2f} ms ({res['decompress_gb_s']:.2f} GB/s, "
+        f"{len(dplan.buckets)} decode launches): sets of 1-8 Mi elements, "
+        f"so both rates are set by launches and host work; ratios "
+        f"{ {n: round(r, 6) for n, r in per_set.items()} }, tree_ratio "
+        f"{ratio}, records and ratios equal to the plain CPU path's, the "
+        f"wire round trip bitwise; host-searched params {searched} on "
+        f"{card}")
+    return {"api": dec_launches | {"enec_encode": enc_launches[
+        "enec_encode"]}}
+
+
+# ---------------------------------------------------------------------------
 
 # the served path whose own run gives each kernel's ``launches``: the
 # default fused mode (the main path) runs the decoder, the fused entry and
@@ -3258,6 +3944,8 @@ def kernels_line(launches):
          "timed": {c: {k: v[k] for k in ("fused", "fused_bound", "library")}
                    for c, v in mm["totals"].items()},
          "moe_attention": RESULTS["moe"]["kernels"]["fused_attention"],
+         "families": {arch: c["modes"]["fused"]["kernel_checks"]
+                      for arch, c in RESULTS["families"]["cases"].items()},
          "resources": {k: v for k, v in mm["resources"]["ptxas"].items()
                        if k.startswith("fused")}},
         {"name": "dense_tile_matmul", "route": "cuda",
@@ -3268,6 +3956,8 @@ def kernels_line(launches):
          "bound_ms": t["dense_bound"], "bound_by": "bytes",
          "library_ms": t["library"], "head": mm["head"],
          "moe_expert": RESULTS["moe"]["kernels"]["dense_tile"],
+         "families": {arch: c["modes"]["dense"]["kernel_checks"]
+                      for arch, c in RESULTS["families"]["cases"].items()},
          "timed": {c: {k: v[k] for k in ("dense", "dense_t", "dense_bound",
                                          "library")}
                    for c, v in mm["totals"].items()},
@@ -3305,10 +3995,14 @@ def kernels_line(launches):
          "plan": kv_row["plan"], "resources": kv["resources"]},
     ]
     per_step = RESULTS["engine"]["cases"]
+    families = RESULTS["families"]["cases"]
     for row in rows:
         row["launches_per_captured_step"] = {
             case: c["together"]["launches_per_step"][row["name"]]
-            for case, c in per_step.items()}
+            for case, c in per_step.items()} | {
+            f"{arch} {mode}": r["launches_per_step"][row["name"]]
+            for arch, c in families.items()
+            for mode, r in c["modes"].items()}
         path = KERNEL_PATH[row["name"]]
         row["launches"] = launches[path][row["name"]]
         check(row["launches"] > 0, f"{row['name']} was not launched in its "
@@ -3347,6 +4041,8 @@ def main():
     launches.update(phase_kv_attention())
     launches.update(phase_serve_minitron())
     launches.update(phase_moe())
+    launches.update(phase_families())
+    launches.update(phase_api())
     line = kernels_line(launches)
     RESULTS["kernels"] = line["kernels"]
     RESULTS["seconds"] = time.perf_counter() - t0

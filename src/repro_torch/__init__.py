@@ -17,6 +17,6 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError(
             "repro_torch runs on CUDA by default and no CUDA device is "
             "available; pass device='cpu' (or --device cpu) explicitly")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise RuntimeError(f"unsupported device {dev}")
     return dev

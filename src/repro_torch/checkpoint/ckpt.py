@@ -737,7 +737,7 @@ class CheckpointManager:
         decs = self.codec.execute(plan)
         # keep only the summary: the execution state pins the streams
         self.last_decode_plan = dataclasses.replace(
-            plan, _groups=[], _passthrough={}, _leaves=[])
+            plan, _groups=[], _passthrough={}, _leaves=[], _tree=None)
         parents: dict = {}
         for (e, like, obj), dec in zip(pending, decs):
             if isinstance(obj, _ExpertPart):

@@ -11,9 +11,10 @@ import dataclasses
 import importlib
 from typing import Optional, Tuple
 
-# the archs this package carries so far: the dense and MoE families
+# the archs this package carries so far: every family but encoder-decoder
 ARCH_IDS = ("llama3_2_1b", "minitron_4b", "phi3_5_moe_42b_a6_6b",
-            "qwen3_32b", "qwen3_moe_235b_a22b", "stablelm_3b")
+            "qwen3_32b", "qwen3_moe_235b_a22b", "stablelm_3b",
+            "xlstm_125m", "jamba_v0_1_52b", "paligemma_3b")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,19 +1,22 @@
 """ENEC data model (port of ``repro/core/api.py``): ``CompressedTensor``
-with exact wire accounting, the fused-matmul tile layout, and the const /
-raw escapes.  The codec pipeline itself lives on
+with exact wire accounting, the fused-matmul tile layout, the const / raw
+escapes, the tree walk of the codec's tree-level API and the stateless
+wire-size utilities (:func:`tree_ratio`, :func:`precompute_wire_bytes`,
+:func:`abstract_compressed`).  The codec pipeline itself lives on
 :class:`repro_torch.core.codec_api.Codec`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import codec
 from .codec import BlockStreams
-from .dtypes import DTYPE_NAMES, FORMATS, FloatFormat, to_container
+from .dtypes import DTYPE_NAMES, FORMATS, FloatFormat, format_for, to_container
 from .params import DEFAULT_BLOCK_ELEMS, EnecParams
 
 # enec-v2 framed-record overhead, byte for byte the reference's
@@ -167,3 +170,98 @@ def untile_matmul_weight(flat: torch.Tensor, k: int, n: int) -> torch.Tensor:
     kp, np_ = _padded(k, n)
     tiles = flat.reshape(np_ // t, kp // t, t, t)
     return tiles.permute(1, 2, 0, 3).reshape(kp, np_)[:k, :n]
+
+
+# ---------------------------------------------------------------------------
+# trees: nested dicts / lists / tuples, walked in the reference's flatten
+# order (dict keys sorted, sequence items in order); anything else (a
+# tensor, a handle, a CompressedTensor, None) is a leaf
+# ---------------------------------------------------------------------------
+
+def tree_leaves(tree, path: str = ""):
+    """(path, leaf) pairs of a nested dict/list tree, handles as leaves,
+    dict keys in sorted order: the reference's flatten order (the codec's
+    plan slots, and the flatten slots of ``runtime/weights.py:resolve``'s
+    ``prefetched``)."""
+    if isinstance(tree, dict):
+        for k, v in sorted(tree.items()):
+            yield from tree_leaves(v, f"{path}/{k}" if path else str(k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, f"{path}/{i}" if path else str(i))
+    else:
+        yield path, tree
+
+
+def tree_map_with_path(fn, tree, path: str = ""):
+    """Rebuild ``tree`` with ``fn(path, leaf)`` at every leaf, visited in
+    :func:`tree_leaves` order."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{path}/{k}" if path else str(k))
+                for k, v in sorted(tree.items())}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(
+            tree_map_with_path(fn, v, f"{path}/{i}" if path else str(i))
+            for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+# ---------------------------------------------------------------------------
+# wire-size utilities (stateless: no codec needed)
+# ---------------------------------------------------------------------------
+
+def precompute_wire_bytes(cts: Sequence[CompressedTensor]) -> None:
+    """Fill the ``nbytes_wire`` cache of many tensors with ONE device-to-
+    host transfer of their ``high_len`` vectors (each ``nbytes_wire`` call
+    would otherwise fetch its own)."""
+    pending = [c for c in cts if c.mode == "enec" and c._wire_bytes is None]
+    if not pending:
+        return
+    host = torch.cat([c.streams.high_len.reshape(-1)
+                      for c in pending]).cpu().numpy()
+    off = 0
+    for c in pending:
+        n = c.streams.high_len.numel()
+        c._set_wire_bytes(host[off:off + n])
+        off += n
+
+
+def tree_ratio(ctree) -> dict:
+    """Compression accounting over a tree of compressed tensors (at most
+    one host transfer for the whole tree)."""
+    cts = [c for _, c in tree_leaves(ctree) if isinstance(c, CompressedTensor)]
+    precompute_wire_bytes(cts)
+    raw = sum(c.nbytes_raw() for c in cts)
+    wire = sum(c.nbytes_wire() for c in cts)
+    return {"tensors": len(cts), "raw_bytes": raw, "compressed_bytes": wire,
+            "ratio": raw / max(wire, 1)}
+
+
+def abstract_compressed(shape, dtype: torch.dtype, p: EnecParams,
+                        block_elems: int = DEFAULT_BLOCK_ELEMS,
+                        shards: int = 1) -> CompressedTensor:
+    """A CompressedTensor of ``meta`` tensors (nothing allocated) with the
+    layout :meth:`Codec.compress_array` would give a tensor of ``shape``
+    and ``dtype`` under ``p``."""
+    fmt = format_for(dtype)
+    size = 1
+    for s in shape:
+        size *= s
+    nblocks = (size + block_elems - 1) // block_elems
+    nblocks += (-nblocks) % shards
+    widths = codec.stream_shapes(block_elems, fmt, p)
+    lead = (shards, nblocks // shards) if shards > 1 else (nblocks,)
+
+    def meta(shape_, dt=torch.uint8):
+        return torch.empty(shape_, dtype=dt, device="meta")
+
+    streams = BlockStreams(
+        mask=meta(lead + (widths["mask"],)),
+        low=meta(lead + (widths["low"],)),
+        high=meta(lead + (widths["high"],)),
+        high_len=meta(lead, torch.int32),
+        raw=meta(lead + (widths["raw"],)))
+    return CompressedTensor(
+        streams=streams, raw_bytes=None, fmt_name=fmt.name, params=p,
+        shape=tuple(shape), dtype_str=DTYPE_NAMES[dtype],
+        block_elems=block_elems, shards=shards, mode="enec")

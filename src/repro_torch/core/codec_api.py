@@ -17,6 +17,11 @@ decompresses tensors through an explicit schedule:
   plain version for CPU ones), plus, for an encode plan, ONE transfer of
   every stack's ``high_len`` for the never-worse escape.
 
+Both planners take a tree (nested dicts, lists and tuples, walked in the
+reference's flatten order: sorted dict keys) and ``execute`` returns the
+same structure; :meth:`Codec.compress_tree` / :meth:`Codec.decompress_tree`
+are that round trip.  A ``None`` leaf stays ``None``.
+
 The reference pads each bucket's block count to a power of two to bound
 XLA's compile cache.  The CUDA kernels take any block count and the port
 has no compile cache, so a bucket encodes or decodes its true block count:
@@ -45,11 +50,17 @@ from . import codec as block_codec
 from . import params as params_mod
 from . import stats as stats_mod
 from .api import (SUPPORTED_FLOAT_DTYPES, CompressedTensor, const_tensor,
-                  matmul_tiles, raw_tensor, slice_stacked)
+                  matmul_tiles, raw_tensor, slice_stacked, tree_leaves,
+                  tree_map_with_path)
 from .api import untile_matmul_weight as _untile
 from .codec import BlockStreams
 from .dtypes import DTYPE_NAMES, FloatFormat, format_for
-from .params import DEFAULT_BLOCK_ELEMS, EnecParams
+from .params import DEFAULT_BLOCK_ELEMS, EnecParams, expected_ratio
+
+# The kernel routes of the port's codec (the reference names its encode and
+# decode backends "reference" / "pallas").  The route is not a setting: a
+# CPU tensor runs the plain version, a CUDA tensor the kernel.
+BACKENDS = ("plain", "cuda")
 
 # Transfer-ledger links; every byte a codec moves is attributed to one,
 # split compressed / dense.  The port has no mesh, so of the reference's
@@ -85,6 +96,7 @@ class EncodeBucket:
     block_bucket: int        # blocks the launch encodes (== nblocks)
     nblocks: int
     n_tensors: int
+    predicted_wire_bytes: int = 0   # from each member's expected ratio
 
     @property
     def key(self) -> tuple:
@@ -108,7 +120,7 @@ class DecodeBucket:
 
 @dataclasses.dataclass
 class EncodePlan:
-    """Inspectable encode schedule over a list of inputs:
+    """Inspectable encode schedule over the leaves of a tree:
     ``len(buckets)`` launches; ``n_fallback`` inputs skip the encoder
     (unsupported dtype, empty, or a constant layer)."""
     config: CodecConfig
@@ -121,6 +133,15 @@ class EncodePlan:
     _groups: list = dataclasses.field(repr=False, default_factory=list)
     _fallbacks: dict = dataclasses.field(repr=False, default_factory=dict)
     _leaves: list = dataclasses.field(repr=False, default_factory=list)
+    _tree: Any = dataclasses.field(repr=False, default=None)
+
+    @property
+    def dispatch_count(self) -> int:
+        return len(self.buckets)
+
+    @property
+    def predicted_wire_bytes(self) -> int:
+        return sum(b.predicted_wire_bytes for b in self.buckets)
 
 
 @dataclasses.dataclass
@@ -134,6 +155,11 @@ class DecodePlan:
     _groups: list = dataclasses.field(repr=False, default_factory=list)
     _passthrough: dict = dataclasses.field(repr=False, default_factory=dict)
     _leaves: list = dataclasses.field(repr=False, default_factory=list)
+    _tree: Any = dataclasses.field(repr=False, default=None)
+
+    @property
+    def dispatch_count(self) -> int:
+        return len(self.buckets)
 
 
 def _stack_dim(ct: CompressedTensor) -> Optional[int]:
@@ -222,6 +248,13 @@ def _per_block(members, like, value, nblocks_of) -> torch.Tensor:
                       for m in members])
 
 
+def _rebuild(tree, leaves: Sequence[Any]):
+    """``tree``'s structure with its leaves replaced, in flatten order, by
+    ``leaves``."""
+    it = iter(leaves)
+    return tree_map_with_path(lambda _, __: next(it), tree)
+
+
 class Codec:
     """One ENEC codec: config, dispatch counters and transfer ledger."""
 
@@ -240,6 +273,13 @@ class Codec:
 
     def __repr__(self):
         return f"Codec(block_elems={self.config.block_elems})"
+
+    def configure(self, config: CodecConfig) -> "Codec":
+        """Swap the config in place; returns ``self``.  The port keeps no
+        compile cache, so nothing is invalidated; plans built under the
+        old config no longer execute on this codec."""
+        self.config = config
+        return self
 
     # -- counters ---------------------------------------------------------
 
@@ -312,23 +352,30 @@ class Codec:
 
     # -- plan_encode ------------------------------------------------------
 
-    def plan_encode(self, inputs: Sequence[torch.Tensor], *,
-                    stacked: bool = False, p: Optional[EnecParams] = None,
+    def plan_encode(self, tree, *, stacked: bool = False,
+                    p: Optional[EnecParams] = None,
                     block_elems: Optional[int] = None,
                     shards: int = 1) -> EncodePlan:
-        """Encode schedule for a list of tensors.  ``stacked=True`` treats
-        each as an ``(L, ...)`` layer stack (escapes resolve to ``None``);
+        """Encode schedule for every tensor leaf of ``tree`` (a list of
+        tensors, or nested dicts and lists).  ``stacked=True`` treats each
+        as an ``(L, ...)`` layer stack (escapes resolve to ``None``);
         ``stacked=False`` compresses each as one tensor (escapes become
-        const / raw tensors).  Statistics of all inputs reach the host in
-        one transfer; nothing is encoded until :meth:`execute`."""
+        const / raw tensors; :meth:`compress_tree`).  Statistics of all
+        inputs reach the host in one transfer; nothing is encoded until
+        :meth:`execute`."""
         if p is None:
             p = self.config.shared_params
         if block_elems is None:
             block_elems = self.config.block_elems
-        leaves = list(inputs)
+        leaves = [leaf for _, leaf in tree_leaves(tree)]
         fallbacks: dict = {}     # slot -> ("dense" | "const", first bits)
         prepared = []
         for slot, x in enumerate(leaves):
+            if x is None:
+                fallbacks[slot] = ("none", None)
+                continue
+            if not isinstance(x, torch.Tensor):
+                x = leaves[slot] = torch.as_tensor(x)
             xs = x if stacked else x.reshape((1,) + tuple(x.shape))
             if xs.ndim < 1 or xs.dtype not in SUPPORTED_FLOAT_DTYPES \
                     or xs.numel() == 0:
@@ -356,7 +403,8 @@ class Codec:
             groups.setdefault(key, []).append(dict(
                 slot=slot, fmt=fmt, p=pi, blocks=blocks,
                 n_layers=bits2d.shape[0], layer_shape=layer_shape,
-                dtype_str=dtype_str, per_layer_blocks=per_layer_blocks))
+                dtype_str=dtype_str, per_layer_blocks=per_layer_blocks,
+                raw_bytes=bits2d.numel() * fmt.total_bits // 8))
 
         buckets = []
         for key, members in groups.items():
@@ -364,24 +412,28 @@ class Codec:
             buckets.append(EncodeBucket(
                 fmt_name=key[0], params_key=key[1], block_elems=key[2],
                 block_bucket=nblocks, nblocks=nblocks,
-                n_tensors=len(members)))
+                n_tensors=len(members),
+                predicted_wire_bytes=sum(
+                    int(m["raw_bytes"] / expected_ratio(m["p"], m["fmt"]))
+                    for m in members)))
         self._encode_stats["planned_buckets"] += len(buckets)
         return EncodePlan(
             config=self.config, buckets=tuple(buckets),
             n_inputs=len(leaves), n_fallback=len(fallbacks),
             stacked=stacked, shards=shards, block_elems=block_elems,
             _groups=list(groups.values()), _fallbacks=fallbacks,
-            _leaves=leaves)
+            _leaves=leaves, _tree=tree)
 
     # -- plan_decode ------------------------------------------------------
 
-    def plan_decode(self, cts: Sequence[Any]) -> DecodePlan:
-        """Decode schedule for a list of :class:`CompressedTensor` (other
-        entries pass through; ``None`` holes stay ``None`` and, as in the
-        reference's pytree flatten, are not counted).  Tensors sharing
-        ``(fmt, (n, m, L), block_elems)`` form one :class:`DecodeBucket` ==
-        one launch."""
-        leaves = list(cts)
+    def plan_decode(self, tree) -> DecodePlan:
+        """Decode schedule for every :class:`CompressedTensor` of ``tree``
+        (a list, or nested dicts and lists; other leaves pass through,
+        ``None`` holes stay ``None`` and, as in the reference's pytree
+        flatten, are not counted as passthrough).  Tensors sharing ``(fmt,
+        (n, m, L), block_elems)`` form one :class:`DecodeBucket` == one
+        launch."""
+        leaves = [leaf for _, leaf in tree_leaves(tree)]
         passthrough: dict = {}    # slot -> "ct" (const / raw) | "identity"
         groups: Dict[tuple, list] = {}
         for slot, leaf in enumerate(leaves):
@@ -409,13 +461,13 @@ class Codec:
             config=self.config, buckets=tuple(buckets),
             n_inputs=len(leaves), n_passthrough=len(passthrough),
             _groups=list(groups.values()),
-            _passthrough=passthrough, _leaves=leaves)
+            _passthrough=passthrough, _leaves=leaves, _tree=tree)
 
     # -- execute ----------------------------------------------------------
 
     def execute(self, plan, out=None):
-        """Run a plan: exactly ``len(plan.buckets)`` launches.  Returns one
-        entry per input.  ``out`` (decode plans only): one (nblocks,
+        """Run a plan: exactly ``len(plan.buckets)`` launches.  Returns the
+        planned tree with each leaf replaced by its result.  ``out`` (decode plans only): one (nblocks,
         block_elems) bit tensor per bucket, in bucket order, that the
         bucket decodes into; each result is then a view of it."""
         if isinstance(plan, EncodePlan):
@@ -492,7 +544,7 @@ class Codec:
                     results[slot] = None
         if not plan.stacked:
             results = self._finish_per_leaf(plan, results)
-        return results
+        return _rebuild(plan._tree, results)
 
     def _finish_per_leaf(self, plan: EncodePlan, results):
         """Per-tensor semantics: unwrap the L=1 stacks and resolve escapes
@@ -507,7 +559,9 @@ class Codec:
                 continue
             x = plan._leaves[slot]
             kind, first = plan._fallbacks.get(slot, ("dense", None))
-            if kind == "const":
+            if kind == "none":
+                out.append(None)
+            elif kind == "const":
                 out.append(const_tensor(int(first[0]), x, format_for(x.dtype),
                                         plan.block_elems, plan.shards))
             else:
@@ -542,7 +596,7 @@ class Codec:
                     block_codec.from_blocks(bits_m, ct.shape, ct.fmt)
                     if m["stack"] is None
                     else _stacked_from_bits(ct, m["stack"], bits_m))
-        return results
+        return _rebuild(plan._tree, results)
 
     # -- conveniences over plan/execute -----------------------------------
 
@@ -557,6 +611,27 @@ class Codec:
         return self.execute(self.plan_encode(
             stacks, stacked=True, p=p, block_elems=block_elems,
             shards=shards))
+
+    def compress_stacked(self, x: torch.Tensor,
+                         p: Optional[EnecParams] = None,
+                         block_elems: Optional[int] = None,
+                         shards: int = 1) -> Optional[CompressedTensor]:
+        """Compress one ``(L, ...)`` layer stack in one encode launch;
+        ``None`` when the stack must stay dense."""
+        return self.compress_stacked_many([x], p, block_elems, shards)[0]
+
+    def compress_tree(self, tree, shared_params: Optional[EnecParams] = None,
+                      block_elems: Optional[int] = None, shards: int = 1):
+        """Compress every tensor leaf of ``tree`` as one tensor, in
+        O(#buckets) encode launches; float leaves get per-tensor searched
+        params (or ``shared_params`` / the config's)."""
+        return self.execute(self.plan_encode(
+            tree, stacked=False, p=shared_params, block_elems=block_elems,
+            shards=shards))
+
+    def decompress_tree(self, ctree):
+        """Inverse of :meth:`compress_tree` in O(#buckets) launches."""
+        return self.execute(self.plan_decode(ctree))
 
     def compress_array(self, x: torch.Tensor,
                        p: Optional[EnecParams] = None,
@@ -586,6 +661,21 @@ class Codec:
                         f"{shards} shards")
         return self.compress_stacked_many(
             tiles, p=p, block_elems=DEFAULT_BLOCK_ELEMS, shards=shards)
+
+    def tile_weights_for_fusion(self, w: torch.Tensor,
+                                p: Optional[EnecParams] = None
+                                ) -> CompressedTensor:
+        """Compress one (L, K, N) / (K, N) weight tile-wise for the fused
+        kernel (a (K, N) weight gives the streams of one layer); raises on
+        the incompressible or constant escape."""
+        ct = self.tile_weights_for_fusion_many([w], p)[0]
+        if ct is None:
+            raise ValueError(
+                "weight is incompressible or constant: serve it dense")
+        if w.ndim == 2:
+            ct = dataclasses.replace(ct, streams=ct.streams.map(
+                lambda a: a[0]))
+        return ct
 
     def decompress_array(self, ct: CompressedTensor) -> torch.Tensor:
         """Exact inverse of compression for one (per-layer or L=1) tensor:
@@ -654,6 +744,6 @@ def use_codec(codec: Codec):
         _AMBIENT.reset(token)
 
 
-__all__ = ["LINKS", "CodecConfig", "Codec", "EncodeBucket", "DecodeBucket",
+__all__ = ["BACKENDS", "LINKS", "CodecConfig", "Codec", "EncodeBucket", "DecodeBucket",
            "EncodePlan", "DecodePlan", "default_codec", "set_default_codec",
            "current_codec", "use_codec"]

@@ -1,7 +1,8 @@
 """Tensor statistics for the compression pipeline (port of
 ``repro/core/stats.py``): exponent histogram, exact exponent min/max and
 per-layer const flags, computed on the tensor's device; only those few
-hundred values cross to the host, in one transfer for many stacks.
+hundred values cross to the host, in one transfer for many stacks; and
+the exact histogram of :func:`exponent_histogram_device`.
 
 Above ``HIST_SAMPLE_CAP`` elements the histogram is taken over the same
 strided sample as the reference (stride ``max(1, size // cap) | 1``), so
@@ -73,3 +74,15 @@ def fetch_stats(device_stats) -> list:
 def stack_stats(bits2d: torch.Tensor, fmt: FloatFormat) -> StackStats:
     """Statistics of one ``(L, N)`` stack (one transfer)."""
     return fetch_stats([stack_stats_device(bits2d, fmt)])[0]
+
+
+def exponent_histogram_device(x: torch.Tensor, fmt: FloatFormat
+                              ) -> torch.Tensor:
+    """EXACT exponent histogram of a float tensor, on its device: equal
+    bin for bin to ``params.exponent_histogram`` (no sampling, unlike
+    :func:`stack_stats_device`).  Integer work only: the bit patterns in
+    ``fmt.work_dtype``, masked after the shift.  The (2**exp_bits,) int64
+    result stays on the device so callers can batch the transfer."""
+    bits = x.reshape(-1).contiguous().view(fmt.bits_dtype).to(fmt.work_dtype)
+    exp = (bits >> fmt.mant_bits) & fmt.exp_mask
+    return torch.bincount(exp, minlength=1 << fmt.exp_bits)

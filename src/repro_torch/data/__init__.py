@@ -1,0 +1,1 @@
+"""Seeded synthetic data of the port (counterpart of ``repro.data``)."""

@@ -33,7 +33,8 @@ Overlap: ``--overlap {off,on,auto}`` (default auto, as the reference)
 sets ``cfg.overlap``: with streamed weights in the layer loop (stream mode,
 and MoE expert stacks in fused mode) each layer's weights are decoded by
 one batched decode issued a layer ahead, on a side stream on the card
-(``runtime/overlap.py``); logits are bitwise equal either way.
+(``runtime/overlap.py``; a stack of one period runs serially); logits are
+bitwise equal either way.
 
 Checkpoints: ``--save-ckpt DIR`` writes an enec-v2 checkpoint of the
 compressed weights (in the serving layout of the mode; with a store, the
@@ -326,7 +327,7 @@ def _serve(args, cfg, model, codec, dev) -> dict:
     stats = stream_stats(params)
     n_periods = cfg.n_layers // len(params["period"])
     overlap = {"mode": args.overlap, "enabled": overlap_enabled(
-        args.overlap, params["period"])}
+        args.overlap, params["period"], n_periods)}
     if overlap["enabled"]:
         schedule = build_schedule(params["period"], n_periods)
         overlap.update(slots=len(schedule.slots),

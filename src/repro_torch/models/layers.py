@@ -1,5 +1,7 @@
-"""Transformer primitives, dense path (port of ``repro/models/layers.py``):
-norms, rotary embeddings, GQA attention, gated MLP, embeddings.
+"""Transformer primitives (port of ``repro/models/layers.py``): norms,
+rotary embeddings, GQA attention (causal, with an optional bidirectional
+prefix), gated MLP, embeddings, and the fixed-order sums and f32 gate
+functions of the recurrent blocks.
 
 Conventions follow the reference: activations bf16 (``ACT_DTYPE`` casts in
 the same places), matmuls accumulate in f32, norms and softmax in f32.
@@ -19,6 +21,7 @@ from repro_torch.runtime.weights import WeightHandle
 
 ACT_DTYPE = torch.bfloat16
 KV_CHUNK = 2048
+DECODE_CHUNK = 1024     # cache positions a decode step's sums take at once
 
 
 def weight_matmul(w, x: torch.Tensor) -> torch.Tensor:
@@ -63,6 +66,47 @@ def embed_init(shape, gen, device, dtype=ACT_DTYPE):
 # ---------------------------------------------------------------------------
 # norms and rotary embeddings
 # ---------------------------------------------------------------------------
+
+def fixed_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis by a fixed pairwise tree of elementwise adds
+    (zero-padded to a power of two; element j and j + half first, as
+    ``kernels/ref.py:tile_product``), so each output's bits depend on its
+    own row alone: never on the batch, on a CUDA graph or on the library's
+    choice of a reduction kernel for the shape."""
+    n = t.shape[-1]
+    width = 1 << max(0, (n - 1).bit_length())
+    if width != n:
+        t = F.pad(t, (0, width - n))
+    while t.shape[-1] > 1:
+        h = t.shape[-1] // 2
+        t = t[..., :h] + t[..., h:]
+    return t[..., 0]
+
+
+def fixed_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``fixed_sum(a * b)`` for f32 ``a`` and bf16-valued ``b``, the
+    tree's first level taken in the products (``addcmul_``), so the full
+    product is never written.  Each product of two bf16 values is exact
+    in f32, so a fused multiply-add rounds as the separate add does."""
+    n = max(a.shape[-1], b.shape[-1])
+    if n == 1:
+        return (a * b)[..., 0]
+    h = 1 << ((n - 1).bit_length() - 1)     # half the padded width
+    t = a[..., :h] * b[..., :h]
+    if n > h:
+        t[..., :n - h].addcmul_(a[..., h:], b[..., h:])
+    return fixed_sum(t)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``) in its own formula."""
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``."""
+    return -softplus(-x)
+
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
     xf = x.float()
@@ -155,10 +199,11 @@ def _heads_last(t):
     return t.squeeze(-1).transpose(1, 2)[..., None]
 
 
-def flash_attention(q, k, v, *, chunk: int = KV_CHUNK):
+def flash_attention(q, k, v, *, prefix_len: int = 0, chunk: int = KV_CHUNK):
     """Causal streaming-softmax attention over KV chunks (the reference's
-    algorithm, queries and keys from the same positions).
-    q: (B, Tq, H, hd); k, v: (B, S, KV, hd)."""
+    algorithm, queries and keys from the same positions); keys at
+    positions < ``prefix_len`` are visible to every query (PaliGemma's
+    bidirectional prefix).  q: (B, Tq, H, hd); k, v: (B, S, KV, hd)."""
     b, tq, h, hd = q.shape
     s_total = k.shape[1]
     scale = 1.0 / math.sqrt(hd)
@@ -176,7 +221,8 @@ def flash_attention(q, k, v, *, chunk: int = KV_CHUNK):
         kc, vc = k[:, lo:hi], v[:, lo:hi]
         scores = _chunk_scores(q, kc, scale)
         k_pos = lo + torch.arange(hi - lo, device=dev)[None, :]
-        scores = torch.where((k_pos <= q_pos)[None, None], scores, -inf)
+        visible = (k_pos <= q_pos) | (k_pos < prefix_len)
+        scores = torch.where(visible[None, None], scores, -inf)
         m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
         m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
         p = torch.exp(scores - m_safe)
@@ -194,25 +240,47 @@ def flash_attention(q, k, v, *, chunk: int = KV_CHUNK):
 
 def decode_attention(q, k_cache, v_cache, lengths):
     """Single-token decode: q (B, 1, H, hd) over caches (B, S, KV, hd);
-    ``lengths`` (B,) valid entries per sequence."""
-    h, hd = q.shape[2], q.shape[3]
-    s_len = k_cache.shape[1]
-    scores = _chunk_scores(q, k_cache, 1.0 / math.sqrt(hd))
-    k_pos = torch.arange(s_len, device=q.device)[None, None, None, :]
-    bias = torch.where(k_pos < lengths[:, None, None, None], 0.0, -1e30)
-    scores = scores + bias
-    m = scores.amax(dim=-1, keepdim=True)
-    p = torch.exp(scores - m)
-    probs = p / p.sum(dim=-1, keepdim=True)
-    return _chunk_out(probs.to(ACT_DTYPE), v_cache, h)
+    ``lengths`` (B,) valid entries per sequence.
+
+    Every sum is a fixed-order sum of exact elementwise products (the
+    scores over hd, the softmax denominator and P.V over S:
+    :func:`fixed_dot` / :func:`fixed_sum` within a chunk of
+    ``DECODE_CHUNK`` positions, the chunks added in order), so a row's
+    bits do not depend on the batch around it: a library's batched
+    product picks its kernel, and with it its summation order, by the
+    batch's shape (on the card PaliGemma's single KV head gave a row
+    other bits at batch 1 than at batch 4)."""
+    b, _, h, hd = q.shape
+    s_len, kv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, kv, h // kv, 1, hd).float()
+    chunks = range(0, s_len, DECODE_CHUNK)
+    parts = [fixed_dot(qg, k_cache[:, lo:lo + DECODE_CHUNK]
+                       .permute(0, 2, 1, 3)[:, :, None]) for lo in chunks]
+    scores = (parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)) \
+        * (1.0 / math.sqrt(hd))                           # (B, KV, g, S)
+    k_pos = torch.arange(s_len, device=q.device)
+    scores = torch.where(k_pos < lengths[:, None, None, None], scores,
+                         -1e30)
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    denom = out = None
+    for lo in chunks:
+        part = fixed_sum(p[..., lo:lo + DECODE_CHUNK])
+        denom = part if denom is None else denom + part
+    probs = (p / denom[..., None]).to(ACT_DTYPE).float()
+    for lo in chunks:
+        vc = v_cache[:, lo:lo + DECODE_CHUNK].permute(0, 2, 3, 1)
+        part = fixed_dot(probs[..., None, lo:lo + DECODE_CHUNK],
+                         vc[:, :, None])                  # (B, KV, g, hd)
+        out = part if out is None else out + part
+    return out.reshape(b, 1, h, hd)
 
 
 def attention_block(p, x, s: AttnParamsShape, positions, theta, *,
-                    chunk=KV_CHUNK):
-    """Full-sequence causal self attention (prefill). Returns
-    (out, (k, v))."""
+                    prefix_len: int = 0, chunk=KV_CHUNK):
+    """Full-sequence causal self attention (prefill), the first
+    ``prefix_len`` positions visible to all. Returns (out, (k, v))."""
     q, k, v = _project_qkv(p, x, s, positions, theta)
-    out = flash_attention(q, k, v, chunk=chunk)
+    out = flash_attention(q, k, v, prefix_len=prefix_len, chunk=chunk)
     out = weight_matmul(p["wo"], out.reshape(x.shape[0], x.shape[1], -1))
     return out.to(x.dtype), (k, v)
 

@@ -1,16 +1,28 @@
-"""Decoder-only LM, dense and MoE families (port of those paths of
-``repro/models/lm.py``): init, prefill and one-token decode, and the
-serving engine's decode step over fixed buffers (:func:`decode_step`).
+"""Unified decoder-only LM (port of ``repro/models/lm.py``) covering the
+dense, MoE, xLSTM, Jamba-hybrid and prefix-VLM families through per-period
+block programs: init, prefill and one-token decode, and the serving
+engine's decode step over fixed buffers (:func:`decode_step`).
 
+A *block program* is one period of per-layer descriptors; the model is
+``n_layers // len(program)`` repetitions of it (xLSTM: period 4 = mLSTM x3
++ sLSTM; Jamba: period 8 = Mamba x7 with attention at position 4, MoE at
+odd positions and MLP at even ones; dense, MoE and VLM: period 1).
 Parameters are a nested dict with the reference's layout: ``embed``,
 ``period`` (a list with one dict per program position whose leaves are
-stacked over layers), ``final_norm`` and, untied, ``head``.  Weight
+stacked over periods), ``final_norm`` and, untied, ``head``.  Weight
 handles (``runtime/weights.py``) may replace leaves; the layer loop is a
 Python loop that takes layer ``i`` of every stacked leaf.  When
-``cfg.overlap`` allows it and the period holds streamed weights, the loop
-runs as the decode-prefetch pipeline of ``runtime/overlap.py`` (layer
-i+1's batched decode issued before layer i's compute, on a side stream on
-the card); the logits are bitwise equal either way.
+``cfg.overlap`` allows it, the period holds streamed weights and there is
+more than one period, the loop runs as the decode-prefetch pipeline of
+``runtime/overlap.py`` (period i+1's batched decode issued before period
+i's compute, on a side stream on the card); the logits are bitwise equal
+either way.
+
+The decode cache holds, per program position, the attention K/V ring or
+the recurrent state (Mamba ``h`` / ``conv``, mLSTM ``c`` / ``n`` / ``m``,
+sLSTM ``c`` / ``n`` / ``h`` / ``m``), stacked over periods.  A decode step
+updates every one of them in place, so the engine's step runs on fixed
+buffers and replays as a CUDA graph.
 """
 from __future__ import annotations
 
@@ -25,24 +37,32 @@ from repro_torch.runtime.weights import is_handle
 from repro_torch.runtime.weights import resolve as resolve_weights
 
 from . import moe as moe_lib
+from . import ssm as ssm_lib
+from . import xlstm as xlstm_lib
 from .layers import (ACT_DTYPE, AttnParamsShape, attention_block,
                      attention_decode_block, dense_init, embed_init,
                      embed_tokens, init_attention, init_mlp, lm_logits,
                      mlp_block, rms_norm)
 
-
 class BlockDesc(NamedTuple):
-    seq: str               # attn
-    ffn: Optional[str]     # mlp | moe
+    seq: str               # attn | mamba | mlstm | slstm
+    ffn: Optional[str]     # mlp | moe | None
 
 
 def block_program(cfg) -> list:
-    """cfg -> list[BlockDesc] (one period); the dense and MoE families."""
-    if cfg.family == "dense":
+    """cfg -> list[BlockDesc] (one period)."""
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
         return [BlockDesc("attn", "mlp")]
-    if cfg.family == "moe":
+    if fam == "moe":
         return [BlockDesc("attn", "moe")]
-    raise ValueError(f"{cfg.name}: family {cfg.family!r} is not ported yet")
+    if fam == "ssm":      # xLSTM 3:1 mLSTM:sLSTM
+        return [BlockDesc("mlstm", None), BlockDesc("mlstm", None),
+                BlockDesc("mlstm", None), BlockDesc("slstm", None)]
+    if fam == "hybrid":   # Jamba: attn 1-of-8, MoE every other layer
+        return [BlockDesc("attn" if i == 4 else "mamba",
+                          "moe" if i % 2 == 1 else "mlp") for i in range(8)]
+    raise ValueError(f"{cfg.name}: family {fam!r} is not ported yet")
 
 
 def attn_shape(cfg) -> AttnParamsShape:
@@ -51,40 +71,64 @@ def attn_shape(cfg) -> AttnParamsShape:
                            cfg.qk_norm)
 
 
+# leaves kept in f32 (every other leaf is bf16)
+F32_LEAVES = frozenset({"router", "a_log", "d_skip", "wi", "wf"})
+
+
+def _position_shapes(desc: BlockDesc, cfg) -> dict:
+    """One layer of one program position: relative path -> (shape,
+    dtype), the layout :func:`init_params` builds."""
+    d, bf = cfg.d_model, ACT_DTYPE
+    out = {"pre_norm": ((d,), bf)}
+    if desc.seq == "attn":
+        s = attn_shape(cfg)
+        hq, hkv = s.n_heads * s.head_dim, s.n_kv_heads * s.head_dim
+        out.update({"attn/wq": ((d, hq), bf), "attn/wk": ((d, hkv), bf),
+                    "attn/wv": ((d, hkv), bf), "attn/wo": ((hq, d), bf)})
+        if s.qk_norm:
+            out.update({"attn/q_norm": ((s.head_dim,), bf),
+                        "attn/k_norm": ((s.head_dim,), bf)})
+    else:
+        leaves = {"mamba": lambda: ssm_lib.mamba_shapes(
+                      d, cfg.ssm_state, cfg.conv_dim),
+                  "mlstm": lambda: xlstm_lib.mlstm_shapes(d, cfg.n_heads),
+                  "slstm": lambda: xlstm_lib.slstm_shapes(d)}[desc.seq]()
+        out.update({f"{desc.seq}/{k}": v for k, v in leaves.items()})
+    if desc.ffn is not None:
+        out["post_norm"] = ((d,), bf)
+    if desc.ffn == "mlp":
+        f = cfg.d_ff
+        out.update({"mlp/w_gate": ((d, f), bf), "mlp/w_up": ((d, f), bf),
+                    "mlp/w_down": ((f, d), bf)})
+    elif desc.ffn == "moe":
+        e, f = cfg.n_experts, cfg.moe_d_ff
+        out.update({"moe/router": ((d, e), torch.float32),
+                    "moe/e_gate": ((e, d, f), bf),
+                    "moe/e_up": ((e, d, f), bf),
+                    "moe/e_down": ((e, f, d), bf)})
+    return out
+
+
 def param_shapes(cfg) -> dict:
     """The parameter tree's leaf shapes, keyed by path ("period/0/attn/wq");
     the layout :func:`init_params` builds."""
     program = block_program(cfg)
-    n, d, s = cfg.n_layers // len(program), cfg.d_model, attn_shape(cfg)
-    hq, hkv = s.n_heads * s.head_dim, s.n_kv_heads * s.head_dim
+    n, d = cfg.n_layers // len(program), cfg.d_model
     shapes = {"embed": (cfg.vocab_size, d), "final_norm": (d,)}
     for pos, desc in enumerate(program):
-        pre = f"period/{pos}"
-        shapes.update({
-            f"{pre}/pre_norm": (n, d), f"{pre}/post_norm": (n, d),
-            f"{pre}/attn/wq": (n, d, hq), f"{pre}/attn/wk": (n, d, hkv),
-            f"{pre}/attn/wv": (n, d, hkv), f"{pre}/attn/wo": (n, hq, d)})
-        if desc.ffn == "mlp":
-            shapes.update({f"{pre}/mlp/w_gate": (n, d, cfg.d_ff),
-                           f"{pre}/mlp/w_up": (n, d, cfg.d_ff),
-                           f"{pre}/mlp/w_down": (n, cfg.d_ff, d)})
-        else:
-            e, f = cfg.n_experts, cfg.moe_d_ff
-            shapes.update({f"{pre}/moe/router": (n, d, e),
-                           f"{pre}/moe/e_gate": (n, e, d, f),
-                           f"{pre}/moe/e_up": (n, e, d, f),
-                           f"{pre}/moe/e_down": (n, e, f, d)})
-        if s.qk_norm:
-            shapes.update({f"{pre}/attn/q_norm": (n, s.head_dim),
-                           f"{pre}/attn/k_norm": (n, s.head_dim)})
+        for rel, (shape, _) in _position_shapes(desc, cfg).items():
+            shapes[f"period/{pos}/{rel}"] = (n,) + shape
     if not cfg.tie_embeddings:
         shapes["head"] = (d, cfg.vocab_size)
     return shapes
 
 
 def param_dtype(path: str) -> torch.dtype:
-    """A leaf's dtype: the MoE router is f32, every other leaf bf16."""
-    return torch.float32 if path.endswith("/router") else ACT_DTYPE
+    """A leaf's dtype: the MoE router, Mamba's ``a_log`` / ``d_skip`` and
+    mLSTM's gate projections ``wi`` / ``wf`` are f32, every other leaf
+    bf16."""
+    return torch.float32 if path.rsplit("/", 1)[-1] in F32_LEAVES \
+        else ACT_DTYPE
 
 
 def abstract_params(cfg) -> dict:
@@ -110,23 +154,33 @@ def init_params(cfg, *, seed: int = 0, device="cuda"):
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     program = block_program(cfg)
-    n_periods = cfg.n_layers // len(program)
+    n = cfg.n_layers // len(program)
+    d = cfg.d_model
     zeros = lambda *shape: torch.zeros(shape, dtype=ACT_DTYPE, device=dev)  # noqa: E731
     period = []
     for desc in program:
-        p = {"pre_norm": zeros(n_periods, cfg.d_model),
-             "attn": init_attention(n_periods, attn_shape(cfg), gen, dev),
-             "post_norm": zeros(n_periods, cfg.d_model)}
-        if desc.ffn == "mlp":
-            p["mlp"] = init_mlp(n_periods, cfg.d_model, cfg.d_ff, gen, dev)
+        p = {"pre_norm": zeros(n, d)}
+        if desc.seq == "attn":
+            p["attn"] = init_attention(n, attn_shape(cfg), gen, dev)
+        elif desc.seq == "mamba":
+            p["mamba"] = ssm_lib.init_mamba(n, d, cfg.ssm_state,
+                                            cfg.conv_dim, gen, dev)
+        elif desc.seq == "mlstm":
+            p["mlstm"] = xlstm_lib.init_mlstm(n, d, cfg.n_heads, gen, dev)
         else:
-            p["moe"] = moe_lib.init_moe(n_periods, cfg.d_model, cfg.moe_d_ff,
-                                        cfg.n_experts, gen, dev)
+            p["slstm"] = xlstm_lib.init_slstm(n, d, gen, dev)
+        if desc.ffn is not None:
+            p["post_norm"] = zeros(n, d)
+        if desc.ffn == "mlp":
+            p["mlp"] = init_mlp(n, d, cfg.d_ff, gen, dev)
+        elif desc.ffn == "moe":
+            p["moe"] = moe_lib.init_moe(n, d, cfg.moe_d_ff, cfg.n_experts,
+                                        gen, dev)
         period.append(p)
-    params = {"embed": embed_init((cfg.vocab_size, cfg.d_model), gen, dev),
-              "period": period, "final_norm": zeros(cfg.d_model)}
+    params = {"embed": embed_init((cfg.vocab_size, d), gen, dev),
+              "period": period, "final_norm": zeros(d)}
     if not cfg.tie_embeddings:
-        params["head"] = dense_init((cfg.d_model, cfg.vocab_size), gen, dev)
+        params["head"] = dense_init((d, cfg.vocab_size), gen, dev)
     return params
 
 
@@ -152,25 +206,52 @@ def _ffn(p, cfg, h):
     return out
 
 
-def _apply_position(p, cfg, x, positions):
-    """Full-sequence forward of one attn + mlp/moe block -> (x, K/V)."""
+def _apply_position(p, desc: BlockDesc, cfg, x, positions,
+                    prefix_len: int = 0):
+    """Full-sequence forward of one block -> (x, its cache entry: the
+    attention K/V or the final recurrent state)."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
-    out, kv = attention_block(p["attn"], h, attn_shape(cfg), positions,
-                              cfg.rope_theta, chunk=cfg.attn_chunk)
+    if desc.seq == "attn":
+        out, kv = attention_block(p["attn"], h, attn_shape(cfg), positions,
+                                  cfg.rope_theta, prefix_len=prefix_len,
+                                  chunk=cfg.attn_chunk)
+        entry = {"k": kv[0], "v": kv[1]}
+    elif desc.seq == "mamba":
+        out, entry = ssm_lib.mamba_forward(p["mamba"], h, cfg.ssm_state,
+                                           cfg.conv_dim)
+    elif desc.seq == "mlstm":
+        out, entry = xlstm_lib.mlstm_forward(p["mlstm"], h, cfg.n_heads)
+    else:
+        out, entry = xlstm_lib.slstm_forward(p["slstm"], h)
     x = x + out
-    x = x + _ffn(p, cfg, rms_norm(x, p["post_norm"], cfg.norm_eps))
-    return x, {"k": kv[0], "v": kv[1]}
+    if desc.ffn is not None:
+        x = x + _ffn(p, cfg, rms_norm(x, p["post_norm"], cfg.norm_eps))
+    return x, entry
 
 
-def _apply_position_step(p, cfg, x, cache, lengths):
-    """One-token decode of one attn + mlp/moe block -> (x, K/V)."""
+def _apply_position_step(p, desc: BlockDesc, cfg, x, cache, lengths):
+    """One-token decode of one block; its cache entry (one layer's view of
+    the K/V ring or of the recurrent state) is updated in place."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
-    out, kv = attention_decode_block(p["attn"], h, attn_shape(cfg),
-                                     (cache["k"], cache["v"]), lengths,
-                                     cfg.rope_theta)
+    if desc.seq == "attn":     # writes the new K/V at ``lengths`` itself
+        out, _ = attention_decode_block(p["attn"], h, attn_shape(cfg),
+                                        (cache["k"], cache["v"]), lengths,
+                                        cfg.rope_theta)
+    else:
+        if desc.seq == "mamba":
+            out, new = ssm_lib.mamba_step(p["mamba"], h, cache,
+                                          cfg.ssm_state)
+        elif desc.seq == "mlstm":
+            out, new = xlstm_lib.mlstm_step(p["mlstm"], h, cache,
+                                            cfg.n_heads)
+        else:
+            out, new = xlstm_lib.slstm_step(p["slstm"], h, cache)
+        for k, v in new.items():   # never a view of the old state
+            cache[k].copy_(v)
     x = x + out
-    x = x + _ffn(p, cfg, rms_norm(x, p["post_norm"], cfg.norm_eps))
-    return x, {"k": kv[0], "v": kv[1]}
+    if desc.ffn is not None:
+        x = x + _ffn(p, cfg, rms_norm(x, p["post_norm"], cfg.norm_eps))
+    return x
 
 
 def _head(params, cfg, embed):
@@ -193,66 +274,105 @@ def _run_layers(params, cfg, x, apply_position, extra=None):
     n_periods = cfg.n_layers // n_positions
     period = params["period"]
 
-    def run_period(x, sliced, extra_i):
+    def run_period(x, sliced, extra_i, resolve=False):
         ys = []
         for pos in range(n_positions):
-            x, y = apply_position(sliced[pos], x, pos, extra_i)
+            p = resolve_weights(sliced[pos]) if resolve else sliced[pos]
+            x, y = apply_position(p, x, pos, extra_i)
             ys.append(y)
         return x, ys
 
-    if overlap_enabled(getattr(cfg, "overlap", "auto"), period):
+    if overlap_enabled(getattr(cfg, "overlap", "auto"), period, n_periods):
         schedule = build_schedule(period, n_periods)
         return pipeline_unrolled(
             schedule, lambda x, sliced, extra_i, _i: run_period(
                 x, sliced, extra_i), x, xs_extra=extra)
     ys = []
     for i in range(n_periods):
-        sliced = [resolve_weights(layer_slice(p, i)) for p in period]
+        # each position's weights resolved just before it runs, as the
+        # reference's period body does: one position decoded at a time
+        sliced = [layer_slice(p, i) for p in period]
         extra_i = None if extra is None else [
             {k: e[k][i] for k in e} for e in extra]
-        x, y = run_period(x, sliced, extra_i)
+        x, y = run_period(x, sliced, extra_i, resolve=True)
         ys.append(y)
     return x, ys
 
 
-def forward(params, cfg, tokens: torch.Tensor):
-    """Prompt forward. Returns (normed x, per-position stacked K/V, head)."""
-    program = block_program(cfg)
+def _assemble_inputs(params, cfg, batch: dict):
+    """tokens (+ the optional prefix embeddings, a bidirectional prefix)
+    -> (x, positions, prefix_len)."""
     embed = _dense_leaf(params["embed"])
-    x = embed_tokens(embed, tokens)
+    x = embed_tokens(embed, batch["tokens"])
+    prefix_len = 0
+    if cfg.prefix_embed and "prefix_embeds" in batch:
+        pe = batch["prefix_embeds"].to(ACT_DTYPE)
+        x = torch.cat([pe, x], dim=1)
+        prefix_len = pe.shape[1]
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, kvs = _run_layers(
+    return embed, x, positions, prefix_len
+
+
+def forward(params, cfg, batch: dict):
+    """Prompt forward. Returns (normed x, each position's cache entries
+    stacked over periods, head, prefix_len)."""
+    program = block_program(cfg)
+    embed, x, positions, prefix_len = _assemble_inputs(params, cfg, batch)
+    x, entries = _run_layers(
         params, cfg, x,
-        lambda p, x, pos, _: _apply_position(p, cfg, x, positions))
+        lambda p, x, pos, _: _apply_position(p, program[pos], cfg, x,
+                                             positions, prefix_len))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    caches = [{k: torch.stack([layer[pos][k] for layer in kvs])
-               for k in ("k", "v")} for pos in range(len(program))]
-    return x, caches, _head(params, cfg, embed)
+    caches = [{k: torch.stack([layer[pos][k] for layer in entries])
+               for k in entries[0][pos]} for pos in range(len(program))]
+    return x, caches, _head(params, cfg, embed), prefix_len
 
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda"):
+    """The decode cache of ``batch`` rows, stacked over periods: zeros,
+    and the stabilisers ``m`` of the xLSTM blocks at their initial -1e30
+    (``device="meta"`` gives the shapes with nothing allocated)."""
     program = block_program(cfg)
     n_periods = cfg.n_layers // len(program)
-    s = attn_shape(cfg)
     dev = resolve_device(device)
-    shape = (n_periods, batch, max_len, s.n_kv_heads, s.head_dim)
-    entries = [{"k": torch.zeros(shape, dtype=ACT_DTYPE, device=dev),
-                "v": torch.zeros(shape, dtype=ACT_DTYPE, device=dev)}
-               for _ in program]
+    entries = []
+    for desc in program:
+        if desc.seq == "attn":
+            s = attn_shape(cfg)
+            shape = (n_periods, batch, max_len, s.n_kv_heads, s.head_dim)
+            entries.append({k: torch.zeros(shape, dtype=ACT_DTYPE,
+                                           device=dev) for k in ("k", "v")})
+            continue
+        if desc.seq == "mamba":
+            one = ssm_lib.init_mamba_cache(cfg.d_model, cfg.ssm_state,
+                                           cfg.conv_dim, batch, dev)
+        elif desc.seq == "mlstm":
+            one = xlstm_lib.init_mlstm_cache(cfg.d_model, cfg.n_heads, batch,
+                                             dev)
+        else:
+            one = xlstm_lib.init_slstm_cache(cfg.d_model, batch, dev)
+        entries.append({k: v[None].repeat((n_periods,) + (1,) * v.ndim)
+                        for k, v in one.items()})
     return {"entries": entries,
             "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
 
 def prefill_fn(params, cfg, batch: dict, max_len: int):
-    """Run the prompt, build the cache. Returns (last_token_logits, cache)."""
-    tokens = batch["tokens"]
-    x, caches, head = forward(params, cfg, tokens)
+    """Run the prompt (and its prefix embeddings), build the cache: the
+    attention K/V into the ring's first positions, the recurrent states
+    wholesale.  Returns (last_token_logits, cache)."""
+    x, caches, head, _ = forward(params, cfg, batch)
     b, t = x.shape[0], x.shape[1]
     logits = lm_logits(x[:, -1:], head)[:, 0]
     cache = init_cache(cfg, b, max_len, device=x.device)
-    for entry, got in zip(cache["entries"], caches):
-        entry["k"][:, :, :t] = got["k"].to(ACT_DTYPE)
-        entry["v"][:, :, :t] = got["v"].to(ACT_DTYPE)
+    for desc, entry, got in zip(block_program(cfg), cache["entries"],
+                                caches):
+        if desc.seq == "attn":
+            for k in ("k", "v"):
+                entry[k][:, :, :t] = got[k].to(ACT_DTYPE)
+        else:
+            for k in entry:
+                entry[k].copy_(got[k].to(entry[k].dtype))
     cache["lengths"] = torch.full((b,), t, dtype=torch.int32,
                                   device=x.device)
     return logits, cache
@@ -260,14 +380,15 @@ def prefill_fn(params, cfg, batch: dict, max_len: int):
 
 def decode_fn(params, cfg, cache, tokens: torch.Tensor):
     """One decode step. tokens: (B,) int. Returns (logits (B, V), cache);
-    the cache's K/V tensors are updated in place."""
+    the cache's tensors (K/V and recurrent states) are updated in place."""
+    program = block_program(cfg)
     embed = _dense_leaf(params["embed"])
     x = embed_tokens(embed, tokens[:, None])
     lengths = cache["lengths"].to(torch.int64)
     x, _ = _run_layers(
         params, cfg, x,
-        lambda p, x, pos, entries: _apply_position_step(
-            p, cfg, x, entries[pos], lengths),
+        lambda p, x, pos, entries: (_apply_position_step(
+            p, program[pos], cfg, x, entries[pos], lengths), None),
         extra=cache["entries"])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(x, _head(params, cfg, embed))[:, 0]
@@ -275,9 +396,9 @@ def decode_fn(params, cfg, cache, tokens: torch.Tensor):
 
 
 def init_step_state(cfg, slots: int, max_len: int, device="cuda"):
-    """The buffers of :func:`decode_step`, allocated once: the KV ring of
-    ``slots`` slots (``init_cache``), each slot's last token (int64) and
-    the step's f32 logits."""
+    """The buffers of :func:`decode_step`, allocated once: the cache of
+    ``slots`` slots (``init_cache``: K/V ring and recurrent states), each
+    slot's last token (int64) and the step's f32 logits."""
     state = init_cache(cfg, slots, max_len, device=device)
     dev = state["lengths"].device
     state["tokens"] = torch.zeros((slots,), dtype=torch.int64, device=dev)
@@ -289,12 +410,12 @@ def init_step_state(cfg, slots: int, max_len: int, device="cuda"):
 def decode_step(params, cfg, state, bucket: int) -> None:
     """One decode step over the slots ``[0, bucket)`` of
     :func:`init_step_state`'s buffers, in place: :func:`decode_fn` on a
-    view of the ring (it writes each row's K/V at its length), then the
-    step's logits, each row's greedy token and its length + 1 are copied
-    into the buffers.  Nothing it allocates outlives it, so a CUDA graph
+    view of the cache (it writes each row's K/V at its length and renews
+    each row's recurrent state), then the step's logits, each row's greedy
+    token and its length + 1 are copied into the buffers.  Nothing it allocates outlives it, so a CUDA graph
     of it (``runtime/captured.py``) replays on fixed addresses; its bits
     are :func:`decode_fn`'s on the same rows."""
-    sub = {"entries": [{k: e[k][:, :bucket] for k in ("k", "v")}
+    sub = {"entries": [{k: t[:, :bucket] for k, t in e.items()}
                        for e in state["entries"]],
            "lengths": state["lengths"][:bucket]}
     logits, _ = decode_fn(params, cfg, sub, state["tokens"][:bucket])

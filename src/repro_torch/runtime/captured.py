@@ -10,7 +10,11 @@ use and replays it from then on:
   so the kernels are built, their attributes set and each kernel's
   per-stream arrival counters made before the capture (the wrappers
   refuse to make those inside one).  The warm-up writes the same K/V at
-  the same positions as the replay that follows, from the same inputs.
+  the same positions as the replay that follows, from the same inputs;
+  the state a step carries over in place and ``load`` does not renew
+  (the recurrent families' states, ``carried``) is saved before the
+  warm-up and put back after it, so the first replay starts from the
+  state the warm-up found.
 * Every bucket's graph draws on one memory pool
   (``torch.cuda.graph_pool_handle``): a stream-mode step decodes a
   layer's weights inside the step, and minitron_4b a 1.57 GB embed, so
@@ -89,8 +93,12 @@ class CapturedStep:
     through one CUDA graph per bucket on ``device``, eagerly on the CPU."""
 
     def __init__(self, step: Callable[[int], None], device,
-                 max_slots: int, eager: bool = False):
+                 max_slots: int, eager: bool = False,
+                 carried: Optional[Callable[[], list]] = None):
         self.step = step
+        # the tensors the step advances in place that ``load`` does not
+        # renew; a warm-up must leave them as it found them
+        self.carried = carried
         self.device = torch.device(device)
         self.eager = eager               # run every step eagerly
         self.max_graphs = (max_slots - 1).bit_length() + 1
@@ -121,7 +129,12 @@ class CapturedStep:
         current = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
+            carried = self.carried() if self.carried is not None else []
+            saved = [t.clone() for t in carried]
             self._run_step(bucket)                   # the warm-up
+            for t, old in zip(carried, saved):
+                t.copy_(old)
+            del carried, saved
         current.wait_stream(self.stream)
         self.warmup_launches[bucket] = _delta(build.counts(), before)
         graph = torch.cuda.CUDAGraph()

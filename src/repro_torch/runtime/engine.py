@@ -6,13 +6,15 @@ decode together as one batched step, and leave one by one: completion,
 deadline eviction and fault eviction all happen per request while the rest
 of the batch goes on.
 
-* **Slot ring, not per-request caches.**  One KV ring of ``max_slots``
-  slots and the step's token, length and logits buffers are allocated once
+* **Slot ring, not per-request caches.**  One cache of ``max_slots``
+  slots (the KV ring and, for the recurrent families, each block's state)
+  and the step's token, length and logits buffers are allocated once
   (``model.init_step_state``).  A request joins by prefilling alone (batch
-  1, eagerly) and copying its cache into its slot, and leaves by having the
-  slot marked free, its length reset to 0.  A row's bits do not depend on
-  the rows beside it, so engine logits are bitwise equal to the one-shot
-  path (tests/test_torch_engine.py in all three weight modes).
+  1, eagerly) and copying its whole cache into its slot, and leaves by
+  having the slot marked free, its length reset to 0.  A row's bits do
+  not depend on the rows beside it, so engine logits are bitwise equal to
+  the one-shot path (tests/test_torch_engine.py in all three weight
+  modes, tests/test_torch_families.py for the recurrent families).
 * **Batch buckets bound the graphs.**  The decode step runs on the slot
   prefix ``[0, bucket)``, ``bucket`` the smallest power of two covering
   the highest occupied slot (capped at ``max_slots``).  On the card each
@@ -188,7 +190,8 @@ class Engine:
         engine = weakref.ref(self)
         self.captured = CapturedStep(
             lambda bucket: engine()._step_body(bucket), self.device, s,
-            eager=expert_store is not None)
+            eager=expert_store is not None,
+            carried=lambda: engine()._carried())
 
         self.counters = {"submitted": 0, "admitted": 0, "done": 0,
                          "timed_out": 0, "rejected": 0, "shed": 0,
@@ -230,6 +233,14 @@ class Engine:
 
     def _step_body(self, bucket: int) -> None:
         self.model.decode_step(self.params, self._state, bucket)
+
+    def _carried(self) -> list:
+        """The state a step advances in place and ``_load`` does not
+        renew: every recurrent state tensor of the slot cache (a step
+        rewrites the K/V rings at the same positions, so they need
+        nothing)."""
+        return [t for e in self._state["entries"] for k, t in e.items()
+                if k not in ("k", "v")]
 
     def _h2d_bytes(self) -> int:
         return (self.codec.transfer_stats()["h2d_bytes"]
@@ -399,9 +410,12 @@ class Engine:
         with self._ctx():
             logits, cache = self.model.prefill_fn(
                 self.params, {"tokens": prompt}, self.config.max_len)
+            # every tensor of every entry, the K/V ring's whole row and
+            # each recurrent state: a reused slot keeps nothing of its
+            # last request
             for ring, part in zip(self._state["entries"], cache["entries"]):
-                for k in ("k", "v"):
-                    ring[k][:, slot].copy_(part[k][:, 0])
+                for k, t in part.items():
+                    ring[k][:, slot].copy_(t[:, 0])
             t = int(torch.argmax(logits[0], dim=-1))
         for k, n in _delta(build.counts(), before).items():
             self.prefill_launches[k] += n

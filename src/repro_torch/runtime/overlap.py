@@ -81,14 +81,19 @@ _SIDE: contextvars.ContextVar = contextvars.ContextVar(
 _DEFAULT_SIDE: dict = {}     # device -> the process's side stream
 
 
-def overlap_enabled(mode: str, period) -> bool:
-    """Should the layer loop over ``period`` run pipelined?  "off" never;
-    "on" / "auto" whenever a StreamedWeight is present (dense and fused
-    handles decode inside the matmul kernel or not at all)."""
+def overlap_enabled(mode: str, period, n_periods: int) -> bool:
+    """Should the layer loop over ``period`` (stacked ``n_periods`` deep)
+    run pipelined?  "off" never; "on" / "auto" whenever a StreamedWeight
+    is present (dense and fused handles decode inside the matmul kernel or
+    not at all) and there is a period ahead to prefetch.  A stack of one
+    period (Jamba cut to its 8-layer period) runs serially, each
+    position's weights decoded as it runs: the pipeline would decode that
+    period before anything runs, so it hides nothing, and would hold the
+    whole period decoded at once."""
     if mode not in OVERLAP_MODES:
         raise ValueError(f"unknown overlap mode {mode!r}; "
                          f"expected one of {OVERLAP_MODES}")
-    if mode == "off":
+    if mode == "off" or n_periods < 2:
         return False
     return any(isinstance(leaf, StreamedWeight)
                for _, leaf in tree_leaves(period))

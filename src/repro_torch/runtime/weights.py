@@ -29,7 +29,10 @@ import dataclasses
 import torch
 
 from repro_torch.core.api import (CompressedTensor, slice_stacked,
-                                  untile_matmul_weight)
+                                  tree_map_with_path, untile_matmul_weight)
+# the tree walk lives in core (the codec's tree API walks it too); the
+# runtime's modules take it from here
+from repro_torch.core.api import tree_leaves  # noqa: F401
 from repro_torch.core.codec_api import current_codec
 from repro_torch.kernels import ops
 
@@ -190,33 +193,6 @@ def materialize_full_many(handles, codec=None) -> list:
         [None if isinstance(h, DenseWeight) else h.ct for h in handles])
     return [h.w if isinstance(h, DenseWeight) else finish_materialize(h, d)
             for h, d in zip(handles, decs)]
-
-
-def tree_leaves(tree, path: str = ""):
-    """(path, leaf) pairs of a nested dict/list tree, handles as leaves,
-    dict keys in sorted order: the reference's flatten order, whose
-    positions are the flatten slots of :func:`resolve`'s ``prefetched``."""
-    if isinstance(tree, dict):
-        for k, v in sorted(tree.items()):
-            yield from tree_leaves(v, f"{path}/{k}" if path else str(k))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from tree_leaves(v, f"{path}/{i}" if path else str(i))
-    else:
-        yield path, tree
-
-
-def tree_map_with_path(fn, tree, path: str = ""):
-    """Rebuild ``tree`` with ``fn(path, leaf)`` at every leaf, visited in
-    :func:`tree_leaves` order."""
-    if isinstance(tree, dict):
-        return {k: tree_map_with_path(fn, v, f"{path}/{k}" if path else str(k))
-                for k, v in sorted(tree.items())}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(
-            tree_map_with_path(fn, v, f"{path}/{i}" if path else str(i))
-            for i, v in enumerate(tree))
-    return fn(path, tree)
 
 
 def resolve(tree, codec=None, *, prefetched=None):

@@ -45,6 +45,34 @@ def test_model_init_defaults_to_cuda(monkeypatch):
         build_model(get_smoke_config("llama3_2_1b")).init()
 
 
+# the modules of the tree-level codec API, the Table III weight sets and
+# the recurrent and prefix families, each scanned above
+FAMILY_MODULES = ("core/__init__.py", "core/api.py", "core/stats.py",
+                  "core/codec_api.py", "data/__init__.py",
+                  "data/synthetic_weights.py", "models/ssm.py",
+                  "models/xlstm.py", "models/layers.py", "models/lm.py",
+                  "models/registry.py", "configs/xlstm_125m.py",
+                  "configs/jamba_v0_1_52b.py", "configs/paligemma_3b.py")
+
+
+@pytest.mark.parametrize("rel", FAMILY_MODULES)
+def test_family_modules_are_scanned(rel):
+    assert ROOT / "src" / "repro_torch" / rel in PORT_FILES
+
+
+@pytest.mark.parametrize("arch", ["xlstm_125m", "jamba_v0_1_52b",
+                                  "paligemma_3b"])
+def test_family_init_and_cache_default_to_cuda(monkeypatch, arch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build_model(get_smoke_config(arch))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_step_state(2, 16)
+
+
 def test_serve_on_cpu_when_asked():
     from repro_torch.launch import serve
     out = serve.main(["--smoke", "--device", "cpu", "--tokens", "3",

@@ -110,7 +110,8 @@ def test_overlap_logits_bitwise_on_off_and_stats(arch_setup, mode):
                        runs["on"][0].view(torch.int32)), (arch, mode)
     assert torch.equal(runs["off"][1], runs["on"][1])
     got = stream_stats(tree)
-    assert overlap_enabled("on", tree["period"]) == \
+    n_periods = cfg.n_layers // len(tree["period"])
+    assert overlap_enabled("on", tree["period"], n_periods) == \
         (got["overlap_eligible_tensors"] > 0)
     assert got["streamed_tensors"] == (got["flat_stream_tensors"]
                                        + got["overlap_eligible_tensors"])
@@ -197,14 +198,18 @@ def test_overlap_enabled_policy():
                                    shards=SHARDS)["period"]
     dense = assign_weight_modes(params, mode="dense",
                                 min_bytes=MIN_BYTES)["period"]
-    assert overlap_enabled("on", streamed)
-    assert overlap_enabled("auto", streamed)
-    assert not overlap_enabled("off", streamed)
+    n_periods = cfg.n_layers // len(streamed)
+    assert n_periods >= 2
+    assert overlap_enabled("on", streamed, n_periods)
+    assert overlap_enabled("auto", streamed, n_periods)
+    assert not overlap_enabled("off", streamed, n_periods)
     # nothing to prefetch: auto and on run the serial loop
-    assert not overlap_enabled("auto", dense)
-    assert not overlap_enabled("on", dense)
+    assert not overlap_enabled("auto", dense, n_periods)
+    assert not overlap_enabled("on", dense, n_periods)
+    # a stack of one period: no period ahead to prefetch
+    assert not overlap_enabled("on", streamed, 1)
     with pytest.raises(ValueError, match="overlap mode"):
-        overlap_enabled("sideways", streamed)
+        overlap_enabled("sideways", streamed, n_periods)
     with pytest.raises(TypeError, match="not a StreamedWeight"):
         resolve(dense, prefetched={0: torch.zeros(1)})
 
