@@ -3440,25 +3440,30 @@ def _prefix_logits(model, params) -> "torch.Tensor":
 
 
 def _matmul_row(label, x, w_bytes, k, n, kernel, plain, library, flush,
-                f32: bool) -> dict:
-    """One product held within MATMUL_ATOL of its plain version and timed
-    beside it, torch.matmul and its bound (``w_bytes`` of weight, x and
-    the f32 out once; the products at the peak of their type)."""
+                f32: bool, relative: bool = False, reps=(20, 3, 20)) -> dict:
+    """One product held within MATMUL_ATOL of its plain version (times the
+    larger of 1 and the output's magnitude when ``relative``: f32 operands
+    round the two sums' orders apart) and timed beside it, torch.matmul
+    and its bound (``w_bytes`` of weight, x and the f32 out once; the
+    products at the peak of their type) over ``reps`` calls of the
+    kernel, the plain version and the library."""
     import torch
     m = x.shape[0]
     got, want = kernel(), plain()
     err = float((got - want).abs().max())
-    check(err <= MATMUL_ATOL, f"{label} at M = {m} errs {err} from the "
-          f"plain version")
+    scale = max(1.0, float(want.abs().max())) if relative else 1.0
+    check(err <= MATMUL_ATOL * scale, f"{label} at M = {m} errs {err} from "
+          f"the plain version (tolerance {MATMUL_ATOL} x {scale})")
+    bitwise = bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))
+    del got, want
     flops = F32_FLOPS if f32 else BF16_FLOPS
     bound = 1e3 * max((w_bytes + x.numel() * x.element_size() + m * n * 4)
                       / HBM_BYTES_PER_S, 2 * m * k * n / flops)
-    return {"k": k, "n": n, "m": m, "max_abs_err": err,
-            "bitwise": bool(torch.equal(got.view(torch.int32),
-                                        want.view(torch.int32))),
-            "ms": cuda_ms(kernel, 20, flush),
-            "plain_ms": cuda_ms(plain, 3, flush),
-            "library_ms": cuda_ms(library, 20, flush),
+    return {"k": k, "n": n, "m": m, "max_abs_err": err, "scale": scale,
+            "bitwise": bitwise,
+            "ms": cuda_ms(kernel, reps[0], flush),
+            "plain_ms": cuda_ms(plain, reps[1], flush),
+            "library_ms": cuda_ms(library, reps[2], flush),
             "bound_ms": bound,
             "bound_by": "bytes" if bound > 1e3 * 2 * m * k * n / flops
             else "operations"}
@@ -3469,40 +3474,33 @@ def _dense(leaf):
     return leaf.materialize() if is_handle(leaf) else leaf
 
 
-def _family_dense_tile_checks(cfg, params) -> dict:
-    """Kernel 2' on layer 0 of each distinct weight shape of the dense
-    tree (every product of the recurrent blocks, attention, MLP, router
-    and expert) at M = BATCH (a decode step) and PROMPT (a prefill), and
-    on the head at M = BATCH (a prefill takes the last position's
-    logits), each against ``kernels/ref.py:tiled_matmul_ref``."""
+def _dense_tile_checks(label, leaves, head, ms, head_ms) -> dict:
+    """Kernel 2' on layer 0 of each distinct weight shape among
+    ``leaves`` ((name, stacked leaf, f32 rows) triples) at each M of
+    ``ms``, and on ``head`` ((name, weight) or None) at each M of
+    ``head_ms``, each against ``kernels/ref.py:tiled_matmul_ref``."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.decompress_matmul import dense_matmul_cuda
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(13)
     shapes = {}
-    for p in params["period"]:
-        for block, names in FAMILY_MATMUL_LEAVES.items():
-            for name in names if block in p else ():
-                w = _dense(p[block][name])[0]
-                if w.ndim == 3:                  # (E, K, N): expert 0
-                    w = w[0]
-                f32 = name in F32_ROWS
-                shapes.setdefault((tuple(w.shape), w.dtype, f32),
-                                  (f"{block}/{name}", w, f32, (BATCH, PROMPT)))
-    head = _dense(params["embed"]).T if cfg.tie_embeddings \
-        else _dense(params["head"])
-    shapes["head"] = ("head" + " (embed.T)" * cfg.tie_embeddings, head,
-                      False, (BATCH,))
+    for name, leaf, f32 in leaves:
+        w = _dense(leaf)[0]
+        if w.ndim == 3:                  # (E, K, N): expert 0
+            w = w[0]
+        shapes.setdefault((tuple(w.shape), w.dtype, f32), (name, w, f32, ms))
+    if head is not None:
+        shapes["head"] = head + (False, head_ms)
     rows = {}
-    for name, w, f32, ms in shapes.values():
+    for name, w, f32, m_list in shapes.values():
         k, n = w.shape
-        for m in ms:
+        for m in m_list:
             x = torch.randn((m, k), generator=gen, device="cuda")
             x = x if f32 else x.bfloat16()
             wl = w if w.dtype == x.dtype else w.to(x.dtype)
             rows[f"{name} M={m}"] = _matmul_row(
-                f"families {cfg.name}: kernel 2' on {name} {k} x {n}", x,
+                f"{label}: kernel 2' on {name} {k} x {n}", x,
                 w.numel() * w.element_size(), k, n,
                 lambda: dense_matmul_cuda(x, w),
                 lambda: ref.tiled_matmul_ref(x, w),
@@ -3512,11 +3510,11 @@ def _family_dense_tile_checks(cfg, params) -> dict:
     return rows
 
 
-def _family_fused_checks(cfg, params) -> dict:
-    """Fused kernel 2 on layer 0 of each distinct fused leaf shape of the
-    fused tree at M = BATCH and PROMPT, each against
-    ``decompress_matmul_plain`` (the plain decode, then the tiled
-    matmul); bound: the tile streams at true length, x and out once."""
+def _fused_checks(label, tree, ms) -> dict:
+    """Fused kernel 2 on layer 0 of each distinct fused leaf shape of
+    ``tree`` at each M of ``ms``, each against ``decompress_matmul_plain``
+    (the plain decode, then the tiled matmul); bound: the tile streams at
+    true length, x and out once."""
     import torch
     from repro_torch.kernels.decompress_matmul import (
         decompress_matmul_cuda, decompress_matmul_plain)
@@ -3525,17 +3523,17 @@ def _family_fused_checks(cfg, params) -> dict:
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(17)
     shapes = {}
-    for path, leaf in tree_leaves(params["period"]):
+    for path, leaf in tree_leaves(tree):
         if isinstance(leaf, FusedWeight):
             shapes.setdefault((leaf.k, leaf.n), (path, leaf.layer(0)))
     rows = {}
     for path, h in shapes.values():
         k, n = h.k, h.n
         w = h.materialize()
-        for m in (BATCH, PROMPT):
+        for m in ms:
             x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
             rows[f"{path} M={m}"] = _matmul_row(
-                f"families {cfg.name}: kernel 2 on {path} {k} x {n}", x,
+                f"{label}: kernel 2 on {path} {k} x {n}", x,
                 needed_bytes(h.ct.streams), k, n,
                 lambda: decompress_matmul_cuda(x, h.ct, k, n),
                 lambda: decompress_matmul_plain(x, h.ct, k, n),
@@ -3543,6 +3541,31 @@ def _family_fused_checks(cfg, params) -> dict:
         del w
     del flush_buf
     return rows
+
+
+def _family_dense_tile_checks(cfg, params) -> dict:
+    """Kernel 2' on layer 0 of each distinct weight shape of the dense
+    tree (every product of the recurrent blocks, attention, MLP, router
+    and expert) at M = BATCH (a decode step) and PROMPT (a prefill), and
+    on the head at M = BATCH (a prefill takes the last position's
+    logits)."""
+    leaves = [(f"{block}/{name}", p[block][name], name in F32_ROWS)
+              for p in params["period"]
+              for block, names in FAMILY_MATMUL_LEAVES.items()
+              for name in (names if block in p else ())]
+    head = _dense(params["embed"]).T if cfg.tie_embeddings \
+        else _dense(params["head"])
+    return _dense_tile_checks(
+        f"families {cfg.name}", leaves,
+        ("head" + " (embed.T)" * cfg.tie_embeddings, head), (BATCH, PROMPT),
+        (BATCH,))
+
+
+def _family_fused_checks(cfg, params) -> dict:
+    """Fused kernel 2 on each distinct fused leaf shape of the periods at
+    M = BATCH and PROMPT."""
+    return _fused_checks(f"families {cfg.name}", params["period"],
+                         (BATCH, PROMPT))
 
 
 def _einsum_decode_attention(q, k_cache, v_cache, lengths):
@@ -3904,6 +3927,504 @@ def phase_api():
 
 
 # ---------------------------------------------------------------------------
+# phase whisper: the encoder-decoder through prefill_fn and a captured step
+# ---------------------------------------------------------------------------
+
+WHISPER_ARCH = "whisper_tiny"
+WHISPER_FRAMES = 4096       # the reference's ENC_FRAMES_STUB
+WHISPER_MAX_LEN = PROMPT + TOKENS + 8   # the staggered rows' extra steps
+# when each request joins the staggered run: row 0 at step 0, row 1 at 2,
+# rows 2 and 3 at 4 (buckets 1, 2, 4)
+WHISPER_JOINS = ((0, [0]), (2, [1]), (4, [2, 3]))
+# the decoder's products a step, by subtree: self attention, cross
+# attention (its memory K/V are cached), MLP
+WHISPER_STEP_LEAVES = {"attn": ("wq", "wk", "wv", "wo"),
+                       "xattn": ("wq", "wo"),
+                       "mlp": ("w_gate", "w_up", "w_down")}
+
+
+def whisper_step_launches(params, n_layers: int) -> dict:
+    """One decode step's launches, read from the code and the tree: each
+    product of a layer through ``weight_matmul`` (a fused leaf: kernel 2;
+    a streamed leaf: kernel 1 at resolve, then 2'; a dense or raw leaf:
+    2'), the embed and the untied head materialized once a step when
+    streamed (kernel 1), and the head's one 2' launch (``lm_logits``)."""
+    from repro_torch.runtime.weights import FusedWeight, StreamedWeight
+    n = dict.fromkeys(KERNELS, 0)
+    for sub, names in WHISPER_STEP_LEAVES.items():
+        for name in names:
+            leaf = params["dec_stack"][sub][name]
+            if isinstance(leaf, FusedWeight):
+                n["decompress_matmul"] += n_layers
+                continue
+            if isinstance(leaf, StreamedWeight):
+                n["enec_decode"] += n_layers
+            n["dense_tile_matmul"] += n_layers
+    for name in ("embed", "head"):
+        n["enec_decode"] += isinstance(params[name], StreamedWeight)
+    n["dense_tile_matmul"] += 1
+    return n
+
+
+def _whisper_alone(model, params, frames, prompts):
+    """Each request served alone by the eager one-shot loop, the
+    reference's way of serving whisper (``runtime/steps.py``'s prefill and
+    decode steps): a batch-1 prefill of frames and prompt, then the decode
+    step.  Returns each request's logits per token, its prefill's cache
+    (for the slot runs), the prefills' seconds."""
+    import torch
+    from repro_torch.runtime.steps import build_decode_step, build_prefill_step
+    prefill = build_prefill_step(model, WHISPER_MAX_LEN)
+    decode = build_decode_step(model)
+    outs, caches, ttft = [], [], []
+    for r, prompt in enumerate(prompts):
+        tokens = torch.as_tensor(prompt, dtype=torch.int64, device="cuda")
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"frames": frames[r][None],
+                                         "tokens": tokens[None]})
+        ttft.append(_sync_s(t0))
+        caches.append((logits, {k: v.clone() for k, v in cache.items()}))
+        tok = torch.argmax(logits, -1)
+        row = [logits[0]]
+        for _ in range(TOKENS - 1):
+            logits, cache = decode(params, cache, tok)
+            tok = torch.argmax(logits, -1)
+            row.append(logits[0])
+        outs.append(row)
+    return outs, caches, ttft
+
+
+def _whisper_slots(model, params, caches, joins, captured: bool):
+    """The step on fixed buffers (``encdec.decode_step``), requests
+    joining at the steps of ``joins`` ((step, rows) pairs) and each step's
+    bucket the next power of two over the rows joined; captured (one CUDA
+    graph a bucket, ``runtime/captured.py``) or eager.  Returns each row's
+    logits over its first TOKENS tokens, the host seconds a step, and the
+    CapturedStep (None when eager)."""
+    import torch
+    from repro_torch.models import encdec
+    from repro_torch.runtime.captured import CapturedStep
+    state = model.init_step_state(BATCH, WHISPER_MAX_LEN,
+                                  enc_len=WHISPER_FRAMES, device="cuda")
+    step = CapturedStep(lambda b: model.decode_step(params, state, b),
+                        "cuda", BATCH) if captured else None
+    outs = [[] for _ in range(BATCH)]
+    pending = dict(joins)
+    joined, secs, i = [], [], 0
+    while len(joined) < BATCH or any(len(o) < TOKENS for o in outs):
+        for r in pending.pop(i, []):
+            logits, cache = caches[r]
+            encdec.load_prefill(state, cache, r)
+            state["tokens"][r] = torch.argmax(logits[0], -1)
+            outs[r].append(logits[0])
+            joined.append(r)
+        bucket = 1 << (len(joined) - 1).bit_length()
+        saved = (state["tokens"].clone(), state["lengths"].clone())
+
+        def load():
+            state["tokens"].copy_(saved[0])
+            state["lengths"].copy_(saved[1])
+
+        t0 = time.perf_counter()
+        if step is None:
+            model.decode_step(params, state, bucket)
+        else:
+            step.run(bucket, load)
+        state["tokens"].tolist()
+        secs.append(time.perf_counter() - t0)
+        for r in joined:
+            if len(outs[r]) < TOKENS:
+                outs[r].append(state["logits"][r].clone())
+        i += 1
+    return outs, secs, step
+
+
+def _whisper_kernel_checks(label, mode, params) -> dict:
+    """Dense mode: kernel 2' on each distinct shape of the encoder's and
+    the decoder's products at M = BATCH (a decode step), PROMPT (a
+    prefill) and WHISPER_FRAMES (the encoder, and the cross attention's
+    memory K / V), and on the untied head at M = BATCH; fused mode: kernel
+    2 on each distinct fused leaf shape at the same Ms; each against its
+    plain version (:func:`_dense_tile_checks`, :func:`_fused_checks`)."""
+    stacks = {s: params[s] for s in ("enc_stack", "dec_stack")}
+    ms = (BATCH, PROMPT, WHISPER_FRAMES)
+    if mode == "fused":
+        return _fused_checks(label, stacks, ms)
+    if mode != "dense":
+        return {}
+    leaves = [(f"{s}/{sub}/{name}", leaf, False)
+              for s, tree in stacks.items()
+              for sub in ("attn", "xattn", "mlp") if sub in tree
+              for name, leaf in tree[sub].items()]
+    return _dense_tile_checks(label, leaves, ("head", _dense(params["head"])),
+                              ms, (BATCH,))
+
+
+def _whisper_mode(model, cfg, mode, frames, prompts) -> tuple:
+    import torch
+    from repro_torch.core.codec_api import Codec, use_codec
+    from repro_torch.kernels import build
+    from repro_torch.runtime.streaming import assign_weight_modes, mode_mix
+    label = f"whisper {mode}"
+    torch.cuda.reset_peak_memory_stats()
+    codec = Codec()
+    with use_codec(codec):
+        t0 = time.perf_counter()
+        params = assign_weight_modes(model.init(seed=0, device="cuda"),
+                                     mode=mode, min_bytes=MIN_BYTES,
+                                     shards=2, codec=codec)
+        setup_s = _sync_s(t0)
+        want = whisper_step_launches(params, cfg.n_layers)
+        build.restore(dict.fromkeys(build.counts(), 0))
+        alone, caches, ttft = _whisper_alone(model, params, frames, prompts)
+        together, tpot, step = _whisper_slots(
+            model, params, caches, [(0, list(range(BATCH)))], True)
+        launches = build.counts()
+        replay = step.graphs[BATCH].launches
+        before = build.counts()
+        eager, eager_secs, _ = _whisper_slots(
+            model, params, caches, [(0, list(range(BATCH)))], False)
+        # the eager run is TOKENS - 1 steps and launches nothing else
+        eager_run = {k: v - before.get(k, 0)
+                     for k, v in build.counts().items()}
+        stag, _, stag_step = _whisper_slots(model, params, caches,
+                                            WHISPER_JOINS, True)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        kernel_rows = _whisper_kernel_checks(label, mode, params)
+    replay = {k: replay.get(k, 0) for k in KERNELS}
+    eager_run = {k: eager_run.get(k, 0) for k in KERNELS}
+    check(replay == want, f"{label}: a replay's launches {replay} != one "
+          f"step's read from the code {want}")
+    check(eager_run == {k: v * (TOKENS - 1) for k, v in want.items()},
+          f"{label}: {TOKENS - 1} eager steps launched {eager_run}, the "
+          f"code says {want} a step")
+    check(stag_step.buckets == [1, 2, BATCH],
+          f"{label}: staggered buckets {stag_step.buckets}")
+    for r in range(BATCH):
+        check(_bits_equal(together[r], eager[r]), f"{label}: r{r}'s "
+              f"bucket-{BATCH} replays differ from the eager step")
+        check(_bits_equal(together[r], alone[r]),
+              f"{label}: r{r} in the batch differs from it served alone")
+        check(_bits_equal(stag[r], alone[r]),
+              f"{label}: r{r} staggered differs from it served alone")
+    for row in alone:
+        check(all(bool(torch.isfinite(t).all()) for t in row),
+              f"{label}: non-finite logits")
+    res = {"setup_s": setup_s, "mode_mix": mode_mix(params),
+           "ttft_ms": 1e3 * sum(ttft) / len(ttft),
+           "tpot_ms": 1e3 * sum(tpot[1:]) / len(tpot[1:]),
+           "tpot_eager_ms": 1e3 * sum(eager_secs) / len(eager_secs),
+           "capture_s": step.capture_s, "launches_per_step": replay,
+           "peak_gb": peak_gb, "kernel_checks": kernel_rows}
+    log(f"{label}: TTFT {res['ttft_ms']:.2f} ms, TPOT captured "
+        f"{res['tpot_ms']:.3f} / eager {res['tpot_eager_ms']:.3f} ms, "
+        f"peak {res['peak_gb']:.2f} GB, set-up {setup_s:.2f}s, launches a "
+        f"step {dict((k, v) for k, v in replay.items() if v)}")
+    return res, launches, alone
+
+
+def phase_whisper():
+    """whisper_tiny at full width (4 + 4 layers, d_model 384, vocab 51865)
+    from seeded weights, served as the reference serves it: 4 requests x
+    prompt 64 x 16 tokens, frames (4, 4096, 384) bf16, each request
+    prefilled alone through ``prefill_fn``, then the step on fixed buffers
+    (``encdec.decode_step``) captured at buckets 1, 2 and 4, in dense,
+    stream and fused modes.  Checks: logits bitwise equal across the
+    modes; the bucket-4 replays bitwise equal to the eager step; each row
+    in the batch (together and staggered) bitwise equal to the request
+    served alone; launches a replay (read from the counters) equal to an
+    eager step's and to the code's count; kernels 2' (dense mode) and 2
+    (fused mode) against their plain versions at whisper's shapes
+    (:func:`_whisper_kernel_checks`).  Logs TTFT, TPOT and peak GB."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(WHISPER_ARCH)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    frames = torch.randn((BATCH, WHISPER_FRAMES, cfg.d_model),
+                         generator=gen, device="cuda").to(torch.bfloat16)
+    prompts = _prompts(cfg.vocab_size)
+    card = card_line()
+    modes, launches, first = {}, {}, None
+    for mode in ("dense", "stream", "fused"):
+        modes[mode], launches[f"whisper_{mode}"], alone = _whisper_mode(
+            model, cfg, mode, frames, prompts)
+        if first is None:
+            first = alone
+        for r in range(BATCH):
+            check(_bits_equal(alone[r], first[r]),
+                  f"whisper {mode}: r{r} differs from dense")
+        del alone
+    torch.cuda.empty_cache()
+    RESULTS["whisper"] = {"card": card, "frames": WHISPER_FRAMES,
+                          "modes": modes}
+    log(f"whisper: logits bitwise equal across modes, to the eager step "
+        f"and to each request alone ({card})")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase train: single-device training through launch/train.py
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_RESUME = 6, 3
+TRAIN_TOKENS = 8 * 128      # the launcher's default global batch x seq
+TRAIN_VOCAB = 128256
+# the products checked at M = TRAIN_TOKENS, (K, N): four of a layer's 7
+# (every distinct shape) and the tied head (embed.T)
+TRAIN_SHAPES = {"wq": (2048, 2048), "wk": (2048, 512),
+                "w_gate": (2048, 8192), "w_down": (8192, 2048),
+                "head (embed.T)": (2048, TRAIN_VOCAB)}
+PLAIN_BYTES = 2 << 30       # the plain version's (M, 128, N) f32 partials
+
+
+def train_step_launches(n_layers: int) -> dict:
+    """Kernel 2' launches of one train step, read from the code: every
+    product (7 a layer and the tied head) forward, and its dX and dW
+    backward (``kernels/ops.py:TiledMatmul``)."""
+    return dict.fromkeys(KERNELS, 0) | {
+        "dense_tile_matmul": 3 * (n_layers * len(LEAVES) + 1)}
+
+
+def _plain_by_columns(a, b):
+    """``tiled_matmul_ref`` over column strips of ``b`` (a column's bits
+    depend on that column alone), each strip's partials within
+    PLAIN_BYTES."""
+    import torch
+    from repro_torch.kernels.ref import tiled_matmul_ref
+    cols = max(128, PLAIN_BYTES // (a.shape[0] * 128 * 4) // 128 * 128)
+    return torch.cat([tiled_matmul_ref(a, b[:, j:j + cols])
+                      for j in range(0, b.shape[1], cols)], 1)
+
+
+def _train_backward_checks() -> dict:
+    """The autograd Function on the card at M = TRAIN_TOKENS, for each
+    product of TRAIN_SHAPES: its forward, dX and dW bitwise equal to
+    kernel 2' on the same (forward) or transposed operands (dX = dY @
+    W.T, dW = X.T @ dY, cast to the operand's dtype); kernel 2' there
+    against the plain version (``_matmul_row``: the forward's bf16
+    products within MATMUL_ATOL, the backward's f32 sums of the same
+    products in another order within MATMUL_ATOL of the larger of 1 and
+    the output's magnitude), timed beside its bound, the plain version and
+    torch.matmul at the same shapes (f32 backward, TF32 off)."""
+    import importlib
+    import torch
+    from repro_torch.kernels import ops
+    # the module (``repro_torch.kernels`` exports a function of its name)
+    dm = importlib.import_module("repro_torch.kernels.decompress_matmul")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    m, rows = TRAIN_TOKENS, {}
+    for name, (k, n) in TRAIN_SHAPES.items():
+        x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+        w = (torch.randn((k, n), generator=gen, device="cuda")
+             / math.sqrt(k)).bfloat16()
+        if name.startswith("head"):      # the tied head: embed's strides
+            w = w.T.contiguous().T
+        dy = torch.randn((m, n), generator=gen, device="cuda")
+        xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = ops.tiled_matmul(xa, wa)
+        check(torch.equal(y.detach(), dm.dense_matmul_cuda(x, w)),
+              f"train {name} forward: the Function's result differs from "
+              f"kernel 2'")
+        grads = torch.autograd.grad(y, (xa, wa), dy)
+        del xa, wa, y
+        row = {}
+        for part, got, a, b in (("fwd", None, x, w),
+                                ("dx", grads[0], dy, w.T),
+                                ("dw", grads[1], x.T.contiguous(), dy)):
+            if got is not None:
+                check(torch.equal(got, dm.dense_matmul_cuda(a, b)
+                                  .to(got.dtype)),
+                      f"train {name} {part}: the Function's result differs "
+                      f"from kernel 2' on the transposed operands")
+            f32 = a.dtype == torch.float32 or b.dtype == torch.float32
+            bf = b.float() if f32 else b
+            af = a.float() if f32 else a
+            row[part] = _matmul_row(
+                f"train {name} {part}", a, b.numel() * b.element_size(),
+                a.shape[1], b.shape[1], lambda: dm.dense_matmul_cuda(a, b),
+                lambda: _plain_by_columns(a, b),
+                lambda: torch.matmul(af, bf), flush_buf.zero_, f32,
+                relative=f32, reps=(5, 1, 5))
+            del af, bf
+        del grads, dy
+        rows[name] = row
+        log(f"train {name} ({k} x {n}, M {m}): " + ", ".join(
+            f"{part} {r['ms']:.3f} ms (matmul {r['library_ms']:.3f}, bound "
+            f"{r['bound_ms']:.3f}, err {r['max_abs_err']:.2e} / scale "
+            f"{r['scale']:.1f})" for part, r in row.items()))
+    del flush_buf
+    return rows
+
+
+def _train_memory(out, tmp) -> dict:
+    """The device memory of the last run's state and, over it, the peak
+    of each part of a train step (forward and backward; AdamW's apply with
+    the gradients held; the whole step, ``runtime/steps.py``) and of a
+    blocking checkpoint save of ``{"params", "opt"}``, in GB.  Updates the
+    state in place (AdamW's moments)."""
+    import torch
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.api import tree_leaves, tree_map_with_path
+    from repro_torch.data import pipeline
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.steps import build_train_step
+    cfg = get_config("llama3_2_1b")
+    model = build_model(cfg)
+    params, opt = out["params"], out["opt_state"]
+    opt_cfg = adamw.AdamWConfig(schedule=adamw.warmup_cosine(20, TRAIN_STEPS))
+    data = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
+                               global_batch=8)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in pipeline.batch_at(data, TRAIN_STEPS).items()}
+
+    def gb(tree):
+        return sum(t.numel() * t.element_size()
+                   for _, t in tree_leaves(tree)) / 1e9
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    def fwd_bwd():
+        leaves = tree_map_with_path(
+            lambda _, p: p.detach().requires_grad_(True), params)
+        flat = list(tree_leaves(leaves))
+        with torch.enable_grad():
+            loss, _ = model.loss_fn(leaves, batch)
+            got = dict(zip([q for q, _ in flat], torch.autograd.grad(
+                loss, [p for _, p in flat])))
+        return tree_map_with_path(lambda q, _: got[q], params)
+
+    res = {"params_gb": gb(params), "m_gb": gb(opt.m), "v_gb": gb(opt.v),
+           "resident_gb": torch.cuda.memory_allocated() / 1e9}
+    grads, res["fwd_bwd_over_gb"] = peak(fwd_bwd)
+    res["grads_gb"] = gb(grads)
+    _, res["apply_over_gb"] = peak(
+        lambda: adamw.apply(opt_cfg, params, opt, grads))
+    del grads
+    step = build_train_step(model, opt_cfg)
+    _, res["step_over_gb"] = peak(lambda: step(params, opt, batch))
+    mgr = CheckpointManager(tmp / "probe", device="cuda")
+    _, res["save_over_gb"] = peak(lambda: mgr.save(
+        TRAIN_STEPS, {"params": params, "opt": opt}, blocking=True))
+    log("train memory (GB): " + ", ".join(f"{k} {v:.2f}"
+                                          for k, v in res.items()))
+    return res
+
+
+def _flat_state(out) -> list:
+    from repro_torch.runtime.streaming import tree_leaves
+    return list(tree_leaves({"params": out["params"],
+                             "opt": out["opt_state"]}))
+
+
+def phase_train():
+    """llama3_2_1b at full width trained through ``launch/train.py``'s own
+    code path at its defaults (global batch 8, seq 128, lr 3e-4,
+    ``warmup_cosine(20, steps)``; while the step is under the 20 warm-up
+    steps the schedule does not depend on ``--steps``): 6 steps
+    uninterrupted; 3 steps, checkpointed; the same run resumed from that
+    checkpoint to 6.  Checks: the resumed run's params and AdamW state at
+    step 6 bitwise equal to the uninterrupted run's; finite losses and
+    gradient norms; kernel 2' launches a step equal to the code's count
+    (forward and backward; ``train_step_launches``); the autograd
+    Function's forward and backward against the plain version
+    (:func:`_train_backward_checks`).  Logs seconds a step, the run's peak
+    GB (the checkpoint saves included) and the step's and the save's own
+    (:func:`_train_memory`)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    card = card_line()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    log(f"train: {shutil.disk_usage(tmp).free / 1e9:.1f} GB free under "
+        f"{tmp}")
+    base = ["--arch", "llama3_2_1b"]
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 1e9   # earlier phases' own
+        build.restore(dict.fromkeys(build.counts(), 0))
+        t0 = time.perf_counter()
+        whole = train.main(base + ["--steps", str(TRAIN_STEPS), "--ckpt",
+                                   str(tmp / "whole")])
+        whole_s = _sync_s(t0)
+        launches = build.counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        shutil.rmtree(tmp / "whole")
+        hist = whole["history"]
+        check([h["step"] for h in hist] == list(range(TRAIN_STEPS)),
+              f"train: steps {[h['step'] for h in hist]}")
+        check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                  for h in hist), f"train: non-finite loss or grad norm "
+              f"{hist}")
+        want = train_step_launches(N_LAYERS)["dense_tile_matmul"]
+        check(launches["dense_tile_matmul"] == TRAIN_STEPS * want,
+              f"train: 2' launched {launches['dense_tile_matmul']} times in "
+              f"{TRAIN_STEPS} steps, the code says {want} a step")
+        check(launches["decompress_matmul"] == 0
+              and launches["enec_decode"] == 0,
+              f"train: unexpected launches {launches}")
+        t0 = time.perf_counter()
+        train.main(base + ["--steps", str(TRAIN_RESUME), "--ckpt",
+                           str(tmp / "resume")])
+        first_s = _sync_s(t0)
+        t0 = time.perf_counter()
+        resumed = train.main(base + ["--steps", str(TRAIN_STEPS), "--ckpt",
+                                     str(tmp / "resume")])
+        resumed_s = _sync_s(t0)
+        check([h["step"] for h in resumed["history"]]
+              == list(range(TRAIN_RESUME, TRAIN_STEPS)),
+              f"train: resumed steps {resumed['history']}")
+        for (pa, a), (pb, b) in zip(_flat_state(whole), _flat_state(resumed)):
+            check(pa == pb and a.dtype == b.dtype and torch.equal(
+                a.view(torch.int16) if a.element_size() == 2
+                else a.view(torch.int32),
+                b.view(torch.int16) if b.element_size() == 2
+                else b.view(torch.int32)),
+                f"train: {pa} of the resumed run differs from the "
+                f"uninterrupted run")
+        for h, r in zip(hist[TRAIN_RESUME:], resumed["history"]):
+            check(h["loss"] == r["loss"] and h["grad_norm"] == r["grad_norm"],
+                  f"train: step {h['step']} resumed {r} != {h}")
+        del resumed
+        memory = _train_memory(whole, tmp)
+        del whole
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    backward = _train_backward_checks()
+    torch.cuda.empty_cache()
+    dts = [h["dt_s"] for h in hist]
+    res = {"card": card, "history": hist, "s_per_step": dts,
+           "s_per_step_mean": sum(dts[1:]) / len(dts[1:]),
+           "peak_gb": peak, "held_gb": held, "memory": memory,
+           "whole_s": whole_s,
+           "first_s": first_s, "resumed_s": resumed_s, "launches_per_step": want,
+           "backward": backward}
+    RESULTS["train"] = res
+    log(f"train: {TRAIN_STEPS} steps, resumed run bitwise equal; "
+        f"{res['s_per_step_mean']:.3f} s a step (steps 1-5; step 0 "
+        f"{dts[0]:.3f} s), peak {peak:.2f} GB ({held:.2f} held before the "
+        f"phase), 2' launches a step {want}; "
+        f"runs {whole_s:.1f} / {first_s:.1f} / {resumed_s:.1f} s ({card})")
+    return {"train": launches}
+
+
+# ---------------------------------------------------------------------------
 
 # the served path whose own run gives each kernel's ``launches``: the
 # default fused mode (the main path) runs the decoder, the fused entry and
@@ -3946,6 +4467,7 @@ def kernels_line(launches):
          "moe_attention": RESULTS["moe"]["kernels"]["fused_attention"],
          "families": {arch: c["modes"]["fused"]["kernel_checks"]
                       for arch, c in RESULTS["families"]["cases"].items()},
+         "whisper": RESULTS["whisper"]["modes"]["fused"]["kernel_checks"],
          "resources": {k: v for k, v in mm["resources"]["ptxas"].items()
                        if k.startswith("fused")}},
         {"name": "dense_tile_matmul", "route": "cuda",
@@ -3956,8 +4478,11 @@ def kernels_line(launches):
          "bound_ms": t["dense_bound"], "bound_by": "bytes",
          "library_ms": t["library"], "head": mm["head"],
          "moe_expert": RESULTS["moe"]["kernels"]["dense_tile"],
+         "train_backward": RESULTS["train"]["backward"],
+         "train_launches_per_step": RESULTS["train"]["launches_per_step"],
          "families": {arch: c["modes"]["dense"]["kernel_checks"]
                       for arch, c in RESULTS["families"]["cases"].items()},
+         "whisper": RESULTS["whisper"]["modes"]["dense"]["kernel_checks"],
          "timed": {c: {k: v[k] for k in ("dense", "dense_t", "dense_bound",
                                          "library")}
                    for c, v in mm["totals"].items()},
@@ -4002,7 +4527,9 @@ def kernels_line(launches):
             for case, c in per_step.items()} | {
             f"{arch} {mode}": r["launches_per_step"][row["name"]]
             for arch, c in families.items()
-            for mode, r in c["modes"].items()}
+            for mode, r in c["modes"].items()} | {
+            f"whisper_tiny {mode}": r["launches_per_step"][row["name"]]
+            for mode, r in RESULTS["whisper"]["modes"].items()}
         path = KERNEL_PATH[row["name"]]
         row["launches"] = launches[path][row["name"]]
         check(row["launches"] > 0, f"{row['name']} was not launched in its "
@@ -4043,6 +4570,8 @@ def main():
     launches.update(phase_moe())
     launches.update(phase_families())
     launches.update(phase_api())
+    launches.update(phase_whisper())
+    launches.update(phase_train())
     line = kernels_line(launches)
     RESULTS["kernels"] = line["kernels"]
     RESULTS["seconds"] = time.perf_counter() - t0

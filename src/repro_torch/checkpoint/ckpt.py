@@ -101,10 +101,19 @@ def _leaf_nbytes(shape, dtype_str: str) -> int:
     return int(np.prod(shape, dtype=np.int64)) * itemsize
 
 
+def _own_raw(item):
+    """A payload item, its raw escape (a view of the leaf) copied."""
+    if item[0] == "ct" and item[1].mode == "raw":
+        ct = item[1]
+        return ("ct", dataclasses.replace(ct, raw_bytes=ct.raw_bytes.clone()))
+    return item
+
+
 def _host_array(t: torch.Tensor) -> np.ndarray:
     """Host copy of a non-compressed leaf (bf16 travels as its int16
-    bits: numpy has no bf16)."""
-    t = t.detach().cpu().contiguous()
+    bits: numpy has no bf16); a copy on the CPU too, so that an async save
+    never reads a buffer its caller goes on to update."""
+    t = t.detach().to("cpu", copy=True).contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy()
     return t.numpy()
@@ -227,6 +236,10 @@ class CheckpointManager:
         if blocking:
             self._save_host(step, names, payload, dense_specs)
             return
+        # the caller may update the tree in place once this returns (the
+        # optimizer's moments are): a raw escape, a view of its leaf, gets
+        # bytes of its own before the thread reads them
+        payload = [_own_raw(item) for item in payload]
         self._thread = threading.Thread(
             target=self._save_guarded,
             args=(step, names, payload, dense_specs), daemon=True)

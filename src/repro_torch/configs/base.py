@@ -11,10 +11,11 @@ import dataclasses
 import importlib
 from typing import Optional, Tuple
 
-# the archs this package carries so far: every family but encoder-decoder
-ARCH_IDS = ("llama3_2_1b", "minitron_4b", "phi3_5_moe_42b_a6_6b",
-            "qwen3_32b", "qwen3_moe_235b_a22b", "stablelm_3b",
-            "xlstm_125m", "jamba_v0_1_52b", "paligemma_3b")
+ARCH_IDS = (
+    "qwen3_32b", "minitron_4b", "llama3_2_1b", "stablelm_3b", "whisper_tiny",
+    "paligemma_3b", "qwen3_moe_235b_a22b", "phi3_5_moe_42b_a6_6b",
+    "xlstm_125m", "jamba_v0_1_52b",
+)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.lm import param_shapes
+from repro_torch.models.registry import param_shapes
 from repro_torch.runtime.streaming import tree_leaves, tree_map_with_path
 
 

@@ -173,37 +173,51 @@ def untile_matmul_weight(flat: torch.Tensor, k: int, n: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# trees: nested dicts / lists / tuples, walked in the reference's flatten
-# order (dict keys sorted, sequence items in order); anything else (a
-# tensor, a handle, a CompressedTensor, None) is a leaf
+# trees: nested dicts / lists / tuples / NamedTuples, walked in the
+# reference's flatten order (dict keys sorted, sequence items and a
+# NamedTuple's fields in order); a NamedTuple's children are named by
+# field, as ``jax.tree_util.tree_flatten_with_path`` names them ("opt/step",
+# "opt/m/..."); anything else (a tensor, a handle, a CompressedTensor,
+# None) is a leaf
 # ---------------------------------------------------------------------------
+
+def _children(tree):
+    """(name, child) pairs of an inner node, or None for a leaf."""
+    if isinstance(tree, dict):
+        return [(str(k), v) for k, v in sorted(tree.items())]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return list(zip(tree._fields, tree))
+    if isinstance(tree, (list, tuple)):
+        return [(str(i), v) for i, v in enumerate(tree)]
+    return None
+
 
 def tree_leaves(tree, path: str = ""):
     """(path, leaf) pairs of a nested dict/list tree, handles as leaves,
     dict keys in sorted order: the reference's flatten order (the codec's
     plan slots, and the flatten slots of ``runtime/weights.py:resolve``'s
     ``prefetched``)."""
-    if isinstance(tree, dict):
-        for k, v in sorted(tree.items()):
-            yield from tree_leaves(v, f"{path}/{k}" if path else str(k))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from tree_leaves(v, f"{path}/{i}" if path else str(i))
-    else:
+    children = _children(tree)
+    if children is None:
         yield path, tree
+        return
+    for k, v in children:
+        yield from tree_leaves(v, f"{path}/{k}" if path else k)
 
 
 def tree_map_with_path(fn, tree, path: str = ""):
     """Rebuild ``tree`` with ``fn(path, leaf)`` at every leaf, visited in
     :func:`tree_leaves` order."""
+    children = _children(tree)
+    if children is None:
+        return fn(path, tree)
+    out = [tree_map_with_path(fn, v, f"{path}/{k}" if path else k)
+           for k, v in children]
     if isinstance(tree, dict):
-        return {k: tree_map_with_path(fn, v, f"{path}/{k}" if path else str(k))
-                for k, v in sorted(tree.items())}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(
-            tree_map_with_path(fn, v, f"{path}/{i}" if path else str(i))
-            for i, v in enumerate(tree))
-    return fn(path, tree)
+        return dict(zip(sorted(tree), out))
+    if hasattr(tree, "_fields"):
+        return type(tree)(*out)
+    return type(tree)(out)
 
 
 # ---------------------------------------------------------------------------

@@ -65,11 +65,44 @@ def decompress_matmul(x: torch.Tensor, ct: CompressedTensor, k: int,
     return dm.decompress_matmul_cuda(x, ct, k, n)
 
 
-def tiled_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w in the canonical tiled schedule (dense weights)."""
+def _tiled(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if _on_cpu(x):
         return ref.tiled_matmul_ref(x, w)
     return dm.dense_matmul_cuda(x, w)
+
+
+class TiledMatmul(torch.autograd.Function):
+    """The canonical tiled matmul with a backward through the same entry
+    (the dense-tile kernel on the card, which takes any strides of its
+    weight; ``tiled_matmul_ref`` on the CPU): ``dX = dY @ W.T`` and
+    ``dW = X.T @ dY``, each with the f32 ``dY`` as it comes (an f32 weight
+    operand keeps the kernel's ``fmaf`` chain), cast to the operand's
+    dtype as the reference's gradients are."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _tiled(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _tiled(dy, w.T).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _tiled(x.T.contiguous(), dy).to(w.dtype)
+        return dx, dw
+
+
+def tiled_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in the canonical tiled schedule (dense weights); under
+    autograd (an operand that requires grad) through :class:`TiledMatmul`,
+    whose backward runs the same schedule."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return TiledMatmul.apply(x, w)
+    return _tiled(x, w)
 
 
 def idd_scan(x: torch.Tensor) -> torch.Tensor:

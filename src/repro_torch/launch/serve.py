@@ -267,6 +267,14 @@ def main(argv=None) -> dict:
     HEALTH.reset()      # back-to-back runs in one process start afresh
     dev = resolve_device(args.device)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    if cfg.is_encdec:
+        # the engine prefills tokens only, as the reference's does
+        raise ValueError(
+            f"{args.arch} is an encoder-decoder: the serving engine cannot "
+            f"prefill its frames.  Serve it through "
+            f"repro_torch.models.registry.build_model(cfg): prefill_fn("
+            f"params, {{'frames', 'tokens'}}, max_len), then decode_fn (or "
+            f"decode_step on init_step_state's buffers)")
     cfg = dataclasses.replace(cfg, overlap=args.overlap)
     codec = Codec()     # owns this run's encodes, decodes and ledger
     with use_codec(codec):

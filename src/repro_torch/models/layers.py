@@ -1,7 +1,8 @@
 """Transformer primitives (port of ``repro/models/layers.py``): norms,
 rotary embeddings, GQA attention (causal, with an optional bidirectional
-prefix), gated MLP, embeddings, and the fixed-order sums and f32 gate
-functions of the recurrent blocks.
+prefix), whisper's cross attention, gated MLP, embeddings, the
+cross-entropy loss, and the fixed-order sums and f32 gate functions of the
+recurrent blocks.
 
 Conventions follow the reference: activations bf16 (``ACT_DTYPE`` casts in
 the same places), matmuls accumulate in f32, norms and softmax in f32.
@@ -238,9 +239,10 @@ def flash_attention(q, k, v, *, prefix_len: int = 0, chunk: int = KV_CHUNK):
     return (acc / _heads_last(denom)).to(ACT_DTYPE)
 
 
-def decode_attention(q, k_cache, v_cache, lengths):
+def decode_attention(q, k_cache, v_cache, lengths=None):
     """Single-token decode: q (B, 1, H, hd) over caches (B, S, KV, hd);
-    ``lengths`` (B,) valid entries per sequence.
+    ``lengths`` (B,) valid entries per sequence (None: all S, as whisper's
+    cross attention over the encoder memory).
 
     Every sum is a fixed-order sum of exact elementwise products (the
     scores over hd, the softmax denominator and P.V over S:
@@ -258,9 +260,10 @@ def decode_attention(q, k_cache, v_cache, lengths):
                        .permute(0, 2, 1, 3)[:, :, None]) for lo in chunks]
     scores = (parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)) \
         * (1.0 / math.sqrt(hd))                           # (B, KV, g, S)
-    k_pos = torch.arange(s_len, device=q.device)
-    scores = torch.where(k_pos < lengths[:, None, None, None], scores,
-                         -1e30)
+    if lengths is not None:
+        k_pos = torch.arange(s_len, device=q.device)
+        scores = torch.where(k_pos < lengths[:, None, None, None], scores,
+                             -1e30)
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     denom = out = None
     for lo in chunks:
@@ -278,7 +281,9 @@ def decode_attention(q, k_cache, v_cache, lengths):
 def attention_block(p, x, s: AttnParamsShape, positions, theta, *,
                     prefix_len: int = 0, chunk=KV_CHUNK):
     """Full-sequence causal self attention (prefill), the first
-    ``prefix_len`` positions visible to all. Returns (out, (k, v))."""
+    ``prefix_len`` positions visible to all (``prefix_len = T``: the
+    reference's ``causal=False``, whisper's bidirectional encoder).
+    Returns (out, (k, v))."""
     q, k, v = _project_qkv(p, x, s, positions, theta)
     out = flash_attention(q, k, v, prefix_len=prefix_len, chunk=chunk)
     out = weight_matmul(p["wo"], out.reshape(x.shape[0], x.shape[1], -1))
@@ -303,7 +308,52 @@ def attention_decode_block(p, x, s: AttnParamsShape, cache_kv, lengths,
 
 
 # ---------------------------------------------------------------------------
-# gated MLP, embeddings, head
+# cross attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+def init_cross_attention(n_layers: int, s: AttnParamsShape, gen, device):
+    """Stacked (L, ...) cross-attention projections."""
+    hq, hkv = s.n_heads * s.head_dim, s.n_kv_heads * s.head_dim
+    return {
+        "wq": dense_init((n_layers, s.d_model, hq), gen, device),
+        "wk": dense_init((n_layers, s.d_model, hkv), gen, device),
+        "wv": dense_init((n_layers, s.d_model, hkv), gen, device),
+        "wo": dense_init((n_layers, hq, s.d_model), gen, device),
+    }
+
+
+def cross_memory(p, enc_out, s: AttnParamsShape):
+    """The encoder-side K/V of one layer, computed once per sequence."""
+    b, t, _ = enc_out.shape
+    k = weight_matmul(p["wk"], enc_out).reshape(b, t, s.n_kv_heads,
+                                                s.head_dim)
+    v = weight_matmul(p["wv"], enc_out).reshape(b, t, s.n_kv_heads,
+                                                s.head_dim)
+    return k.to(ACT_DTYPE), v.to(ACT_DTYPE)
+
+
+def cross_attention_block(p, x, memory_kv, s: AttnParamsShape, *,
+                          decode: bool = False):
+    """x (B, T, D) queries over the precomputed encoder memory (k, v),
+    every memory position visible.  ``decode`` (T = 1) sums in the fixed
+    pairwise order of :func:`decode_attention`, so a row's bits do not
+    depend on the batch; the prompt runs :func:`flash_attention` with the
+    whole memory as its visible prefix.  Either way the output is cast to
+    bf16 before ``wo``, as the reference's flash attention returns it."""
+    b, t, _ = x.shape
+    k, v = memory_kv
+    q = weight_matmul(p["wq"], x).reshape(b, t, s.n_heads, s.head_dim)
+    q = q.to(ACT_DTYPE)
+    if decode:
+        out = decode_attention(q, k, v).to(ACT_DTYPE)
+    else:
+        out = flash_attention(q, k, v, prefix_len=k.shape[1])
+    out = weight_matmul(p["wo"], out.reshape(b, t, -1))
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# gated MLP, embeddings, head, loss
 # ---------------------------------------------------------------------------
 
 def init_mlp(n_layers: int, d_model: int, d_ff: int, gen, device):
@@ -314,15 +364,50 @@ def init_mlp(n_layers: int, d_model: int, d_ff: int, gen, device):
     }
 
 
-def mlp_block(p, x):
-    """SwiGLU MLP."""
+def mlp_block(p, x, activation: str = "silu"):
+    """Gated MLP: SwiGLU, or whisper's GELU gate in the tanh approximation
+    (``jax.nn.gelu``'s default, which ``F.gelu`` needs asked for)."""
     g = weight_matmul(p["w_gate"], x)
     u = weight_matmul(p["w_up"], x)
-    h = (F.silu(g) * u).to(ACT_DTYPE)
+    act = F.silu(g) if activation == "silu" else F.gelu(g, approximate="tanh")
+    h = (act * u).to(ACT_DTYPE)
     return weight_matmul(p["w_down"], h).to(x.dtype)
 
 
+class _EmbedLookup(torch.autograd.Function):
+    """``embedding[tokens]`` whose backward is deterministic: the rows'
+    gradients are accumulated in f32 by ``index_put_(accumulate=True)``
+    under ``torch.use_deterministic_algorithms`` (scoped to that call),
+    which on CUDA sorts the indices and sums each row's contributions in
+    a fixed order instead of adding them with atomics; on the CPU it is
+    a serial loop.  A resumed training run then gives the same bits as an
+    uninterrupted one."""
+
+    @staticmethod
+    def forward(ctx, embedding, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.shape, ctx.dtype = embedding.shape, embedding.dtype
+        return embedding[tokens]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (tokens,) = ctx.saved_tensors
+        grad_embed = torch.zeros(ctx.shape, dtype=torch.float32,
+                                 device=grad.device)
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            grad_embed.index_put_((tokens.reshape(-1),),
+                                  grad.reshape(-1, ctx.shape[-1]).float(),
+                                  accumulate=True)
+        finally:
+            torch.use_deterministic_algorithms(was)
+        return grad_embed.to(ctx.dtype), None
+
+
 def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor):
+    if torch.is_grad_enabled() and embedding.requires_grad:
+        return _EmbedLookup.apply(embedding, tokens).to(ACT_DTYPE)
     return embedding[tokens].to(ACT_DTYPE)
 
 
@@ -335,3 +420,16 @@ def lm_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     b, t, d = x.shape
     out = ops.tiled_matmul(x.reshape(b * t, d).contiguous(), head)
     return out.reshape(b, t, out.shape[-1])
+
+
+def cross_entropy(logits, targets, mask=None):
+    """Mean next-token NLL in f32. logits (B, T, V), targets (B, T) int;
+    with ``mask`` the mean over the masked-in positions."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,7 +1,8 @@
 """Unified decoder-only LM (port of ``repro/models/lm.py``) covering the
 dense, MoE, xLSTM, Jamba-hybrid and prefix-VLM families through per-period
 block programs: init, prefill and one-token decode, and the serving
-engine's decode step over fixed buffers (:func:`decode_step`).
+engine's decode step over fixed buffers (:func:`decode_step`), and the
+training loss (:func:`loss_fn`, differentiated by autograd).
 
 A *block program* is one period of per-layer descriptors; the model is
 ``n_layers // len(program)`` repetitions of it (xLSTM: period 4 = mLSTM x3
@@ -40,9 +41,10 @@ from . import moe as moe_lib
 from . import ssm as ssm_lib
 from . import xlstm as xlstm_lib
 from .layers import (ACT_DTYPE, AttnParamsShape, attention_block,
-                     attention_decode_block, dense_init, embed_init,
-                     embed_tokens, init_attention, init_mlp, lm_logits,
-                     mlp_block, rms_norm)
+                     attention_decode_block, cross_entropy, dense_init,
+                     embed_init, embed_tokens, init_attention, init_mlp,
+                     lm_logits, mlp_block, rms_norm)
+
 
 class BlockDesc(NamedTuple):
     seq: str               # attn | mamba | mlstm | slstm
@@ -197,19 +199,20 @@ def _dense_leaf(leaf):
 
 
 def _ffn(p, cfg, h):
-    """The block's FFN on the normed ``h``: the gated MLP or the MoE
-    (its aux losses are the trainer's; serving drops them)."""
+    """The block's FFN on the normed ``h`` -> (out, aux): the gated MLP
+    (aux None) or the MoE (aux its ``lb_loss + 1e-3 * z_loss``, the
+    trainer's; serving drops it)."""
     if "mlp" in p:
-        return mlp_block(p["mlp"], h)
-    out, _ = moe_lib.moe_block(p["moe"], h, cfg.experts_per_token,
-                               cfg.moe_combine_dtype, cfg.moe_dispatch_a2a)
-    return out
+        return mlp_block(p["mlp"], h), None
+    out, aux = moe_lib.moe_block(p["moe"], h, cfg.experts_per_token,
+                                 cfg.moe_combine_dtype, cfg.moe_dispatch_a2a)
+    return out, aux["lb_loss"] + 1e-3 * aux["z_loss"]
 
 
 def _apply_position(p, desc: BlockDesc, cfg, x, positions,
                     prefix_len: int = 0):
     """Full-sequence forward of one block -> (x, its cache entry: the
-    attention K/V or the final recurrent state)."""
+    attention K/V or the final recurrent state, its FFN's aux or None)."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
     if desc.seq == "attn":
         out, kv = attention_block(p["attn"], h, attn_shape(cfg), positions,
@@ -224,9 +227,11 @@ def _apply_position(p, desc: BlockDesc, cfg, x, positions,
     else:
         out, entry = xlstm_lib.slstm_forward(p["slstm"], h)
     x = x + out
+    aux = None
     if desc.ffn is not None:
-        x = x + _ffn(p, cfg, rms_norm(x, p["post_norm"], cfg.norm_eps))
-    return x, entry
+        out, aux = _ffn(p, cfg, rms_norm(x, p["post_norm"], cfg.norm_eps))
+        x = x + out
+    return x, entry, aux
 
 
 def _apply_position_step(p, desc: BlockDesc, cfg, x, cache, lengths):
@@ -250,7 +255,7 @@ def _apply_position_step(p, desc: BlockDesc, cfg, x, cache, lengths):
             cache[k].copy_(v)
     x = x + out
     if desc.ffn is not None:
-        x = x + _ffn(p, cfg, rms_norm(x, p["post_norm"], cfg.norm_eps))
+        x = x + _ffn(p, cfg, rms_norm(x, p["post_norm"], cfg.norm_eps))[0]
     return x
 
 
@@ -313,19 +318,50 @@ def _assemble_inputs(params, cfg, batch: dict):
     return embed, x, positions, prefix_len
 
 
+def _forward(params, cfg, batch: dict):
+    """Prompt forward -> (normed x, per layer the list of each position's
+    (cache entry, aux), head, prefix_len)."""
+    program = block_program(cfg)
+    embed, x, positions, prefix_len = _assemble_inputs(params, cfg, batch)
+
+    def apply(p, x, pos, _):
+        x, entry, aux = _apply_position(p, program[pos], cfg, x, positions,
+                                        prefix_len)
+        return x, (entry, aux)
+
+    x, ys = _run_layers(params, cfg, x, apply)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, ys, _head(params, cfg, embed), prefix_len
+
+
 def forward(params, cfg, batch: dict):
     """Prompt forward. Returns (normed x, each position's cache entries
     stacked over periods, head, prefix_len)."""
-    program = block_program(cfg)
-    embed, x, positions, prefix_len = _assemble_inputs(params, cfg, batch)
-    x, entries = _run_layers(
-        params, cfg, x,
-        lambda p, x, pos, _: _apply_position(p, program[pos], cfg, x,
-                                             positions, prefix_len))
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    caches = [{k: torch.stack([layer[pos][k] for layer in entries])
-               for k in entries[0][pos]} for pos in range(len(program))]
-    return x, caches, _head(params, cfg, embed), prefix_len
+    x, ys, head, prefix_len = _forward(params, cfg, batch)
+    caches = [{k: torch.stack([layer[pos][0][k] for layer in ys])
+               for k in ys[0][pos][0]} for pos in range(len(ys[0]))]
+    return x, caches, head, prefix_len
+
+
+def loss_fn(params, cfg, batch: dict):
+    """Mean NLL of ``targets[:, 1:]`` under the text positions'
+    ``logits[:, :-1]`` (the reference's own shift; ``loss_mask`` masks
+    positions) plus ``1e-2 *`` the MoE blocks' aux losses (summed in each
+    period in position order, then over periods, as the reference sums
+    them) -> (total, {"nll", "aux"})."""
+    x, ys, head, prefix_len = _forward(params, cfg, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in ys:
+        period = torch.zeros((), dtype=torch.float32, device=x.device)
+        for _, a in layer:
+            if a is not None:
+                period = period + a
+        aux = aux + period
+    logits = lm_logits(x[:, prefix_len:], head)
+    mask = batch.get("loss_mask")
+    loss = cross_entropy(logits[:, :-1], batch["targets"][:, 1:],
+                         None if mask is None else mask[:, 1:])
+    return loss + 1e-2 * aux, {"nll": loss, "aux": aux}
 
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda"):

@@ -29,6 +29,19 @@ from repro_torch.models.lm import abstract_params
 from repro_torch.runtime.streaming import (MATMUL_LEAF_NAMES,
                                            assign_weight_modes)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Run this module's torch work on one thread, as the suite runs it
+    beside other workers on every core: the smoke models' small ops spend
+    more time synchronising a pool of threads than computing.  The bits
+    compared here come from runs under the same setting."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 MIN_BYTES, SHARDS, STEPS = 1024, 2, 4
 LOGIT_ATOL = 2.0 ** -8
 LAYOUTS = ["fused", "stream"]

@@ -20,6 +20,18 @@ from test_torch_checkpoint import (LAYOUTS, MIN_BYTES, SHARDS,  # noqa: F401
                                    smoke)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Run this module's torch work on one thread, as the suite runs it
+    beside other workers on every core: the smoke models' small ops spend
+    more time synchronising a pool of threads than computing.  The bits
+    compared here come from runs under the same setting."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_port_checkpoint_restores_and_serves_in_the_reference(
         smoke, tmp_path, layout):

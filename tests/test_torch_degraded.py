@@ -33,6 +33,19 @@ from repro_torch.runtime import faults as rt_faults
 from repro_torch.runtime.streaming import assign_weight_modes, tree_leaves
 from repro_torch.runtime.weights import StreamedWeight
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Run this module's torch work on one thread, as the suite runs it
+    beside other workers on every core: the smoke models' small ops spend
+    more time synchronising a pool of threads than computing.  The bits
+    compared here come from runs under the same setting."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 MIN_BYTES = 1024
 WRITERS = ("repro", "repro_torch")
 

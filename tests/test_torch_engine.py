@@ -40,6 +40,19 @@ from repro_torch.runtime.faults import FaultSpec
 from repro_torch.runtime.retry import RetryPolicy
 from repro_torch.runtime.streaming import assign_weight_modes
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Run this module's torch work on one thread, as the suite runs it
+    beside other workers on every core: the smoke models' small ops spend
+    more time synchronising a pool of threads than computing.  The bits
+    compared here come from runs under the same setting."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 PROMPT_LEN = 6
 N_NEW = 4
 # the wrapper modules (``repro_torch.kernels`` re-exports functions of the

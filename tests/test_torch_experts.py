@@ -50,6 +50,19 @@ from repro_torch.runtime.streaming import (assign_weight_modes, mode_mix,
                                            tree_map_with_path)
 from repro_torch.runtime.weights import handle_kind
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Run this module's torch work on one thread, as the suite runs it
+    beside other workers on every core: the smoke models' small ops spend
+    more time synchronising a pool of threads than computing.  The bits
+    compared here come from runs under the same setting."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ARCH = "phi3_5_moe_42b_a6_6b"
 # two distinct record geometries: e_gate/e_up are (D, F), e_down is (F, D)
 N_GEOMS = 2

@@ -27,6 +27,19 @@ from repro_torch.kernels.decompress_matmul import SPLIT_MAX_M, TILE, plan
 from repro_torch.launch import kv_attention_breakdown, matmul_breakdown
 from repro_torch.kernels.ref import tile_product, tiled_matmul_ref
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Run this module's torch work on one thread, as the suite runs it
+    beside other workers on every core: the smoke models' small ops spend
+    more time synchronising a pool of threads than computing.  The bits
+    compared here come from runs under the same setting."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # f32 sums of the same products in another order (K <= 512 here)
 MATMUL_RTOL, MATMUL_ATOL = 1e-5, 1e-5
 ROWS = 32    # x rows of a serial CTA (any block gives the same bits)

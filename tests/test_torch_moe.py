@@ -29,6 +29,19 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.models import moe
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Run this module's torch work on one thread, as the suite runs it
+    beside other workers on every core: the smoke models' small ops spend
+    more time synchronising a pool of threads than computing.  The bits
+    compared here come from runs under the same setting."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ARCHS = ("phi3_5_moe_42b_a6_6b", "qwen3_moe_235b_a22b")
 LOGIT_ATOL = 2.0 ** -8
 AUX_TOL = 1e-6

@@ -43,6 +43,19 @@ from repro_torch.runtime.overlap import (build_schedule, decode_layer,
 from repro_torch.runtime.streaming import assign_weight_modes, stream_stats
 from repro_torch.runtime.weights import StreamedWeight, resolve, tree_leaves
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Run this module's torch work on one thread, as the suite runs it
+    beside other workers on every core: the smoke models' small ops spend
+    more time synchronising a pool of threads than computing.  The bits
+    compared here come from runs under the same setting."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 DENSE_ARCHS = ("llama3_2_1b", "qwen3_32b", "stablelm_3b", "minitron_4b")
 MOE_ARCH = "phi3_5_moe_42b_a6_6b"
 MODES = ("dense", "stream", "fused")

@@ -26,6 +26,19 @@ from repro_torch.models import build_model
 from repro_torch.models.layers import lm_logits
 from repro_torch.runtime.streaming import assign_weight_modes
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Run this module's torch work on one thread, as the suite runs it
+    beside other workers on every core: the smoke models' small ops spend
+    more time synchronising a pool of threads than computing.  The bits
+    compared here come from runs under the same setting."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 M_BIG = 300
 # tests/test_torch_serve.py's bound: 2**-8 times the larger of 1 and the
 # reference logits' magnitude (f32 sums in another order moving a bf16

@@ -21,6 +21,19 @@ from repro_torch.models import build_model
 from repro_torch.runtime.streaming import (assign_weight_modes, mode_mix,
                                            stream_stats)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Run this module's torch work on one thread, as the suite runs it
+    beside other workers on every core: the smoke models' small ops spend
+    more time synchronising a pool of threads than computing.  The bits
+    compared here come from runs under the same setting."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 DECODE_STEPS = 8
 # Logits may differ from the reference by the f32 sum order inside each
 # 128-term tile product (XLA and torch order them differently); where that
