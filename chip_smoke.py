@@ -77,6 +77,21 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
            of at least ``--min-bytes`` moves host to device compressed;
            then the flipped byte on a stream-layout checkpoint served in
            stream mode, kernel 1 decoding the fallback record every step.
+   mesh    the serving mesh: ``serve.main --tp A`` on A ranks of ``python
+           -m torch.distributed.run`` sharing this card (gloo), full-width
+           llama3_2_1b, 2 requests x prompt 64 x 4 tokens, eager steps:
+           A = 2 in stream mode with the prefetch on and off, fused mode
+           and a restore of a ``--shards 2`` stream checkpoint; A = 4 in
+           stream mode.  Every rank's logits bitwise equal to one
+           device's (phase serve's runs, a ``--shards 4`` run and a
+           single-device restore here), no dense byte gathered and a
+           step's gathered bytes (A - 1) x the placed streams'
+           ``stream_nbytes``, kernel 1 / 2 / 2' launches a step as one
+           device's step and the code's, each rank's restore h2d of the
+           placed records about 1/A of one device's, one llama leaf's
+           ``shard_local_decode`` pieces together bitwise the whole
+           decode, no rank compiling a kernel; the backend, card count,
+           peak and resident GB a rank and TPOT logged.
    engine  ``runtime/engine.py`` on full-width llama3_2_1b in fused,
            stream and dense modes and on minitron_4b fused (4 requests x
            prompt 64 x 16 new tokens, 4 slots): (a) each request's logits
@@ -174,7 +189,8 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    5);
    ``launches_by_path`` gives its count in each run (the three llama
    modes, ``ckpt_save``, ``ckpt_restore``, ``degraded``,
-   ``degraded_stream``, ``engine_fused``, ``overlap_llama3_2_1b``,
+   ``degraded_stream``, the five ``mesh_A*`` runs (rank 0's counts),
+   ``engine_fused``, ``overlap_llama3_2_1b``,
    ``overlap_minitron_4b``, ``scan``,
    ``kv_attention``, the three ``minitron_*`` modes, the six ``moe_*``
    runs, the nine ``families_*`` runs and ``api``), and
@@ -279,6 +295,7 @@ KV_ATOL, KV_RTOL = 2e-5, 1e-4
 KV_REL = 1e-4
 
 RESULTS: dict = {}
+SERVE_REFS: dict = {}     # phase serve's logits and launches, by mode
 
 
 def fail(msg: str):
@@ -1367,6 +1384,12 @@ def phase_serve():
             f"launches in this run {out['path_launches']}, mode_mix "
             f"{out['mode_mix']} on {card}")
     launches = {m: o["path_launches"] for m, o in runs.items()}
+    # phase mesh holds its ranks against these runs' first requests and
+    # steps (a row's bits do not depend on the batch or on max_len)
+    for mode in ("fused", "stream"):
+        SERVE_REFS[mode] = {
+            "logits": runs[mode]["logits"][:MESH_TOKENS, :MESH_BATCH].cpu(),
+            "step_launches": runs[mode]["step_launches"][0]}
     log(f"serve: fused/stream/dense tokens equal, logits bitwise equal; "
         f"seq0 {ref['tokens'][0].tolist()}")
     RESULTS["serve"] = {
@@ -4425,6 +4448,321 @@ def phase_train():
 
 
 # ---------------------------------------------------------------------------
+# phase mesh: the serving mesh over torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+MESH_BATCH, MESH_TOKENS = 2, 4    # phase serve's first 2 requests, 4 tokens
+MESH_WIDTHS = (2, 4)
+MESH_ARGS = ["--batch", str(MESH_BATCH), "--prompt-len", str(PROMPT),
+             "--tokens", str(MESH_TOKENS)]
+# each torch.distributed.run: its ranks' serve.main runs, by label
+MESH_RUNS = {2: {"stream_on": ["--mode", "stream", "--overlap", "on"],
+                 "stream_off": ["--mode", "stream", "--overlap", "off"],
+                 "fused": ["--mode", "fused"],
+                 "restore": ["--mode", "stream", "--ckpt", "{ckpt}"]},
+             4: {"stream_on": ["--mode", "stream", "--overlap", "on"]}}
+MESH_LEAF = (8192, 2048)          # llama's w_down: shard_local_decode
+MESH_TIME_LIMIT_S = 420
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_leaf_checks(mesh) -> dict:
+    """One full-width llama leaf compressed with ``--shards A`` on the
+    card: a rank's placed slice gathered back (``gather_ct``: gloo
+    broadcasts of CUDA tensors) equal to the whole streams, and the pieces
+    ``shard_local_decode`` gives the ranks (kernel 1 on each rank's own
+    blocks) together bitwise equal to one decode of the whole."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.codec_api import Codec
+    from repro_torch.runtime import collectives as col
+    A = mesh.shape["model"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    w = (torch.randn(MESH_LEAF, generator=gen, device="cuda") * 0.02).to(
+        torch.bfloat16)
+    codec = Codec()
+    ct = codec.compress_array(w, shards=A)
+    placed = col.place_ct(ct, mesh)
+    gathered = col.gather_ct(placed, mesh, codec=codec)
+    streams_equal = all(torch.equal(a, b) for a, b in
+                        zip(gathered.streams, ct.streams))
+    piece = col.shard_local_decode(placed, mesh, codec=codec).cpu()
+    pieces = [torch.empty_like(piece) for _ in range(dist.get_world_size())]
+    dist.all_gather(pieces, piece)      # the CPU copies: a check, not a path
+    whole = codec.decompress_array(ct).reshape(-1).cpu()
+    return {"mode": ct.mode, "shards": ct.shards,
+            "streams_equal": streams_equal,
+            "pieces_equal": torch.equal(
+                torch.cat(pieces[:A]).view(torch.int16),
+                whole.view(torch.int16)),
+            "link": codec.link_stats()["d2d_allgather"],
+            "stream_nbytes": col.stream_nbytes(ct)}
+
+
+def mesh_worker(spec_path: str) -> None:
+    """One rank of a ``torch.distributed.run`` world of phase mesh: its
+    ``serve.main --tp A`` runs, each result saved for the parent."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    spec = json.loads(Path(spec_path).read_text())
+    A, out_dir = spec["A"], Path(spec["out"])
+    build.build_all()
+    mesh = make_host_mesh(model=A)
+    rank = mesh.rank
+    res = {"rank": rank, "backend": dist.get_backend(),
+           "cards": torch.cuda.device_count(), "device": str(mesh.device),
+           "built": {k: v["cached"] for k, v in build.BUILD_LOG.items()},
+           "leaf": _mesh_leaf_checks(mesh), "runs": {}}
+    for label, args in spec["runs"].items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        serve.reset_launch_counts()
+        out = serve.main(MESH_ARGS + args + ["--tp", str(A)])
+        res["runs"][label] = {
+            "logits": out["logits"].cpu(), "tokens": out["tokens"],
+            "path_launches": serve.launch_counts(),
+            **{k: out[k] for k in (
+                "step_launches", "step_gather_bytes", "gather_nbytes",
+                "links", "mesh", "overlap", "tpot_s", "ttft_s", "step_s",
+                "resident_bytes", "restore", "mode_mix")},
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+        del out
+    torch.save(res, out_dir / f"A{A}_rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _mesh_world(A: int, runs: dict, out_dir: Path) -> list:
+    """Start A ranks on this card through ``torch.distributed.run``; a
+    failed rank fails the phase."""
+    import os
+    import signal
+    import torch
+    spec = out_dir / f"A{A}.json"
+    spec.write_text(json.dumps({"A": A, "out": str(out_dir), "runs": runs}))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           "--nproc-per-node", str(A), "--master-addr", "127.0.0.1",
+           "--master-port", str(_free_port()), str(ROOT / "chip_smoke.py"),
+           "--mesh-worker", str(spec)]
+    t0 = time.perf_counter()
+    # its own process group, so a world past its time limit goes whole
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=MESH_TIME_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        stdout, stderr = proc.communicate()
+        fail(f"mesh A={A}: the ranks ran past {MESH_TIME_LIMIT_S} s and "
+             f"were killed:\n{stdout[-4000:]}\n{stderr[-4000:]}")
+    secs = time.perf_counter() - t0
+    for line in stdout.splitlines():
+        if line.startswith(("[serve] serving mesh", "[mesh]",
+                            "[serve] batch=", "[serve] serve links")):
+            log(f"mesh A={A} rank 0: {line}")
+    check(proc.returncode == 0, f"mesh A={A}: torch.distributed.run exited "
+          f"{proc.returncode}:\n{stdout[-4000:]}\n{stderr[-4000:]}")
+    log(f"mesh A={A}: {len(runs)} serve runs on {A} ranks in {secs:.1f} s")
+    return [torch.load(out_dir / f"A{A}_rank{r}.pt", weights_only=False)
+            for r in range(A)], secs
+
+
+def phase_mesh():
+    """The serving mesh (``serve --tp A``, ``launch/mesh.py``,
+    ``runtime/collectives.py``) on full-width llama3_2_1b: ``A`` ranks of
+    ``python -m torch.distributed.run`` on this one card (gloo: NCCL
+    refuses two ranks on one device), each holding only its own stream
+    shards and gathering the others' as compressed bytes when a layer uses
+    them.  A = 2: stream mode with the prefetch on and off, fused mode and
+    a restore of a stream checkpoint saved with ``--shards 2``; A = 4:
+    stream mode (its single-device side ``--shards 4``, run here).
+    Checks: every rank's logits bitwise equal to phase serve's
+    single-device run of the same mode and shards (its first
+    ``MESH_BATCH`` requests and ``MESH_TOKENS`` tokens; the A = 4 run and
+    the restore against their own single-device runs here); no dense byte
+    gathered, a step's compressed bytes ``(A - 1)`` x the placed streams'
+    ``stream_nbytes``; kernel 1 and 2 launches a step equal to the
+    single-device step's; each rank's h2d bytes of the placed records
+    about 1/A of the single-device restore's, summing to them; one llama
+    leaf's ``shard_local_decode`` pieces together bitwise the whole
+    decode; no rank compiled a kernel.  Logs the backend and card count,
+    each rank's peak and resident GB beside the single-device stream
+    run's, and TPOT with its transport."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.launch import serve
+    card = card_line()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    res = {"card": card, "worlds": {}}
+    launches = {}
+    try:
+        singles = {}
+        for label, args in (
+                ("stream_shards4", ["--mode", "stream", "--shards", "4"]),
+                ("save", ["--mode", "stream", "--save-ckpt",
+                          str(tmp / "ckpt")]),
+                ("restore", ["--mode", "stream", "--ckpt",
+                             str(tmp / "ckpt")])):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            out = serve.main(MESH_ARGS + args)
+            singles[label] = {
+                "logits": out["logits"].cpu(), "restore": out["restore"],
+                "step_launches": out["step_launches"][0],
+                "tpot_s": out["tpot_s"], "resident_bytes":
+                    out["resident_bytes"],
+                "peak_bytes": torch.cuda.max_memory_allocated()}
+            del out
+        torch.cuda.empty_cache()
+        want = {("fused", 2): SERVE_REFS["fused"],
+                ("stream", 2): SERVE_REFS["stream"],
+                ("stream", 4): singles["stream_shards4"],
+                ("restore", 2): singles["restore"]}
+        for label in ("save", "restore"):
+            check(torch.equal(
+                singles[label]["logits"].view(torch.int32),
+                SERVE_REFS["stream"]["logits"].view(torch.int32)),
+                f"mesh: the single-device {label} run differs from phase "
+                f"serve's stream run")
+        for A in MESH_WIDTHS:
+            runs = {k: [a.replace("{ckpt}", str(tmp / "ckpt")) for a in v]
+                    for k, v in MESH_RUNS[A].items()}
+            ranks, secs = _mesh_world(A, runs, tmp)
+            res["worlds"][A] = _check_mesh_world(A, ranks, want, singles,
+                                                 secs, card)
+            launches.update({f"mesh_A{A}_{label}": r["path_launches"]
+                             for label, r in ranks[0]["runs"].items()})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    res["single"] = {k: {kk: vv for kk, vv in v.items()
+                         if kk not in ("logits", "restore")}
+                     for k, v in singles.items()}
+    RESULTS["mesh"] = res
+    return launches
+
+
+def _check_mesh_world(A, ranks, want, singles, secs, card) -> dict:
+    import torch
+    r0 = ranks[0]
+    check(all(all(r["built"].values()) for r in ranks),
+          f"mesh A={A}: a rank compiled kernels: {[r['built'] for r in ranks]}")
+    check(r0["backend"] == "gloo" or r0["cards"] >= A,
+          f"mesh A={A}: backend {r0['backend']} with {r0['cards']} cards")
+    for r in ranks:
+        leaf = r["leaf"]
+        check(leaf["mode"] == "enec" and leaf["streams_equal"]
+              and leaf["pieces_equal"],
+              f"mesh A={A} rank {r['rank']}: leaf checks {leaf}")
+        check(leaf["link"]["compressed_bytes"]
+              == (A - 1) * leaf["stream_nbytes"]
+              and leaf["link"]["dense_bytes"] == 0,
+              f"mesh A={A} rank {r['rank']}: leaf ledger {leaf['link']}")
+    out = {"backend": r0["backend"], "cards": r0["cards"], "seconds": secs,
+           "runs": {}}
+    for label in r0["runs"]:
+        mode = "restore" if label == "restore" else label.split("_")[0]
+        ref = want[mode, A]
+        per_rank = []
+        for r in ranks:
+            run = r["runs"][label]
+            tag = f"mesh A={A} {label} rank {r['rank']}"
+            check(run["mesh"] == {"data": 1, "model": A},
+                  f"{tag}: mesh {run['mesh']}")
+            check(tuple(run["logits"].shape) == (MESH_TOKENS, MESH_BATCH,
+                                                 128256)
+                  and bool(torch.isfinite(run["logits"]).all()),
+                  f"{tag}: logits {tuple(run['logits'].shape)}")
+            check(torch.equal(run["logits"].view(torch.int32),
+                              ref["logits"].view(torch.int32)),
+                  f"{tag}: logits not bitwise equal to one device's")
+            link = run["links"]["d2d_allgather"]
+            check(link["dense_bytes"] == 0 and run["gather_nbytes"] > 0,
+                  f"{tag}: d2d_allgather {link}")
+            check(run["step_gather_bytes"]
+                  == [(A - 1) * run["gather_nbytes"]] * (MESH_TOKENS - 1),
+                  f"{tag}: gathered {run['step_gather_bytes']} a step, "
+                  f"want (A - 1) x {run['gather_nbytes']}")
+            # the step's launches as read from the code (its prefetch
+            # schedule), and, on the same schedule, one device's step
+            code = run_step_launches("llama3_2_1b", mode if mode != "restore"
+                                     else "stream", run)
+            same = label != "stream_off"
+            for st in run["step_launches"]:
+                for k in ("enec_decode", "decompress_matmul",
+                          "dense_tile_matmul"):
+                    check(st[k] == code[k] and (
+                        not same or st[k] == ref["step_launches"][k]),
+                          f"{tag}: {k} {st[k]} launches a step, the code "
+                          f"says {code[k]}, one device's step "
+                          f"{ref['step_launches'][k]}")
+            per_rank.append({
+                "tpot_ms": 1e3 * run["tpot_s"], "ttft_ms": 1e3 * run["ttft_s"],
+                "peak_gb": run["peak_bytes"] / 1e9,
+                "resident_gb": run["resident_bytes"] / 1e9,
+                "gather_mb_per_step": run["step_gather_bytes"][0] / 1e6,
+                "links": run["links"]})
+        if label == "restore":
+            _check_mesh_restore(A, ranks, singles["restore"]["restore"])
+        single = singles["stream_shards4" if A == 4 else "save"]
+        out["runs"][label] = {"ranks": per_rank,
+                              "step_launches": r0["runs"][label][
+                                  "step_launches"][0]}
+        log(f"mesh A={A} {label}: {A} ranks bitwise equal to one device; "
+            f"TPOT {[round(p['tpot_ms'], 1) for p in per_rank]} ms (eager "
+            f"step, gloo through the host: the ranks share one card, not "
+            f"an NVLink figure; one device captured "
+            f"{1e3 * single['tpot_s']:.2f} ms), gathered "
+            f"{per_rank[0]['gather_mb_per_step']:.1f} MB a step, peak GB "
+            f"{[round(p['peak_gb'], 2) for p in per_rank]} / resident "
+            f"{[round(p['resident_gb'], 2) for p in per_rank]} against one "
+            f"device's {single['peak_bytes'] / 1e9:.2f} / "
+            f"{single['resident_bytes'] / 1e9:.2f}; backend "
+            f"{r0['backend']}, {r0['cards']} card(s) ({card})")
+    return out
+
+
+def _check_mesh_restore(A, ranks, single) -> None:
+    """Each rank uploaded only its own shards of the placed records: over
+    the ranks those records' h2d bytes are the single-device restore's,
+    each rank's about 1/A (the exact high streams differ by shard)."""
+    placed = ranks[0]["runs"]["restore"]["restore"]["placed_records"]
+    # the 7 layer stacks and the embedding, each adopted as it was saved
+    check(len(placed) == len(LEAVES) + 1,
+          f"mesh A={A} restore: placed records {placed}")
+    one = single["record_h2d"]
+    total = sum(one[n] for n in placed)
+    mine = [sum(r["runs"]["restore"]["restore"]["record_h2d"][n]
+                for n in placed) for r in ranks]
+    check(sum(mine) == total, f"mesh A={A} restore: h2d of the placed "
+          f"records {mine} over the ranks, one device {total}")
+    check(all(abs(m * A - total) <= 0.02 * total for m in mine),
+          f"mesh A={A} restore: h2d a rank {mine}, one device {total}")
+    RESULTS.setdefault("mesh_restore", {})[A] = {
+        "placed_records": len(placed), "h2d_one_device": total,
+        "h2d_per_rank": mine}
+    log(f"mesh A={A} restore: {len(placed)} placed records, h2d a rank "
+        f"{[round(m / 1e6, 1) for m in mine]} MB, one device "
+        f"{total / 1e6:.1f} MB")
+
+
+# ---------------------------------------------------------------------------
 
 # the served path whose own run gives each kernel's ``launches``: the
 # default fused mode (the main path) runs the decoder, the fused entry and
@@ -4553,25 +4891,28 @@ def main():
     check(tuple(serve.COUNTERS) == KERNELS,
           f"counters {tuple(serve.COUNTERS)} != {KERNELS}")
     t0 = time.perf_counter()
-    phase_build()
-    phase_decode()
-    phase_encode()
-    phase_matmul()
-    launches, fused = phase_serve()
-    phase_setup_encode(fused)
-    launches.update(phase_ckpt(fused))
-    launches.update(phase_degraded(fused))
+    secs = RESULTS["phase_s"] = {}
+
+    def timed(phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        secs[phase.__name__] = round(time.perf_counter() - t, 1)
+        return out
+
+    timed(phase_build)
+    timed(phase_decode)
+    timed(phase_encode)
+    timed(phase_matmul)
+    launches, fused = timed(phase_serve)
+    timed(phase_setup_encode, fused)
+    launches.update(timed(phase_ckpt, fused))
+    launches.update(timed(phase_degraded, fused))
     del fused
-    launches.update(phase_engine())
-    launches.update(phase_overlap())
-    launches.update(phase_scan())
-    launches.update(phase_kv_attention())
-    launches.update(phase_serve_minitron())
-    launches.update(phase_moe())
-    launches.update(phase_families())
-    launches.update(phase_api())
-    launches.update(phase_whisper())
-    launches.update(phase_train())
+    for phase in (phase_mesh, phase_engine, phase_overlap, phase_scan,
+                  phase_kv_attention, phase_serve_minitron, phase_moe,
+                  phase_families, phase_api, phase_whisper, phase_train):
+        launches.update(timed(phase))
+    log(f"seconds by phase: {secs}")
     line = kernels_line(launches)
     RESULTS["kernels"] = line["kernels"]
     RESULTS["seconds"] = time.perf_counter() - t0
@@ -4587,4 +4928,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        mesh_worker(sys.argv[2])
+    else:
+        main()

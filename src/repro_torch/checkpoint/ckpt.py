@@ -49,8 +49,13 @@ records verbatim.  ``load`` reassembles the dense stacks;
 decode of a cold expert.
 
 Trees are walked in the reference's flatten order (sorted dict keys), so
-record names, indices and the pack round-robin match it.  Not ported yet
-(ROADMAP Queue 1 item 12): placement on a mesh, which raises a clear error.
+record names, indices and the pack round-robin match it.
+
+``load_for_serving(mesh=)`` restores straight onto a serving mesh
+(``launch/mesh.py``): each rank uploads only the shard rows of the adopted
+stream records it owns (``runtime.collectives.stream_placer``), and the
+finished tree, records the policy lays out again included, is placed on
+the mesh (``place_serving_tree``).
 """
 from __future__ import annotations
 
@@ -73,9 +78,12 @@ from repro_torch.core import wire as enec_wire
 from repro_torch.core.api import (SUPPORTED_FLOAT_DTYPES, CompressedTensor,
                                   slice_stacked)
 from repro_torch.core.codec_api import Codec, current_codec
+from repro_torch.launch.mesh import Mesh
 from repro_torch.runtime import experts as rt_experts
 from repro_torch.runtime import faults as rt_faults
 from repro_torch.runtime import streaming as rt_streaming
+from repro_torch.runtime.collectives import (is_placed, place_serving_tree,
+                                             stream_placer)
 from repro_torch.runtime.retry import RetryPolicy
 from repro_torch.runtime.weights import (DenseWeight, finish_materialize,
                                          handle_from_spec, handle_spec,
@@ -216,6 +224,10 @@ class CheckpointManager:
         self.root.mkdir(parents=True, exist_ok=True)
         self.last_decode_plan = None   # DecodePlan of the latest load
         self.last_dense_records = []   # records the latest load moved dense
+        # h2d bytes of each compressed record the latest load uploaded, and
+        # the records a mesh restore uploaded as this rank's shards only
+        self.last_record_h2d = {}
+        self.last_placed_records = []
         self.last_expert_store = None  # ExpertStore of the latest serving load
         self.last_restore_report = None   # RestoreReport of the latest load
         if self.retry is None:
@@ -702,22 +714,29 @@ class CheckpointManager:
         self.last_dense_records.append(e["name"])
         return t.view(torch.bfloat16) if bf16 else t
 
-    def _record_ct(self, e, blob, packs) -> CompressedTensor:
+    def _record_ct(self, e, blob, packs,
+                   stream_place=None) -> CompressedTensor:
         """Deserialize one compressed record; its streams move to the
         device here (counted on this manager's codec), nothing is
-        decoded."""
+        decoded.  ``stream_place``: ``wire.from_wire``'s."""
         pack = packs[e["pack"]] if packs is not None and "pack" in e \
             else None
+        h2d0 = self.codec.transfer_stats()["h2d_bytes"]
         try:
             ct = enec_wire.from_wire(blob, codec=self.codec,
                                      device=self.device, record=e["name"],
-                                     pack=pack, offset=e.get("offset"))
+                                     pack=pack, offset=e.get("offset"),
+                                     stream_place=stream_place)
         except enec_wire.WireError as err:
             err.with_context(record=e["name"], pack=pack,
                              offset=e.get("offset"))
             raise CheckpointError(f"{e['name']}: {err}") from err
         if ct.mode == "raw":
             self.last_dense_records.append(e["name"])
+        self.last_record_h2d[e["name"]] = (
+            self.codec.transfer_stats()["h2d_bytes"] - h2d0)
+        if is_placed(ct):
+            self.last_placed_records.append(e["name"])
         return ct
 
     def _queue_record(self, e, blob, pending, vals, like, packs):
@@ -877,13 +896,10 @@ class CheckpointManager:
                     "record(s):\n" + report.summary())
 
     @staticmethod
-    def _begin_report(policy, manifest, mesh=None) -> RestoreReport:
+    def _begin_report(policy, manifest) -> RestoreReport:
         if policy not in RESTORE_POLICIES:
             raise ValueError(f"unknown restore policy {policy!r}; "
                              f"expected one of {RESTORE_POLICIES}")
-        if mesh is not None:
-            raise CheckpointError("restoring onto a mesh is not ported yet "
-                                  "(ROADMAP Queue 1, item 12)")
         return RestoreReport(step=int(manifest.get("step", -1)),
                              policy=policy)
 
@@ -904,6 +920,7 @@ class CheckpointManager:
         its cause and fallback).  A record with no intact source anywhere
         still raises: degraded trades freshness, never correctness."""
         self.last_dense_records = []
+        self.last_record_h2d, self.last_placed_records = {}, []
         cdir, manifest = self._step_dir(step)
         report = self._begin_report(policy, manifest)
         rep = report if policy == "degraded" else None
@@ -993,18 +1010,35 @@ class CheckpointManager:
         (``expert_store``, or a new unbounded one on the manager's device,
         kept on ``last_expert_store``) as wire bytes: no cold expert is
         uploaded or decoded.  The tree gets an ``ExpertRef`` for each
-        stack.  Returns ``(tree, manifest)``."""
+        stack.
+
+        ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`) restores onto
+        a serving mesh: an adopted record's stream shards upload to their
+        owning rank only, and the finished tree is placed as
+        ``runtime.collectives.place_serving_tree`` places it.  Expert
+        records refuse a mesh, as the reference's do.  Returns ``(tree,
+        manifest)``."""
         if mode not in rt_streaming.WEIGHT_MODES:
             raise ValueError(f"unknown weight mode {mode!r}")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a repro_torch.launch.mesh.Mesh, "
+                            f"got {type(mesh).__name__}")
+        stream_place = None if mesh is None else stream_placer(mesh)
         self.last_dense_records = []
+        self.last_record_h2d, self.last_placed_records = {}, []
         cdir, manifest = self._step_dir(step)
-        report = self._begin_report(policy, manifest, mesh)
+        report = self._begin_report(policy, manifest)
         rep = report if policy == "degraded" else None
         names, leaves = _tree_paths(like_params)
         full = [f"{prefix}/{n}" if prefix else n for n in names]
         by_name = {e["name"]: e for e in manifest["leaves"]}
         groups = {p: es for p, es in self._expert_groups(manifest).items()
                   if p in set(full)}
+        if mesh is not None and (groups or self.expert_records):
+            raise CheckpointError(
+                "expert-record checkpoints cannot restore onto a serving "
+                "mesh yet: the expert store fetches the routed experts on "
+                "one device each step — load with mesh=None")
         est = expert_store
         if est is None and groups:
             est = rt_experts.ExpertStore(codec=self.codec,
@@ -1051,14 +1085,18 @@ class CheckpointManager:
                                   int(spec["n"]))
                 self._check_leaf(e, leaf_shape, like, packs,
                                  dtype=spec["dtype"])
-                ct = self._record_ct(e, payload, packs)
                 # adopt only at the shard width the policy would pick (a
                 # fallback at whatever width it has: every width gives the
                 # same bits); otherwise decode and let the policy re-lay
-                # it out
+                # it out.  Only a record adopted as it is uploads this
+                # rank's shard rows alone.
                 req_shards = (rt_streaming.fused_shards(
                     int(spec["k"]), int(spec["n"]), shards)
                     if spec["kind"] == "fused" else shards)
+                place = None if stream_place is None else (
+                    lambda n: stream_place(n)
+                    if n == req_shards or is_fallback else None)
+                ct = self._record_ct(e, payload, packs, place)
                 if ct.shards == req_shards or is_fallback:
                     vals[name] = handle_from_spec(spec, ct)
                 else:
@@ -1100,6 +1138,10 @@ class CheckpointManager:
         tree = rt_streaming.assign_weight_modes(
             tree, mode=mode, min_bytes=min_bytes, shards=shards,
             codec=self.codec)
+        if mesh is not None:
+            # records the policy laid out again (and every whole upload)
+            # land on their serving placement: stream shards on "model"
+            tree = place_serving_tree(tree, mesh)
         return tree, manifest
 
 

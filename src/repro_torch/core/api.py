@@ -93,7 +93,10 @@ class CompressedTensor:
         high stream per block, hence the vector and not its sum."""
         s = self.streams
         hl = np.asarray(high_len_bits, np.int64).reshape(-1)
-        fixed = s.mask.numel() + s.low.numel() + s.raw.numel()
+        # per block: its mask, low and raw rows (a rank's slice of a placed
+        # tensor passes the whole record's high_len)
+        fixed = hl.size * (s.mask.shape[-1] + s.low.shape[-1]
+                           + s.raw.shape[-1])
         overhead = record_overhead_bytes(self.mode, len(self.shape))
         self._wire_bytes = (fixed + int(((hl + 7) // 8).sum())
                             + 4 * hl.size + overhead)

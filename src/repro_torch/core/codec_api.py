@@ -63,9 +63,14 @@ from .params import DEFAULT_BLOCK_ELEMS, EnecParams, expected_ratio
 BACKENDS = ("plain", "cuda")
 
 # Transfer-ledger links; every byte a codec moves is attributed to one,
-# split compressed / dense.  The port has no mesh, so of the reference's
-# ``codec_api.LINKS`` it keeps the two it can move bytes over.
-LINKS = ("h2d", "disk")
+# split compressed / dense:
+#   h2d            host->device uploads (wire deserialization, raw leaves)
+#   d2d_allgather  rank<->rank stream gathers over a mesh axis
+#                  (``runtime/collectives.py:gather_ct``)
+#   d2d_psum       rank<->rank gradient collectives (none yet: the training
+#                  half of the mesh)
+#   disk           checkpoint pack-file record reads
+LINKS = ("h2d", "d2d_allgather", "d2d_psum", "disk")
 
 
 @dataclasses.dataclass(frozen=True)

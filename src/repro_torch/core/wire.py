@@ -365,11 +365,13 @@ def split_streams(hdr: RecordHeader, section) -> tuple:
 
 
 def enec_tensor(hdr: RecordHeader, high_len, mask, low, raw,
-                exact) -> CompressedTensor:
+                exact, lead=None) -> CompressedTensor:
     """The device layout of an enec record from its streams, already on
     one device (``high_len`` int32; the rest uint8, as
     :func:`split_streams` cuts them): each block's exact high bits are
-    scattered into the halving layout on that device."""
+    scattered into the halving layout on that device.  ``lead`` (default:
+    the record's ``(stack, shards)`` dims) shapes the streams; a rank's
+    own shard rows of a record pass their own."""
     dev = mask.device
     width = hdr.params.n - hdr.params.m
     bits_dev = high_len.to(torch.int64)
@@ -380,9 +382,10 @@ def enec_tensor(hdr: RecordHeader, high_len, mask, low, raw,
     count = (bits_dev // max(width, 1))[:, None]
     vals = vals * (torch.arange(hdr.block_elems, device=dev)[None, :]
                    < count)
-    lead = ((hdr.stack,) if hdr.stack else ()) \
-        + ((hdr.shards,) if hdr.shards > 1 else ())
-    flat = hdr.nblocks
+    if lead is None:
+        lead = ((hdr.stack,) if hdr.stack else ()) \
+            + ((hdr.shards,) if hdr.shards > 1 else ())
+    flat = mask.shape[0]
     for d in lead:
         flat //= d
     streams = BlockStreams(
@@ -398,12 +401,41 @@ def enec_tensor(hdr: RecordHeader, high_len, mask, low, raw,
     return ct
 
 
+def _own_shards(hdr: RecordHeader, start: int, count: int, high_len,
+                mask, low, raw, exact) -> tuple:
+    """Shards ``[start, start + count)`` of every layer of an enec
+    record's host streams (:func:`split_streams`' pieces), and the lead
+    dims they take on the device."""
+    stack = hdr.stack or 1
+    flat = hdr.nblocks // (stack * hdr.shards)
+
+    def rows(a):
+        a = a.reshape((stack, hdr.shards, flat) + a.shape[1:])
+        return np.ascontiguousarray(a[:, start:start + count]).reshape(
+            (-1,) + a.shape[3:])
+
+    ends = np.concatenate([[0], np.cumsum((hdr.high_len + 7) // 8)])
+    runs = [exact[ends[(l * hdr.shards + start) * flat]:
+                  ends[(l * hdr.shards + start + count) * flat]]
+            for l in range(stack)]
+    lead = ((hdr.stack,) if hdr.stack else ()) + (count,)
+    return (rows(high_len.view(np.uint32)), rows(mask), rows(low),
+            rows(raw), np.concatenate(runs), lead)
+
+
 def from_wire(buf, codec=None, *, device="cuda", record=None, pack=None,
-              offset=None) -> CompressedTensor:
+              offset=None, stream_place=None) -> CompressedTensor:
     """Parse one record from an EXACT buffer slice (a framed payload or a
     whole v1 blob), validated by :func:`parse_header`.  Streams are
     uploaded to ``device`` through :func:`h2d`, so ``codec``'s ledger
-    (default: the ambient codec's) sees exactly the compressed bytes."""
+    (default: the ambient codec's) sees exactly the compressed bytes.
+
+    ``stream_place`` (a mesh restore's
+    ``runtime.collectives.stream_placer``) maps a record's shard count to
+    the ``(start, count)`` shard rows this rank holds, or ``None`` for all
+    of them: a placed upload moves only those rows' bytes, and the tensor
+    keeps the whole record's metadata (``shards``, the wire size).
+    Raw / const payloads always upload whole."""
     dev = resolve_device(device)
     hdr = parse_header(buf, record=record, pack=pack, offset=offset)
     view = memoryview(buf)
@@ -417,6 +449,11 @@ def from_wire(buf, codec=None, *, device="cuda", record=None, pack=None,
             dtype_str=hdr.dtype_str, block_elems=hdr.block_elems,
             shards=hdr.shards, mode=hdr.mode)
     high_len, mask, low, raw, exact = split_streams(hdr, section)
+    lead = None
+    own = None if stream_place is None else stream_place(hdr.shards)
+    if own is not None:
+        high_len, mask, low, raw, exact, lead = _own_shards(
+            hdr, *own, high_len, mask, low, raw, exact)
 
     def up(a):
         return h2d(a, dev, codec)
@@ -424,7 +461,7 @@ def from_wire(buf, codec=None, *, device="cuda", record=None, pack=None,
     high_len_dev = up(high_len.view(np.uint32).astype(np.int32))
     exact_dev = up(exact)
     return enec_tensor(hdr, high_len_dev, up(mask), up(low), up(raw),
-                       exact_dev)
+                       exact_dev, lead)
 
 
 def wire_stack(ct: CompressedTensor) -> int:

@@ -1,0 +1,216 @@
+"""Device meshes over ``torch.distributed`` ranks (port of
+``repro/launch/mesh.py``).
+
+A :class:`Mesh` is the world of ranks laid out row-major over named axes,
+as ``jax.make_mesh`` lays out devices: ``.shape`` is an ordered dict such
+as ``{"data": 2, "model": 2}``, so the sharding rules of
+``runtime/sharding.py`` read it as they read a JAX mesh.  Each rank knows
+its coordinate on every axis and holds one process group per axis of more
+than one rank: the ranks that share every other coordinate.
+
+The world comes from the launcher's environment (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), as ``python -m
+torch.distributed.run`` sets it (:func:`init_process_group`).  The backend
+is chosen by one rule and printed: NCCL when every rank of a host has a
+card of its own, else gloo (the CPU, and ranks that share a card: NCCL
+refuses two ranks on one device).  Rank r runs on ``cuda:(LOCAL_RANK %
+device_count)``.
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+        -m repro_torch.launch.serve --smoke --device cpu --tp 4
+"""
+from __future__ import annotations
+
+import itertools
+import math
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+
+class Mesh:
+    """This rank's view of a mesh of ``math.prod(shape)`` ranks.
+
+    ``shape`` maps axis name to size in axis order; ``coords`` this rank's
+    index on each axis; ``device`` the device its tensors live on.  The
+    collectives the port needs go through :meth:`broadcast`, one call per
+    shard owner, on the backend the world was set up with."""
+
+    def __init__(self, shape, axes, *, rank: int = 0, groups=None,
+                 device="cpu"):
+        shape, axes = tuple(int(s) for s in shape), tuple(axes)
+        if len(shape) != len(axes):
+            raise ValueError(f"mesh shape {shape} and axes {axes} differ "
+                             f"in length")
+        self.axis_names = axes
+        self.shape = dict(zip(axes, shape))
+        self.rank = int(rank)
+        self.coords = dict(zip(axes, (int(c) for c in
+                                      _unravel(self.rank, shape))))
+        self.groups = dict(groups or {})   # axis -> (ranks, process group)
+        self.device = torch.device(device)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def axis_index(self, axis: str) -> int:
+        return self.coords.get(axis, 0)
+
+    def axis_ranks(self, axis: str) -> tuple:
+        """Global ranks along ``axis`` through this rank, by coordinate."""
+        if axis not in self.shape or self.shape[axis] == 1:
+            return (self.rank,)
+        return self.groups[axis][0]
+
+    def broadcast(self, tensor: torch.Tensor, owner: int, axis: str,
+                  async_op: bool = False):
+        """``tensor`` from the rank at coordinate ``owner`` of ``axis`` to
+        every rank along it, in place (contiguous tensors only); with
+        ``async_op`` the work to wait on."""
+        ranks, group = self.groups[axis]
+        return dist.broadcast(tensor, src=ranks[owner], group=group,
+                              async_op=async_op)
+
+
+def _unravel(rank: int, shape) -> list:
+    out = []
+    for size in reversed(shape):
+        out.append(rank % size)
+        rank //= size
+    return out[::-1]
+
+
+# ---------------------------------------------------------------------------
+# the world
+# ---------------------------------------------------------------------------
+
+def world_size() -> int:
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def choose_backend(device, local_world: int, device_count: int) -> str:
+    """NCCL when each rank of this host has a card of its own, else gloo
+    (every CPU world, and ranks that share a card)."""
+    if torch.device(device).type == "cuda" and local_world <= device_count:
+        return "nccl"
+    return "gloo"
+
+
+def rank_device(device="cuda") -> torch.device:
+    """This rank's device: ``cuda:(LOCAL_RANK % device_count)`` for a CUDA
+    world, the CPU for a CPU one."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or world_size() == 1:
+        return dev
+    local = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", "0")))
+    return torch.device("cuda", local % torch.cuda.device_count())
+
+
+def init_process_group(device="cuda") -> Optional[str]:
+    """Join the world the launcher's environment describes (once per
+    process); returns its backend, or None for a world of one rank, which
+    needs no process group."""
+    if dist.is_initialized():
+        return dist.get_backend()
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return None
+    dev = rank_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", str(world)))
+    count = torch.cuda.device_count() if dev.type == "cuda" else 0
+    backend = choose_backend(dev, local_world, count)
+    dist.init_process_group(backend, init_method="env://",
+                            rank=int(os.environ["RANK"]), world_size=world)
+    if dist.get_rank() == 0:
+        print(f"[mesh] world of {world} ranks on {dev.type} "
+              f"({count} cards, {local_world} ranks on this host): "
+              f"backend {backend}", flush=True)
+    return backend
+
+
+def make_mesh(shape, axes, device="cuda") -> Mesh:
+    """The world as a mesh of ``shape`` over ``axes`` (row-major ranks);
+    the world's size must be ``math.prod(shape)``.  Every rank calls this
+    with the same arguments: it makes every axis group on every rank in the
+    same order (``dist.new_group`` is collective)."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    world = world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"mesh {dict(zip(axes, shape))} needs "
+                         f"{math.prod(shape)} ranks; the world has {world}")
+    if world > 1:
+        init_process_group(device)
+    rank = dist.get_rank() if world > 1 else 0
+    groups = {}
+    for a, axis in enumerate(axes):
+        if shape[a] == 1:
+            continue
+        others = [range(s) for i, s in enumerate(shape) if i != a]
+        for rest in itertools.product(*others):
+            ranks = []
+            for c in range(shape[a]):
+                coord = list(rest)
+                coord.insert(a, c)
+                ranks.append(_ravel(coord, shape))
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                groups[axis] = (tuple(ranks), group)
+    return Mesh(shape, axes, rank=rank, groups=groups,
+                device=rank_device(device))
+
+
+def _ravel(coord, shape) -> int:
+    r = 0
+    for c, s in zip(coord, shape):
+        r = r * s + c
+    return r
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
+    """16x16 = 256 ranks per pod; 2 pods = 512 ranks multi-pod.  Raises
+    unless the world has that many ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)
+
+
+def largest_model_axis(n: int, cap=None) -> int:
+    """Largest divisor of ``n`` not exceeding ``cap`` (default ``n``): the
+    widest tensor-parallel axis a ``(data, model)`` factorisation of ``n``
+    ranks supports."""
+    cap = n if cap is None else max(1, min(int(cap), n))
+    for m in range(cap, 0, -1):
+        if n % m == 0:
+            return m
+    return 1
+
+
+def host_mesh_shape(n: int, *, model=None, max_model=None) -> dict:
+    """The axes :func:`make_host_mesh` lays ``n`` ranks out on: the 1-D
+    ``("data",)`` mesh by default; ``model`` an int (dividing ``n``) or
+    ``"max"`` (the largest divisor, capped by ``max_model``) for a 2-D
+    ``(data, model)`` one."""
+    if model is None and max_model is None:
+        return {"data": n}
+    if model in (None, "max"):
+        model = largest_model_axis(n, max_model)
+    model = int(model)
+    if model < 1 or n % model:
+        raise ValueError(f"model axis {model} does not divide the {n} "
+                         f"ranks of the world")
+    return {"data": n // model, "model": model}
+
+
+def make_host_mesh(*, model=None, max_model=None, device="cuda") -> Mesh:
+    """The whole world as an examples/tests mesh (:func:`host_mesh_shape`
+    over the world size): four ranks with ``model=2`` give a (2, 2)
+    ``(data, model)`` mesh."""
+    shape = host_mesh_shape(world_size(), model=model, max_model=max_model)
+    return make_mesh(tuple(shape.values()), tuple(shape), device)

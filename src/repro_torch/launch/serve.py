@@ -60,6 +60,22 @@ it after that).
     PYTHONPATH=src python -m repro_torch.launch.serve --batch 4 \\
         --prompt-len 64 --tokens 16          # full width, on the GPU
 
+Serving mesh: ``--tp A`` (or ``--mesh``, the widest model axis the world
+divides by) serves on a ``(data, model)`` mesh of the ranks that ``python
+-m torch.distributed.run`` starts (``launch/mesh.py``; gloo on the CPU and
+when ranks share a card, NCCL with a card each).  Each rank holds only its
+own shard rows of every sharded stream (``--shards`` defaults to the model
+axis's width, else 2) and gathers the other ranks' rows as compressed bytes
+when a layer uses them (``runtime/collectives.py``; the ``d2d_allgather``
+link of the ledger); the dense math runs on every rank, so every rank
+serves every request and its logits equal a single-device run's bit for
+bit.  The step runs eagerly under a mesh.  Only rank 0 prints.
+``--ckpt`` restores onto the mesh, each rank uploading only its shards'
+bytes; ``--save-ckpt`` saves the whole tree from rank 0 before placing it.
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+        -m repro_torch.launch.serve --smoke --device cpu --tp 4
+
 One :class:`~repro_torch.core.codec_api.Codec` owns the run: it is ambient
 for the whole of ``main`` (``use_codec``), so the encode plans, the
 checkpoint manager, the h2d ledger and every handle's decode count on it.
@@ -74,11 +90,14 @@ set-up, save and restore figures, so a calling script can compare runs.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint.ckpt import CheckpointError, CheckpointManager
@@ -88,8 +107,12 @@ from repro_torch.kernels import decode_attention_kv, enec_decode, enec_encode
 from repro_torch.kernels.decompress_matmul import (DENSE_LAUNCHES,
                                                   FUSED_LAUNCHES)
 from repro_torch.kernels.idd_scan import LAUNCHES as IDD_SCAN_LAUNCHES
+from repro_torch.launch.mesh import make_host_mesh, world_size
 from repro_torch.models import build_model
 from repro_torch.models.lm import abstract_params
+from repro_torch.runtime.collectives import (place_serving_tree,
+                                             tree_gather_nbytes,
+                                             use_serving_mesh)
 from repro_torch.runtime.engine import Engine, EngineConfig, ServerHealth
 from repro_torch.runtime.experts import ExpertStore, install_expert_store
 from repro_torch.runtime.overlap import (OVERLAP_MODES, build_schedule,
@@ -150,8 +173,19 @@ def parse_args(argv=None):
                     choices=("dense", "stream", "fused"))
     ap.add_argument("--min-bytes", type=int, default=4096,
                     help="smallest leaf worth compressing")
-    ap.add_argument("--shards", type=int, default=2,
-                    help="TP shard count of the stream block dim")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="TP shard count of the stream block dim (default: "
+                         "the serving mesh's model-axis width under "
+                         "--tp / --mesh, else 2)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="model-axis width of the serving mesh: stream "
+                         "shards are spread over this axis and gathered as "
+                         "compressed bytes when used; must divide the "
+                         "world size; 1 = one device")
+    ap.add_argument("--mesh", action="store_true",
+                    help="a (data, model) serving mesh with the widest "
+                         "model axis the world size divides by (--tp "
+                         "<largest divisor>)")
     ap.add_argument("--batch", type=int, default=4,
                     help="requests submitted at once")
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -195,12 +229,14 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def _restore_params(args, cfg, mode, codec, dev, expert_store) -> tuple:
+def _restore_params(args, cfg, mode, codec, dev, expert_store,
+                    mesh=None) -> tuple:
     """--ckpt: the weights come from the checkpoint; the tree restored
     into is ``meta`` tensors, so nothing is initialised.  The restore runs
     under ``policy="degraded"``, so the whole quarantine list is collected
     in one pass; the caller decides between serving and exiting
-    (``--strict``).  Returns ``(params, info, report)``, ``report`` the
+    (``--strict``).  On a ``mesh`` each rank uploads its own shards only.
+    Returns ``(params, info, report)``, ``report`` the
     :class:`~repro_torch.checkpoint.ckpt.RestoreReport`."""
     mgr = CheckpointManager(args.ckpt, codec=codec, device=dev)
     manifest = mgr.manifest()
@@ -215,7 +251,7 @@ def _restore_params(args, cfg, mode, codec, dev, expert_store) -> tuple:
     params, _ = mgr.load_for_serving(like, mode=mode, prefix=prefix,
                                      min_bytes=args.min_bytes,
                                      shards=args.shards, policy="degraded",
-                                     expert_store=expert_store)
+                                     mesh=mesh, expert_store=expert_store)
     _sync(dev)
     h2d = codec.link_stats()["h2d"]
     report = mgr.last_restore_report
@@ -224,6 +260,8 @@ def _restore_params(args, cfg, mode, codec, dev, expert_store) -> tuple:
             "h2d_compressed_bytes": h2d["compressed_bytes"],
             "h2d_dense_bytes": h2d["dense_bytes"],
             "dense_records": list(mgr.last_dense_records),
+            "record_h2d": dict(mgr.last_record_h2d),
+            "placed_records": list(mgr.last_placed_records),
             "decode_dispatches": codec.decode_cache_stats()["dispatches"],
             "plan_buckets": len(mgr.last_decode_plan.buckets),
             "quarantined": [dataclasses.asdict(q)
@@ -262,10 +300,36 @@ def _save_params(args, params, mode, codec, dev, expert_records) -> dict:
     return info
 
 
+def _serving_mesh(args):
+    """The ``(data, model)`` mesh of ``--tp`` / ``--mesh`` over the world
+    the launcher started, or None for one device."""
+    if args.tp <= 1 and not args.mesh:
+        return None
+    world = world_size()
+    if args.tp > world:
+        raise ValueError(
+            f"--tp {args.tp} needs a world of {args.tp} ranks and this one "
+            f"has {world}: start the ranks with python -m "
+            f"torch.distributed.run --nproc-per-node {args.tp} -m "
+            f"repro_torch.launch.serve ... --tp {args.tp}")
+    if args.expert_cache_mb is not None:
+        raise ValueError("--expert-cache-mb does not compose with --tp / "
+                         "--mesh yet: the expert store fetches the routed "
+                         "experts on one device each step")
+    return make_host_mesh(model="max" if args.mesh and args.tp <= 1
+                          else args.tp, device=args.device)
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
     HEALTH.reset()      # back-to-back runs in one process start afresh
     dev = resolve_device(args.device)
+    mesh = _serving_mesh(args)
+    if mesh is not None:
+        dev = mesh.device
+    if args.shards is None:
+        # the stream shards land one set per rank of the model axis
+        args.shards = mesh.shape["model"] if mesh is not None else 2
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     if cfg.is_encdec:
         # the engine prefills tokens only, as the reference's does
@@ -277,11 +341,24 @@ def main(argv=None) -> dict:
             f"decode_step on init_step_state's buffers)")
     cfg = dataclasses.replace(cfg, overlap=args.overlap)
     codec = Codec()     # owns this run's encodes, decodes and ledger
-    with use_codec(codec):
-        return _serve(args, cfg, build_model(cfg), codec, dev)
+    # every rank serves every request; rank 0 speaks for them
+    quiet = mesh is not None and mesh.rank != 0
+    with use_codec(codec), (contextlib.redirect_stdout(io.StringIO())
+                            if quiet else contextlib.nullcontext()):
+        return _serve(args, cfg, build_model(cfg), codec, dev, mesh)
 
 
-def _serve(args, cfg, model, codec, dev) -> dict:
+def _link_line(codec) -> str:
+    """The run's ledger: compressed / dense MB over every link that moved
+    bytes (a sharded serve moves no dense byte between ranks)."""
+    parts = [f"{k}:{v['compressed_bytes'] / 1e6:.1f}/"
+             f"{v['dense_bytes'] / 1e6:.1f}MB"
+             for k, v in codec.link_stats().items() if v["ops"]]
+    return "[serve] serve links (compressed/dense): " + (
+        " ".join(parts) or "none")
+
+
+def _serve(args, cfg, model, codec, dev, mesh=None) -> dict:
     t0 = time.perf_counter()
     restore = save = None
     # 0 MB is a legal budget: every routed expert misses and is dropped
@@ -294,7 +371,7 @@ def _serve(args, cfg, model, codec, dev) -> dict:
         HEALTH.transition("restoring")
         try:
             params, restore, report = _restore_params(
-                args, cfg, args.mode, codec, dev, store)
+                args, cfg, args.mode, codec, dev, store, mesh)
         except (CheckpointError, FileNotFoundError) as e:
             HEALTH.transition("failed", str(e))
             print(f"[serve] restore FAILED: {e}")
@@ -328,9 +405,16 @@ def _serve(args, cfg, model, codec, dev) -> dict:
     _sync(dev)
     setup_s = time.perf_counter() - t0
     encode = codec.encode_cache_stats()
-    if args.save_ckpt:
+    if args.save_ckpt and (mesh is None or mesh.rank == 0):
         save = _save_params(args, params, args.mode, codec, dev,
                             store is not None)
+    if mesh is not None:
+        if args.save_ckpt:
+            dist.barrier()      # the checkpoint is whole for every rank
+        # each rank keeps its own shard rows (a restore placed them)
+        params = place_serving_tree(params, mesh)
+    resident = (torch.cuda.memory_allocated(dev) if dev.type == "cuda"
+                else None)
     ratio = wire_ratio(params)
     stats = stream_stats(params)
     n_periods = cfg.n_layers // len(params["period"])
@@ -341,6 +425,13 @@ def _serve(args, cfg, model, codec, dev) -> dict:
         overlap.update(slots=len(schedule.slots),
                        buckets_per_layer=schedule.buckets_per_layer)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    gather_nbytes = 0
+    if mesh is not None:
+        gather_nbytes = tree_gather_nbytes(params, mesh)
+        print(f"[serve] serving mesh {mesh.shape} ({mesh.size} ranks, "
+              f"backend {dist.get_backend() if mesh.size > 1 else None}): "
+              f"--shards {args.shards}, {gather_nbytes / 1e6:.2f} MB of "
+              f"sharded streams gathered a use of every leaf")
     print(f"[serve] arch={cfg.name} mode={args.mode} device={name} "
           f"setup={setup_s:.2f}s encode_buckets="
           f"{encode['planned_buckets']} mode_mix={mode_mix(params)}")
@@ -361,7 +452,9 @@ def _serve(args, cfg, model, codec, dev) -> dict:
                             else None),
         collect_logits=True)
     engine = Engine(model, params, ecfg, codec=codec, device=dev,
-                    expert_store=store, health=HEALTH)
+                    expert_store=store, health=HEALTH,
+                    extra_context=None if mesh is None
+                    else lambda: use_serving_mesh(mesh))
 
     base = launch_counts()
     t0 = time.perf_counter()
@@ -417,6 +510,7 @@ def _serve(args, cfg, model, codec, dev) -> dict:
     print(f"[serve] launches={launches} prefill={engine.prefill_launches} "
           f"per_decode_step="
           f"{engine.step_launches[0] if engine.step_launches else {}}")
+    print(_link_line(codec))
     complete = len(finished) == len(reqs) and all(
         len(r.tokens) == args.tokens for r in reqs)
     tokens = logits = None
@@ -437,6 +531,11 @@ def _serve(args, cfg, model, codec, dev) -> dict:
             "step_buckets": engine.step_buckets,
             "step_decode_s": engine.step_decode_s,
             "step_h2d_bytes": engine.step_h2d_bytes, "experts": experts,
+            "step_gather_bytes": engine.step_gather_bytes,
+            "gather_nbytes": gather_nbytes, "links": codec.link_stats(),
+            "mesh": None if mesh is None else dict(mesh.shape),
+            "rank": 0 if mesh is None else mesh.rank,
+            "resident_bytes": resident,
             "capture_s": engine.captured.capture_s, "engine": st,
             "mode_mix": mode_mix(params),
             "stream_stats": stats, "wire_ratio": ratio,
@@ -447,4 +546,8 @@ def _serve(args, cfg, model, codec, dev) -> dict:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -10,8 +10,9 @@ straggler watchdog, resume from the latest checkpoint).
 
 Every weight product, forward and backward, runs the canonical tiled
 matmul: the dense-tile entry of ``csrc/decompress_matmul.cu`` on the card.
-The reference's ``--mesh`` (and its elastic mesh sizing and sharding
-rules) is not here: the port trains on one device.
+The reference's ``--mesh`` (its elastic mesh sizing and the sharded
+parameters and optimizer state) is not here: the port trains on one
+device.  Serving on a mesh is ``launch/serve.py --tp``.
 """
 from __future__ import annotations
 
@@ -33,8 +34,9 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(
         description=__doc__.split("\n\n")[0],
         epilog="Single device only: the reference's --mesh, elastic mesh "
-               "sizing and sharded training (ROADMAP item 12) are not "
-               "ported yet.")
+               "sizing and sharded training (ROADMAP item 12, its training "
+               "half) are not ported yet; serving on a mesh is "
+               "repro_torch.launch.serve --tp.")
     ap.add_argument("--arch", default="llama3_2_1b", choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config (CPU-friendly)")

@@ -1,0 +1,393 @@
+"""Compressed-bytes collectives: mesh placement and gathering of ENEC
+stream bundles (port of ``repro/runtime/collectives.py``).
+
+The sharded serving model is FSDP of compressed bytes:
+
+  * At rest each rank holds ONLY its TP shard of every sharded stream: the
+    streams' shard dim (``CompressedTensor.shards``) cut to the rank's
+    rows on the mesh ``"model"`` axis (:func:`place_serving_tree`, or
+    straight from a checkpoint through :func:`stream_placer` and
+    ``wire.from_wire(stream_place=)``).  A placed tensor keeps the whole
+    tensor's metadata; its shard dim holds ``shards / A`` rows.
+  * When a layer is used, the missing shards are gathered as fixed-length
+    wire payloads over the axis (:func:`gather_ct`): one broadcast from
+    each shard owner (its rows of every stream array, packed) into a
+    staging buffer allocated once per gather, so only compressed bytes
+    cross between ranks; then one decode runs locally on
+    every rank (``StreamedWeight.materialize``, ``FusedWeight.matmul`` and
+    the overlap prefetch call :func:`maybe_gather_ct` first).
+  * The dense math runs replicated, so sharded logits equal single-device
+    logits bit for bit in every mode.
+
+**Gathered at each use, never kept.**  The reference caches an eager
+gather on its source tensor, and its served step is traced, where nothing
+is cached and every step gathers.  The port runs eagerly: a kept gather
+would leave every rank holding every shard after the first step and the
+mesh would save no memory.  So every use gathers, and the buffer goes with
+the decode that read it.  Within one step the tied embedding and head share
+one gather (the model decodes the embedding once a step and uses it for
+both).
+
+**The ledger.**  Every gather performed is counted on the codec's
+``d2d_allgather`` link: ``(A - 1) x stream_nbytes`` compressed bytes, the
+traffic of the whole axis, and one op per stream array, as the reference
+counts one gather.  The reference counts a gather inside a jit trace once
+per trace; the port counts it once per execution, so a step's count is the
+bytes that step moved.
+
+The collective is :meth:`~repro_torch.launch.mesh.Mesh.broadcast`, the same
+code on the CPU (gloo) and on the card (gloo when ranks share a card,
+NCCL with a card each).
+
+:func:`shard_local_decode` is the no-traffic variant: each rank decodes
+only its own block shard, and the pieces of every rank together are the
+whole decode bit for bit (per-block decode is independent).
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core.api import CompressedTensor, precompute_wire_bytes
+from repro_torch.core.codec import BlockStreams, flatten_blocks
+from repro_torch.core.codec_api import current_codec
+from repro_torch.runtime import sharding
+from repro_torch.runtime.weights import (is_handle, tree_leaves,
+                                         tree_map_with_path)
+
+MODEL_AXIS = "model"
+
+
+# ---------------------------------------------------------------------------
+# the ambient serving mesh
+# ---------------------------------------------------------------------------
+
+_mesh_ctx: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_serving_mesh", default=None)
+
+
+def serving_mesh():
+    """The ambient ``(mesh, axis)`` installed by :func:`use_serving_mesh`,
+    or ``None``: read by :func:`maybe_gather_ct`, so handles gather without
+    a mesh threaded through every signature."""
+    return _mesh_ctx.get()
+
+
+@contextlib.contextmanager
+def use_serving_mesh(mesh, axis: str = MODEL_AXIS):
+    """Install ``mesh`` as the ambient serving mesh for the block: every
+    handle use inside gathers its compressed shards over ``axis`` first."""
+    token = _mesh_ctx.set((mesh, axis))
+    try:
+        yield mesh
+    finally:
+        _mesh_ctx.reset(token)
+
+
+# ---------------------------------------------------------------------------
+# which tensors shard, and how
+# ---------------------------------------------------------------------------
+
+def _axis_count(mesh, axis) -> int:
+    return mesh.shape[axis] if axis in mesh.shape else 1
+
+
+def _shardable(ct, A: int) -> bool:
+    return (isinstance(ct, CompressedTensor) and ct.mode == "enec"
+            and ct.shards > 1 and A > 1 and ct.shards % A == 0)
+
+
+def is_placed(ct: CompressedTensor) -> bool:
+    """Does ``ct`` hold only some of its shards (a rank's slice)?"""
+    return (ct.mode == "enec" and ct.shards > 1
+            and ct.streams.mask.shape[sharding.shard_dim(ct)] < ct.shards)
+
+
+def shard_scale(ct: CompressedTensor) -> int:
+    """The whole tensor's stream rows over the rows ``ct`` holds: ``A``
+    for a rank's slice on an ``A``-rank axis, else 1."""
+    if not is_placed(ct):
+        return 1
+    return ct.shards // ct.streams.mask.shape[sharding.shard_dim(ct)]
+
+
+def stream_nbytes(ct: CompressedTensor) -> int:
+    """Bytes of the whole tensor's device stream layout (>= the exact
+    ``nbytes_wire``: the high stream is padded to its static bound); a
+    placed tensor counts every shard, not only its own."""
+    return shard_scale(ct) * sum(a.numel() * a.element_size()
+                                 for a in ct.streams)
+
+
+def _own_rows(shards: int, mesh, axis: str) -> tuple:
+    """``(start, count)`` of this rank's rows of ``shards`` along the
+    shard dim."""
+    count = shards // _axis_count(mesh, axis)
+    return mesh.axis_index(axis) * count, count
+
+
+def place_ct(ct: CompressedTensor, mesh, axis: str = MODEL_AXIS
+             ) -> CompressedTensor:
+    """This rank's slice of a whole ``ct``: its own shard rows of every
+    stream array, copied out so the rest can be freed; other tensors (and
+    an already placed one) are returned as they are."""
+    if not _shardable(ct, _axis_count(mesh, axis)) or is_placed(ct):
+        return ct
+    ct.nbytes_wire()            # the whole record's size, kept below
+    specs = sharding.ct_pspecs(ct, mesh, axis)
+    out = dataclasses.replace(ct, streams=BlockStreams(*(
+        sharding.local_shard(a, spec, mesh).clone()
+        for a, spec in zip(ct.streams, specs))))
+    out._wire_bytes = ct._wire_bytes
+    return out
+
+
+def serving_pspecs(tree, mesh, axis: str = MODEL_AXIS):
+    """Specs of a serving tree: handles and CompressedTensors get their
+    metadata's stream specs (:func:`sharding.handle_pspecs`), every plain
+    tensor replicates: only the compressed storage is sharded, never the
+    dense math."""
+    def one(_, leaf):
+        if is_handle(leaf):
+            return sharding.handle_pspecs(leaf, mesh, axis)
+        if isinstance(leaf, CompressedTensor):
+            return sharding.ct_pspecs(leaf, mesh, axis)
+        return sharding.replicated(leaf.ndim)
+
+    return tree_map_with_path(one, tree)
+
+
+def place_serving_tree(tree, mesh, axis: str = MODEL_AXIS):
+    """The tree as this rank holds it on ``mesh`` (:func:`serving_pspecs`):
+    each sharded stream cut to the rank's own shard rows, everything else
+    replicated (kept whole)."""
+    # one host copy of every high_len fills the wire-size caches
+    precompute_wire_bytes([
+        ct for _, leaf in tree_leaves(tree)
+        if isinstance(ct := getattr(leaf, "ct", leaf), CompressedTensor)])
+
+    def one(_, leaf):
+        if is_handle(leaf) and isinstance(getattr(leaf, "ct", None),
+                                          CompressedTensor):
+            return dataclasses.replace(leaf, ct=place_ct(leaf.ct, mesh, axis))
+        if isinstance(leaf, CompressedTensor):
+            return place_ct(leaf, mesh, axis)
+        return leaf
+
+    return tree_map_with_path(one, tree)
+
+
+def stream_placer(mesh, axis: str = MODEL_AXIS):
+    """The ``wire.from_wire(stream_place=)`` hook of a mesh restore:
+    ``place(shards) -> (start, count)`` of the shard rows this rank
+    uploads, or ``None`` to upload every row (an unsharded record, or a
+    shard count the axis does not divide)."""
+    A = _axis_count(mesh, axis)
+
+    def place(shards: int):
+        if shards <= 1 or A <= 1 or shards % A:
+            return None
+        return _own_rows(shards, mesh, axis)
+
+    return place
+
+
+# ---------------------------------------------------------------------------
+# the compressed-bytes all-gather
+# ---------------------------------------------------------------------------
+
+_ALIGN = 16
+
+
+def _offsets(sizes) -> tuple:
+    """16-byte aligned offsets of byte runs of ``sizes`` laid end to end,
+    and their total."""
+    offs, total = [], 0
+    for n in sizes:
+        offs.append(total)
+        total += -(-n // _ALIGN) * _ALIGN
+    return offs, total
+
+
+def whole_streams(cts, A: int) -> list:
+    """Empty stream arrays of the whole tensors that the placed ``cts``
+    are slices of (on an ``A``-rank axis), as views of ONE new byte buffer:
+    each stream array's region holds every tensor's whole array, one after
+    another.  For one layer of a decoder bucket's members that is the
+    prefetch's bucket layout (``runtime/overlap.py``), which the bucket's
+    decode reads as one view."""
+    first = cts[0].streams
+    shapes = []
+    for ct in cts:
+        d = sharding.shard_dim(ct)
+        shapes.append([tuple(a.shape[:d]) + (a.shape[d] * A,)
+                       + tuple(a.shape[d + 1:]) for a in ct.streams])
+    counts = [[torch.Size(s).numel() for s in member] for member in shapes]
+    sizes = [sum(c[k] for c in counts) * a.element_size()
+             for k, a in enumerate(first)]
+    offs, total = _offsets(sizes)
+    buf = torch.empty(total, dtype=torch.uint8, device=first.mask.device)
+    regions = [buf[o:o + n].view(a.dtype)
+               for o, n, a in zip(offs, sizes, first)]
+    out, starts = [], [0] * len(first)
+    for member, count in zip(shapes, counts):
+        arrays = []
+        for k, (shape, n) in enumerate(zip(member, count)):
+            arrays.append(regions[k][starts[k]:starts[k] + n].view(shape))
+            starts[k] += n
+        out.append(BlockStreams(*arrays))
+    return out
+
+
+def _start_gather(streams: BlockStreams, whole: BlockStreams, d: int,
+                  mesh, axis: str):
+    """Start gathering every owner's rows of ``streams`` (this rank's are
+    ``streams``) into ``whole`` along dim ``d``; returns the function that
+    waits and unpacks.  ONE broadcast per owner: the owner packs its rows
+    of the five stream arrays into its row of a staging buffer, which goes
+    to every rank at once; the broadcasts run asynchronously (a rank sends
+    its row while it receives the others'), and each rank then unpacks
+    every owner's rows into theirs (one copy an array for a per-layer
+    tensor)."""
+    A = _axis_count(mesh, axis)
+    sizes = [a.numel() * a.element_size() for a in streams]
+    offs, seg = _offsets(sizes)
+    staging = torch.empty((A, seg), dtype=torch.uint8,
+                          device=streams.mask.device)
+    me = mesh.axis_index(axis)
+
+    def part(row, k):
+        a = streams[k]
+        return row[..., offs[k]:offs[k] + sizes[k]].view(a.dtype)
+
+    for k, a in enumerate(streams):
+        part(staging[me], k).view(a.shape).copy_(a)
+    # bytes are bytes: every backend broadcasts uint8
+    works = [mesh.broadcast(staging[owner], owner, axis, async_op=True)
+             for owner in range(A)]
+
+    def finish():
+        for work in works:
+            work.wait()
+        for k, (a, w) in enumerate(zip(streams, whole)):
+            if not sizes[k]:
+                continue
+            if d == 0:           # owner c's rows are rows [c*n, (c+1)*n)
+                w.view(A, -1).copy_(part(staging, k))
+                continue
+            n = a.shape[d]
+            for owner in range(A):
+                w.narrow(d, owner * n, n).copy_(
+                    part(staging[owner], k).view(a.shape))
+
+    return finish
+
+
+def gather_cts(cts, mesh, axis: str = MODEL_AXIS, codec=None,
+               outs=None) -> list:
+    """The compression-aware all-gather of many tensors: the whole stream
+    arrays of each placed tensor on every rank of ``axis``, ready for one
+    local decode; every broadcast is issued before the first is waited on.
+    Only compressed bytes move: ``(A - 1) x stream_nbytes(ct)`` a tensor
+    over the axis, counted on ``d2d_allgather`` (never the dense size).
+    ``outs`` (whole-tensor stream arrays, e.g. rows of the prefetch's
+    bucket layout, or None) receive the gathers; by default
+    :func:`whole_streams` allocates them.
+
+    A tensor passes through, counting nothing, where it does not shard:
+    raw / const / unsharded tensors, an axis of one rank, a shard count the
+    axis does not divide, and a tensor that is whole on this rank already
+    (an unplaced tree)."""
+    A = _axis_count(mesh, axis)
+    codec = codec or current_codec()
+    out, pending = [], []
+    for ct, whole in zip(cts, outs or [None] * len(cts)):
+        if not _shardable(ct, A) or not is_placed(ct):
+            out.append(ct)
+            continue
+        d = sharding.shard_dim(ct)
+        if ct.streams.mask.shape[d] * A != ct.shards:
+            raise ValueError(f"placed tensor holds "
+                             f"{ct.streams.mask.shape[d]} of {ct.shards} "
+                             f"shards; a {A}-rank axis needs "
+                             f"{ct.shards // A}")
+        codec.count_link("d2d_allgather", stream_nbytes(ct) * (A - 1),
+                         ops=len(ct.streams))
+        whole = whole if whole is not None else whole_streams([ct], A)[0]
+        pending.append(_start_gather(ct.streams, whole, d, mesh, axis))
+        res = dataclasses.replace(ct, streams=whole)
+        res._wire_bytes = ct._wire_bytes
+        out.append(res)
+    for finish in pending:
+        finish()
+    return out
+
+
+def gather_ct(ct: CompressedTensor, mesh, axis: str = MODEL_AXIS,
+              codec=None, out: Optional[BlockStreams] = None
+              ) -> CompressedTensor:
+    """:func:`gather_cts` of one tensor (into ``out`` when given)."""
+    return gather_cts([ct], mesh, axis, codec, [out])[0]
+
+
+def maybe_gather_ct(ct, codec=None):
+    """:func:`gather_ct` under the ambient serving mesh; identity without
+    one.  The hook every use of a compressed handle calls, so the
+    single-device path is untouched."""
+    ctx = serving_mesh()
+    if ctx is None or not isinstance(ct, CompressedTensor):
+        return ct
+    mesh, axis = ctx
+    return gather_ct(ct, mesh, axis, codec)
+
+
+def tree_gather_nbytes(tree, mesh, axis: str = MODEL_AXIS) -> int:
+    """``stream_nbytes`` summed over the placed tensors of a tree (every
+    layer of a stack): what one use of every handle gathers from all
+    ranks, so a step that uses each once moves ``(A - 1)`` times this."""
+    A = _axis_count(mesh, axis)
+    return sum(stream_nbytes(ct) for _, leaf in tree_leaves(tree)
+               if _shardable(ct := getattr(leaf, "ct", leaf), A)
+               and is_placed(ct))
+
+
+# ---------------------------------------------------------------------------
+# shard-local decode (no traffic between ranks)
+# ---------------------------------------------------------------------------
+
+def shard_local_decode(ct: CompressedTensor, mesh, axis: str = MODEL_AXIS,
+                       codec=None) -> torch.Tensor:
+    """Decode only this rank's block shard of a per-layer enec tensor
+    (placed, or whole: then its own rows are cut out), in one decode
+    launch: returns the rank's piece of the flattened tensor, elements
+    ``[start, stop)`` of ``decompress_array(ct).reshape(-1)``.  The pieces
+    of the ranks of ``axis`` in coordinate order are the whole decode bit
+    for bit (per-block decode is independent)."""
+    if ct.mode != "enec":
+        raise ValueError(f"shard_local_decode needs an enec tensor, got "
+                         f"mode {ct.mode!r}")
+    if ct.shards <= 1:
+        raise ValueError("tensor is unsharded: use codec.decompress_array")
+    if sharding.ct_stacked(ct):
+        raise ValueError("shard_local_decode takes per-layer tensors; "
+                         "slice the layer stack first (slice_stacked)")
+    A = _axis_count(mesh, axis)
+    if A <= 1 or ct.shards % A:
+        raise ValueError(f"shards={ct.shards} not divisible over mesh axis "
+                         f"{axis!r} of size {A}")
+    streams = ct.streams
+    start, count = _own_rows(ct.shards, mesh, axis)
+    if not is_placed(ct):
+        streams = streams.map(lambda a: a.narrow(0, start, count))
+    codec = codec or current_codec()
+    bits = codec._decode(flatten_blocks(streams), ct.fmt, ct.params,
+                         ct.block_elems)
+    per_shard = streams.mask.shape[1] * ct.block_elems
+    numel = torch.Size(ct.shape).numel()
+    lo = start * per_shard
+    piece = bits.reshape(-1)[:max(0, min(numel - lo, bits.numel()))]
+    return piece.view(ct.fmt.float_dtype)

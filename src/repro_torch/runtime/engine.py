@@ -24,7 +24,10 @@ of the batch goes on.
   (``expert_store``) the step brings each layer's routed expert ids to
   the host to fetch those experts, so it cannot be a graph: it runs
   eagerly on the card (``CapturedStep(eager=True)``), every step, and
-  ``stats()["experts"]`` carries the store's counters.
+  ``stats()["experts"]`` carries the store's counters.  So does a step
+  under a serving mesh (``extra_context`` installing
+  ``runtime.collectives.use_serving_mesh``): its shard gathers are
+  collectives between processes, which a CUDA graph cannot hold.
 * **Deadlines at every stage.**  Requests whose TTFT deadline passes in the
   queue are shed before a prefill; in-flight requests past their total
   deadline are evicted at step granularity and their slot reclaimed; a
@@ -63,6 +66,7 @@ from repro_torch.runtime import faults as rt_faults
 from repro_torch.runtime.admission import (AdmissionQueue, OverloadGovernor,
                                            Request)
 from repro_torch.runtime.captured import CapturedStep
+from repro_torch.runtime.collectives import serving_mesh
 from repro_torch.runtime.retry import RetryPolicy
 
 
@@ -153,12 +157,16 @@ class Engine:
                  clock: Callable[[], float] = time.monotonic,
                  sleep: Callable[[float], None] = time.sleep,
                  health: Optional[ServerHealth] = None, device="cuda",
-                 expert_store=None):
+                 expert_store=None,
+                 extra_context: Optional[Callable] = None):
         self.model = model
         self.cfg = model.cfg
         self.params = params
         self.config = config
         self.codec = codec
+        # more ambient context for prefill and step (the launcher's serving
+        # mesh: ``runtime.collectives.use_serving_mesh``)
+        self.extra_context = extra_context
         # the MoE expert store behind any ExpertRef handles in ``params``
         # (runtime/experts.py): observed for its counters and each step's
         # miss-decode seconds; its fetches happen inside moe_block
@@ -188,9 +196,13 @@ class Engine:
         # make a cycle, and a dropped engine would keep its tree and graph
         # pool on the card until the cycle collector ran
         engine = weakref.ref(self)
+        with self._ctx():
+            # a step under a serving mesh gathers shards through
+            # collectives, which a CUDA graph cannot hold
+            meshed = serving_mesh() is not None
         self.captured = CapturedStep(
             lambda bucket: engine()._step_body(bucket), self.device, s,
-            eager=expert_store is not None,
+            eager=expert_store is not None or meshed,
             carried=lambda: engine()._carried())
 
         self.counters = {"submitted": 0, "admitted": 0, "done": 0,
@@ -208,9 +220,11 @@ class Engine:
         self.step_device_ms: List[Optional[float]] = []
         # per decode step: the expert store's miss-decode seconds (0.0 on
         # a step that hit every expert, and without a store) and the bytes
-        # the run's codec moved host to device
+        # the run's codec moved host to device, and the compressed bytes it
+        # gathered between the ranks of a serving mesh (d2d_allgather)
         self.step_decode_s: List[float] = []
         self.step_h2d_bytes: List[int] = []
+        self.step_gather_bytes: List[int] = []
         self.prefill_launches = dict.fromkeys(build.counts(), 0)
         self._draining = False
         if not self.health.ready():
@@ -223,6 +237,8 @@ class Engine:
         if self.codec is not None:
             from repro_torch.core.codec_api import use_codec
             stack.enter_context(use_codec(self.codec))
+        if self.extra_context is not None:
+            stack.enter_context(self.extra_context())
         return stack
 
     def _ensure_state(self):
@@ -244,6 +260,10 @@ class Engine:
 
     def _h2d_bytes(self) -> int:
         return (self.codec.transfer_stats()["h2d_bytes"]
+                if self.codec is not None else 0)
+
+    def _gather_bytes(self) -> int:
+        return (self.codec.link_stats()["d2d_allgather"]["compressed_bytes"]
                 if self.codec is not None else 0)
 
     def _load(self) -> None:
@@ -435,7 +455,7 @@ class Engine:
         before = build.counts()
         dec0 = (self.expert_store.decode_seconds()
                 if self.expert_store is not None else 0.0)
-        h2d0 = self._h2d_bytes()
+        h2d0, gather0 = self._h2d_bytes(), self._gather_bytes()
         t0 = self.clock()
         with self._ctx():
             # a transient runtime error rides the same retry policy as
@@ -469,6 +489,7 @@ class Engine:
             (self.expert_store.decode_seconds() - dec0)
             if self.expert_store is not None else 0.0)
         self.step_h2d_bytes.append(self._h2d_bytes() - h2d0)
+        self.step_gather_bytes.append(self._gather_bytes() - gather0)
         if self.governor.observe_step(dt):
             for req in self.queue.shed_lowest_priority(
                     self.config.shed_per_trip, reason="overload"):

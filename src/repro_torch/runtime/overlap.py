@@ -54,6 +54,15 @@ buffer a stream and points the handles at its views; the old streams are
 released.  That copy is made outside any CUDA graph capture (the engine's
 warm-up and prefills run the schedule first) and refused inside one.
 
+**Under a serving mesh** (``runtime/collectives.py``) a rank holds only its
+own shard rows of each stream, so there is no layout to keep: each
+prefetch allocates one buffer a bucket in the layout above and gathers
+every owner's shard rows of the layer into their rows of it
+(:func:`gather_layer`: one broadcast an owner a leaf, all of the layer's
+in flight together, each unpacked from its staging row into the layout),
+then the bucket's one decode launch reads it as one view, with nothing
+copied after the gather.
+
 On the CPU the same schedule runs in order on one stream: that follows the
 device, it is not a fallback.
 """
@@ -71,6 +80,7 @@ from repro_torch.core.codec import BlockStreams, flatten_blocks
 from repro_torch.core.codec_api import adjacent, current_codec
 from repro_torch.core.dtypes import FORMATS
 from repro_torch.kernels import build
+from repro_torch.runtime import collectives
 from repro_torch.runtime.weights import (StreamedWeight, is_handle, resolve,
                                          tree_leaves, tree_map_with_path)
 
@@ -157,6 +167,9 @@ def build_schedule(period, n_periods: int, codec=None) -> OverlapSchedule:
     for s in slots:
         buckets.setdefault(_key(leaves[s].ct), []).append(leaves[s])
     for handles in buckets.values():
+        # a rank's shard rows are gathered into a new layout every layer
+        if any(collectives.is_placed(h.ct) for h in handles):
+            continue
         if len(handles) > 1 and not all(
                 adjacent([getattr(flatten_blocks(
                     slice_stacked(h.ct, 0).streams), field)
@@ -173,15 +186,42 @@ def _layer_cts(schedule: OverlapSchedule, index: int) -> list:
             for s in schedule.slots]
 
 
-def slot_buffers(schedule: OverlapSchedule, codec=None) -> list:
+def slot_buffers(schedule: OverlapSchedule) -> list:
     """One slot: a (nblocks, block_elems) bit tensor per decoder bucket of
-    a layer, in the plan's bucket order, on the streams' device."""
-    codec = codec or current_codec()
-    plan = codec.plan_decode(_layer_cts(schedule, 0))
+    a layer, in ``Codec.plan_decode``'s bucket order, on the streams'
+    device."""
+    buckets: dict = {}
+    for ct in _layer_cts(schedule, 0):
+        if ct.mode == "enec":
+            # a placed tensor decodes whole, once gathered
+            nb = (flatten_blocks(ct.streams).mask.shape[0]
+                  * collectives.shard_scale(ct))
+            key = _key(ct)
+            buckets[key] = buckets.get(key, 0) + nb
     dev = schedule.leaves[schedule.slots[0]].ct.streams.mask.device
-    return [torch.empty((b.nblocks, b.block_elems),
-                        dtype=FORMATS[b.fmt_name].bits_dtype, device=dev)
-            for b in plan.buckets]
+    return [torch.empty((nb, key[2]), dtype=FORMATS[key[0]].bits_dtype,
+                        device=dev)
+            for key, nb in buckets.items()]
+
+
+def gather_layer(cts: list, mesh, axis: str, codec=None) -> list:
+    """A layer's per-layer tensors with every placed one gathered over the
+    mesh ``axis``: the placed members of each decoder bucket (in slot
+    order, as ``Codec.plan_decode`` groups them) into one new buffer a
+    bucket, laid out member after member, so the bucket's decode reads
+    each stream array as one view."""
+    buckets: dict = {}
+    for i, ct in enumerate(cts):
+        if collectives.is_placed(ct):
+            buckets.setdefault(_key(ct), []).append(i)
+    A = mesh.shape.get(axis, 1)
+    outs = [None] * len(cts)
+    for members in buckets.values():
+        for i, whole in zip(members, collectives.whole_streams(
+                [cts[i] for i in members], A)):
+            outs[i] = whole
+    # one call: every member's broadcasts are in flight together
+    return collectives.gather_cts(cts, mesh, axis, codec, outs)
 
 
 def decode_layer(schedule: OverlapSchedule, index: int, codec=None,
@@ -189,11 +229,15 @@ def decode_layer(schedule: OverlapSchedule, index: int, codec=None,
     """ONE batched decode of every streamed leaf's layer ``index`` (one
     launch per bucket, into ``out`` from :func:`slot_buffers` when given):
     the dense weights in slot order, bitwise equal to
-    ``StreamedWeight.materialize`` of the same slice."""
+    ``StreamedWeight.materialize`` of the same slice.  Under a serving
+    mesh the layer's shards are gathered first (:func:`gather_layer`)."""
     codec = codec or current_codec()
     handles = [schedule.leaves[s] for s in schedule.slots]
-    decs = codec.execute(codec.plan_decode(_layer_cts(schedule, index)),
-                         out=out)
+    cts = _layer_cts(schedule, index)
+    ctx = collectives.serving_mesh()
+    if ctx is not None:
+        cts = gather_layer(cts, *ctx, codec)
+    decs = codec.execute(codec.plan_decode(cts), out=out)
     return tuple(torch.movedim(d, 0, h.tp_axis).to(getattr(torch, h.dtype_str))
                  for h, d in zip(handles, decs))
 
@@ -255,7 +299,7 @@ def pipeline_unrolled(schedule: OverlapSchedule, apply_fn: Callable,
     codec = codec or current_codec()
     P = schedule.n_periods
     dev = schedule.leaves[schedule.slots[0]].ct.streams.mask.device
-    bufs = [slot_buffers(schedule, codec) for _ in range(2)]
+    bufs = [slot_buffers(schedule) for _ in range(2)]
     side = side_stream(dev)
     main = torch.cuda.current_stream(dev) if side is not None else None
     ready = [None] * P          # event: layer i's decode is done

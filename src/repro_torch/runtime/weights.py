@@ -17,6 +17,9 @@ are bitwise equal across modes on each device.
 Handles hold tensors with a leading ``(L,)`` layer dim; the model's layer
 loop takes one layer with :meth:`WeightHandle.layer`.  Decodes go through
 the ambient codec (``core.codec_api.current_codec``) unless one is passed.
+Under an ambient serving mesh (``runtime/collectives.py``) every use of a
+compressed handle first gathers its stream shards from the other ranks as
+compressed bytes (``maybe_gather_ct``).
 
 :func:`handle_spec` / :func:`handle_from_spec` turn a compressed handle
 into the JSON metadata of a checkpoint record and back, around streams
@@ -81,7 +84,11 @@ class StreamedWeight(WeightHandle):
     flat: bool = False
 
     def materialize(self, codec=None):
-        w_perm = (codec or current_codec()).decompress_array(self.ct)
+        # under a serving mesh the shards are gathered as compressed bytes
+        # first, then one local decode runs on every rank
+        from repro_torch.runtime.collectives import maybe_gather_ct
+        w_perm = (codec or current_codec()).decompress_array(
+            maybe_gather_ct(self.ct, codec))
         return torch.movedim(w_perm, 0, self.tp_axis).to(
             getattr(torch, self.dtype_str))
 
@@ -102,11 +109,14 @@ class FusedWeight(WeightHandle):
     dtype_str: str
 
     def matmul(self, x):
-        return ops.decompress_matmul(x, self.ct, self.k, self.n)
+        from repro_torch.runtime.collectives import maybe_gather_ct
+        return ops.decompress_matmul(x, maybe_gather_ct(self.ct), self.k,
+                                     self.n)
 
     def materialize(self, codec=None):
+        from repro_torch.runtime.collectives import maybe_gather_ct
         w = (codec or current_codec()).untile_matmul_weight(
-            self.ct, self.k, self.n)
+            maybe_gather_ct(self.ct, codec), self.k, self.n)
         return w.to(getattr(torch, self.dtype_str))
 
     def layer(self, i):
@@ -188,9 +198,11 @@ def finish_materialize(handle, w_stacked: torch.Tensor) -> torch.Tensor:
 def materialize_full_many(handles, codec=None) -> list:
     """Every handle's dense ``(L, ...)`` leaf, with O(#decode buckets)
     launches (``Codec.decompress_stacked_many``)."""
+    from repro_torch.runtime.collectives import maybe_gather_ct
     codec = codec or current_codec()
     decs = codec.decompress_stacked_many(
-        [None if isinstance(h, DenseWeight) else h.ct for h in handles])
+        [None if isinstance(h, DenseWeight) else maybe_gather_ct(h.ct, codec)
+         for h in handles])
     return [h.w if isinstance(h, DenseWeight) else finish_materialize(h, d)
             for h, d in zip(handles, decs)]
 

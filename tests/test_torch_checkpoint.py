@@ -24,6 +24,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.core import wire
 from repro_torch.core.codec_api import Codec
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import build_model
 from repro_torch.models.lm import abstract_params
 from repro_torch.runtime.streaming import (MATMUL_LEAF_NAMES,
@@ -248,21 +249,26 @@ def test_serve_save_ckpt_then_ckpt_bitwise_on_cpu(tmp_path, mode):
 @pytest.mark.parametrize("what", ["unknown_policy", "mesh",
                                   "expert_records"])
 def test_unported_restore_options_raise_clearly(saved, tmp_path, what):
-    """Mesh placement waits for a later slice: asking for it raises, it is
-    never silently ignored; a manager that writes per-expert records
-    (ported since) refuses it as well.  A restore policy that exists in
-    neither package (the degraded one is ported) is rejected by name, as
-    the reference rejects it."""
+    """A restore onto a mesh takes the port's ``launch.mesh.Mesh`` and
+    nothing else: any other object is refused by name, never silently
+    ignored.  A manager of per-expert records refuses a mesh with the
+    reference's message (its store fetches on one device).  A restore
+    policy that exists in neither package is rejected by name, as the
+    reference rejects it."""
     mgr, _, _, like = saved
     if what == "unknown_policy":
         with pytest.raises(ValueError, match="unknown restore policy"):
             mgr.load({"params": like}, policy="yolo")
         return
-    with pytest.raises(CheckpointError, match="not ported yet"):
-        if what == "expert_records":
+    if what == "expert_records":
+        with pytest.raises(CheckpointError,
+                           match="expert-record checkpoints cannot restore "
+                                 "onto a serving mesh"):
             CheckpointManager(mgr.root, expert_records=True,
                               serving_layout="stream",
                               device="cpu").load_for_serving(
-                like, prefix="params", mesh=object())
-        else:
-            mgr.load_for_serving(like, prefix="params", mesh=object())
+                like, prefix="params",
+                mesh=make_host_mesh(model=1, device="cpu"))
+        return
+    with pytest.raises(TypeError, match="repro_torch.launch.mesh.Mesh"):
+        mgr.load_for_serving(like, prefix="params", mesh=object())

@@ -17,10 +17,8 @@ against ``repro.runtime.experts`` on the same weights:
     to the reference's, a reference checkpoint restored in the port and a
     port checkpoint in the reference, restored into a store without an
     upload or a decode of a cold expert.
-
-The reference's ``test_ckpt_expert_records_refuse_mesh`` has no
-counterpart here: the port has no mesh yet (``load_for_serving`` refuses
-any ``mesh``, tests/test_torch_checkpoint.py).
+  * a restore of expert records onto a serving mesh refused, as the
+    reference refuses it (``test_ckpt_expert_records_refuse_mesh``).
 """
 import dataclasses
 import json
@@ -36,10 +34,11 @@ from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import build_model as jax_build_model
 from repro.runtime.experts import ExpertStore as JaxExpertStore
 from repro.runtime.experts import install_expert_store as jax_install
-from repro_torch.checkpoint.ckpt import CheckpointManager
+from repro_torch.checkpoint.ckpt import CheckpointError, CheckpointManager
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.core.codec_api import Codec
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import build_model
 from repro_torch.models.lm import abstract_params
 from repro_torch.runtime.experts import (ExpertRef, ExpertStore,
@@ -398,6 +397,21 @@ def test_ckpt_expert_records_roundtrip(smoke, tmp_path):
             store.records_for(f"params/{name}")
         got = store2.materialize_leaf(f"params/{name}")
         assert torch.equal(_bits(got), _bits(orig)), name
+
+
+def test_ckpt_expert_records_refuse_mesh(smoke, tmp_path):
+    """Expert records go to a store that fetches on one device each step:
+    their checkpoint refuses a serving mesh (also read by a manager that
+    does not write them)."""
+    _, _, cfg, _, params, _ = smoke
+    mgr = _port_mgr(tmp_path, expert_records=True)
+    mgr.save(0, {"params": params}, blocking=True)
+    mesh = make_host_mesh(model=1, device="cpu")
+    for reader in (mgr, _port_mgr(tmp_path)):
+        with pytest.raises(CheckpointError, match="mesh"):
+            reader.load_for_serving(abstract_params(cfg), mode="stream",
+                                    prefix="params", min_bytes=MIN_BYTES,
+                                    mesh=mesh)
 
 
 def test_ckpt_serving_restore_into_bounded_store(smoke, tmp_path):

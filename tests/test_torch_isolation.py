@@ -60,6 +60,16 @@ def test_family_modules_are_scanned(rel):
     assert ROOT / "src" / "repro_torch" / rel in PORT_FILES
 
 
+# the modules of the serving mesh, each scanned above
+MESH_MODULES = ("launch/mesh.py", "runtime/sharding.py",
+                "runtime/collectives.py")
+
+
+@pytest.mark.parametrize("rel", MESH_MODULES)
+def test_mesh_modules_are_scanned(rel):
+    assert ROOT / "src" / "repro_torch" / rel in PORT_FILES
+
+
 @pytest.mark.parametrize("arch", ["xlstm_125m", "jamba_v0_1_52b",
                                   "paligemma_3b"])
 def test_family_init_and_cache_default_to_cuda(monkeypatch, arch):
