@@ -79,7 +79,7 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
            stream mode, kernel 1 decoding the fallback record every step.
    mesh    the serving mesh: ``serve.main --tp A`` on A ranks of ``python
            -m torch.distributed.run`` sharing this card (gloo), full-width
-           llama3_2_1b, 2 requests x prompt 64 x 4 tokens, eager steps:
+           llama3_2_1b, 2 requests x prompt 64 x 3 tokens, eager steps:
            A = 2 in stream mode with the prefetch on and off, fused mode
            and a restore of a ``--shards 2`` stream checkpoint; A = 4 in
            stream mode.  Every rank's logits bitwise equal to one
@@ -159,9 +159,9 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
            beside its plain version, its bound and torch.matmul.
    families
            the recurrent and prefix families through ``runtime/engine.py``
-           from seeded synthetic weights: xlstm_125m and paligemma_3b at
-           full width, jamba_v0_1_52b at published widths cut to 8 layers
-           (one period), each in dense, stream and fused mode, 4 requests
+           from seeded synthetic weights at published widths, cut to 8
+           layers (xlstm_125m, two periods; jamba_v0_1_52b, one period)
+           and 9 (paligemma_3b), each in dense, stream and fused mode, 4 requests
            x prompt 64 x 16 new tokens submitted together and staggered
            (buckets 1, 2, 4 captured): checks (a)-(e) of
            :func:`phase_families` (logits bitwise across modes, to the
@@ -181,6 +181,20 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
            ``decompress_tree`` bitwise, ``tree_ratio``; records and
            ratios equal to the plain CPU path's; compress and decompress
            GB/s (launch-bound at these sizes).
+   train_mesh
+           the training mesh after phase train: ``launch/train.py --mesh``
+           on 2 ranks of ``python -m torch.distributed.run`` sharing this
+           card (gloo), full-width llama3_2_1b at the launcher's defaults:
+           (1, 2) for 3 steps saved at step 3, bitwise equal to phase
+           train's 3-step run (losses, gradient norms, the digest of each
+           rank's shards against that state cut the same way), then that
+           checkpoint resumed on (2, 1) to step 6 within 1e-3 of phase
+           train's losses, both ranks equal;
+           one step's gradient tree through ``compressed_allreduce``
+           bitwise equal to the plain rank-ordered sum; launches of 2',
+           4 and 1 equal to the code's and the codec's counts; seconds a
+           step split into gather / compute / reduce, the bytes of each,
+           the gradient ratio, peak and held GB a rank.
 6. a ``{"kernels": [...]}`` JSON line, then the card line and the last
    line ``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` is
    its count in the run of its ``path`` (fused, the main path, for the
@@ -193,7 +207,8 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    ``engine_fused``, ``overlap_llama3_2_1b``,
    ``overlap_minitron_4b``, ``scan``,
    ``kv_attention``, the three ``minitron_*`` modes, the six ``moe_*``
-   runs, the nine ``families_*`` runs and ``api``), and
+   runs, the nine ``families_*`` runs, ``api``, the three ``whisper_*``
+   modes, ``train`` and the three ``train_mesh_*`` runs (rank 0's)), and
    ``launches_per_captured_step`` its launches in one replay of each
    engine case's and each family run's bucket-4 graph.  Every count is set to 0 just before its
    run and read just after it; a graph's replays add what its capture
@@ -2652,7 +2667,8 @@ def phase_serve_minitron():
 MOE_ARCH = "phi3_5_moe_42b_a6_6b"
 # depth cut 32 -> 8: the bitwise checks need the dense tree on the card,
 # 83.7 GB at 32 layers, and the set-up holds the dense and compressed
-# trees together (~21.3 + 20 GB at 8 layers, ~80 GB at 16)
+# trees together (~21.3 + 20 GB at 8 layers, ~80 GB at 16); check (f)
+# needs the depth: at 4 layers the bounded store's peak is above dense's
 MOE_LAYERS = 8
 MOE_GEOMS = 2            # expert leaf geometries: (D, F) and (F, D)
 
@@ -3274,9 +3290,11 @@ def phase_moe():
 # the recurrent and prefix families at published widths; Jamba's depth is
 # cut 32 -> 8 (one period of its program): its dense tree is 106 GB at 32
 # layers, and a set-up holds the dense tree and its compressed copy
-# together (~26.6 + ~20 GB at 8 layers)
+# together (~26.6 + ~20 GB at 8 layers); xLSTM's 12 -> 8 (two periods)
+# and PaliGemma's 18 -> 9 keep the script inside its time limit since
+# phase train_mesh joined it (no check depends on the depth)
 FAMILY_ARCHS = ("xlstm_125m", "paligemma_3b", "jamba_v0_1_52b")
-FAMILY_LAYERS = {"jamba_v0_1_52b": 8}
+FAMILY_LAYERS = {"jamba_v0_1_52b": 8, "xlstm_125m": 8, "paligemma_3b": 9}
 PREFIX_EMBEDS = 256          # PaliGemma's image prefix (its prefix_embed)
 # the leaves each sequence block and FFN multiplies by, one kernel-2
 # launch a product in a decode step (``layers.weight_matmul``); an MoE
@@ -3817,8 +3835,8 @@ def _family_case(arch: str, card: str) -> tuple:
 
 
 def phase_families():
-    """xlstm_125m and paligemma_3b at full width and jamba_v0_1_52b at
-    published widths cut to 8 layers (one period), each from seeded
+    """xlstm_125m, paligemma_3b and jamba_v0_1_52b at published widths,
+    cut to ``FAMILY_LAYERS`` layers, each from seeded
     synthetic weights, in dense, stream and fused mode through the engine
     (each bucket's step a CUDA graph): 4 requests x prompt 64 x 16 new
     tokens, submitted together (bucket 4) and staggered (buckets 1, 2, 4).
@@ -4351,6 +4369,48 @@ def _flat_state(out) -> list:
                              "opt": out["opt_state"]}))
 
 
+DIGEST_CHUNK = 1 << 26       # elements a pass: bounds the int64 temporaries
+
+
+def leaf_digest(t) -> tuple:
+    """Two integer sums of a tensor's bit patterns on its device: of the
+    words, and of the words weighted by their index mod 65521 (plus one),
+    so that a changed or moved word shows.  Integer sums wrap the same in
+    any order: the digest is exact, and equal digests of two runs mean
+    equal bits here."""
+    import torch
+    words = t.reshape(-1).view({1: torch.uint8, 2: torch.int16,
+                                4: torch.int32}[t.element_size()])
+    total = weighted = 0
+    for start in range(0, words.numel(), DIGEST_CHUNK):
+        w = words[start:start + DIGEST_CHUNK].to(torch.int64)
+        idx = torch.arange(start, start + w.numel(), device=w.device)
+        total += int(w.sum())
+        weighted += int((w * (idx % 65521 + 1)).sum())
+    return total, weighted
+
+
+def shard_digests(out, shape) -> list:
+    """For each rank of a ``(data, model)`` mesh of ``shape``, the digest
+    of every leaf of the whole training state ``out`` cut to that rank's
+    shard (``elastic.train_pspecs``): what the rank holds after training
+    to the same state on that mesh."""
+    import math
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.registry import abstract_params
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import elastic, sharding
+    out_ = []
+    for rank in range(math.prod(shape)):
+        mesh = Mesh(shape, ("data", "model"), rank=rank)
+        specs = dict(sharding.spec_leaves(elastic.train_pspecs(
+            abstract_params(get_config("llama3_2_1b")), mesh)))
+        out_.append({path: leaf_digest(sharding.local_shard(t, specs[path],
+                                                             mesh))
+                     for path, t in _flat_state(out)})
+    return out_
+
+
 def phase_train():
     """llama3_2_1b at full width trained through ``launch/train.py``'s own
     code path at its defaults (global batch 8, seq 128, lr 3e-4,
@@ -4402,9 +4462,11 @@ def phase_train():
               and launches["enec_decode"] == 0,
               f"train: unexpected launches {launches}")
         t0 = time.perf_counter()
-        train.main(base + ["--steps", str(TRAIN_RESUME), "--ckpt",
-                           str(tmp / "resume")])
+        first = train.main(base + ["--steps", str(TRAIN_RESUME), "--ckpt",
+                                   str(tmp / "resume")])
         first_s = _sync_s(t0)
+        digest = shard_digests(first, TRAIN_MESH_FIRST)
+        del first
         t0 = time.perf_counter()
         resumed = train.main(base + ["--steps", str(TRAIN_STEPS), "--ckpt",
                                      str(tmp / "resume")])
@@ -4437,7 +4499,7 @@ def phase_train():
            "peak_gb": peak, "held_gb": held, "memory": memory,
            "whole_s": whole_s,
            "first_s": first_s, "resumed_s": resumed_s, "launches_per_step": want,
-           "backward": backward}
+           "backward": backward, "digest_first": digest}
     RESULTS["train"] = res
     log(f"train: {TRAIN_STEPS} steps, resumed run bitwise equal; "
         f"{res['s_per_step_mean']:.3f} s a step (steps 1-5; step 0 "
@@ -4451,7 +4513,7 @@ def phase_train():
 # phase mesh: the serving mesh over torch.distributed ranks
 # ---------------------------------------------------------------------------
 
-MESH_BATCH, MESH_TOKENS = 2, 4    # phase serve's first 2 requests, 4 tokens
+MESH_BATCH, MESH_TOKENS = 2, 3    # phase serve's first 2 requests, 3 tokens
 MESH_WIDTHS = (2, 4)
 MESH_ARGS = ["--batch", str(MESH_BATCH), "--prompt-len", str(PROMPT),
              "--tokens", str(MESH_TOKENS)]
@@ -4538,25 +4600,28 @@ def mesh_worker(spec_path: str) -> None:
                 "resident_bytes", "restore", "mode_mix")},
             "peak_bytes": torch.cuda.max_memory_allocated()}
         del out
-    torch.save(res, out_dir / f"A{A}_rank{rank}.pt")
+    torch.save(res, out_dir / f"{spec['tag']}_rank{rank}.pt")
     dist.barrier()
     dist.destroy_process_group()
 
 
-def _mesh_world(A: int, runs: dict, out_dir: Path) -> list:
-    """Start A ranks on this card through ``torch.distributed.run``; a
-    failed rank fails the phase."""
+def _mesh_world(A: int, runs: dict, out_dir: Path,
+                worker: str = "--mesh-worker", tag: str = "") -> list:
+    """Start A ranks on this card through ``torch.distributed.run``, each
+    running ``worker`` on ``runs``; a failed rank fails the phase."""
     import os
     import signal
     import torch
-    spec = out_dir / f"A{A}.json"
-    spec.write_text(json.dumps({"A": A, "out": str(out_dir), "runs": runs}))
+    tag = tag or f"A{A}"
+    spec = out_dir / f"{tag}.json"
+    spec.write_text(json.dumps({"A": A, "out": str(out_dir), "runs": runs,
+                                "tag": tag}))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
     cmd = [sys.executable, "-m", "torch.distributed.run",
            "--nproc-per-node", str(A), "--master-addr", "127.0.0.1",
            "--master-port", str(_free_port()), str(ROOT / "chip_smoke.py"),
-           "--mesh-worker", str(spec)]
+           worker, str(spec)]
     t0 = time.perf_counter()
     # its own process group, so a world past its time limit goes whole
     proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
@@ -4572,12 +4637,13 @@ def _mesh_world(A: int, runs: dict, out_dir: Path) -> list:
     secs = time.perf_counter() - t0
     for line in stdout.splitlines():
         if line.startswith(("[serve] serving mesh", "[mesh]",
-                            "[serve] batch=", "[serve] serve links")):
-            log(f"mesh A={A} rank 0: {line}")
+                            "[serve] batch=", "[serve] serve links",
+                            "[launch.train]", "[train]")):
+            log(f"{tag} rank 0: {line}")
     check(proc.returncode == 0, f"mesh A={A}: torch.distributed.run exited "
           f"{proc.returncode}:\n{stdout[-4000:]}\n{stderr[-4000:]}")
-    log(f"mesh A={A}: {len(runs)} serve runs on {A} ranks in {secs:.1f} s")
-    return [torch.load(out_dir / f"A{A}_rank{r}.pt", weights_only=False)
+    log(f"{tag}: {len(runs)} runs on {A} ranks in {secs:.1f} s")
+    return [torch.load(out_dir / f"{tag}_rank{r}.pt", weights_only=False)
             for r in range(A)], secs
 
 
@@ -4763,6 +4829,358 @@ def _check_mesh_restore(A, ranks, single) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase train_mesh: the training mesh over torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+TRAIN_MESH_A = 2
+TRAIN_MESH_FIRST = (1, 2)      # phase train records its shards' digests
+# each rank's ``launch/train.py`` runs, in order: 3 steps on (1, 2) saved at
+# step 3, then that checkpoint resumed on (2, 1) to step 6
+TRAIN_MESH_RUNS = {"1x2": ["--mesh", "1x2", "--steps", str(TRAIN_RESUME)],
+                   "2x1": ["--mesh", "2x1", "--steps", str(TRAIN_STEPS)]}
+TRAIN_MESH_RTOL = 1e-3
+
+
+def _memory_marks(train, marks: list):
+    """Patch ``train``'s step builder and the checkpoint's save so each
+    step and each save appends ``(label, peak, held)`` bytes: the peak
+    since the previous mark and what is allocated at the mark ("setup":
+    from the start of the run to its first step).  At each mark the rank
+    also hands its cached blocks back to the card: the ranks share one
+    card, and rank 0's save needs the room another rank's allocator would
+    otherwise keep (with a card a rank nothing needs this)."""
+    import torch
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+
+    def mark(label):
+        torch.cuda.synchronize()
+        marks.append((label, torch.cuda.max_memory_allocated(),
+                      torch.cuda.memory_allocated()))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    build_step, save = train.build_train_step, CheckpointManager.save
+
+    def marked_build(*args, **kw):
+        step = build_step(*args, **kw)
+
+        def marked_step(*a):
+            mark("setup" if not marks else "between")
+            out = step(*a)
+            mark("step")
+            return out
+        return marked_step
+
+    def marked_save(self, *args, **kw):
+        mark("before save")
+        save(self, *args, **kw)
+        mark("save")
+
+    train.build_train_step, CheckpointManager.save = marked_build, \
+        marked_save
+    return lambda: setattr(train, "build_train_step", build_step) or \
+        setattr(CheckpointManager, "save", save)
+
+
+def _allreduce_check(out) -> dict:
+    """One step's whole gradient tree of this rank's rows (batch
+    TRAIN_STEPS, the state of ``out``) through ``compressed_allreduce``
+    over "data", each leaf's codec params searched on the exponent
+    histogram of every rank's gradient (summed over the axis): bitwise
+    equal to the plain rank-ordered sum of the dense gradients.  Logs the
+    d2d_psum bytes, compressed and dense, the gradient ratio as shipped
+    (the static stream layout) and at the exact wire size beside
+    ``wire_bytes_saved``'s estimate, and the launches (one encode and one
+    decode a leaf)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import params as params_mod
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.core.codec import to_blocks
+    from repro_torch.core.codec_api import Codec
+    from repro_torch.core.dtypes import format_for, to_bits
+    from repro_torch.core.stats import exponent_histogram_device
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.mesh import gather_whole
+    from repro_torch.models import build_model
+    from repro_torch.optim.grad_compress import (compressed_allreduce,
+                                                 rank_ordered_sum,
+                                                 wire_bytes_saved)
+    from repro_torch.runtime import elastic, sharding
+    from repro_torch.runtime.steps import loss_and_grads
+    mesh = out["mesh"]
+    D = mesh.shape["data"]
+    model = build_model(get_config("llama3_2_1b"))
+    data = pipeline.DataConfig(vocab_size=TRAIN_VOCAB, seq_len=128,
+                               global_batch=8)
+    batch = {k: torch.from_numpy(v).cuda(mesh.device)
+             for k, v in pipeline.batch_at(data, TRAIN_STEPS).items()}
+    specs = sharding.batch_pspecs(batch, mesh, 8)
+    local = {k: sharding.local_shard(v, specs[k], mesh)
+             for k, v in batch.items()}
+    whole = elastic.gather_tree(out["params"], mesh, out["pspecs"]["params"],
+                                link=None)
+    _, _, grads = loss_and_grads(model, whole, local)
+    del whole
+    codec = Codec()
+    build.restore(dict.fromkeys(build.counts(), 0))
+    equal, leaves, raw, estimate, secs = True, 0, 0, 0, 0.0
+    searched = []
+    for _, g in tree_leaves(grads):
+        fmt = format_for(g.dtype)
+        hists = gather_whole([exponent_histogram_device(g, fmt)[None]],
+                             [("data",)], mesh, link=None)[0]
+        p = params_mod.search(hists.sum(0).cpu().numpy(), fmt)
+        searched.append((g, fmt, p))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = compressed_allreduce(g, mesh, "data", p, codec=codec)
+        torch.cuda.synchronize()
+        secs += time.perf_counter() - t0
+        parts = gather_whole([g[None]], [("data",)], mesh, link=None)[0]
+        want = rank_ordered_sum(parts).to(g.dtype)
+        equal &= torch.equal(got.view(torch.int16), want.view(torch.int16))
+        leaves += 1
+        raw += (D - 1) * g.numel() * g.element_size()
+        estimate += (D - 1) * wire_bytes_saved(g, p)["compressed_bytes"]
+        del got, parts, want
+    launches = build.counts()
+    link = codec.link_stats()["d2d_psum"]
+    # the exact wire size of the same streams (the high stream cut to its
+    # true length), outside the counted window: the all-reduce ships the
+    # static layout, the high stream padded to its bound
+    wire = 0
+    for g, fmt, p in searched:
+        st = ops.encode_blocks(to_blocks(to_bits(g)), fmt, p)
+        wire += (D - 1) * (sum(a.numel() * a.element_size()
+                               for a in (st.mask, st.low, st.raw, st.high_len))
+                           + int(((st.high_len.long() + 7) // 8).sum()))
+    return {"bitwise": equal, "leaves": leaves, "launches": launches,
+            "link": link, "dense_bytes": raw, "estimate_bytes": estimate,
+            "wire_bytes": wire, "ratio": raw / link["compressed_bytes"],
+            "wire_ratio": raw / wire, "estimate_ratio": raw / estimate,
+            "seconds": secs}
+
+
+def train_mesh_worker(spec_path: str) -> None:
+    """One rank of phase train_mesh's world: its ``launch/train.py`` runs
+    (the counts of every kernel set to 0 just before each and read just
+    after; the codec's encode and decode dispatches beside them), the
+    digest of the shards it holds, the memory marks, then the gradient
+    all-reduce check on the last run's mesh."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.codec_api import current_codec
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    spec = json.loads(Path(spec_path).read_text())
+    out_dir = Path(spec["out"])
+    build.build_all()
+    res = {"built": {k: v["cached"] for k, v in build.BUILD_LOG.items()},
+           "cards": torch.cuda.device_count(), "runs": {}}
+    codec = current_codec()
+    for label, args in spec["runs"].items():
+        marks = []
+        unmark = _memory_marks(train, marks)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        build.restore(dict.fromkeys(build.counts(), 0))
+        enc = codec.encode_cache_stats()["dispatches"]
+        dec = codec.decode_cache_stats()["dispatches"]
+        t0 = time.perf_counter()
+        try:
+            out = train.main(["--arch", "llama3_2_1b", "--ckpt",
+                              str(out_dir / "ckpt")] + args)
+        finally:
+            unmark()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        mesh = out["mesh"]
+        res["rank"], res["backend"] = mesh.rank, dist.get_backend()
+        res["runs"][label] = {
+            "mesh": dict(mesh.shape), "history": out["history"],
+            "seconds": secs, "launches": build.counts(),
+            "encode_dispatches": codec.encode_cache_stats()["dispatches"]
+            - enc,
+            "decode_dispatches": codec.decode_cache_stats()["dispatches"]
+            - dec,
+            "marks": marks, "held_bytes": torch.cuda.memory_allocated(),
+            "digest": {path: leaf_digest(t)
+                       for path, t in _flat_state(out)}}
+        if label != list(spec["runs"])[-1]:
+            del out
+    torch.cuda.empty_cache()
+    res["allreduce"] = _allreduce_check(out)
+    del out
+    torch.save(res, out_dir / f"{spec['tag']}_rank{res['rank']}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _replicated_leaves(shape) -> set:
+    """The leaves of the training state every rank of a ``(data, model)``
+    mesh of ``shape`` holds whole."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.registry import abstract_params
+    from repro_torch.runtime import elastic, sharding
+    mesh = Mesh(shape, ("data", "model"))
+    specs = sharding.spec_leaves(elastic.train_pspecs(
+        abstract_params(get_config("llama3_2_1b")), mesh))
+    return {path for path, spec in specs
+            if all(mesh.shape.get(a, 1) == 1 for names in spec
+                   if names is not None
+                   for a in (names if isinstance(names, tuple)
+                             else (names,)))}
+
+
+def _peaks_gb(marks) -> dict:
+    """The largest peak and held GB of each mark label."""
+    out = {}
+    for label, peak, held in marks:
+        p, h = out.get(label, (0.0, 0.0))
+        out[label] = (max(p, peak / 1e9), max(h, held / 1e9))
+    return out
+
+
+def phase_train_mesh():
+    """The training mesh (``launch/train.py --mesh``, ``runtime/
+    elastic.py``, the mesh step, the collective save and the elastic
+    restore, ``optim/grad_compress.py``) on full-width llama3_2_1b at the
+    launcher's defaults: TRAIN_MESH_A ranks of ``python -m
+    torch.distributed.run`` sharing this card (gloo).  Mesh (1, 2), 3
+    steps saved at step 3: losses and gradient norms bitwise equal to
+    phase train's steps 0-2, and the digest of every leaf each rank holds
+    equal to phase train's 3-step state cut to the same shard (the shards
+    together are the gathered state; no gather is needed to compare
+    them); that checkpoint resumed on (2, 1) to step 6 (the elastic
+    change of grid): losses within TRAIN_MESH_RTOL of phase train's steps
+    3-5, the leaves both ranks hold whole equal on both; one step's
+    whole gradient tree through ``compressed_allreduce`` over "data"
+    bitwise equal to the plain rank-ordered sum; 2' launches a step as the
+    code's (``train_step_launches``), 4 and 1 equal to the codec's encode
+    and decode dispatches (the save on rank 0, the restore on every
+    rank).  Logs seconds a step split into gather / compute / reduce, the
+    gathered and reduced bytes a step, d2d_psum compressed against dense
+    bytes and the gradient ratio, and resident and peak GB a rank for the
+    set-up, the step and the save."""
+    import shutil
+    import tempfile
+    import torch
+    card = card_line()
+    want = RESULTS["train"]
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_mesh_"))
+    try:
+        ranks, secs = _mesh_world(TRAIN_MESH_A, TRAIN_MESH_RUNS, tmp,
+                                  worker="--train-mesh-worker",
+                                  tag="train_mesh")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    per_step = train_step_launches(N_LAYERS)["dense_tile_matmul"]
+    check(all(all(r["built"].values()) for r in ranks),
+          f"train_mesh: a rank compiled kernels: {[r['built'] for r in ranks]}")
+    res = {"card": card, "seconds": secs, "backend": ranks[0]["backend"],
+           "runs": {}}
+    for label in TRAIN_MESH_RUNS:
+        runs = [r["runs"][label] for r in ranks]
+        shape = dict(zip(("data", "model"),
+                         (int(v) for v in label.split("x"))))
+        hist = runs[0]["history"]
+        whole = _replicated_leaves(tuple(shape.values()))
+        steps = [h["step"] for h in hist]
+        first = TRAIN_RESUME if label == "2x1" else 0
+        check(steps == list(range(first, first + 3)),
+              f"train_mesh {label}: steps {steps}")
+        for r, run in zip(ranks, runs):
+            tag = f"train_mesh {label} rank {r['rank']}"
+            check(run["mesh"] == shape, f"{tag}: mesh {run['mesh']}")
+            check([(h["loss"], h["grad_norm"]) for h in run["history"]]
+                  == [(h["loss"], h["grad_norm"]) for h in hist],
+                  f"{tag}: losses differ from rank 0's")
+            check({k: v for k, v in run["digest"].items() if k in whole}
+                  == {k: v for k, v in runs[0]["digest"].items()
+                      if k in whole},
+                  f"{tag}: a leaf every rank holds whole differs from rank "
+                  f"0's")
+            lc = run["launches"]
+            check(lc["dense_tile_matmul"] == 3 * per_step,
+                  f"{tag}: 2' launched {lc['dense_tile_matmul']} times in 3 "
+                  f"steps, the code says {per_step} a step")
+            check(lc["enec_encode"] == run["encode_dispatches"]
+                  and lc["enec_decode"] == run["decode_dispatches"]
+                  and lc["decompress_matmul"] == 0,
+                  f"{tag}: launches {lc}, the codec dispatched "
+                  f"{run['encode_dispatches']} encodes and "
+                  f"{run['decode_dispatches']} decodes")
+            check((lc["enec_encode"] > 0) == (r["rank"] == 0),
+                  f"{tag}: kernel 4 at the save on rank 0 only: {lc}")
+            check((lc["enec_decode"] > 0) == (label == "2x1"),
+                  f"{tag}: kernel 1 at the restore only: {lc}")
+        single = want["history"][first:first + 3]
+        if label == "1x2":
+            check([(h["loss"], h["grad_norm"]) for h in hist]
+                  == [(h["loss"], h["grad_norm"]) for h in single],
+                  f"train_mesh 1x2: losses {hist} differ from phase train's "
+                  f"{single}")
+            check([run["digest"] for run in runs] == want["digest_first"],
+                  "train_mesh 1x2: the state differs from phase train's "
+                  "3-step run cut to the ranks' shards")
+        else:
+            rel = max(abs(h["loss"] - w["loss"]) / abs(w["loss"])
+                      for h, w in zip(hist, single))
+            check(rel <= TRAIN_MESH_RTOL, f"train_mesh 2x1: losses {hist} "
+                  f"vs phase train's {single}: {rel:.2e} relative")
+        marks = [_peaks_gb(run["marks"]) for run in runs]
+        res["runs"][label] = {
+            "history": hist, "seconds": [run["seconds"] for run in runs],
+            "launches": [run["launches"] for run in runs],
+            "gb": marks, "held_gb": [run["held_bytes"] / 1e9 for run in runs],
+            "loss_rel": None if label == "1x2" else rel}
+        split = {k: [h[k] for h in hist] for k in (
+            "dt_s", "gather_s", "compute_s", "reduce_s", "gather_bytes",
+            "reduce_bytes")}
+        res["runs"][label]["split"] = split
+        log(f"train_mesh {label}: {'bitwise equal to phase train' if label == '1x2' else f'losses within {rel:.2e} of phase train'}, "
+            f"ranks equal; s a step {split['dt_s']} (gather "
+            f"{[round(v, 3) for v in split['gather_s']]}, compute "
+            f"{[round(v, 3) for v in split['compute_s']]}, reduce "
+            f"{[round(v, 3) for v in split['reduce_s']]}); gathered "
+            f"{split['gather_bytes'][0] / 1e9:.3f} GB, reduced "
+            f"{split['reduce_bytes'][0] / 1e9:.3f} GB a step (dense); "
+            f"GB a rank (peak, held) " + "; ".join(
+                f"rank {i}: " + ", ".join(f"{k} {v[0]:.2f}/{v[1]:.2f}"
+                                          for k, v in m.items())
+                for i, m in enumerate(marks)) + f" ({card})")
+    for r in ranks:
+        ar = r["allreduce"]
+        check(ar["bitwise"], f"train_mesh rank {r['rank']}: compressed_"
+              f"allreduce differs from the plain rank-ordered sum")
+        check(ar["launches"]["enec_encode"] == ar["leaves"]
+              and ar["launches"]["enec_decode"] == ar["leaves"],
+              f"train_mesh rank {r['rank']}: all-reduce launches "
+              f"{ar['launches']} for {ar['leaves']} leaves")
+        check(ar["link"]["dense_bytes"] == 0,
+              f"train_mesh: d2d_psum {ar['link']}")
+    ar = ranks[0]["allreduce"]
+    res["allreduce"] = {k: v for k, v in ar.items() if k != "launches"}
+    log(f"train_mesh all-reduce: {ar['leaves']} gradient leaves bitwise "
+        f"equal to the plain sum; d2d_psum {ar['link']['compressed_bytes'] / 1e9:.3f} GB "
+        f"compressed against {ar['dense_bytes'] / 1e9:.3f} GB dense (ratio "
+        f"{ar['ratio']:.4f} as shipped, the static stream layout; "
+        f"{ar['wire_ratio']:.4f} at the exact wire size; wire_bytes_saved "
+        f"estimates {ar['estimate_ratio']:.4f}), {ar['seconds']:.2f} s "
+        f"({card})")
+    RESULTS["train_mesh"] = res
+    return {f"train_mesh_{label}": ranks[0]["runs"][label]["launches"]
+            for label in TRAIN_MESH_RUNS} | {
+        "train_mesh_allreduce": ranks[0]["allreduce"]["launches"]}
+
+
+# ---------------------------------------------------------------------------
 
 # the served path whose own run gives each kernel's ``launches``: the
 # default fused mode (the main path) runs the decoder, the fused entry and
@@ -4910,7 +5328,8 @@ def main():
     del fused
     for phase in (phase_mesh, phase_engine, phase_overlap, phase_scan,
                   phase_kv_attention, phase_serve_minitron, phase_moe,
-                  phase_families, phase_api, phase_whisper, phase_train):
+                  phase_families, phase_api, phase_whisper, phase_train,
+                  phase_train_mesh):
         launches.update(timed(phase))
     log(f"seconds by phase: {secs}")
     line = kernels_line(launches)
@@ -4930,5 +5349,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-worker"]:
         mesh_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--train-mesh-worker"]:
+        train_mesh_worker(sys.argv[2])
     else:
         main()

@@ -56,6 +56,15 @@ record names, indices and the pack round-robin match it.
 stream records it owns (``runtime.collectives.stream_placer``), and the
 finished tree, records the policy lays out again included, is placed on
 the mesh (``place_serving_tree``).
+
+On a training mesh, ``save(..., mesh=, pspecs=)`` is collective: every rank
+gathers the whole leaves from its shards on the calling thread, rank 0
+alone compresses and writes them (the single-device format, byte for
+byte), and the next :meth:`CheckpointManager.wait` ends in a barrier of
+the world, so no rank goes on before the files exist.
+``load(..., mesh=, pspecs=)`` reads every record on every rank and keeps
+the rank's own shards (``runtime.elastic.reshard``): a checkpoint written
+by any mesh, one device or the reference restores onto any layout.
 """
 from __future__ import annotations
 
@@ -78,13 +87,15 @@ from repro_torch.core import wire as enec_wire
 from repro_torch.core.api import (SUPPORTED_FLOAT_DTYPES, CompressedTensor,
                                   slice_stacked)
 from repro_torch.core.codec_api import Codec, current_codec
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import Mesh, gather_whole
 from repro_torch.runtime import experts as rt_experts
 from repro_torch.runtime import faults as rt_faults
+from repro_torch.runtime import elastic
 from repro_torch.runtime import streaming as rt_streaming
 from repro_torch.runtime.collectives import (is_placed, place_serving_tree,
                                              stream_placer)
 from repro_torch.runtime.retry import RetryPolicy
+from repro_torch.runtime.sharding import spec_leaves
 from repro_torch.runtime.weights import (DenseWeight, finish_materialize,
                                          handle_from_spec, handle_spec,
                                          is_handle)
@@ -213,6 +224,7 @@ class CheckpointManager:
     device: Any = "cuda"                   # where restored tensors live
     _thread: Optional[threading.Thread] = None
     _exc: Optional[BaseException] = None
+    _mesh: Optional[Mesh] = None           # the pending save's mesh
 
     def __post_init__(self):
         self.root = Path(self.root)
@@ -239,12 +251,27 @@ class CheckpointManager:
 
     # -- save ------------------------------------------------------------
 
-    def save(self, step: int, tree, *, blocking: bool = False) -> None:
+    def save(self, step: int, tree, *, blocking: bool = False,
+             mesh: Optional[Mesh] = None, pspecs=None) -> None:
         """Compress ``tree`` on its device now; write it blocking or on a
-        background thread."""
+        background thread.  With ``mesh``, ``tree`` is this rank's shards
+        under ``pspecs`` and every rank of the world calls this: each
+        gathers the whole leaves, rank 0 alone compresses and writes, and
+        the next :meth:`wait` (at once when ``blocking``) is a barrier."""
         self.wait()    # also re-raises a previous async failure
+        if mesh is not None:
+            tree = self._gather_for_save(tree, mesh, pspecs)
+            self._mesh = mesh
+            if tree is None:       # not rank 0: nothing to write
+                if blocking:
+                    self.wait()
+                return
         names, leaves = _tree_paths(tree)
         payload, dense_specs = self._prepare(names, leaves)
+        if blocking and mesh is not None:
+            self._save_guarded(step, names, payload, dense_specs)
+            self.wait()
+            return
         if blocking:
             self._save_host(step, names, payload, dense_specs)
             return
@@ -263,11 +290,31 @@ class CheckpointManager:
         except BaseException as e:  # noqa: BLE001 — surfaced via wait()
             self._exc = e
 
+    def _gather_for_save(self, tree, mesh: Mesh, pspecs):
+        """The whole tree on rank 0 (``None`` on the others): every leaf
+        gathered from the ranks' shards in turn, so that a rank other than
+        0 holds one whole leaf at a time."""
+        specs = dict(spec_leaves(pspecs))
+        whole = {}
+        for name, t in rt_streaming.tree_leaves(tree):
+            leaf = gather_whole([t], [specs[name]], mesh,
+                                codec=self.codec)[0]
+            if mesh.rank == 0:
+                whole[name] = leaf
+        if mesh.rank != 0:
+            return None
+        return rt_streaming.tree_map_with_path(lambda n, _: whole.pop(n),
+                                               tree)
+
     def wait(self):
-        """Join the in-flight async save and re-raise its failure."""
+        """Join the in-flight async save, meet the other ranks after a
+        mesh save, and re-raise the save's failure."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._mesh is not None:
+            mesh, self._mesh = self._mesh, None
+            mesh.barrier()
         if self._exc is not None:
             exc, self._exc = self._exc, None
             raise CheckpointError(
@@ -908,10 +955,16 @@ class CheckpointManager:
         self.last_restore_report = report
 
     def load(self, like_tree, step: Optional[int] = None, *,
-             policy: str = "strict"):
+             policy: str = "strict", mesh: Optional[Mesh] = None,
+             pspecs=None):
         """Restore the dense tree shaped like ``like_tree`` (tensors, or
         ``meta`` tensors for shape and dtype) onto the manager's device.
         Returns ``(tree, manifest)``.
+
+        With ``mesh``, ``like_tree`` is this rank's shards under ``pspecs``
+        (as held, or ``meta``): every rank restores the whole records and
+        keeps only its own shards (``elastic.reshard``), whatever layout
+        wrote them.
 
         ``policy="strict"`` (default) raises on the first bad record;
         ``policy="degraded"`` quarantines a record that fails I/O,
@@ -919,6 +972,14 @@ class CheckpointManager:
         with an intact copy (``last_restore_report`` lists each one with
         its cause and fallback).  A record with no intact source anywhere
         still raises: degraded trades freshness, never correctness."""
+        if mesh is not None:
+            specs = dict(spec_leaves(pspecs))
+            like_whole = rt_streaming.tree_map_with_path(
+                lambda n, t: torch.empty(
+                    elastic.whole_shape(t, specs[n], mesh), dtype=t.dtype,
+                    device="meta"), like_tree)
+            tree, manifest = self.load(like_whole, step, policy=policy)
+            return elastic.reshard(tree, mesh, pspecs), manifest
         self.last_dense_records = []
         self.last_record_h2d, self.last_placed_records = {}, []
         cdir, manifest = self._step_dir(step)

@@ -16,6 +16,11 @@ card of its own, else gloo (the CPU, and ranks that share a card: NCCL
 refuses two ranks on one device).  Rank r runs on ``cuda:(LOCAL_RANK %
 device_count)``.
 
+:func:`gather_whole` rebuilds whole dense tensors from the ranks' shards
+(the training mesh's parameter gather), and :meth:`Mesh.gather_all` /
+:meth:`Mesh.barrier` / :meth:`Mesh.world_max` are the small collectives
+of the training loop, all built on :meth:`Mesh.broadcast`.
+
     PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
         -m repro_torch.launch.serve --smoke --device cpu --tp 4
 """
@@ -28,6 +33,8 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.core.codec_api import current_codec
 
 
 class Mesh:
@@ -73,6 +80,91 @@ class Mesh:
         ranks, group = self.groups[axis]
         return dist.broadcast(tensor, src=ranks[owner], group=group,
                               async_op=async_op)
+
+    def gather_all(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` (the same shape on each), stacked in rank
+        order: ``(size, *t.shape)``; counted on no link."""
+        return gather_whole([t[None]], [(self.axis_names,)], self,
+                            link=None)[0]
+
+    def world_max(self, value: float) -> float:
+        """The largest of every rank's ``value``: one decision the whole
+        world agrees on."""
+        t = torch.tensor(float(value), dtype=torch.float64,
+                         device=self.device)
+        return float(self.gather_all(t).max())
+
+    def barrier(self) -> None:
+        """No rank leaves before every rank has arrived (a gather of one
+        byte over every axis)."""
+        self.gather_all(torch.zeros((), dtype=torch.uint8,
+                                    device=self.device))
+
+
+def _gather_plan(spec, mesh) -> list:
+    """``(dim, axis)`` gathers that rebuild a tensor sharded by ``spec``:
+    each sharded dim over its axes of more than one rank, the minor axis of
+    a tuple first (``sharding.local_shard`` splits a dim major to
+    minor)."""
+    plan = []
+    for d, names in enumerate(spec):
+        if names is None:
+            continue
+        names = names if isinstance(names, tuple) else (names,)
+        plan += [(d, n) for n in reversed(names) if mesh.shape.get(n, 1) > 1]
+    return plan
+
+
+def _start_dense_gather(t: torch.Tensor, d: int, mesh: Mesh, axis: str):
+    """Start gathering every owner's ``t`` along ``axis`` into dim ``d``
+    (one asynchronous broadcast an owner into its row of a staging buffer,
+    as bytes: every backend broadcasts uint8); returns the function that
+    waits and returns the whole."""
+    A, me = mesh.shape[axis], mesh.axis_index(axis)
+    staging = torch.empty((A, *t.shape), dtype=t.dtype, device=t.device)
+    staging[me].copy_(t)
+    rows = staging.view(A, -1).view(torch.uint8)
+    works = [mesh.broadcast(rows[c], c, axis, async_op=True)
+             for c in range(A)]
+
+    def finish() -> torch.Tensor:
+        for work in works:
+            work.wait()
+        return staging.movedim(0, d).reshape(
+            *t.shape[:d], A * t.shape[d], *t.shape[d + 1:])
+
+    return finish
+
+
+def gather_whole(tensors, specs, mesh: Mesh, *, codec=None,
+                 link: Optional[str] = "d2d_allgather") -> list:
+    """The whole dense tensors whose shards ``tensors`` are on this rank,
+    each cut by its spec in ``specs`` (``runtime/sharding.py``'s specs;
+    a tensor sharded on no axis of more than one rank comes back as it
+    is).  Each sharded dim is gathered over its axes by one broadcast an
+    owner; every broadcast of a round (the i-th gather of every tensor) is
+    issued before the first is waited on.  Each gather is counted on
+    ``link`` of ``codec`` (the ambient codec by default; ``None``: not
+    counted) as dense bytes: ``(A - 1) x`` the bytes it gathered, the
+    traffic of its axis, as ``runtime/collectives.py`` counts a stream
+    gather, one op each."""
+    out = list(tensors)
+    plans = [_gather_plan(spec, mesh) for spec in specs]
+    if link is not None:
+        codec = codec or current_codec()
+    for step in range(max(map(len, plans), default=0)):
+        pending = []
+        for i, plan in enumerate(plans):
+            if step < len(plan):
+                d, axis = plan[step]
+                pending.append((i, axis, _start_dense_gather(out[i], d, mesh,
+                                                             axis)))
+        for i, axis, finish in pending:
+            out[i] = finish()
+            if link is not None:
+                codec.count_link(link, (mesh.shape[axis] - 1) * out[i].numel()
+                                 * out[i].element_size(), dense=True)
+    return out
 
 
 def _unravel(rank: int, shape) -> list:

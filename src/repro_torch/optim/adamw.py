@@ -66,11 +66,14 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply(cfg: AdamWConfig, params, state: AdamWState, grads):
+def apply(cfg: AdamWConfig, params, state: AdamWState, grads,
+          gnorm: Optional[torch.Tensor] = None):
     """One AdamW step. Returns (new_params, new_state, metrics); the
     moments of ``state`` are updated in place and carried into
-    ``new_state``."""
-    gnorm = global_norm(grads)
+    ``new_state``.  ``gnorm``: the norm to clip by, when ``grads`` is a
+    rank's shards of a whole gradient (default: ``global_norm(grads)``)."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = (torch.minimum(_f32(1.0, gnorm), cfg.grad_clip
                            / torch.clamp(gnorm, min=1e-9))
              if cfg.grad_clip else _f32(1.0, gnorm))

@@ -35,9 +35,11 @@ counts one gather.  The reference counts a gather inside a jit trace once
 per trace; the port counts it once per execution, so a step's count is the
 bytes that step moved.
 
-The collective is :meth:`~repro_torch.launch.mesh.Mesh.broadcast`, the same
-code on the CPU (gloo) and on the card (gloo when ranks share a card,
-NCCL with a card each).
+The collective is :meth:`~repro_torch.launch.mesh.Mesh.broadcast` on gloo
+(the CPU, and ranks that share a card) and one
+``all_gather_into_tensor`` on NCCL (a card a rank; not yet run: one card
+gives no NCCL world).  :func:`gather_rows` gathers every rank's flat
+streams rank-major, for ``optim/grad_compress.py``.
 
 :func:`shard_local_decode` is the no-traffic variant: each rank decodes
 only its own block shard, and the pieces of every rank together are the
@@ -51,6 +53,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.api import CompressedTensor, precompute_wire_bytes
 from repro_torch.core.codec import BlockStreams, flatten_blocks
@@ -252,7 +255,8 @@ def _start_gather(streams: BlockStreams, whole: BlockStreams, d: int,
     to every rank at once; the broadcasts run asynchronously (a rank sends
     its row while it receives the others'), and each rank then unpacks
     every owner's rows into theirs (one copy an array for a per-layer
-    tensor)."""
+    tensor).  On an NCCL axis one ``all_gather_into_tensor`` fills the
+    staging buffer instead (gloo gathers no CUDA tensors)."""
     A = _axis_count(mesh, axis)
     sizes = [a.numel() * a.element_size() for a in streams]
     offs, seg = _offsets(sizes)
@@ -266,9 +270,15 @@ def _start_gather(streams: BlockStreams, whole: BlockStreams, d: int,
 
     for k, a in enumerate(streams):
         part(staging[me], k).view(a.shape).copy_(a)
-    # bytes are bytes: every backend broadcasts uint8
-    works = [mesh.broadcast(staging[owner], owner, axis, async_op=True)
-             for owner in range(A)]
+    group = mesh.groups[axis][1]
+    if dist.get_backend(group) == "nccl":
+        works = [dist.all_gather_into_tensor(
+            staging.view(-1), staging[me].clone(), group=group,
+            async_op=True)]
+    else:
+        # bytes are bytes: every backend broadcasts uint8
+        works = [mesh.broadcast(staging[owner], owner, axis, async_op=True)
+                 for owner in range(A)]
 
     def finish():
         for work in works:
@@ -285,6 +295,21 @@ def _start_gather(streams: BlockStreams, whole: BlockStreams, d: int,
                     part(staging[owner], k).view(a.shape))
 
     return finish
+
+
+def gather_rows(streams: BlockStreams, mesh, axis: str = MODEL_AXIS
+                ) -> BlockStreams:
+    """Every rank's flat ``streams`` along ``axis``, rank-major: rank
+    ``i``'s blocks are rows ``[i * B, (i + 1) * B)`` of each array (one
+    broadcast an owner, or one ``all_gather_into_tensor`` on an NCCL
+    axis); counted on no link."""
+    A = _axis_count(mesh, axis)
+    if A == 1:
+        return streams
+    whole = streams.map(lambda a: a.new_empty((A * a.shape[0],
+                                               *a.shape[1:])))
+    _start_gather(streams, whole, 0, mesh, axis)()
+    return whole
 
 
 def gather_cts(cts, mesh, axis: str = MODEL_AXIS, codec=None,

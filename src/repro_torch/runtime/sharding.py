@@ -23,7 +23,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.api import CompressedTensor
-from repro_torch.core.codec import BlockStreams
 from repro_torch.runtime.weights import (DenseWeight, is_handle,
                                          tree_map_with_path)
 
@@ -248,15 +247,16 @@ def logits_pspec(mesh, b: int, vocab: int) -> tuple:
 # ---------------------------------------------------------------------------
 
 def spec_leaves(tree, path: str = ""):
-    """(path, spec) pairs of a spec tree: dicts (sorted keys), lists and
-    NamedTuples are walked; a plain tuple is one spec; ``None`` (a handle
+    """(path, spec) pairs of a spec tree, named as ``core.api.tree_leaves``
+    names the tree's leaves: dicts (sorted keys), lists and NamedTuples
+    (by field) are walked; a plain tuple is one spec; ``None`` (a handle
     without tensors) yields nothing."""
     if tree is None:
         return
     if isinstance(tree, tuple) and not hasattr(tree, "_fields"):
         yield path, tree
         return
-    if isinstance(tree, BlockStreams):
+    if hasattr(tree, "_fields"):
         for k, v in zip(tree._fields, tree):
             yield from spec_leaves(v, f"{path}/{k}" if path else k)
         return

@@ -6,36 +6,141 @@ weight product runs the canonical tiled matmul (``kernels/ops.py``:
 kernel 2' on the card, forward and backward), and the embedding's
 gradient is accumulated deterministically (``models/layers.py``), so a
 step's bits are the same in every run.
+
+On a training mesh (``build_train_step(..., mesh=)``) each rank holds its
+shards of the parameters and AdamW moments (``runtime/elastic.py``) and a
+step runs, on every rank:
+
+  1. gather: every parameter whole from its shards (dense broadcasts,
+     counted on ``d2d_allgather``);
+  2. forward and backward over this rank's rows of the global batch
+     (``sharding.batch_pspecs``; ranks that differ only on "model" compute
+     the same rows);
+  3. the gradient sum over "data": each rank's whole gradient summed in
+     rank order in f32, scaled by 1/D and cast to the parameter's dtype
+     (counted on ``d2d_psum`` as dense bytes; none with D = 1), the same
+     bits on every rank;
+  4. the global norm of the whole gradient;
+  5. AdamW on the local shards of params, m and v, clipped by that norm.
+
+The loss metric is the rank-ordered mean over "data" of the ranks' local
+losses.  With D = 1 every rank computes exactly what one device computes.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable
 
 import torch
 
 from repro_torch.core.api import tree_leaves, tree_map_with_path
+from repro_torch.core.codec_api import current_codec
+from repro_torch.launch.mesh import gather_whole
 from repro_torch.optim import adamw
+from repro_torch.optim.grad_compress import rank_ordered_sum
+from repro_torch.runtime import elastic, sharding
+
+DATA_AXIS = "data"
 
 
-def build_train_step(model, opt_cfg: adamw.AdamWConfig) -> Callable:
-    """(params, opt_state, batch) -> (params, opt_state, metrics)."""
+def loss_and_grads(model, params, batch) -> tuple:
+    """``(loss, metrics, grads)`` of ``model.loss_fn`` at ``params``: a
+    leaf the loss does not read gets a zero gradient, as jax.grad gives
+    it."""
+    leaves = tree_map_with_path(
+        lambda _, p: p.detach().requires_grad_(True), params)
+    flat = list(tree_leaves(leaves))
+    with torch.enable_grad():
+        loss, metrics = model.loss_fn(leaves, batch)
+        got = torch.autograd.grad(loss, [p for _, p in flat],
+                                  allow_unused=True)
+    grads = {path: torch.zeros_like(p) if g is None else g
+             for (path, p), g in zip(flat, got)}
+    grads = tree_map_with_path(lambda path, _: grads[path], params)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss.detach(), metrics, grads
+
+
+def build_train_step(model, opt_cfg: adamw.AdamWConfig, mesh=None
+                     ) -> Callable:
+    """(params, opt_state, batch) -> (params, opt_state, metrics); on
+    ``mesh`` (a ``(data, model)`` mesh of ``launch/mesh.py``) params and
+    opt_state are this rank's shards and batch the global batch."""
+    if mesh is not None:
+        return _mesh_train_step(model, opt_cfg, mesh)
+
     def train_step(params, opt_state, batch):
-        leaves = tree_map_with_path(
-            lambda _, p: p.detach().requires_grad_(True), params)
-        flat = list(tree_leaves(leaves))
-        with torch.enable_grad():
-            loss, metrics = model.loss_fn(leaves, batch)
-            got = torch.autograd.grad(loss, [p for _, p in flat],
-                                      allow_unused=True)
-        # a leaf the loss does not read gets a zero gradient, as jax.grad
-        # gives it
-        grads = {path: torch.zeros_like(p) if g is None else g
-                 for (path, p), g in zip(flat, got)}
-        grads = tree_map_with_path(lambda path, _: grads[path], params)
+        loss, metrics, grads = loss_and_grads(model, params, batch)
         params, opt_state, om = adamw.apply(opt_cfg, params, opt_state,
                                             grads)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return params, opt_state, {"loss": loss.detach(), **metrics, **om}
+        return params, opt_state, {"loss": loss, **metrics, **om}
+
+    return train_step
+
+
+def _clock(dev: torch.device) -> float:
+    """The host clock once ``dev`` has finished its queued work."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter()
+
+
+def _mesh_train_step(model, opt_cfg, mesh) -> Callable:
+    from repro_torch.models.registry import abstract_params
+    if set(mesh.shape) - {DATA_AXIS, "model"}:
+        raise ValueError(f"a training mesh has (data, model) axes, got "
+                         f"{tuple(mesh.shape)}")
+    pspecs = sharding.param_pspecs(abstract_params(model.cfg), mesh,
+                                   mode="train")
+    specs = dict(sharding.spec_leaves(pspecs))
+    D = mesh.shape.get(DATA_AXIS, 1)
+
+    def over_data(t: torch.Tensor) -> torch.Tensor:
+        """Every data rank's ``t``, stacked in rank order."""
+        return gather_whole([t[None]], [(DATA_AXIS,)], mesh, link=None)[0]
+
+    def train_step(params, opt_state, batch):
+        codec = current_codec()
+        gathered = codec.link_stats()["d2d_allgather"]["dense_bytes"]
+        t0 = _clock(mesh.device)
+        whole = elastic.gather_tree(params, mesh, pspecs, codec=codec)
+        gathered = codec.link_stats()["d2d_allgather"]["dense_bytes"] \
+            - gathered
+        t1 = _clock(mesh.device)
+
+        rows = batch["tokens"].shape[0]
+        bspecs = sharding.batch_pspecs(batch, mesh, rows)
+        local = {k: sharding.local_shard(v, bspecs[k], mesh)
+                 for k, v in batch.items()}
+        loss, metrics, grads = loss_and_grads(model, whole, local)
+        del whole
+        t2 = _clock(mesh.device)
+
+        reduce_bytes = 0
+        if sharding.batch_axis(mesh, rows) == DATA_AXIS:
+            def reduce(q, g):
+                nonlocal reduce_bytes
+                nbytes = (D - 1) * g.numel() * g.element_size()
+                codec.count_link("d2d_psum", nbytes, dense=True)
+                reduce_bytes += nbytes
+                return (rank_ordered_sum(over_data(g)) / D).to(g.dtype)
+
+            grads = tree_map_with_path(reduce, grads)
+            names = sorted(metrics)
+            means = rank_ordered_sum(over_data(torch.stack(
+                [loss] + [metrics[k].float() for k in names]))) / D
+            loss = means[0]
+            metrics = dict(zip(names, means[1:]))
+        gnorm = adamw.global_norm(grads)
+        local_grads = tree_map_with_path(
+            lambda q, g: sharding.local_shard(g, specs[q], mesh), grads)
+        t3 = _clock(mesh.device)
+        params, opt_state, om = adamw.apply(opt_cfg, params, opt_state,
+                                            local_grads, gnorm=gnorm)
+        return params, opt_state, {
+            "loss": loss, **metrics, **om, "gather_s": t1 - t0,
+            "compute_s": t2 - t1, "reduce_s": t3 - t2,
+            "gather_bytes": gathered, "reduce_bytes": reduce_bytes}
 
     return train_step
 

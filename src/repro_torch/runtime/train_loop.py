@@ -11,6 +11,13 @@ reference's record names, so either package resumes the other's.  As in
 the reference, a save inside the loop at ``step`` holds the state after
 that step ran and is labelled ``step``; the final save is labelled
 ``total_steps``.
+
+On a training mesh (``run(..., mesh=)``) each rank runs this loop over
+its shards of the state (``runtime/elastic.py``): a resume restores any
+checkpoint (written by one device, another mesh or the reference) onto
+the mesh, every save is collective, and the straggler watchdog decides
+from the world's largest step time, so that every rank strikes, and
+saves, at the same step.
 """
 from __future__ import annotations
 
@@ -51,25 +58,41 @@ def _to_device(batch: dict, dev) -> dict:
             for k, v in batch.items()}
 
 
+# the mesh step's own metrics, kept in every history row that has them
+MESH_METRICS = ("gather_s", "compute_s", "reduce_s", "gather_bytes",
+                "reduce_bytes")
+
+
 def run(model, opt_cfg: adamw.AdamWConfig, data_cfg, loop_cfg: TrainLoopConfig,
         *, ckpt: Optional[CheckpointManager] = None, train_step=None,
         params=None, opt_state=None, on_metrics: Optional[Callable] = None,
-        on_straggler: Optional[Callable] = None, device="cuda") -> dict:
-    """Run (or resume) training on ``device``. Returns the final state and
-    stats."""
+        on_straggler: Optional[Callable] = None, device="cuda",
+        mesh=None) -> dict:
+    """Run (or resume) training on ``device``, or on ``mesh`` (a
+    ``launch/mesh.py`` mesh; ``params`` and ``opt_state`` then are this
+    rank's shards, made here from the seed when not given). Returns the
+    final state and stats."""
+    from repro_torch.models.registry import abstract_params
+    from repro_torch.runtime import elastic
     from repro_torch.runtime.steps import build_train_step
 
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    specs = None if mesh is None else elastic.train_pspecs(
+        abstract_params(model.cfg), mesh)
+    place = {} if mesh is None else {"mesh": mesh, "pspecs": specs}
     if train_step is None:
-        train_step = build_train_step(model, opt_cfg)
+        train_step = build_train_step(model, opt_cfg, mesh)
     if params is None:
         params = model.init(seed=data_cfg.seed, device=dev)
+        if mesh is not None:
+            params = elastic.reshard(params, mesh, specs["params"])
     if opt_state is None:
         opt_state = adamw.init(params)
 
     start_step = 0
     if ckpt is not None and ckpt.latest_step() is not None:
-        state, manifest = ckpt.load({"params": params, "opt": opt_state})
+        state, manifest = ckpt.load({"params": params, "opt": opt_state},
+                                    **place)
         params, opt_state = state["params"], state["opt"]
         start_step = int(manifest["step"])
         print(f"[train] resumed from step {start_step} "
@@ -86,6 +109,9 @@ def run(model, opt_cfg: adamw.AdamWConfig, data_cfg, loop_cfg: TrainLoopConfig,
             params, opt_state, metrics = train_step(params, opt_state, batch)
             loss = float(metrics["loss"])     # waits for the step
             dt = time.time() - t0
+            if mesh is not None:
+                # one decision for the world: a save is collective
+                dt = mesh.world_max(dt)
 
             wd = loop_cfg.watchdog
             if step - start_step >= wd.warmup_steps:
@@ -98,7 +124,7 @@ def run(model, opt_cfg: adamw.AdamWConfig, data_cfg, loop_cfg: TrainLoopConfig,
                             on_straggler(step)
                         if ckpt is not None:
                             ckpt.save(step, {"params": params,
-                                             "opt": opt_state})
+                                             "opt": opt_state}, **place)
                         strikes = 0
                 else:
                     strikes = max(0, strikes - 1)
@@ -112,17 +138,19 @@ def run(model, opt_cfg: adamw.AdamWConfig, data_cfg, loop_cfg: TrainLoopConfig,
             row = {"step": step, "loss": loss,
                    "grad_norm": float(metrics["grad_norm"]),
                    "dt_s": round(dt, 4)}
+            row.update((k, metrics[k]) for k in MESH_METRICS if k in metrics)
             history.append(row)
             if step % loop_cfg.log_every == 0 and on_metrics is not None:
                 on_metrics(row)
             if ckpt is not None and step and step % loop_cfg.ckpt_every == 0:
-                ckpt.save(step, {"params": params, "opt": opt_state})
+                ckpt.save(step, {"params": params, "opt": opt_state},
+                          **place)
     finally:
         it.close()
         if ckpt is not None:
             ckpt.wait()
     if ckpt is not None:
         ckpt.save(loop_cfg.total_steps, {"params": params, "opt": opt_state},
-                  blocking=True)
+                  blocking=True, **place)
     return {"params": params, "opt_state": opt_state, "history": history,
-            "wall_s": time.time() - t_loop}
+            "wall_s": time.time() - t_loop, **place}
