@@ -189,12 +189,23 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
            train's 3-step run (losses, gradient norms, the digest of each
            rank's shards against that state cut the same way), then that
            checkpoint resumed on (2, 1) to step 6 within 1e-3 of phase
-           train's losses, both ranks equal;
+           train's losses, both ranks equal (its final save, which nothing
+           reads, skipped);
            one step's gradient tree through ``compressed_allreduce``
            bitwise equal to the plain rank-ordered sum; launches of 2',
            4 and 1 equal to the code's and the codec's counts; seconds a
            step split into gather / compute / reduce, the bytes of each,
            the gradient ratio, peak and held GB a rank.
+   dryrun  the dry-run (``launch/dryrun.py``, on ``meta`` tensors) of
+           llama3_2_1b's decode step at batch 4 over a cache of 128 on a
+           1x1 mesh in dense, stream and fused mode against the same eager
+           ``decode_fn`` step on the card: launches a kernel equal to the
+           counters' deltas, kernel FLOPs equal to 2 M K N over the step's
+           products, the predicted peak within 20 % of the measured one;
+           the H100 roofline terms of the cell beside the measured step;
+           the records of two 16x16 cells (llama3_2_1b x decode_32k,
+           qwen3_moe_235b_a22b x train_4k), dry-run on the host's CPU in
+           subprocesses started after phase 1.
 6. a ``{"kernels": [...]}`` JSON line, then the card line and the last
    line ``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` is
    its count in the run of its ``path`` (fused, the main path, for the
@@ -208,7 +219,8 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    ``overlap_minitron_4b``, ``scan``,
    ``kv_attention``, the three ``minitron_*`` modes, the six ``moe_*``
    runs, the nine ``families_*`` runs, ``api``, the three ``whisper_*``
-   modes, ``train`` and the three ``train_mesh_*`` runs (rank 0's)), and
+   modes, ``train``, the three ``train_mesh_*`` runs (rank 0's) and the
+   three ``dryrun_*`` steps), and
    ``launches_per_captured_step`` its launches in one replay of each
    engine case's and each family run's bucket-4 graph.  Every count is set to 0 just before its
    run and read just after it; a graph's replays add what its capture
@@ -4300,14 +4312,15 @@ def _train_backward_checks() -> dict:
     return rows
 
 
-def _train_memory(out, tmp) -> dict:
+def _train_memory(out, save_over_gb: float) -> dict:
     """The device memory of the last run's state and, over it, the peak
     of each part of a train step (forward and backward; AdamW's apply with
-    the gradients held; the whole step, ``runtime/steps.py``) and of a
-    blocking checkpoint save of ``{"params", "opt"}``, in GB.  Updates the
-    state in place (AdamW's moments)."""
+    the gradients held; the whole step, ``runtime/steps.py``), in GB,
+    beside ``save_over_gb``: the peak over the state of the blocking
+    checkpoint save of ``{"params", "opt"}`` that the 3-step run made
+    (:func:`_save_peak`; the same sizes of state).  Updates the state in
+    place (AdamW's moments)."""
     import torch
-    from repro_torch.checkpoint.ckpt import CheckpointManager
     from repro_torch.configs import get_config
     from repro_torch.core.api import tree_leaves, tree_map_with_path
     from repro_torch.data import pipeline
@@ -4355,12 +4368,47 @@ def _train_memory(out, tmp) -> dict:
     del grads
     step = build_train_step(model, opt_cfg)
     _, res["step_over_gb"] = peak(lambda: step(params, opt, batch))
-    mgr = CheckpointManager(tmp / "probe", device="cuda")
-    _, res["save_over_gb"] = peak(lambda: mgr.save(
-        TRAIN_STEPS, {"params": params, "opt": opt}, blocking=True))
+    res["save_over_gb"] = save_over_gb
     log("train memory (GB): " + ", ".join(f"{k} {v:.2f}"
                                           for k, v in res.items()))
     return res
+
+
+def _saves_skipped(skipped: list):
+    """Patch the checkpoint's save so that a run writes none: for the runs
+    whose final checkpoint no later check restores (each save of llama's
+    12.5 GB training state takes ≈ 25-35 s on the host).  Each skipped
+    save's step is appended to ``skipped``; returns the unpatch."""
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    save = CheckpointManager.save
+
+    def skip(self, step, *args, **kw):
+        skipped.append(step)
+
+    CheckpointManager.save = skip
+    return lambda: setattr(CheckpointManager, "save", save)
+
+
+def _save_peak(marks: list):
+    """Patch the checkpoint's save so that each save appends the peak of
+    device memory over what was allocated before it, in GB (the cache
+    emptied first, as ``_train_memory`` measures each part); returns the
+    unpatch."""
+    import torch
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    save = CheckpointManager.save
+
+    def measured(self, *args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        save(self, *args, **kw)
+        torch.cuda.synchronize()
+        marks.append((torch.cuda.max_memory_allocated() - base) / 1e9)
+
+    CheckpointManager.save = measured
+    return lambda: setattr(CheckpointManager, "save", save)
 
 
 def _flat_state(out) -> list:
@@ -4417,14 +4465,17 @@ def phase_train():
     ``warmup_cosine(20, steps)``; while the step is under the 20 warm-up
     steps the schedule does not depend on ``--steps``): 6 steps
     uninterrupted; 3 steps, checkpointed; the same run resumed from that
-    checkpoint to 6.  Checks: the resumed run's params and AdamW state at
-    step 6 bitwise equal to the uninterrupted run's; finite losses and
-    gradient norms; kernel 2' launches a step equal to the code's count
-    (forward and backward; ``train_step_launches``); the autograd
-    Function's forward and backward against the plain version
-    (:func:`_train_backward_checks`).  Logs seconds a step, the run's peak
-    GB (the checkpoint saves included) and the step's and the save's own
-    (:func:`_train_memory`)."""
+    checkpoint to 6.  Only the 3-step run's checkpoint is written: the
+    uninterrupted run's and the resumed run's final saves would never be
+    read, so they are skipped (:func:`_saves_skipped`), and the 3-step
+    run's save is the one whose peak the memory line reports.  Checks: the
+    resumed run's params and AdamW state at step 6 bitwise equal to the
+    uninterrupted run's; finite losses and gradient norms; kernel 2'
+    launches a step equal to the code's count (forward and backward;
+    ``train_step_launches``); the autograd Function's forward and backward
+    against the plain version (:func:`_train_backward_checks`).  Logs
+    seconds a step, the uninterrupted run's peak GB, and the step's and
+    the save's own (:func:`_train_memory`)."""
     import shutil
     import tempfile
     import torch
@@ -4441,13 +4492,20 @@ def phase_train():
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated() / 1e9   # earlier phases' own
         build.restore(dict.fromkeys(build.counts(), 0))
+        skipped = []
+        unpatch = _saves_skipped(skipped)
         t0 = time.perf_counter()
-        whole = train.main(base + ["--steps", str(TRAIN_STEPS), "--ckpt",
-                                   str(tmp / "whole")])
+        try:
+            whole = train.main(base + ["--steps", str(TRAIN_STEPS),
+                                       "--ckpt", str(tmp / "whole")])
+        finally:
+            unpatch()
         whole_s = _sync_s(t0)
         launches = build.counts()
         peak = torch.cuda.max_memory_allocated() / 1e9
-        shutil.rmtree(tmp / "whole")
+        check(skipped == [TRAIN_STEPS]
+              and not list((tmp / "whole").glob("step_*")),
+              f"train: the uninterrupted run saved {skipped}")
         hist = whole["history"]
         check([h["step"] for h in hist] == list(range(TRAIN_STEPS)),
               f"train: steps {[h['step'] for h in hist]}")
@@ -4461,16 +4519,29 @@ def phase_train():
         check(launches["decompress_matmul"] == 0
               and launches["enec_decode"] == 0,
               f"train: unexpected launches {launches}")
+        save_gb = []
+        unpatch = _save_peak(save_gb)
         t0 = time.perf_counter()
-        first = train.main(base + ["--steps", str(TRAIN_RESUME), "--ckpt",
-                                   str(tmp / "resume")])
+        try:
+            first = train.main(base + ["--steps", str(TRAIN_RESUME),
+                                       "--ckpt", str(tmp / "resume")])
+        finally:
+            unpatch()
         first_s = _sync_s(t0)
+        check(len(save_gb) == 1, f"train: the 3-step run saved "
+              f"{len(save_gb)} times")
         digest = shard_digests(first, TRAIN_MESH_FIRST)
         del first
+        unpatch = _saves_skipped(skipped)
         t0 = time.perf_counter()
-        resumed = train.main(base + ["--steps", str(TRAIN_STEPS), "--ckpt",
-                                     str(tmp / "resume")])
+        try:
+            resumed = train.main(base + ["--steps", str(TRAIN_STEPS),
+                                         "--ckpt", str(tmp / "resume")])
+        finally:
+            unpatch()
         resumed_s = _sync_s(t0)
+        check(skipped == [TRAIN_STEPS] * 2, f"train: saves skipped "
+              f"{skipped}")
         check([h["step"] for h in resumed["history"]]
               == list(range(TRAIN_RESUME, TRAIN_STEPS)),
               f"train: resumed steps {resumed['history']}")
@@ -4486,7 +4557,7 @@ def phase_train():
             check(h["loss"] == r["loss"] and h["grad_norm"] == r["grad_norm"],
                   f"train: step {h['step']} resumed {r} != {h}")
         del resumed
-        memory = _train_memory(whole, tmp)
+        memory = _train_memory(whole, save_gb[0])
         del whole
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4503,8 +4574,9 @@ def phase_train():
     RESULTS["train"] = res
     log(f"train: {TRAIN_STEPS} steps, resumed run bitwise equal; "
         f"{res['s_per_step_mean']:.3f} s a step (steps 1-5; step 0 "
-        f"{dts[0]:.3f} s), peak {peak:.2f} GB ({held:.2f} held before the "
-        f"phase), 2' launches a step {want}; "
+        f"{dts[0]:.3f} s), peak {peak:.2f} GB in the uninterrupted run "
+        f"({held:.2f} held before the phase; the save's own in the memory "
+        f"line), 2' launches a step {want}; "
         f"runs {whole_s:.1f} / {first_s:.1f} / {resumed_s:.1f} s ({card})")
     return {"train": launches}
 
@@ -4835,9 +4907,11 @@ def _check_mesh_restore(A, ranks, single) -> None:
 TRAIN_MESH_A = 2
 TRAIN_MESH_FIRST = (1, 2)      # phase train records its shards' digests
 # each rank's ``launch/train.py`` runs, in order: 3 steps on (1, 2) saved at
-# step 3, then that checkpoint resumed on (2, 1) to step 6
+# step 3, then that checkpoint resumed on (2, 1) to step 6, whose final
+# save no check reads and is skipped (``_saves_skipped``)
 TRAIN_MESH_RUNS = {"1x2": ["--mesh", "1x2", "--steps", str(TRAIN_RESUME)],
                    "2x1": ["--mesh", "2x1", "--steps", str(TRAIN_STEPS)]}
+TRAIN_MESH_SAVES = {"1x2": True, "2x1": False}
 TRAIN_MESH_RTOL = 1e-3
 
 
@@ -4982,8 +5056,11 @@ def train_mesh_worker(spec_path: str) -> None:
            "cards": torch.cuda.device_count(), "runs": {}}
     codec = current_codec()
     for label, args in spec["runs"].items():
-        marks = []
+        marks, skipped = [], []
         unmark = _memory_marks(train, marks)
+        if not TRAIN_MESH_SAVES[label]:
+            unskip = _saves_skipped(skipped)
+            unmark = (lambda u, v: lambda: (v(), u()))(unmark, unskip)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -5008,6 +5085,7 @@ def train_mesh_worker(spec_path: str) -> None:
             "decode_dispatches": codec.decode_cache_stats()["dispatches"]
             - dec,
             "marks": marks, "held_bytes": torch.cuda.memory_allocated(),
+            "saves_skipped": skipped,
             "digest": {path: leaf_digest(t)
                        for path, t in _flat_state(out)}}
         if label != list(spec["runs"])[-1]:
@@ -5057,8 +5135,9 @@ def phase_train_mesh():
     equal to phase train's 3-step state cut to the same shard (the shards
     together are the gathered state; no gather is needed to compare
     them); that checkpoint resumed on (2, 1) to step 6 (the elastic
-    change of grid): losses within TRAIN_MESH_RTOL of phase train's steps
-    3-5, the leaves both ranks hold whole equal on both; one step's
+    change of grid; its final save, which no check reads, skipped):
+    losses within TRAIN_MESH_RTOL of phase train's steps 3-5, the leaves
+    both ranks hold whole equal on both; one step's
     whole gradient tree through ``compressed_allreduce`` over "data"
     bitwise equal to the plain rank-ordered sum; 2' launches a step as the
     code's (``train_step_launches``), 4 and 1 equal to the codec's encode
@@ -5116,8 +5195,12 @@ def phase_train_mesh():
                   f"{tag}: launches {lc}, the codec dispatched "
                   f"{run['encode_dispatches']} encodes and "
                   f"{run['decode_dispatches']} decodes")
-            check((lc["enec_encode"] > 0) == (r["rank"] == 0),
-                  f"{tag}: kernel 4 at the save on rank 0 only: {lc}")
+            saves = TRAIN_MESH_SAVES[label]
+            check(run["saves_skipped"] == ([] if saves else [TRAIN_STEPS]),
+                  f"{tag}: saves skipped {run['saves_skipped']}")
+            check((lc["enec_encode"] > 0) == (saves and r["rank"] == 0),
+                  f"{tag}: kernel 4 at the save on rank 0 only (a run that "
+                  f"saves): {lc}")
             check((lc["enec_decode"] > 0) == (label == "2x1"),
                   f"{tag}: kernel 1 at the restore only: {lc}")
         single = want["history"][first:first + 3]
@@ -5178,6 +5261,211 @@ def phase_train_mesh():
     return {f"train_mesh_{label}": ranks[0]["runs"][label]["launches"]
             for label in TRAIN_MESH_RUNS} | {
         "train_mesh_allreduce": ranks[0]["allreduce"]["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# phase dryrun: the dry-run's predictions against the card
+# ---------------------------------------------------------------------------
+
+# the cell one card runs: llama3_2_1b decode at batch 4 over a cache of 128
+# on a 1x1 mesh; the named shape's kind and the cut sizes
+DRYRUN_SHAPE = ("decode_32k", 128, 4)
+DRYRUN_PEAK_RTOL = 0.20
+# two full-size cells of the 16x16 mesh, dry-run in a subprocess on this
+# machine's CPU while the card runs the earlier phases (nothing touches
+# the card): the full-size path on the machine with the card
+DRYRUN_CELLS = (("llama3_2_1b", "decode_32k"),
+                ("qwen3_moe_235b_a22b", "train_4k"))
+DRYRUN_CELLS_TIME_LIMIT_S = 900
+_DRYRUN_PROCS: list = []
+
+
+def start_dryrun_cells():
+    """Start the dry-run of DRYRUN_CELLS (``python -m
+    repro_torch.launch.dryrun``, one process a cell, on the CPU) into
+    ``chiprun_out/dryrun/``; :func:`phase_dryrun` reads their records."""
+    import os
+    out = ROOT / "chiprun_out" / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]),
+        CUDA_VISIBLE_DEVICES="")
+    for arch, shape in DRYRUN_CELLS:
+        log_path = out / f"{arch}__{shape}.log"
+        with open(log_path, "w") as f:
+            _DRYRUN_PROCS.append((arch, shape, log_path, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--single-only", "--out", str(out)],
+                cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)))
+
+
+def stop_dryrun_cells():
+    """Kill the dry-run processes still running (a failed run)."""
+    for *_, proc in _DRYRUN_PROCS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _dryrun_step_flops(layers: int) -> int:
+    """2 M K N summed over one llama decode step's products: every layer's
+    7 leaves and the tied head, at M = the batch."""
+    m = DRYRUN_SHAPE[2]
+    per_layer = sum(k * n for k, n in LEAVES.values())
+    return 2 * m * (layers * per_layer + 2048 * 128256)
+
+
+def phase_dryrun():
+    """The dry-run (``launch/dryrun.py``) against the card on the cell one
+    card runs: llama3_2_1b at full width, decode at batch 4 over a cache of
+    128, on a 1x1 mesh, in dense, stream and fused mode.  For each mode a
+    tree is built on the card (``assign_weight_modes`` at the dry-run's
+    1 MiB and 16 shards) and ``lower_cell`` runs on ``meta`` tensors twice:
+    on that tree's layout (``tree=``: its escapes and decoder buckets, which
+    the encoder's searched parameters decide) and on the abstract tree of
+    the paper's Table IV parameters; then the same eager ``decode_fn`` step
+    runs on the card, after one warm-up step.  Checks: the dry-run's
+    launches a kernel (on the tree's layout) equal to the counters' deltas
+    over the step, and so are the abstract tree's in dense and fused mode
+    (stream mode's decoder buckets a layer are the encoder's; logged); its
+    kernel FLOPs equal to 2 M K N summed over the step's products; its
+    peak within DRYRUN_PEAK_RTOL of ``torch.cuda.max_memory_allocated``
+    over the step, measured from a reset (less what was allocated before
+    the tree was made); finite logits of (4, vocab).  Logs the H100
+    roofline terms of the cell beside the measured step time, and the
+    records of the two 16x16 cells of DRYRUN_CELLS."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.codec_api import Codec, use_codec
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import build_model
+    from repro_torch.models.registry import input_specs
+    from repro_torch.runtime import streaming
+    from repro_torch.runtime.overlap import build_schedule, overlap_enabled
+    from repro_torch.runtime.steps import build_decode_step
+    card = card_line()
+    cfg = get_config("llama3_2_1b")
+    shape = ShapeSpec(*DRYRUN_SHAPE, "decode")
+    model = build_model(cfg)
+    chip = roofline.H100
+    want_flops = _dryrun_step_flops(N_LAYERS)
+    res = {"card": card, "shape": list(DRYRUN_SHAPE), "modes": {}}
+
+    def mesh():
+        return AbstractMesh((1, 1), ("data", "model"))
+
+    for mode in ("dense", "stream", "fused"):
+        abstract = dryrun.lower_cell(cfg, shape, mesh(), mode=mode)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        codec = Codec()
+        with use_codec(codec):
+            tree = streaming.assign_weight_modes(
+                model.init(seed=0, device="cuda"), mode=mode,
+                min_bytes=streaming.MIN_STREAM_BYTES,
+                shards=streaming.STREAM_SHARDS, codec=codec)
+            n_periods = cfg.n_layers // len(tree["period"])
+            if overlap_enabled(cfg.overlap, tree["period"], n_periods):
+                build_schedule(tree["period"], n_periods)
+            rec = dryrun.lower_cell(cfg, shape, mesh(), mode=mode, tree=tree)
+            specs = input_specs(cfg, shape, device="cuda")
+            step = build_decode_step(model)
+            step(tree, specs["cache"], specs["tokens"])      # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            build.restore(dict.fromkeys(build.counts(), 0))
+            t0 = time.perf_counter()
+            logits, _ = step(tree, specs["cache"], specs["tokens"])
+            step_s = _sync_s(t0)
+            launches = build.counts()
+            peak = torch.cuda.max_memory_allocated() - held
+        check(tuple(logits.shape) == (DRYRUN_SHAPE[2], cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"dryrun {mode}: logits {tuple(logits.shape)} not finite")
+        del tree, specs, logits, step
+        counted = {k: v for k, v in launches.items() if v}
+        predicted = {k: v["launches"] for k, v in rec["kernels"].items()}
+        table_iv = {k: v["launches"] for k, v in abstract["kernels"].items()}
+        check(predicted == counted, f"dryrun {mode}: predicted launches "
+              f"{predicted}, the card's counters {counted}")
+        check(mode == "stream" or table_iv == counted,
+              f"dryrun {mode}: the abstract tree's launches {table_iv}, the "
+              f"card's counters {counted}")
+        kernel_flops = sum(v["flops"] for v in rec["kernels"].values())
+        check(kernel_flops == want_flops, f"dryrun {mode}: kernel FLOPs "
+              f"{kernel_flops} != the analytic {want_flops}")
+        predicted_peak = rec["memory"]["peak_memory_in_bytes"]
+        ratio = predicted_peak / peak
+        check(abs(ratio - 1) <= DRYRUN_PEAK_RTOL,
+              f"dryrun {mode}: predicted peak {predicted_peak / 1e9:.3f} GB "
+              f"against {peak / 1e9:.3f} GB measured (ratio {ratio:.3f})")
+        terms = {"compute_ms": 1e3 * rec["cost"]["flops"] / chip.peak_flops,
+                 "memory_ms": 1e3 * rec["cost"]["bytes accessed"]
+                 / chip.hbm_bw,
+                 "collective_ms": 1e3 * rec["collectives"]["total_wire_bytes"]
+                 / chip.link_bw}
+        res["modes"][mode] = {
+            "launches": launches, "predicted_launches": predicted,
+            "table_iv_launches": table_iv,
+            "table_iv_peak_gb":
+                abstract["memory"]["peak_memory_in_bytes"] / 1e9,
+            "kernel_flops": kernel_flops, "flops": rec["cost"]["flops"],
+            "bytes": rec["cost"]["bytes accessed"],
+            "predicted_peak_gb": predicted_peak / 1e9,
+            "measured_peak_gb": peak / 1e9, "peak_ratio": ratio,
+            "roofline_ms": terms, "step_ms": 1e3 * step_s,
+            "lower_s": rec["lower_s"]}
+        log(f"dryrun llama3_2_1b {mode} (decode, batch 4, cache 128, 1x1): "
+            f"launches {predicted} equal to the counters (Table IV tree: "
+            f"{table_iv}); kernel FLOPs {kernel_flops:.4e} = 2 M K N; peak "
+            f"predicted {predicted_peak / 1e9:.3f} GB / measured "
+            f"{peak / 1e9:.3f} GB (ratio {ratio:.3f}; Table IV tree "
+            f"{abstract['memory']['peak_memory_in_bytes'] / 1e9:.3f} GB); "
+            f"roofline on {roofline.H100_NAME}: compute "
+            f"{terms['compute_ms']:.4f} ms, memory {terms['memory_ms']:.4f} "
+            f"ms (un-fused bytes {rec['cost']['bytes accessed']:.4e}), "
+            f"collective {terms['collective_ms']:.4f} ms; measured eager "
+            f"step {1e3 * step_s:.3f} ms; dry-run {rec['lower_s']:.2f} s "
+            f"({card})")
+    torch.cuda.empty_cache()
+    res["cells"] = {}
+    t0 = time.perf_counter()
+    for arch, shape_name, log_path, proc in _DRYRUN_PROCS:
+        try:
+            code = proc.wait(timeout=max(
+                1, DRYRUN_CELLS_TIME_LIMIT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            stop_dryrun_cells()
+            fail(f"dryrun {arch} x {shape_name}: still running after "
+                 f"{DRYRUN_CELLS_TIME_LIMIT_S} s")
+        out = log_path.read_text()
+        check(code == 0, f"dryrun {arch} x {shape_name} exited {code}:\n"
+              f"{out[-3000:]}")
+        rec = json.loads((log_path.with_suffix(".json")).read_text())
+        row = roofline.analyze_cell(rec)
+        full = rec["single"]["full"]
+        res["cells"][f"{arch} x {shape_name}"] = {
+            "record": {k: full[k] for k in ("cost", "memory", "collectives",
+                                            "kernels", "program",
+                                            "lower_s")},
+            "roofline": row}
+        log(f"dryrun {arch} x {shape_name} (16x16, rank 0, on the host's "
+            f"CPU): {full['program']}; flops {full['cost']['flops']:.4e}, "
+            f"bytes {full['cost']['bytes accessed']:.4e}, peak "
+            f"{full['memory']['peak_memory_in_bytes'] / 2**30:.1f} GiB, wire "
+            f"{full['collectives']['total_wire_bytes']:.4e} B, launches "
+            f"{ {k: v['launches'] for k, v in full['kernels'].items()} }, "
+            f"{full['lower_s']} s; roofline on {roofline.H100_NAME}: compute "
+            f"{row['compute_s']:.4e} s, memory {row['memory_s']:.4e} s, "
+            f"collective {row['collective_s']:.4e} s, dominant "
+            f"{row['dominant']}")
+    RESULTS["dryrun"] = res
+    return {f"dryrun_{m}": r["launches"] for m, r in res["modes"].items()}
 
 
 # ---------------------------------------------------------------------------
@@ -5318,6 +5606,7 @@ def main():
         return out
 
     timed(phase_build)
+    start_dryrun_cells()
     timed(phase_decode)
     timed(phase_encode)
     timed(phase_matmul)
@@ -5329,7 +5618,7 @@ def main():
     for phase in (phase_mesh, phase_engine, phase_overlap, phase_scan,
                   phase_kv_attention, phase_serve_minitron, phase_moe,
                   phase_families, phase_api, phase_whisper, phase_train,
-                  phase_train_mesh):
+                  phase_train_mesh, phase_dryrun):
         launches.update(timed(phase))
     log(f"seconds by phase: {secs}")
     line = kernels_line(launches)
@@ -5352,4 +5641,7 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--train-mesh-worker"]:
         train_mesh_worker(sys.argv[2])
     else:
-        main()
+        try:
+            main()
+        finally:
+            stop_dryrun_cells()

@@ -128,6 +128,10 @@ def _own_raw(item):
     return item
 
 
+def _parts_nbytes(parts) -> int:
+    return sum(memoryview(p).nbytes for p in parts)
+
+
 def _host_array(t: torch.Tensor) -> np.ndarray:
     """Host copy of a non-compressed leaf (bf16 travels as its int16
     bits: numpy has no bf16); a copy on the CPU too, so that an async save
@@ -410,9 +414,10 @@ class CheckpointManager:
         return payload, dense_specs
 
     def _build_record(self, index, name, item, dense_specs):
-        """List of (manifest entry sans pack/offset, framed blob, raw
-        bytes): one for an ordinary leaf, one per expert for an ``xct``
-        record group."""
+        """List of (manifest entry sans pack/offset, the framed record as
+        its buffers (``wire.frame_parts``: nothing joined into one copy),
+        raw bytes): one for an ordinary leaf, one per expert for an
+        ``xct`` record group."""
         tag = item[0]
         if tag == "xct":
             _, meta, records = item
@@ -430,13 +435,14 @@ class CheckpointManager:
                                     "expert_shape": eshape,
                                     "dtype": meta["dtype"]},
                          "bytes": len(body)}
-                out.append((entry, enec_wire.frame(body), per_raw))
+                out.append((entry, enec_wire.frame_parts([body]), per_raw))
             return out
         if tag == "np":
             _, leaf, dtype = item
             entry = {"name": name, "index": index, "shape": list(leaf.shape),
                      "dtype": dtype, "mode": "npraw"}
-            blob = b"RAW0" + leaf.tobytes()
+            blob = [b"RAW0", memoryview(
+                np.ascontiguousarray(leaf).reshape(-1).view(np.uint8))]
             raw = leaf.nbytes
         elif tag == "ct":
             ct = item[1]
@@ -444,7 +450,7 @@ class CheckpointManager:
                      "dtype": ct.dtype_str, "mode": ct.mode}
             if ct.params is not None:
                 entry["params"] = list(ct.params.astuple())
-            blob = enec_wire.to_wire(ct)
+            blob = enec_wire.wire_parts(ct)
             raw = ct.nbytes_raw()
         else:   # "hct": stacked serving-layout record
             _, ct, spec, raw = item
@@ -453,12 +459,12 @@ class CheckpointManager:
                      "mode": ct.mode, "handle": spec,
                      "stack": int(ct.streams.mask.shape[0]),
                      "params": list(ct.params.astuple())}
-            blob = enec_wire.to_wire(ct, stacked=True)
+            blob = enec_wire.wire_parts(ct, stacked=True)
         spec = dense_specs.get(index)
         if spec is not None and "handle" not in entry:
             entry["handle"] = spec
-        entry["bytes"] = len(blob)
-        return [(entry, enec_wire.frame(blob), raw)]
+        entry["bytes"] = _parts_nbytes(blob)
+        return [(entry, enec_wire.frame_parts(blob), raw)]
 
     def _save_host(self, step: int, names, payload, dense_specs) -> None:
         t0 = time.time()
@@ -490,9 +496,10 @@ class CheckpointManager:
             i, fut = pending.popleft()
             pack = i % n_packs
             for entry, framed, raw in fut.result():
+                length = _parts_nbytes(framed)
                 entry["pack"] = pack
                 entry["offset"] = offsets[pack]
-                entry["length"] = len(framed)
+                entry["length"] = length
 
                 def write_framed(f=files[pack], pos=offsets[pack],
                                  fr=framed, name=manifest["packs"][pack]):
@@ -500,10 +507,11 @@ class CheckpointManager:
                     # retried write after a partial one lays it down once
                     rt_faults.check_write(name)
                     f.seek(pos)
-                    f.write(fr)
+                    for part in fr:
+                        f.write(part)
 
                 self.retry.call(write_framed)
-                offsets[pack] += len(framed)
+                offsets[pack] += length
                 raw_total += raw
                 comp_total += entry["bytes"]
                 manifest["leaves"].append(entry)

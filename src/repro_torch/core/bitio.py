@@ -167,8 +167,9 @@ def unpack_bool_mask(bytes_: torch.Tensor, g: int) -> torch.Tensor:
 # blocks on the host with ``np.bitwise_or.at``.  Here the straight packing
 # of all N lanes of every block is one tensor operation on the streams'
 # device (:func:`pack_straight`; lanes past ``count`` are zero, so a block's
-# exact bytes are a prefix of its straight row).  On a save the host
-# selects every block's prefix at once (:func:`exact_from_straight`); on a
+# exact bytes are a prefix of its straight row).  On a save the streams'
+# device selects every block's prefix at once (:func:`exact_from_straight`)
+# and only the exact bytes cross to the host; on a
 # load the exact bytes go to the device as they are and are scattered
 # into rows there (:func:`straight_from_exact`).
 
@@ -218,9 +219,17 @@ def unpack_straight(stream: torch.Tensor, n: int, width: int) -> torch.Tensor:
     return out
 
 
-def exact_from_straight(straight: np.ndarray, nbytes: np.ndarray) -> bytes:
+def exact_from_straight(straight, nbytes) -> bytes:
     """Concatenate the first ``nbytes[b]`` bytes of every row ``b`` of a
-    (B, W) host array (each block's exact high stream)."""
+    (B, W) array (each block's exact high stream): a host array, or a
+    tensor on any device, which selects the bytes before the (smaller)
+    copy to the host."""
+    if isinstance(straight, torch.Tensor):
+        dev = straight.device
+        nbytes = torch.as_tensor(nbytes, device=dev)
+        keep = torch.arange(straight.shape[1], device=dev)[None, :] \
+            < nbytes[:, None]
+        return straight[keep].cpu().numpy().tobytes()
     keep = np.arange(straight.shape[1])[None, :] < nbytes[:, None]
     return straight[keep].tobytes()
 

@@ -28,7 +28,9 @@ halving layout and the exact bit string in a host loop over blocks.  Here
 the conversion to and from a straight bit layout of every block is one
 tensor operation on the streams' device (``bitio.pack_straight`` /
 ``unpack_straight``).  A save selects all blocks' exact prefixes on the
-host at once (``bitio.exact_from_straight``); a load uploads the exact
+streams' device at once and copies only them to the host
+(``bitio.exact_from_straight``), and a writer takes a record's buffers as
+they are (:func:`wire_parts`, :func:`frame_parts`); a load uploads the exact
 bytes as they are and scatters them into rows on the device
 (``bitio.straight_from_exact``): no per-block Python loop at either end.
 Every host-to-device upload of a deserialization goes through
@@ -65,8 +67,9 @@ FRAME_VERSION = 2
 _FRAME_HDR = struct.Struct("<IHHQI")   # magic, version, flags, len, crc
 assert _FRAME_HDR.size == FRAME_HEADER_BYTES
 
-__all__ = ["WireError", "h2d", "frame", "read_frame", "iter_frames",
-           "record_overhead_bytes", "to_wire", "from_wire", "wire_stack",
+__all__ = ["WireError", "h2d", "frame", "frame_parts", "read_frame",
+           "iter_frames", "record_overhead_bytes", "to_wire", "wire_parts",
+           "from_wire", "wire_stack",
            "RecordHeader", "parse_header", "split_streams", "enec_tensor"]
 
 
@@ -122,6 +125,18 @@ def frame(payload: bytes) -> bytes:
                            zlib.crc32(payload)) + payload
 
 
+def frame_parts(parts) -> list:
+    """:func:`frame` of the payload that ``parts`` (bytes-like buffers)
+    make in order, as the frame's header followed by the parts themselves:
+    the same bytes, none of them copied into one."""
+    crc = length = 0
+    for part in parts:
+        crc = zlib.crc32(part, crc)
+        length += memoryview(part).nbytes
+    return [_FRAME_HDR.pack(FRAME_MAGIC, FRAME_VERSION, 0, length, crc),
+            *parts]
+
+
 def read_frame(buf, off: int = 0, *, record=None, pack=None,
                base_offset=None):
     """Validate and return ``(payload, next_off)`` for the frame at
@@ -171,10 +186,24 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _host_bytes(t: torch.Tensor) -> memoryview:
+    """A tensor's bytes on the host, as a view (no copy past the one off
+    the device)."""
+    return memoryview(np.ascontiguousarray(_host(t)).reshape(-1)
+                      .view(np.uint8))
+
+
 def to_wire(ct: CompressedTensor, *, stacked: bool = False) -> bytes:
     """Serialize one tensor, or with ``stacked=True`` one ``(L, ...)``
     stacked stream bundle (the stack length goes into the header so
     :func:`from_wire` restores the ``(L[, S], B)`` layout)."""
+    return b"".join(wire_parts(ct, stacked=stacked))
+
+
+def wire_parts(ct: CompressedTensor, *, stacked: bool = False) -> list:
+    """:func:`to_wire`'s bytes as the buffers they are made of, in order
+    (headers, and views of the streams' host copies), not joined: a writer
+    takes them as they are (``checkpoint/ckpt.py``)."""
     stack = 0
     if stacked:
         if ct.mode != "enec":
@@ -190,7 +219,7 @@ def to_wire(ct: CompressedTensor, *, stacked: bool = False) -> bytes:
            struct.pack("<II", ct.block_elems, ct.shards)]
     if ct.mode in ("raw", "const"):
         out.append(_host(ct.raw_bytes).astype(np.uint8).tobytes())
-        return b"".join(out)
+        return out
 
     p = ct.params
     out.append(struct.pack("<5i", p.b, p.n, p.m, p.L, p.l))
@@ -199,8 +228,7 @@ def to_wire(ct: CompressedTensor, *, stacked: bool = False) -> bytes:
     high_len = _host(s.high_len).astype(np.int64)
     out += [struct.pack("<I", nblocks),
             high_len.astype(np.uint32).tobytes(),
-            _host(s.mask).tobytes(), _host(s.low).tobytes(),
-            _host(s.raw).tobytes()]
+            _host_bytes(s.mask), _host_bytes(s.low), _host_bytes(s.raw)]
     width = p.n - p.m
     if width:
         # halving layout -> straight bits on the streams' device; lanes past
@@ -209,10 +237,10 @@ def to_wire(ct: CompressedTensor, *, stacked: bool = False) -> bytes:
         vals = bitio.unpack_fixed(s.high, n, width)
         count = (s.high_len.to(torch.int64) // width)[:, None]
         vals = vals * (torch.arange(n, device=vals.device)[None, :] < count)
-        straight = _host(bitio.pack_straight(vals, width))
-        nbytes = (high_len // width * width + 7) // 8
-        out.append(bitio.exact_from_straight(straight, nbytes))
-    return b"".join(out)
+        nbytes = (count[:, 0] * width + 7) // 8
+        out.append(bitio.exact_from_straight(
+            bitio.pack_straight(vals, width), nbytes))
+    return out
 
 
 def _torch_dtype(name: str):

@@ -29,7 +29,7 @@ from repro_torch.core import codec
 from repro_torch.core.api import MATMUL_TILE, CompressedTensor
 from repro_torch.core.dtypes import FORMATS
 
-from . import build
+from . import build, cost
 from .ref import decompress_matmul_ref as decompress_matmul_plain  # noqa
 from .ref import tiled_matmul_ref as dense_matmul_plain  # noqa: F401
 
@@ -148,7 +148,10 @@ def decompress_matmul_cuda(x: torch.Tensor, ct: CompressedTensor, k: int,
                            n: int) -> torch.Tensor:
     """out (M, n) f32 = x (M, k) @ W, W held only as ENEC tile streams
     (one layer; a TP-sharded ``(S, B/S, ...)`` layout is read as its flat
-    block axis, which is the n-major tile order)."""
+    block axis, which is the n-major tile order).  A ``meta`` x takes the
+    cost route (``kernels/cost.py``)."""
+    if cost.is_meta(x):
+        return cost.decompress_matmul(x, ct, k, n)
     _check_x(x, k)
     if ct.mode != "enec":
         raise ValueError("the fused kernel requires enec tile streams")
@@ -182,7 +185,10 @@ def decompress_matmul_cuda(x: torch.Tensor, ct: CompressedTensor, k: int,
 
 def dense_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The dense-tile entry: out (M, N) f32 = x (M, K) @ w (K, N), any
-    strides of ``w``, in the fused entry's exact schedule."""
+    strides of ``w``, in the fused entry's exact schedule.  A ``meta`` x
+    takes the cost route (``kernels/cost.py``)."""
+    if cost.is_meta(x):
+        return cost.dense_matmul(x, w)
     k, n = w.shape
     _check_x(x, k)
     if w.device != x.device or w.dtype not in _W_FMT:

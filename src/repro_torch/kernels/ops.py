@@ -3,7 +3,10 @@
 
 A tensor on the CPU goes to the kernel's plain version; a tensor on CUDA
 goes to the kernel, and the kernel's wrapper raises on what it cannot take.
-Nothing falls back from one to the other.
+Nothing falls back from one to the other.  A ``meta`` tensor goes to the
+kernel's cost route (``kernels/cost.py``): empty outputs of the kernel's
+shapes and its launches, FLOPs and bytes added to a record, for the
+dry-run; it reaches neither the plain version nor the card.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from repro_torch.core.params import EnecParams
 
 from . import decode_attention_kv as dak
 from . import decompress_matmul as dm
-from . import enec_decode, enec_encode, ref
+from . import cost, enec_decode, enec_encode, ref
 from . import idd_scan as scan
 from .decode_attention_kv import compress_kv_prefix  # noqa: F401
 
@@ -29,6 +32,8 @@ def encode_blocks(bits: torch.Tensor, fmt: FloatFormat, p: EnecParams,
                   b_vec=None) -> BlockStreams:
     """Encode (B, N) float bit patterns -> flat (B, ...) streams; ``b_vec``
     ((B,) int32) overrides ``p.b`` per block."""
+    if cost.is_meta(bits):
+        return cost.encode_blocks(bits, fmt, p, b_vec)
     if _on_cpu(bits):
         return ref.encode_blocks_ref(bits, fmt, p, b_vec)
     if bits.dtype != fmt.bits_dtype:
@@ -45,6 +50,8 @@ def decode_blocks(streams: BlockStreams, n_elems: int, fmt: FloatFormat,
                   out=None) -> torch.Tensor:
     """Decode flat (B, ...) streams -> (B, N) bit containers, into ``out``
     when one is given."""
+    if cost.is_meta(streams.mask):
+        return cost.decode_blocks(streams, n_elems, fmt, out)
     if _on_cpu(streams.mask):
         bits = ref.decode_blocks_ref(streams, n_elems, fmt, p, b_vec, l_vec)
         return bits if out is None else out.copy_(bits)
@@ -60,12 +67,16 @@ def decode_blocks(streams: BlockStreams, n_elems: int, fmt: FloatFormat,
 def decompress_matmul(x: torch.Tensor, ct: CompressedTensor, k: int,
                       n: int) -> torch.Tensor:
     """x @ W with W resident only in ENEC tile streams."""
+    if cost.is_meta(x):
+        return cost.decompress_matmul(x, ct, k, n)
     if _on_cpu(x):
         return ref.decompress_matmul_ref(x, ct, k, n)
     return dm.decompress_matmul_cuda(x, ct, k, n)
 
 
 def _tiled(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if cost.is_meta(x):
+        return cost.dense_matmul(x, w)
     if _on_cpu(x):
         return ref.tiled_matmul_ref(x, w)
     return dm.dense_matmul_cuda(x, w)
@@ -82,6 +93,9 @@ class TiledMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
+        # on meta, the steps a time loop's one step stands for
+        # (``cost.repeated``): its backward launches count as many
+        ctx.repeat = cost.repeat_factor()
         return _tiled(x, w)
 
     @staticmethod
@@ -89,10 +103,11 @@ class TiledMatmul(torch.autograd.Function):
         x, w = ctx.saved_tensors
         dy = dy.contiguous()
         dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = _tiled(dy, w.T).to(x.dtype)
-        if ctx.needs_input_grad[1]:
-            dw = _tiled(x.T.contiguous(), dy).to(w.dtype)
+        with cost.repeated(ctx.repeat):
+            if ctx.needs_input_grad[0]:
+                dx = _tiled(dy, w.T).to(x.dtype)
+            if ctx.needs_input_grad[1]:
+                dw = _tiled(x.T.contiguous(), dy).to(w.dtype)
         return dx, dw
 
 
@@ -109,6 +124,8 @@ def idd_scan(x: torch.Tensor) -> torch.Tensor:
     """Batched inclusive prefix sum: (B, N) int32 or bool, N % 128 == 0 ->
     (B, N) int32."""
     scan.check_shape(x)
+    if cost.is_meta(x):
+        return cost.idd_scan(x)
     if _on_cpu(x):
         return ref.idd_scan_ref(x)
     return scan.idd_scan_cuda(x)
@@ -120,6 +137,8 @@ def decode_attention_kv_enec(q: torch.Tensor, k_streams: BlockStreams,
     """q (B, KV, grp, 128) attends over the K/V prefix held as ENEC streams
     (B, KV, C, width) from :func:`compress_kv_prefix` -> (B, KV, grp, 128)
     f32."""
+    if cost.is_meta(q):
+        return cost.decode_attention_kv(q, k_streams, v_streams)
     if _on_cpu(q):
         return ref.decode_attention_kv_ref(q, k_streams, v_streams, p)
     return dak.decode_attention_kv_enec_cuda(q, k_streams, v_streams, p)

@@ -81,6 +81,19 @@ class Mesh:
         return dist.broadcast(tensor, src=ranks[owner], group=group,
                               async_op=async_op)
 
+    def axis_backend(self, axis: str) -> str:
+        """The backend of ``axis``'s process group ("gloo" / "nccl")."""
+        return dist.get_backend(self.groups[axis][1])
+
+    def all_gather_rows(self, staging: torch.Tensor, axis: str):
+        """Fill ``staging`` (A rows, this rank's row already in place)
+        with every rank's row of ``axis`` by one asynchronous
+        ``all_gather_into_tensor``; returns the work to wait on."""
+        me = self.axis_index(axis)
+        return dist.all_gather_into_tensor(
+            staging.view(-1), staging[me].clone(),
+            group=self.groups[axis][1], async_op=True)
+
     def gather_all(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` (the same shape on each), stacked in rank
         order: ``(size, *t.shape)``; counted on no link."""
@@ -99,6 +112,56 @@ class Mesh:
         byte over every axis)."""
         self.gather_all(torch.zeros((), dtype=torch.uint8,
                                     device=self.device))
+
+
+class _Done:
+    """The finished work of a recorded collective."""
+
+    def wait(self):
+        return None
+
+
+class AbstractMesh(Mesh):
+    """Rank ``rank``'s view of a mesh with no process group and no world:
+    every collective that :class:`Mesh` would start is recorded in
+    :attr:`records` as ``(kind, result_bytes, group_size)``
+    (``launch/collective_stats.py``) instead of run, and its result is
+    left as it is (the dry-run's ``meta`` tensors hold no data).  It
+    stands for a mesh of a card a rank, so the stream gather takes the
+    NCCL branch: one all-gather an axis."""
+
+    def __init__(self, shape, axes, *, rank: int = 0, device="meta"):
+        super().__init__(shape, axes, rank=rank, device=device)
+        self.records: list = []
+
+    def record(self, kind: str, nbytes: int, axis: str) -> None:
+        self.records.append((kind, int(nbytes), self.shape.get(axis, 1)))
+
+    def axis_ranks(self, axis: str) -> tuple:
+        if self.shape.get(axis, 1) == 1:
+            return (self.rank,)
+        sizes = tuple(self.shape.values())
+        a = self.axis_names.index(axis)
+        coord = [self.coords[n] for n in self.axis_names]
+        out = []
+        for c in range(sizes[a]):
+            coord[a] = c
+            out.append(_ravel(coord, sizes))
+        return tuple(out)
+
+    def broadcast(self, tensor: torch.Tensor, owner: int, axis: str,
+                  async_op: bool = False):
+        self.record("broadcast", tensor.numel() * tensor.element_size(),
+                    axis)
+        return _Done() if async_op else None
+
+    def axis_backend(self, axis: str) -> str:
+        return "nccl"
+
+    def all_gather_rows(self, staging: torch.Tensor, axis: str):
+        self.record("all-gather", staging.numel() * staging.element_size(),
+                    axis)
+        return _Done()
 
 
 def _gather_plan(spec, mesh) -> list:

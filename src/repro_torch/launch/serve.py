@@ -9,7 +9,8 @@ Modes (runtime/streaming.py):
   stream  ENEC streams decoded layer by layer inside the step (ENEC
           decode kernel, then the dense-tile entry)
   fused   ENEC tile streams decoded inside the matmul kernel (default)
-All three give bitwise-equal logits on one device.  Compression runs
+All three give bitwise-equal logits on one device (``--dense``, the
+reference's deprecated alias, is ``--mode dense``).  Compression runs
 through the codec's encode plans: the ENEC encode kernel on the card.
 
 Serving: ``--batch N`` submits N requests at once into the engine's
@@ -169,8 +170,11 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="llama3_2_1b", choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced smoke config")
-    ap.add_argument("--mode", default="fused",
-                    choices=("dense", "stream", "fused"))
+    ap.add_argument("--mode", default=None,
+                    choices=("dense", "stream", "fused"),
+                    help="weight-execution mode (default fused)")
+    ap.add_argument("--dense", action="store_true",
+                    help="deprecated alias for --mode dense")
     ap.add_argument("--min-bytes", type=int, default=4096,
                     help="smallest leaf worth compressing")
     ap.add_argument("--shards", type=int, default=None,
@@ -226,7 +230,13 @@ def parse_args(argv=None):
                      help="serve through damage with per-record fallbacks "
                           "from earlier steps and print the RestoreReport "
                           "(default)")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.dense and args.mode not in (None, "dense"):
+        ap.error("--dense conflicts with --mode " + args.mode)
+    if args.dense:
+        print("[serve] --dense is a deprecated alias: use --mode dense")
+    args.mode = "dense" if args.dense else (args.mode or "fused")
+    return args
 
 
 def _restore_params(args, cfg, mode, codec, dev, expert_store,

@@ -17,6 +17,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import cost as kernel_cost
 from repro_torch.kernels import ops
 from repro_torch.runtime.weights import WeightHandle
 
@@ -97,6 +98,35 @@ def fixed_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if n > h:
         t[..., :n - h].addcmul_(a[..., h:], b[..., h:])
     return fixed_sum(t)
+
+
+def scan_steps(x: torch.Tensor, t: int):
+    """The steps of a recurrent time loop over ``t`` positions of ``x``:
+    every one, but on ``meta`` tensors only step 0 and step 1, which stands
+    for steps 1..t-1: the dry-run counts the loop's body as the
+    reference's cost analysis counts a scan body (``launch/roofline.py``
+    adds the other steps' FLOPs), and step 1's kernel launches count
+    ``t - 1`` times, as the card launches them
+    (``kernels/cost.py:repeated``; step 0 differs: its carry needs no
+    gradient)."""
+    if x.device.type != "meta":
+        yield from range(t)
+        return
+    yield 0
+    if t > 1:
+        with kernel_cost.repeated(t - 1):
+            yield 1
+
+
+def stack_steps(hs, t: int) -> torch.Tensor:
+    """The per-step outputs ``hs`` stacked on dim 1 to ``t`` steps (on
+    ``meta`` the second of :func:`scan_steps`' two steps stands for every
+    step after the first)."""
+    out = torch.stack(hs, dim=1)
+    if out.shape[1] != t:
+        rest = out[:, 1:].expand(out.shape[0], t - 1, *out.shape[2:])
+        out = torch.cat([out[:, :1], rest], dim=1)
+    return out
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -377,11 +407,15 @@ def mlp_block(p, x, activation: str = "silu"):
 class _EmbedLookup(torch.autograd.Function):
     """``embedding[tokens]`` whose backward is deterministic: the rows'
     gradients are accumulated in f32 by ``index_put_(accumulate=True)``
-    under ``torch.use_deterministic_algorithms`` (scoped to that call),
-    which on CUDA sorts the indices and sums each row's contributions in
-    a fixed order instead of adding them with atomics; on the CPU it is
-    a serial loop.  A resumed training run then gives the same bits as an
-    uninterrupted one."""
+    under deterministic algorithms (scoped to that call), which on CUDA
+    sorts the indices and sums each row's contributions in a fixed order
+    instead of adding them with atomics; on the CPU it is a serial loop.
+    A resumed training run then gives the same bits as an uninterrupted
+    one.  The switch is the eager kernels' own
+    (``torch._C._set_deterministic_algorithms``): the public
+    ``torch.use_deterministic_algorithms`` also imports the compiler stack
+    (inductor, dynamo, sympy) to set its flag, which cost a fresh
+    process's first backward ≈ 10 s on the H100 host."""
 
     @staticmethod
     def forward(ctx, embedding, tokens):
@@ -395,13 +429,13 @@ class _EmbedLookup(torch.autograd.Function):
         grad_embed = torch.zeros(ctx.shape, dtype=torch.float32,
                                  device=grad.device)
         was = torch.are_deterministic_algorithms_enabled()
-        torch.use_deterministic_algorithms(True)
+        torch._C._set_deterministic_algorithms(True)
         try:
             grad_embed.index_put_((tokens.reshape(-1),),
                                   grad.reshape(-1, ctx.shape[-1]).float(),
                                   accumulate=True)
         finally:
-            torch.use_deterministic_algorithms(was)
+            torch._C._set_deterministic_algorithms(was)
         return grad_embed.to(ctx.dtype), None
 
 

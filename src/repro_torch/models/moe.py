@@ -30,12 +30,18 @@ What the port does in its own way, and why:
   path it adds ``+0.0`` to every token, which leaves a sum that is never
   ``-0.0`` unchanged: skipping it gives the same bits.  Without a store
   the block has no host sync and captures in a CUDA graph.
+* **All-to-all dispatch** (``dispatch_a2a=True``, the reference's
+  expert-parallel variant).  The reference reshards ``x_ec`` from the batch
+  to the model axis; the port's ranks hold whole expert weights, so it is
+  the identity (bits equal to ``False``), and the dry-run's abstract mesh
+  records the all-to-all (``collectives.expert_dispatch``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.runtime.collectives import expert_dispatch
 from repro_torch.runtime.experts import ExpertRef, routed_expert_weights
 
 from .layers import ACT_DTYPE, dense_init, weight_matmul
@@ -123,9 +129,6 @@ def moe_block(p, x: torch.Tensor, k: int, combine_dtype: str = "f32",
     router's load-balancing and z losses).  Each token's output is the sum
     of its experts' contributions in ascending expert order, accumulated
     in f32 (``combine_dtype="bf16"``: in bf16)."""
-    if dispatch_a2a:
-        raise NotImplementedError("the all-to-all dispatch needs a mesh, "
-                                  "which the port does not have yet")
     b, t, d = x.shape
     dev = x.device
     r = route(p["router"], x, k)
@@ -134,6 +137,10 @@ def moe_block(p, x: torch.Tensor, k: int, combine_dtype: str = "f32",
     e, c = assign.shape[-1], idx_ec.shape[-1]
     bidx = torch.arange(b, device=dev)[:, None, None]
     x_ec = x[bidx, idx_ec]                                  # (B, E, C, D)
+    if dispatch_a2a:
+        # the expert-parallel dispatch: the identity on the port's ranks,
+        # recorded as the reference's all-to-all under the dry-run's mesh
+        x_ec = expert_dispatch(x_ec)
     # slot of each (sequence, expert, token) in the capacity pick, or -1;
     # a pick's C token indices are distinct, so the scatter has no clashes
     slot = torch.full((b, e, t), -1, dtype=torch.int64, device=dev)

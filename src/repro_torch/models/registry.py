@@ -14,7 +14,9 @@ import math
 from functools import partial
 from typing import Callable, NamedTuple
 
-from repro_torch.configs.base import ArchConfig
+import torch
+
+from repro_torch.configs.base import ArchConfig, ShapeSpec
 
 from . import encdec, lm
 
@@ -72,11 +74,50 @@ def abstract_params(cfg: ArchConfig) -> dict:
     return (encdec if cfg.is_encdec else lm).abstract_params(cfg)
 
 
-def cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
-    """The decode cache of ``batch`` rows as ``meta`` tensors (whisper's
-    with the reference's ``ENC_FRAMES_STUB`` = 4096 memory positions)."""
+def input_specs(cfg: ArchConfig, shape: ShapeSpec, *,
+                device="meta") -> dict:
+    """Stand-ins for every model input of one cell (the reference's
+    ``registry.input_specs``), as tensors on ``device`` (``meta``: nothing
+    allocated; on a real device, zeros):
+
+      train  : token / target batches (+ the prefix or frame stubs)
+      prefill: prompt tokens (+ stubs)
+      decode : one new token per sequence + the decode cache
+    """
+    b, t = shape.global_batch, shape.seq_len
+
+    def spec(shape_, dtype):
+        return torch.zeros(shape_, dtype=dtype, device=device)
+
+    specs: dict = {}
+    if shape.kind in ("train", "prefill"):
+        if cfg.is_encdec:
+            specs["frames"] = spec((b, t, cfg.d_model), torch.bfloat16)
+            specs["tokens"] = spec((b, t), torch.int32)
+        else:
+            t_text = t - cfg.prefix_embed
+            specs["tokens"] = spec((b, t_text), torch.int32)
+            if cfg.prefix_embed:
+                specs["prefix_embeds"] = spec((b, cfg.prefix_embed,
+                                               cfg.d_model), torch.bfloat16)
+        if shape.kind == "train":
+            specs["targets"] = spec(tuple(specs["tokens"].shape),
+                                    torch.int32)
+    elif shape.kind == "decode":
+        specs["tokens"] = spec((b,), torch.int32)
+        specs["cache"] = cache_specs(cfg, b, t, device=device)
+    else:
+        raise ValueError(shape.kind)
+    return specs
+
+
+def cache_specs(cfg: ArchConfig, batch: int, max_len: int, *,
+                device="meta") -> dict:
+    """The decode cache of ``batch`` rows as ``meta`` tensors, or zeros on
+    ``device`` (whisper's with the reference's ``ENC_FRAMES_STUB`` = 4096
+    memory positions)."""
     return (encdec if cfg.is_encdec else lm).init_cache(
-        cfg, batch, max_len, device="meta")
+        cfg, batch, max_len, device=device)
 
 
 def param_count(cfg: ArchConfig) -> int:

@@ -3,7 +3,8 @@
 
 Prefill runs the recurrence as a Python loop over time carrying the f32
 ``(B, d_inner, d_state)`` state, so the ``(T, d_inner, d_state)`` outer
-product never exists; decode is the same body applied once.
+product never exists (two steps of it on ``meta`` tensors, for the
+dry-run: ``layers.scan_steps``); decode is the same body applied once.
 
 What the port does in its own way, and why:
 
@@ -28,8 +29,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .layers import (ACT_DTYPE, dense_init, fixed_sum, softplus,
-                     weight_matmul)
+from .layers import (ACT_DTYPE, dense_init, fixed_sum, scan_steps,
+                     softplus, stack_steps, weight_matmul)
 
 
 def mamba_dims(d_model: int, d_state: int, expand: int = 2):
@@ -118,10 +119,10 @@ def mamba_forward(p, u: torch.Tensor, d_state: int, conv_dim: int = 4):
     xf = x.float()
     h = torch.zeros((b, c, d_state), dtype=torch.float32, device=u.device)
     ys = []
-    for i in range(t):
+    for i in scan_steps(x, t):
         h = _update(h, a, dt[:, i], xf[:, i], b_t[:, i])
         ys.append(_read_out(h, c_t[:, i]))
-    y = torch.stack(ys, dim=1) + xf * p["d_skip"]
+    y = stack_steps(ys, t) + xf * p["d_skip"]
     y = y * F.silu(z.float())
     out = weight_matmul(p["out_proj"], y.to(ACT_DTYPE)).to(u.dtype)
     window = F.pad(x_raw, (0, 0, conv_dim - 1, 0))[:, t:]

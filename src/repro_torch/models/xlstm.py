@@ -4,7 +4,8 @@ feedback), both attention-free with O(1) decode state.
 
 Both run the numerically stabilised recurrent forms (exponential input
 gates with the running-max stabiliser ``m``, App. A of the paper) as a
-Python loop over time, in f32.
+Python loop over time, in f32 (two steps of it on ``meta`` tensors, for
+the dry-run: ``layers.scan_steps``).
 
 What the port does in its own way, and why:
 
@@ -28,7 +29,7 @@ import math
 import torch
 
 from .layers import (ACT_DTYPE, dense_init, fixed_sum, log_sigmoid,
-                     rms_norm, weight_matmul)
+                     rms_norm, scan_steps, stack_steps, weight_matmul)
 
 M_INIT = -1e30      # the stabiliser's initial value
 
@@ -122,11 +123,11 @@ def mlstm_forward(p, x: torch.Tensor, n_heads: int):
              torch.full((b, n_heads), M_INIT, dtype=torch.float32,
                         device=dev))
     hs = []
-    for i in range(t):
+    for i in scan_steps(x, t):
         carry, h = _mlstm_cell(carry, (q[:, i], k[:, i], v[:, i],
                                        i_pre[:, i], f_pre[:, i]))
         hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(b, t, d)
+    h = stack_steps(hs, t).reshape(b, t, d)
     return _mlstm_out(p, h, o_gate, x.dtype), \
         {"c": carry[0], "n": carry[1], "m": carry[2]}
 
@@ -188,10 +189,10 @@ def slstm_forward(p, x: torch.Tensor):
     carry = (zeros, zeros, zeros,
              torch.full((b, d), M_INIT, dtype=torch.float32, device=x.device))
     hs = []
-    for i in range(t):
+    for i in scan_steps(x, t):
         carry = _slstm_cell(p, carry, x_pre[:, i])
         hs.append(carry[2])
-    return _slstm_out(p, torch.stack(hs, dim=1), x.dtype), \
+    return _slstm_out(p, stack_steps(hs, t), x.dtype), \
         {"c": carry[0], "n": carry[1], "h": carry[2], "m": carry[3]}
 
 

@@ -53,7 +53,6 @@ import dataclasses
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core.api import CompressedTensor, precompute_wire_bytes
 from repro_torch.core.codec import BlockStreams, flatten_blocks
@@ -89,6 +88,22 @@ def use_serving_mesh(mesh, axis: str = MODEL_AXIS):
         yield mesh
     finally:
         _mesh_ctx.reset(token)
+
+
+def expert_dispatch(x_ec: torch.Tensor, axis: str = MODEL_AXIS
+                    ) -> torch.Tensor:
+    """The MoE all-to-all dispatch (``moe_block(dispatch_a2a=True)``; the
+    reference reshards the capacity-gathered ``x_ec`` from the batch to the
+    model axis).  The port's ranks hold whole expert weights, so nothing
+    moves and ``x_ec`` comes back as it is; under an ambient mesh that
+    records its collectives (the dry-run's ``AbstractMesh``) the
+    all-to-all the reference makes, of ``x_ec``'s bytes over ``axis``,
+    is recorded."""
+    ctx = serving_mesh()
+    record = None if ctx is None else getattr(ctx[0], "record", None)
+    if record is not None:
+        record("all-to-all", x_ec.numel() * x_ec.element_size(), axis)
+    return x_ec
 
 
 # ---------------------------------------------------------------------------
@@ -270,11 +285,8 @@ def _start_gather(streams: BlockStreams, whole: BlockStreams, d: int,
 
     for k, a in enumerate(streams):
         part(staging[me], k).view(a.shape).copy_(a)
-    group = mesh.groups[axis][1]
-    if dist.get_backend(group) == "nccl":
-        works = [dist.all_gather_into_tensor(
-            staging.view(-1), staging[me].clone(), group=group,
-            async_op=True)]
+    if mesh.axis_backend(axis) == "nccl":
+        works = [mesh.all_gather_rows(staging, axis)]
     else:
         # bytes are bytes: every backend broadcasts uint8
         works = [mesh.broadcast(staging[owner], owner, axis, async_op=True)

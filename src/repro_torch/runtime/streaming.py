@@ -20,8 +20,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.api import (MATMUL_TILE, SUPPORTED_FLOAT_DTYPES,
-                                  matmul_tiles)
+from repro_torch.core.api import (DEFAULT_BLOCK_ELEMS, MATMUL_TILE,
+                                  SUPPORTED_FLOAT_DTYPES, CompressedTensor,
+                                  abstract_compressed, matmul_tiles)
 from repro_torch.core.codec_api import current_codec
 from repro_torch.runtime.overlap import (OVERLAP_MODES,  # noqa: F401
                                          overlap_enabled)
@@ -205,6 +206,55 @@ def assign_weight_modes(params, *, mode: str = "fused",
         for n, ct in zip(names, codec.execute(plan)):
             handles[n] = build_serving_handle(jobs[n], ct)
     return tree_map_with_path(lambda p, leaf: handles.get(p, leaf), tree)
+
+
+def _abstract_stack(n_layers: int, layer_shape, dtype, p, block_elems: int,
+                    shards: int) -> CompressedTensor:
+    """The stacked CompressedTensor that an encode of ``n_layers`` layers
+    of ``layer_shape`` would give, on ``meta`` tensors: one layer's
+    :func:`~repro_torch.core.api.abstract_compressed` with a leading
+    ``(L,)`` on every stream."""
+    one = abstract_compressed(layer_shape, dtype, p, block_elems, shards)
+    streams = one.streams.map(lambda a: torch.empty(
+        (n_layers,) + tuple(a.shape), dtype=a.dtype, device="meta"))
+    return CompressedTensor(
+        streams=streams, raw_bytes=None, fmt_name=one.fmt_name,
+        params=one.params, shape=one.shape, dtype_str=one.dtype_str,
+        block_elems=one.block_elems, shards=one.shards, mode="enec")
+
+
+def abstract_serving_params(cfg, p, *, mode: str = "stream",
+                            min_bytes: int = MIN_STREAM_BYTES,
+                            shards: int = STREAM_SHARDS):
+    """The tree :func:`assign_weight_modes` would give ``cfg``'s parameters
+    under ``mode``, on ``meta`` tensors and with every eligible leaf
+    compressed under ``p``: the dry-run serves it without allocating
+    anything.  Shares :func:`serving_job` / :func:`fused_shards` with the
+    concrete path, so the two cannot drift."""
+    from repro_torch.models.registry import abstract_params
+    params = abstract_params(cfg)
+    tree, jobs = _serving_jobs(params, mode, min_bytes, shards)
+    handles = {}
+    for pstr, job in jobs.items():
+        arr = job.pop("arr")
+        ct = _abstract_stack(arr.shape[0], tuple(arr.shape[1:]), arr.dtype,
+                             p, DEFAULT_BLOCK_ELEMS, job["shards"])
+        if job["kind"] == "fused":
+            # no never-worse escape: a meta stream has no size to weigh
+            handles[pstr] = FusedWeight(
+                ct=ct, k=job["k"], n=job["n"],
+                dtype_str=str(arr.dtype).split(".")[-1])
+        else:
+            handles[pstr] = build_serving_handle(job, ct)
+    return tree_map_with_path(lambda q, leaf: handles.get(q, leaf), tree)
+
+
+def abstract_streamed_params(cfg, p, *, min_bytes: int = MIN_STREAM_BYTES,
+                             shards: int = STREAM_SHARDS):
+    """The reference's ``abstract_streamed_params``: the stream-mode tree
+    of ``cfg`` on ``meta`` tensors (:func:`abstract_serving_params`)."""
+    return abstract_serving_params(cfg, p, mode="stream",
+                                   min_bytes=min_bytes, shards=shards)
 
 
 def mode_mix(tree) -> dict:
