@@ -4232,12 +4232,23 @@ TRAIN_SHAPES = {"wq": (2048, 2048), "wk": (2048, 512),
 PLAIN_BYTES = 2 << 30       # the plain version's (M, 128, N) f32 partials
 
 
-def train_step_launches(n_layers: int) -> dict:
+def train_step_launches(n_layers: int, policy) -> dict:
     """Kernel 2' launches of one train step, read from the code: every
     product (7 a layer and the tied head) forward, and its dX and dW
-    backward (``kernels/ops.py:TiledMatmul``)."""
+    backward (``kernels/ops.py:TiledMatmul``); under the remat policy
+    ``nothing`` also the recompute of each layer's products but ``w_down``
+    (its output feeds only the period's output, so checkpoint's early stop
+    ends the recompute before it launches, as the reference's recompute
+    drops it); ``dots`` launches no kept product again, and None is remat
+    off (``models/remat.py``)."""
+    recompute = n_layers * (len(LEAVES) - 1) if policy == "nothing" else 0
     return dict.fromkeys(KERNELS, 0) | {
-        "dense_tile_matmul": 3 * (n_layers * len(LEAVES) + 1)}
+        "dense_tile_matmul": 3 * (n_layers * len(LEAVES) + 1) + recompute}
+
+
+def config_policy(cfg):
+    """The remat policy a config trains under (None: remat off)."""
+    return cfg.remat_policy if cfg.remat else None
 
 
 def _plain_by_columns(a, b):
@@ -4251,10 +4262,12 @@ def _plain_by_columns(a, b):
                       for j in range(0, b.shape[1], cols)], 1)
 
 
-def _train_backward_checks() -> dict:
-    """The autograd Function on the card at M = TRAIN_TOKENS, for each
-    product of TRAIN_SHAPES: its forward, dX and dW bitwise equal to
-    kernel 2' on the same (forward) or transposed operands (dX = dY @
+def _train_backward_checks(m: int = TRAIN_TOKENS, shapes=None,
+                           label: str = "train") -> dict:
+    """The autograd Function on the card at M = ``m`` (TRAIN_TOKENS), for
+    each product of ``shapes`` (TRAIN_SHAPES): its forward, dX and dW
+    bitwise equal to kernel 2' on the same (forward) or transposed
+    operands (dX = dY @
     W.T, dW = X.T @ dY, cast to the operand's dtype); kernel 2' there
     against the plain version (``_matmul_row``: the forward's bf16
     products within MATMUL_ATOL, the backward's f32 sums of the same
@@ -4268,8 +4281,8 @@ def _train_backward_checks() -> dict:
     dm = importlib.import_module("repro_torch.kernels.decompress_matmul")
     gen = torch.Generator(device="cuda").manual_seed(3)
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    m, rows = TRAIN_TOKENS, {}
-    for name, (k, n) in TRAIN_SHAPES.items():
+    rows = {}
+    for name, (k, n) in (shapes or TRAIN_SHAPES).items():
         x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
         w = (torch.randn((k, n), generator=gen, device="cuda")
              / math.sqrt(k)).bfloat16()
@@ -4279,7 +4292,7 @@ def _train_backward_checks() -> dict:
         xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
         y = ops.tiled_matmul(xa, wa)
         check(torch.equal(y.detach(), dm.dense_matmul_cuda(x, w)),
-              f"train {name} forward: the Function's result differs from "
+              f"{label} {name} forward: the Function's result differs from "
               f"kernel 2'")
         grads = torch.autograd.grad(y, (xa, wa), dy)
         del xa, wa, y
@@ -4290,13 +4303,13 @@ def _train_backward_checks() -> dict:
             if got is not None:
                 check(torch.equal(got, dm.dense_matmul_cuda(a, b)
                                   .to(got.dtype)),
-                      f"train {name} {part}: the Function's result differs "
+                      f"{label} {name} {part}: the Function's result differs "
                       f"from kernel 2' on the transposed operands")
             f32 = a.dtype == torch.float32 or b.dtype == torch.float32
             bf = b.float() if f32 else b
             af = a.float() if f32 else a
             row[part] = _matmul_row(
-                f"train {name} {part}", a, b.numel() * b.element_size(),
+                f"{label} {name} {part}", a, b.numel() * b.element_size(),
                 a.shape[1], b.shape[1], lambda: dm.dense_matmul_cuda(a, b),
                 lambda: _plain_by_columns(a, b),
                 lambda: torch.matmul(af, bf), flush_buf.zero_, f32,
@@ -4304,7 +4317,7 @@ def _train_backward_checks() -> dict:
             del af, bf
         del grads, dy
         rows[name] = row
-        log(f"train {name} ({k} x {n}, M {m}): " + ", ".join(
+        log(f"{label} {name} ({k} x {n}, M {m}): " + ", ".join(
             f"{part} {r['ms']:.3f} ms (matmul {r['library_ms']:.3f}, bound "
             f"{r['bound_ms']:.3f}, err {r['max_abs_err']:.2e} / scale "
             f"{r['scale']:.1f})" for part, r in row.items()))
@@ -4471,7 +4484,8 @@ def phase_train():
     run's save is the one whose peak the memory line reports.  Checks: the
     resumed run's params and AdamW state at step 6 bitwise equal to the
     uninterrupted run's; finite losses and gradient norms; kernel 2'
-    launches a step equal to the code's count (forward and backward;
+    launches a step equal to the code's count (forward, backward and the
+    recompute of the config's remat policy, ``nothing``;
     ``train_step_launches``); the autograd Function's forward and backward
     against the plain version (:func:`_train_backward_checks`).  Logs
     seconds a step, the uninterrupted run's peak GB, and the step's and
@@ -4479,6 +4493,7 @@ def phase_train():
     import shutil
     import tempfile
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.launch import train
     torch.cuda.synchronize()
@@ -4512,7 +4527,8 @@ def phase_train():
         check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
                   for h in hist), f"train: non-finite loss or grad norm "
               f"{hist}")
-        want = train_step_launches(N_LAYERS)["dense_tile_matmul"]
+        policy = config_policy(get_config("llama3_2_1b"))
+        want = train_step_launches(N_LAYERS, policy)["dense_tile_matmul"]
         check(launches["dense_tile_matmul"] == TRAIN_STEPS * want,
               f"train: 2' launched {launches['dense_tile_matmul']} times in "
               f"{TRAIN_STEPS} steps, the code says {want} a step")
@@ -4565,7 +4581,8 @@ def phase_train():
     backward = _train_backward_checks()
     torch.cuda.empty_cache()
     dts = [h["dt_s"] for h in hist]
-    res = {"card": card, "history": hist, "s_per_step": dts,
+    res = {"card": card, "policy": policy, "history": hist,
+           "s_per_step": dts,
            "s_per_step_mean": sum(dts[1:]) / len(dts[1:]),
            "peak_gb": peak, "held_gb": held, "memory": memory,
            "whole_s": whole_s,
@@ -4576,7 +4593,7 @@ def phase_train():
         f"{res['s_per_step_mean']:.3f} s a step (steps 1-5; step 0 "
         f"{dts[0]:.3f} s), peak {peak:.2f} GB in the uninterrupted run "
         f"({held:.2f} held before the phase; the save's own in the memory "
-        f"line), 2' launches a step {want}; "
+        f"line), 2' launches a step {want} (remat {policy}); "
         f"runs {whole_s:.1f} / {first_s:.1f} / {resumed_s:.1f} s ({card})")
     return {"train": launches}
 
@@ -5159,7 +5176,9 @@ def phase_train_mesh():
                                   tag="train_mesh")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    per_step = train_step_launches(N_LAYERS)["dense_tile_matmul"]
+    from repro_torch.configs import get_config
+    per_step = train_step_launches(N_LAYERS, config_policy(get_config(
+        "llama3_2_1b")))["dense_tile_matmul"]
     check(all(all(r["built"].values()) for r in ranks),
           f"train_mesh: a rank compiled kernels: {[r['built'] for r in ranks]}")
     res = {"card": card, "seconds": secs, "backend": ranks[0]["backend"],
@@ -5261,6 +5280,181 @@ def phase_train_mesh():
     return {f"train_mesh_{label}": ranks[0]["runs"][label]["launches"]
             for label in TRAIN_MESH_RUNS} | {
         "train_mesh_allreduce": ranks[0]["allreduce"]["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# phase remat: rematerialised training (the config's remat and policy)
+# ---------------------------------------------------------------------------
+
+REMAT_POLICIES = (None, "nothing", "dots")     # None: remat off
+# (rows, seq, steps, policies): phase train's shape, then the train_4k
+# sequence with its batch cut 256 -> 1 (remat off is predicted there, not
+# run: the dry-run on meta gives its peak)
+REMAT_CELLS = {"8x128": (8, 128, 1, REMAT_POLICIES),
+               "1x4096": (1, 4096, 2, ("nothing", "dots"))}
+# kernel 2' at the long cell's M against its plain version
+REMAT_SHAPES = {"wq": (2048, 2048), "w_down": (8192, 2048)}
+
+
+def _remat_cfg(policy):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llama3_2_1b"),
+                               remat=policy is not None,
+                               remat_policy=policy or "nothing")
+
+
+def _states_equal(a, b) -> bool:
+    import torch
+
+    def bits(t):
+        return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[t.element_size()])
+
+    return all(pa == pb and x.dtype == y.dtype and torch.equal(bits(x),
+                                                               bits(y))
+               for (pa, x), (pb, y) in zip(_flat_state(a), _flat_state(b)))
+
+
+def _remat_run(label, policy, rows, seq, steps, keep=None):
+    """``steps`` train steps of full-width llama3_2_1b from seed 0 under
+    remat ``policy`` (the config through ``dataclasses.replace``; the
+    step and AdamW of ``train.main`` at its defaults, lr 3e-4 and
+    ``warmup_cosine(20, 100)``) on ``pipeline.batch_at`` batches of rows x
+    seq.  Checks finite losses and gradient norms, 2' launches a step equal
+    to the code's (``train_step_launches``) and, given ``keep`` (an
+    earlier run's final state), the final state bitwise equal to it.
+    Returns (the run's record, its final state or None when ``keep`` was
+    given)."""
+    import torch
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.steps import build_train_step
+    cfg = _remat_cfg(policy)
+    model = build_model(cfg)
+    opt_cfg = adamw.AdamWConfig(lr=3e-4,
+                                schedule=adamw.warmup_cosine(20, 100))
+    step = build_train_step(model, opt_cfg)
+    data = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                               global_batch=rows)
+    want = train_step_launches(N_LAYERS, policy)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    params = model.init(seed=0, device="cuda")
+    opt = adamw.init(params)
+    torch.cuda.reset_peak_memory_stats()
+    hist = []
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in pipeline.batch_at(data, i).items()}
+        build.restore(dict.fromkeys(build.counts(), 0))
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        dt = _sync_s(t0)
+        launches = build.counts()
+        hist.append({"loss": float(met["loss"]),
+                     "grad_norm": float(met["grad_norm"]), "s": dt})
+        check(launches == want, f"remat {label} {policy}: step {i} "
+              f"launched {launches}, the code says {want}")
+        check(math.isfinite(hist[-1]["loss"])
+              and math.isfinite(hist[-1]["grad_norm"]),
+              f"remat {label} {policy}: step {i} {hist[-1]}")
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    state = {"params": params, "opt_state": opt}
+    del params, opt, met
+    if keep is not None:
+        check(_states_equal(keep, state), f"remat {label} {policy}: the "
+              f"state after {steps} steps differs from remat "
+              f"{REMAT_CELLS[label][3][0]}'s")
+        state = None
+    return {"history": hist, "peak_gb": peak,
+            "launches_per_step": want["dense_tile_matmul"]}, state
+
+
+def _remat_prediction(policy, rows, seq) -> float:
+    """The dry-run's peak (GB) of the same train step on ``meta``
+    (``lower_cell`` on a 1x1 mesh, ``ShapeSpec`` seq x rows, kind
+    train)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+    rec = dryrun.lower_cell(_remat_cfg(policy),
+                            ShapeSpec("train_4k", seq, rows, "train"),
+                            AbstractMesh((1, 1), ("data", "model")))
+    return rec["memory"]["peak_memory_in_bytes"] / 1e9
+
+
+def phase_remat():
+    """Rematerialised training (``models/remat.py``) on full-width
+    llama3_2_1b, its weights seeded: (a) batch 8 x 128 (phase train's
+    shape), one step from seed 0 each with remat off, ``nothing`` and
+    ``dots``; (b) the train_4k sequence, 4096 tokens, batch cut 256 -> 1,
+    two steps each with ``nothing`` and ``dots``.  Checks: in each cell
+    the states (params and AdamW moments) after the steps bitwise equal
+    across the policies, losses and gradient norms finite (equal across
+    the policies), 2' launches a step equal to the code's count
+    (``train_step_launches``: 339 / 435 / 339); kernel 2' against its plain
+    version at the long cell's M (``_train_backward_checks`` on
+    REMAT_SHAPES); the peak over what was allocated before each run's
+    state was made within DRYRUN_PEAK_RTOL of the dry-run's peak of the
+    same step on ``meta`` (1x1 mesh).  Logs seconds a step, the peaks and
+    their ratios, and the dry-run's peak of remat off at 4096 tokens,
+    which is not run."""
+    import torch
+    card = card_line()
+    res = {"card": card, "cells": {}}
+    launches = {}
+    for label, (rows, seq, steps, policies) in REMAT_CELLS.items():
+        cell, first = {}, None
+        for policy in policies:
+            run, state = _remat_run(label, policy, rows, seq, steps,
+                                    keep=first)
+            if first is None:
+                first = state
+            run["predicted_peak_gb"] = _remat_prediction(policy, rows, seq)
+            run["peak_ratio"] = run["predicted_peak_gb"] / run["peak_gb"]
+            check(abs(run["peak_ratio"] - 1) <= DRYRUN_PEAK_RTOL,
+                  f"remat {label} {policy}: the dry-run's peak "
+                  f"{run['predicted_peak_gb']:.2f} GB against "
+                  f"{run['peak_gb']:.2f} GB measured")
+            cell[str(policy)] = run
+            if label == "8x128":
+                launches[f"remat_{policy or 'off'}"] = dict.fromkeys(
+                    KERNELS, 0) | {"dense_tile_matmul":
+                                   steps * run["launches_per_step"]}
+        del first, state
+        torch.cuda.empty_cache()
+        losses = {p: [(h["loss"], h["grad_norm"]) for h in r["history"]]
+                  for p, r in cell.items()}
+        check(len({tuple(v) for v in losses.values()}) == 1,
+              f"remat {label}: losses or gradient norms differ across "
+              f"policies {losses}")
+        for p in ("None", "nothing", "dots"):
+            if p not in cell:
+                cell[p] = {"predicted_peak_gb": _remat_prediction(
+                    None if p == "None" else p, rows, seq), "run": False}
+        res["cells"][label] = cell
+        log(f"remat {label} ({rows} x {seq}, {steps} step(s) a policy): "
+            + "; ".join(
+                f"{p}: " + (f"{sum(h['s'] for h in r['history']) / steps:.3f}"
+                            f" s a step, peak {r['peak_gb']:.2f} GB against "
+                            f"the dry-run's {r['predicted_peak_gb']:.2f} "
+                            f"(ratio {r['peak_ratio']:.3f}), 2' "
+                            f"{r['launches_per_step']} a step"
+                            if r.get("run", True) else
+                            f"not run, the dry-run's peak "
+                            f"{r['predicted_peak_gb']:.2f} GB")
+                for p, r in cell.items())
+            + f"; loss {cell['nothing']['history'][-1]['loss']:.4f}, states "
+              f"bitwise equal ({card})")
+    res["kernel_checks"] = _train_backward_checks(4096, REMAT_SHAPES,
+                                                  "remat")
+    torch.cuda.empty_cache()
+    RESULTS["remat"] = res
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -5524,6 +5718,13 @@ def kernels_line(launches):
          "moe_expert": RESULTS["moe"]["kernels"]["dense_tile"],
          "train_backward": RESULTS["train"]["backward"],
          "train_launches_per_step": RESULTS["train"]["launches_per_step"],
+         "remat": {label: {p: {k: r[k] for k in ("launches_per_step",
+                                                 "peak_gb",
+                                                 "predicted_peak_gb")
+                               if k in r}
+                           for p, r in cell.items()}
+                   for label, cell in RESULTS["remat"]["cells"].items()},
+         "remat_4096": RESULTS["remat"]["kernel_checks"],
          "families": {arch: c["modes"]["dense"]["kernel_checks"]
                       for arch, c in RESULTS["families"]["cases"].items()},
          "whisper": RESULTS["whisper"]["modes"]["dense"]["kernel_checks"],
@@ -5618,7 +5819,7 @@ def main():
     for phase in (phase_mesh, phase_engine, phase_overlap, phase_scan,
                   phase_kv_attention, phase_serve_minitron, phase_moe,
                   phase_families, phase_api, phase_whisper, phase_train,
-                  phase_train_mesh, phase_dryrun):
+                  phase_train_mesh, phase_remat, phase_dryrun):
         launches.update(timed(phase))
     log(f"seconds by phase: {secs}")
     line = kernels_line(launches)

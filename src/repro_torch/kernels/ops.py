@@ -111,11 +111,21 @@ class TiledMatmul(torch.autograd.Function):
         return dx, dw
 
 
-def tiled_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+# the product tapes of the rematerialised regions being run
+# (``models/remat.py``), innermost last
+TAPES: list = []
+
+
+def tiled_matmul(x: torch.Tensor, w: torch.Tensor,
+                 saveable: bool = False) -> torch.Tensor:
     """x @ w in the canonical tiled schedule (dense weights); under
     autograd (an operand that requires grad) through :class:`TiledMatmul`,
-    whose backward runs the same schedule."""
+    whose backward runs the same schedule.  Inside a rematerialised region
+    the region's tape runs it (``models/remat.py``); ``saveable`` marks a
+    product whose output the ``dots`` policy may keep."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        if TAPES:
+            return TAPES[-1].product(x, w, saveable)
         return TiledMatmul.apply(x, w)
     return _tiled(x, w)
 

@@ -11,8 +11,11 @@ not run):
   train   ``runtime/steps.py:build_train_step(..., mesh=)`` on the rank's
           shards of the parameters and AdamW moments (``elastic.
           train_pspecs``): the dense parameter gather, forward and backward
-          over the rank's rows of the batch, the rank-ordered gradient sum
-          over "data" and AdamW on the shards;
+          over the rank's rows of the batch (each period rematerialised:
+          :func:`run_cell` sets ``remat`` on every train cell, as the
+          reference's dry-run does, under the config's policy or the
+          ``remat_dots`` variant's), the rank-ordered gradient sum over
+          "data" and AdamW on the shards;
   prefill ``build_prefill_step`` / ``build_decode_step`` under the serving
   decode  mesh (``runtime/collectives.py``): the rank holds its own stream
           shards and gathers the others' at each use; the dense math runs
@@ -114,8 +117,6 @@ VARIANT_TWEAKS = {
 # parameters, which the port serves as dense handles)
 VARIANT_MODE = {"streamed": "stream"}
 
-_NO_REMAT = ("the port has no rematerialisation (autograd keeps every "
-             "activation), so there is no policy to set")
 _NO_EP = ("the port's serving mesh shards only compressed streams and runs "
           "the dense expert math whole on every rank: there is no "
           "expert-parallel weight layout to choose")
@@ -124,8 +125,6 @@ _NO_EP = ("the port's serving mesh shards only compressed streams and runs "
 def variant_skip(variant: str, kind: str):
     """Why the port's program cannot express ``variant`` for a cell of
     ``kind``, or None."""
-    if variant == "remat_dots":
-        return _NO_REMAT
     if variant == "flash_decode":
         return ("the port's decode attention runs whole on every rank: "
                 "there are no sharded scores to pin")
@@ -215,7 +214,9 @@ class CostMode(TorchDispatchMode):
     """Counts every aten op run under it: matmul FLOPs (``flop_counter``'s
     formulas), elementwise FLOPs, bytes (tensor inputs plus outputs; views
     and ``empty`` none) and the live bytes of the new outputs, from
-    ``live`` bytes of inputs at the start, keeping the peak."""
+    ``live`` bytes of inputs at the start, keeping the peak.  A new
+    output's bytes stay live until its storage dies, not the tensor: a
+    view or ``detach()`` of it may outlive it (remat's kept products)."""
 
     def __init__(self, live: int = 0):
         super().__init__()
@@ -244,10 +245,10 @@ class CostMode(TorchDispatchMode):
                               _flat_tensors((args, kwargs), outs[:]))
         if fresh:
             for t in outs:
-                nbytes = t.untyped_storage().nbytes()
-                ref = weakref.ref(t, self._died)
-                self._refs[id(ref)] = (ref, nbytes)
-                self.live += nbytes
+                storage = t.untyped_storage()
+                ref = weakref.ref(storage, self._died)
+                self._refs[id(ref)] = (ref, storage.nbytes())
+                self.live += storage.nbytes()
             self.peak = max(self.peak, self.live)
         return out
 
@@ -406,6 +407,8 @@ def run_cell(arch: str, shape_name: str, outdir: Path, multi_pod_modes,
     if VARIANT_TWEAKS.get(variant):
         cfg = dataclasses.replace(cfg, **VARIANT_TWEAKS[variant])
     shape = shape or SHAPES[shape_name]
+    # every train cell rematerialised, as the reference's dry-run runs it
+    cfg = dataclasses.replace(cfg, remat=(shape.kind == "train"))
     ok, reason = shape_applicable(cfg, shape_name)
     record = {"arch": arch, "shape": shape_name,
               "params": param_count(cfg),

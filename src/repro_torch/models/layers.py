@@ -26,7 +26,7 @@ KV_CHUNK = 2048
 DECODE_CHUNK = 1024     # cache positions a decode step's sums take at once
 
 
-def weight_matmul(w, x: torch.Tensor) -> torch.Tensor:
+def weight_matmul(w, x: torch.Tensor, saveable: bool = True) -> torch.Tensor:
     """Contract x's last axis against the (K, N) weight ``w`` -> f32.
 
     A WeightHandle runs its mode's canonical tiled contraction (dense /
@@ -34,13 +34,18 @@ def weight_matmul(w, x: torch.Tensor) -> torch.Tensor:
     same contraction (``kernels/ops.py:tiled_matmul``), so an unassigned
     tree gives the dense mode's bits and every row's bits are independent
     of how many rows are multiplied together.
+
+    ``saveable``: the reference computes this product as a ``dot_general``
+    without batch dimensions, whose output its ``dots`` remat policy may
+    keep (every weight product but the MoE experts', which it runs as one
+    einsum batched over the experts).
     """
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     if isinstance(w, WeightHandle):
         out = w.matmul(x2)
     else:
-        out = ops.tiled_matmul(x2, w)
+        out = ops.tiled_matmul(x2, w, saveable)
     return out.reshape(lead + (out.shape[-1],))
 
 

@@ -17,7 +17,10 @@ Python loop that takes layer ``i`` of every stacked leaf.  When
 more than one period, the loop runs as the decode-prefetch pipeline of
 ``runtime/overlap.py`` (period i+1's batched decode issued before period
 i's compute, on a side stream on the card); the logits are bitwise equal
-either way.
+either way.  Under ``cfg.remat`` each period of a training forward is
+rematerialised (``models/remat.py``, policy ``cfg.remat_policy``): loss
+and gradients are bitwise equal with it off, and a pass that builds no
+autograd graph (serving) runs every period as it is.
 
 The decode cache holds, per program position, the attention K/V ring or
 the recurrent state (Mamba ``h`` / ``conv``, mLSTM ``c`` / ``n`` / ``m``,
@@ -38,6 +41,7 @@ from repro_torch.runtime.weights import is_handle
 from repro_torch.runtime.weights import resolve as resolve_weights
 
 from . import moe as moe_lib
+from . import remat
 from . import ssm as ssm_lib
 from . import xlstm as xlstm_lib
 from .layers import (ACT_DTYPE, AttnParamsShape, attention_block,
@@ -269,23 +273,43 @@ def _head(params, cfg, embed):
     return _dense_leaf(params["head"])
 
 
+def _remat_policy(cfg) -> str:
+    """The policy of a rematerialised period (the reference's
+    ``_remat_policy``): ``nothing`` keeps its inputs alone, ``dots`` also
+    the outputs of its saveable products (``models/remat.py``)."""
+    if cfg.remat_policy not in remat.POLICIES:
+        raise ValueError(f"{cfg.name}: remat_policy {cfg.remat_policy!r}, "
+                         f"one of {remat.POLICIES}")
+    return cfg.remat_policy
+
+
+def _wrap_body(cfg, body):
+    """``body``, one period, rematerialised when ``cfg.remat`` is set (it
+    runs as it is wherever it builds no autograd graph: serving)."""
+    return remat.rematerialised(body, _remat_policy(cfg)) if cfg.remat \
+        else body
+
+
 def _run_layers(params, cfg, x, apply_position, extra=None):
     """Every period over ``x``: ``apply_position(p, x, pos, extra_i) ->
     (x, y)`` runs one resolved program position of layer i (``extra_i``:
     layer i of ``extra``, a pytree of leading-(P,) tensors).  Returns x
     and, per layer, the list of each position's y.  Serial, or the
-    prefetch pipeline when ``cfg.overlap`` enables it for this period."""
+    prefetch pipeline when ``cfg.overlap`` enables it for this period;
+    each period rematerialised under ``cfg.remat`` (:func:`_wrap_body`)."""
     n_positions = len(block_program(cfg))
     n_periods = cfg.n_layers // n_positions
     period = params["period"]
 
-    def run_period(x, sliced, extra_i, resolve=False):
+    def body(x, sliced, extra_i, resolve=False):
         ys = []
         for pos in range(n_positions):
             p = resolve_weights(sliced[pos]) if resolve else sliced[pos]
             x, y = apply_position(p, x, pos, extra_i)
             ys.append(y)
         return x, ys
+
+    run_period = _wrap_body(cfg, body)
 
     if overlap_enabled(getattr(cfg, "overlap", "auto"), period, n_periods):
         schedule = build_schedule(period, n_periods)

@@ -152,10 +152,11 @@ def moe_block(p, x: torch.Tensor, k: int, combine_dtype: str = "f32",
     for j in experts:
         w_gate, w_up, w_down = weights[j]
         xj = x_ec[:, j].reshape(b * c, d)
-        g = weight_matmul(w_gate, xj)
-        u = weight_matmul(w_up, xj)
+        # the reference's batched expert einsums: no output kept by remat
+        g = weight_matmul(w_gate, xj, saveable=False)
+        u = weight_matmul(w_up, xj, saveable=False)
         h = (F.silu(g) * u).to(ACT_DTYPE)
-        y = weight_matmul(w_down, h).reshape(b, c, d)       # f32
+        y = weight_matmul(w_down, h, saveable=False).reshape(b, c, d)
         gate = gate_ec[:, j, :, None]
         y = torch.where(gate > 0, y * gate, 0.0)
         sj = slot[:, j]                                     # (B, T)

@@ -5,12 +5,14 @@ to the reference's leaf modes and stream shapes; the kernels' ``meta``
 cost route (never the plain version, never a CUDA wrapper; CPU results
 unchanged); the dry-run's kernel launches on a 2x2 abstract mesh equal to
 the wrapper calls of the same program run on the CPU, for the smoke config
-of one arch of every family; full-width llama3_2_1b's decode step (113 launches of
+of one arch of every family; full-width llama3_2_1b's train step under
+remat (435 launches of kernel 2') and decode step (113 launches of
 kernel 2' dense, 112 of kernel 2 and 1 of 2' fused, 17 of kernel 1 in
 stream mode with the prefetch) and its FLOPs against 2 N tokens; the
-reference's 8 skips; ``moe_block(dispatch_a2a=True)`` bitwise equal to
-``False`` and recorded as one all-to-all under the abstract mesh; ``serve
---dense`` bitwise equal to ``--mode dense``.
+reference's 8 skips and the ``remat_dots`` variant run;
+``moe_block(dispatch_a2a=True)`` bitwise equal to ``False`` and recorded
+as one all-to-all under the abstract mesh; ``serve --dense`` bitwise
+equal to ``--mode dense``.
 """
 import numpy as np
 import pytest
@@ -285,15 +287,35 @@ def test_dryrun_launches_equal_the_cpu_programs(arch, kind, mode,
         >= rec["memory"]["argument_size_in_bytes"] > 0
 
 
+def test_cost_mode_keeps_an_output_live_until_its_storage_dies():
+    """CostMode counts an op's new output until its storage dies: a
+    ``detach()`` of it kept past the output itself (as remat's ``dots``
+    policy keeps its products) stays live for later ops' peak; dropping it
+    frees the bytes."""
+    nbytes = 256 * 256 * 4
+    x = torch.empty((256, 256), device="meta")
+    with dryrun.CostMode() as mode:
+        y = x * 2
+        kept = y.detach()
+        del y
+        z = x + 1
+        assert mode.live == 2 * nbytes
+        del kept, z
+        assert mode.live == 0
+    assert mode.peak == 2 * nbytes
+
+
 def test_llama_train_step_launches_the_codes_count():
-    """A full-width llama3_2_1b train step on a 1x1 mesh: 339 launches of
-    kernel 2' (113 products, forward, dX and dW), as chip_smoke.py's
-    ``train_step_launches`` reads the code."""
+    """A full-width llama3_2_1b train step on a 1x1 mesh under the config's
+    remat (policy ``nothing``): 435 launches of kernel 2' (113 products,
+    forward, dX and dW; the recompute of each layer's products but
+    ``w_down``), as chip_smoke.py's ``train_step_launches`` reads the
+    code."""
     shape = ShapeSpec("train_4k", 128, 8, "train")
     rec = dryrun.lower_cell(get_config("llama3_2_1b"), shape,
                             AbstractMesh((1, 1), ("data", "model")))
     assert {k: v["launches"] for k, v in rec["kernels"].items()} \
-        == {"dense_tile_matmul": 3 * (16 * 7 + 1)}
+        == {"dense_tile_matmul": 3 * (16 * 7 + 1) + 16 * 6}
     assert rec["collectives"]["total_count"] == 0
 
 
@@ -321,8 +343,10 @@ def test_full_width_llama_decode_step(mode, want):
 
 
 def test_skips_carry_the_references_reasons(tmp_path):
-    """The 8 cells the reference skips, with its reasons, and a variant
-    the port cannot express skipped with its own."""
+    """The 8 cells the reference skips, with its reasons; a variant the
+    port cannot express skipped with its own; ``remat_dots`` run (a train
+    cell of llama smoke on a 2x2 mesh), its peak at least the baseline's
+    (``dots`` keeps product outputs beside each period's input)."""
     skipped = {}
     for arch, shape in CELLS:
         ok, reason = ref_applicable(ref_config(arch), shape)
@@ -333,11 +357,23 @@ def test_skips_carry_the_references_reasons(tmp_path):
         rec = dryrun.run_cell(arch, shape, tmp_path, ["single"])
         assert (rec["status"], rec["reason"]) == ("skipped", reason)
     rec = dryrun.run_cell("llama3_2_1b", "decode_32k", tmp_path, ["single"],
-                          variant="remat_dots")
-    assert rec["status"] == "skipped" and "rematerialisation" in \
+                          variant="flash_decode")
+    assert rec["status"] == "skipped" and "decode attention" in \
         rec["reason"]
     assert sorted(p.name for p in tmp_path.iterdir())[0] \
-        == "llama3_2_1b__decode_32k__remat_dots.json"
+        == "llama3_2_1b__decode_32k__flash_decode.json"
+    peaks = {}
+    for variant in ("baseline", "remat_dots"):
+        rec = dryrun.run_cell("llama3_2_1b", "train_4k", tmp_path,
+                              ["single"], variant=variant, mesh_shape=(2, 2),
+                              cfg=get_smoke_config("llama3_2_1b"),
+                              shape=SMOKE_SHAPES["train"])
+        assert rec["status"] == "ok", rec
+        peaks[variant] = rec["single"]["full"]["memory"][
+            "peak_memory_in_bytes"]
+    assert peaks["remat_dots"] >= peaks["baseline"]
+    assert (tmp_path / "llama3_2_1b__train_4k__remat_dots__mesh2x2.json"
+            ).exists()
 
 
 def test_dryrun_record_reads_into_the_roofline(tmp_path):
