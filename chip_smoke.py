@@ -196,6 +196,19 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
            4 and 1 equal to the code's and the codec's counts; seconds a
            step split into gather / compute / reduce, the bytes of each,
            the gradient ratio, peak and held GB a rank.
+   remat   rematerialised training of full-width llama3_2_1b
+           (:func:`phase_remat`).
+   examples
+           the five ``examples_torch/`` scripts with ``--device cuda`` in
+           this process, each one's launches counted alone and its
+           self-checks raising through (``train_lm`` for 3 steps, then
+           resumed on the same directory to 12), ``quickstart.py`` in a
+           subprocess printing the in-process lines; then full-width
+           llama3_2_1b from ``compress_params_for_streaming`` at its
+           defaults: encode launches the plan's buckets, 4 x 64 + 16
+           greedy tokens eagerly with logits bitwise the dense tree's and
+           launches the code's, ``materialize_weight_tree`` bitwise in one
+           decode launch a bucket (:func:`phase_examples`).
    dryrun  the dry-run (``launch/dryrun.py``, on ``meta`` tensors) of
            llama3_2_1b's decode step at batch 4 over a cache of 128 on a
            1x1 mesh in dense, stream and fused mode against the same eager
@@ -219,7 +232,9 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    ``overlap_minitron_4b``, ``scan``,
    ``kv_attention``, the three ``minitron_*`` modes, the six ``moe_*``
    runs, the nine ``families_*`` runs, ``api``, the three ``whisper_*``
-   modes, ``train``, the three ``train_mesh_*`` runs (rank 0's) and the
+   modes, ``train``, the three ``train_mesh_*`` runs (rank 0's), the
+   three ``remat_*`` runs, the five ``examples_*`` examples and the three
+   ``examples_llama3_2_1b_*`` runs (set-up, serve, materialize) and the
    three ``dryrun_*`` steps), and
    ``launches_per_captured_step`` its launches in one replay of each
    engine case's and each family run's bucket-4 graph.  Every count is set to 0 just before its
@@ -5458,6 +5473,270 @@ def phase_remat():
 
 
 # ---------------------------------------------------------------------------
+# phase examples: examples_torch/ on the card, then llama3_2_1b served from
+# a compress_params_for_streaming tree at full width
+# ---------------------------------------------------------------------------
+
+# the kernels each example launches, by the code (the fused entry, the
+# standalone scan and the KV attention run in none of them)
+EXAMPLE_KERNELS = {
+    "quickstart": {"enec_encode", "enec_decode"},
+    "compress_checkpoint": {"enec_encode", "enec_decode"},
+    "serve_compressed": {"enec_encode", "enec_decode", "dense_tile_matmul"},
+    "serve_moe_streaming": {"enec_encode", "enec_decode",
+                            "dense_tile_matmul"},
+    # the steps (2'), the saves (4) and the resume's restore (1)
+    "train_lm": {"enec_encode", "enec_decode", "dense_tile_matmul"},
+}
+# train_lm at its small preset: TRAIN_LM_STEPS[0] steps, then a second call
+# on the same directory resumed to TRAIN_LM_STEPS[1] (step 10 is logged)
+TRAIN_LM_STEPS = (3, 12)
+EXAMPLES_TIME_LIMIT_S = 300
+
+
+def _example_module(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_example(name: str, args: list) -> tuple:
+    """``examples_torch/<name>.py``'s ``main(args + --device cuda)`` in
+    this process, its launch counts set to 0 just before and read just
+    after.  Returns (its return value, its stdout, the counts, seconds);
+    a failed self-check raises through."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.launch import serve
+    mod = _example_module(name)
+    buf = io.StringIO()
+    serve.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(args + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = serve.launch_counts()
+    for line in buf.getvalue().splitlines():
+        log(f"  {name}: {line}")
+    return out, buf.getvalue(), counts, secs
+
+
+def _eager_serve(model, tree, prompts, max_len: int) -> tuple:
+    """Prefill then ``TOKENS - 1`` greedy ``decode_fn`` steps, eagerly.
+    Returns (each token's logits, the tokens, TTFT s, TPOT s)."""
+    import torch
+    t0 = time.perf_counter()
+    logits, cache = model.prefill_fn(tree, {"tokens": prompts}, max_len)
+    ttft = _sync_s(t0)
+    tok = torch.argmax(logits, -1)
+    outs, toks = [logits], [tok]
+    t0 = time.perf_counter()
+    for _ in range(TOKENS - 1):
+        logits, cache = model.decode_fn(tree, cache, tok)
+        tok = torch.argmax(logits, -1)
+        outs.append(logits)
+        toks.append(tok)
+    tpot = _sync_s(t0) / (TOKENS - 1)
+    return outs, torch.stack(toks, dim=1), ttft, tpot
+
+
+def _stream_everything(card) -> tuple:
+    """Full-width llama3_2_1b (seeded, no cut) through the reference's
+    stream-everything entry points at their defaults (1 MiB, 16 shards):
+    ``streaming_encode_plan`` then ``compress_params_for_streaming(plan=)``
+    (kernel-4 launches = the plan's buckets); 4 prompts x 64 + 16 greedy
+    tokens through ``prefill_fn`` / ``decode_fn`` eagerly, logits bitwise
+    the dense tree's, launches the code's (each step: the embed's decode,
+    each layer's prefetched decode of ``buckets_per_layer`` launches or
+    one a leaf, a 2' launch a product and the head's); then
+    ``materialize_weight_tree`` bitwise the dense tree in one kernel-1
+    launch per bucket of its decode plan.  Returns (launches by path,
+    the record)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import Codec
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.runtime import streaming
+    from repro_torch.runtime.overlap import build_schedule, overlap_enabled
+    zero = dict.fromkeys(KERNELS, 0)
+    cfg = get_config("llama3_2_1b")
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    params = model.init(seed=0, device="cuda")
+    codec = Codec()
+    serve.reset_launch_counts()
+    t0 = time.perf_counter()
+    plan = streaming.streaming_encode_plan(params, codec=codec)
+    tree = streaming.compress_params_for_streaming(params, codec=codec,
+                                                   plan=plan)
+    setup_s = _sync_s(t0)
+    setup = serve.launch_counts()
+    buckets, wire = len(plan.buckets), plan.predicted_wire_bytes
+    check(setup == zero | {"enec_encode": buckets},
+          f"examples: compress_params_for_streaming launched {setup}, "
+          f"the plan has {buckets} buckets")
+    del plan      # it holds its staged blocks (1.24 GB at full width)
+    stats = streaming.stream_stats(tree)
+    check(stats["streamed_tensors"] >= 1 + len(LEAVES)
+          and stats["flat_stream_tensors"] == 1,
+          f"examples: the streamed tree {stats}")
+
+    prompts = torch.from_numpy(_prompts(cfg.vocab_size)).cuda()
+    max_len = PROMPT + TOKENS
+    want, want_toks, dense_ttft, dense_tpot = _eager_serve(
+        model, params, prompts, max_len)
+    period = tree["period"]
+    bpl = (build_schedule(period, N_LAYERS).buckets_per_layer
+           if overlap_enabled(cfg.overlap, period, N_LAYERS) else None)
+    step = step_launches(N_LAYERS, FLAT["llama3_2_1b"], bpl)["stream"]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    serve.reset_launch_counts()
+    got, toks, ttft, tpot = _eager_serve(model, tree, prompts, max_len)
+    served = serve.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(_bits_equal(got, want), "examples: logits of the streamed tree "
+          "not bitwise equal to the dense tree's")
+    check(torch.equal(toks, want_toks), "examples: tokens differ")
+    check(served == {k: TOKENS * v for k, v in step.items()},
+          f"examples: the streamed serve launched {served}, the code says "
+          f"{TOKENS} x {step}")
+
+    handles = [h for _, h in streaming.tree_leaves(tree)
+               if streaming.is_handle(h)]
+    dplan = codec.plan_decode([h.ct for h in handles])
+    serve.reset_launch_counts()
+    t0 = time.perf_counter()
+    dense = streaming.materialize_weight_tree(tree, codec)
+    mat_s = _sync_s(t0)
+    mat = serve.launch_counts()
+    check(mat == zero | {"enec_decode": len(dplan.buckets)},
+          f"examples: materialize_weight_tree launched {mat}, its decode "
+          f"plan has {len(dplan.buckets)} buckets")
+    back = dict(streaming.tree_leaves(dense))
+    for name, w in streaming.tree_leaves(params):
+        got = back[name]
+        check(got.dtype == w.dtype and got.shape == w.shape and torch.equal(
+            got.contiguous().view(torch.uint8), w.view(torch.uint8)),
+            f"examples: materialize_weight_tree's {name} differs")
+    rec = {"setup_s": setup_s, "encode_buckets": buckets,
+           "predicted_wire_bytes": wire,
+           "stream_stats": stats,
+           # phase serve's stream mode (absent in a short call without it)
+           "serve_stream_hbm_ratio": RESULTS.get("serve", {}).get(
+               "modes", {}).get("stream", {}).get("hbm_ratio"),
+           "ttft_s": ttft, "tpot_s": tpot, "dense_ttft_s": dense_ttft,
+           "dense_tpot_s": dense_tpot, "peak_gb": peak,
+           "peak_over_held_gb": peak - held / 1e9,
+           "buckets_per_layer": bpl, "step_launches": step,
+           "materialize_s": mat_s, "decode_buckets": len(dplan.buckets)}
+    log(f"examples llama3_2_1b stream-everything: set-up {setup_s:.3f} s "
+        f"({buckets} encode launch(es)), {stats['streamed_tensors']} "
+        f"streamed leaves, hbm ratio {stats['hbm_ratio']:.4f} (phase "
+        f"serve's stream mode {rec['serve_stream_hbm_ratio']}); eager "
+        f"TTFT {ttft * 1e3:.2f} ms, TPOT {tpot * 1e3:.2f} ms (dense tree "
+        f"{dense_ttft * 1e3:.2f} / {dense_tpot * 1e3:.2f}), peak {peak:.2f}"
+        f" GB ({rec['peak_over_held_gb']:.2f} over the held trees), logits "
+        f"bitwise the dense tree's, launches {served} = {TOKENS} steps of "
+        f"the code's; materialize_weight_tree {mat_s * 1e3:.1f} ms in "
+        f"{len(dplan.buckets)} decode launch(es), bitwise; {card}")
+    del params, tree, dense, back, got, want
+    torch.cuda.empty_cache()
+    return {"examples_llama3_2_1b_setup": setup,
+            "examples_llama3_2_1b_serve": served,
+            "examples_llama3_2_1b_materialize": mat}, rec
+
+
+def phase_examples():
+    """The five ``examples_torch/`` scripts on the card: (a) each
+    ``main([..., "--device", "cuda"])`` in this process, its launches
+    counted alone (``examples_<name>``) and the kernels it launches those
+    of the code (``EXAMPLE_KERNELS``); ``train_lm`` at its small preset
+    for 3 steps, then resumed on the same directory to 12 (one path);
+    every self-check raises through; (b) ``python
+    examples_torch/quickstart.py`` in a subprocess, exit 0 and its stdout
+    the in-process run's; (c) :func:`_stream_everything`."""
+    import shutil
+    import tempfile
+    card = card_line()
+    launches, res = {}, {"card": card, "runs": {}}
+    quick_out = None
+    for name in ("quickstart", "compress_checkpoint", "serve_compressed",
+                 "serve_moe_streaming"):
+        out, stdout, counts, secs = _run_example(name, [])
+        if name == "quickstart":
+            quick_out = stdout
+        if name == "serve_compressed":
+            check(counts["enec_encode"] == out["encode_buckets"],
+                  f"examples serve_compressed: {counts['enec_encode']} "
+                  f"encode launches for {out['encode_buckets']} buckets")
+        launches[f"examples_{name}"] = counts
+        res["runs"][name] = {"s": secs, "launches": counts,
+                             "stdout": stdout}
+    ck = tempfile.mkdtemp(prefix="enec-train-lm-")
+    try:
+        counts = dict.fromkeys(KERNELS, 0)
+        outs, secs = [], 0.0
+        for steps in TRAIN_LM_STEPS:
+            out, stdout, c, s = _run_example(
+                "train_lm", ["--steps", str(steps), "--ckpt-dir", ck])
+            outs.append((out, stdout))
+            counts = {k: counts[k] + c[k] for k in KERNELS}
+            secs += s
+        (first, _), (second, resumed) = outs
+        check([r["step"] for r in first["history"]]
+              == list(range(TRAIN_LM_STEPS[0])),
+              f"examples train_lm: first run's steps "
+              f"{[r['step'] for r in first['history']]}")
+        check(f"resumed from step {TRAIN_LM_STEPS[0]}" in resumed
+              and [r["step"] for r in second["history"]]
+              == list(range(*TRAIN_LM_STEPS)),
+              "examples train_lm: the second run did not resume")
+        check(all(math.isfinite(r["loss"]) for o in (first, second)
+                  for r in o["history"]),
+              "examples train_lm: non-finite losses")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    launches["examples_train_lm"] = counts
+    res["runs"]["train_lm"] = {
+        "s": secs, "launches": counts,
+        "losses": [r["loss"] for o, _ in outs for r in o["history"]]}
+    for name, kernels in EXAMPLE_KERNELS.items():
+        ran = {k for k, n in launches[f"examples_{name}"].items() if n}
+        check(ran == kernels, f"examples {name}: launched {ran}, the code "
+              f"launches {kernels}")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples_torch" / "quickstart.py")],
+        cwd=ROOT, capture_output=True, text=True,
+        timeout=EXAMPLES_TIME_LIMIT_S)
+    res["subprocess_s"] = time.perf_counter() - t0
+    check(proc.returncode == 0, f"examples: quickstart.py exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    check(proc.stdout == quick_out, "examples: quickstart.py's stdout "
+          f"differs from the in-process run's:\n{proc.stdout}")
+
+    full, res["llama3_2_1b"] = _stream_everything(card)
+    launches.update(full)
+    log(f"examples: five examples' self-checks passed ("
+        + ", ".join(f"{n} {r['s']:.1f} s" for n, r in res["runs"].items())
+        + f"), train_lm resumed at step {TRAIN_LM_STEPS[0]}, the "
+        f"subprocess quickstart ({res['subprocess_s']:.1f} s) printed the "
+        f"in-process lines; launches {launches}")
+    RESULTS["examples"] = res
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase dryrun: the dry-run's predictions against the card
 # ---------------------------------------------------------------------------
 
@@ -5819,7 +6098,8 @@ def main():
     for phase in (phase_mesh, phase_engine, phase_overlap, phase_scan,
                   phase_kv_attention, phase_serve_minitron, phase_moe,
                   phase_families, phase_api, phase_whisper, phase_train,
-                  phase_train_mesh, phase_remat, phase_dryrun):
+                  phase_train_mesh, phase_remat, phase_examples,
+                  phase_dryrun):
         launches.update(timed(phase))
     log(f"seconds by phase: {secs}")
     line = kernels_line(launches)

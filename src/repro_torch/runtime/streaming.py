@@ -24,11 +24,13 @@ from repro_torch.core.api import (DEFAULT_BLOCK_ELEMS, MATMUL_TILE,
                                   SUPPORTED_FLOAT_DTYPES, CompressedTensor,
                                   abstract_compressed, matmul_tiles)
 from repro_torch.core.codec_api import current_codec
+from repro_torch.core.params import EnecParams
 from repro_torch.runtime.overlap import (OVERLAP_MODES,  # noqa: F401
                                          overlap_enabled)
 from repro_torch.runtime.weights import (DenseWeight, FusedWeight,
                                          StreamedWeight, handle_kind,
-                                         is_handle, tree_leaves,
+                                         is_handle, materialize_full_many,
+                                         resolve, tree_leaves,
                                          tree_map_with_path)
 
 MIN_STREAM_BYTES = 1 << 20  # 1 MiB
@@ -206,6 +208,84 @@ def assign_weight_modes(params, *, mode: str = "fused",
         for n, ct in zip(names, codec.execute(plan)):
             handles[n] = build_serving_handle(jobs[n], ct)
     return tree_map_with_path(lambda p, leaf: handles.get(p, leaf), tree)
+
+
+# ---------------------------------------------------------------------------
+# the reference's stream-everything entry points: every eligible leaf one
+# materialize-mode StreamedWeight, decoded before its layer runs
+# ---------------------------------------------------------------------------
+
+def compress_params_for_streaming(params, *,
+                                  shared_params: Optional[EnecParams] = None,
+                                  min_bytes: int = MIN_STREAM_BYTES,
+                                  shards: int = STREAM_SHARDS,
+                                  codec=None, plan=None):
+    """``params`` with every eligible leaf replaced by a materialize-mode
+    StreamedWeight (``resolve`` decodes it before its layer runs, so the
+    served logits are bitwise the raw tree's).  The eligible stacks
+    compress in one ``execute``: one encoder launch per bucket.  ``plan``
+    takes the :func:`streaming_encode_plan` built for the same
+    (params, min_bytes, shards), so an inspected plan is not built twice;
+    one that does not match raises.  A leaf whose streams would not beat
+    raw bytes stays the raw tensor."""
+    jobs = _stream_jobs(params, min_bytes)
+    codec = codec or current_codec()
+    if plan is None:
+        plan = codec.plan_encode([j["arr"] for j in jobs], stacked=True,
+                                 p=shared_params, shards=shards)
+    elif not plan.stacked or plan.n_inputs != len(jobs) \
+            or plan.shards != shards:
+        raise ValueError(
+            f"plan does not match this tree/policy: stacked={plan.stacked} "
+            f"n_inputs={plan.n_inputs} (expected {len(jobs)}) "
+            f"shards={plan.shards} (expected {shards})")
+    handles = {j["pstr"]: build_serving_handle(j, ct)
+               for j, ct in zip(jobs, codec.execute(plan))}
+    return tree_map_with_path(lambda p, leaf: handles.get(p, leaf), params)
+
+
+def _stream_jobs(params, min_bytes):
+    """The eligibility walk shared by :func:`compress_params_for_streaming`
+    and :func:`streaming_encode_plan`: the stream-mode
+    :func:`serving_job` of every eligible leaf, in the reference's flatten
+    order, with no matmul position (every leaf is decoded before its layer
+    runs, and an escaped one stays the raw tensor)."""
+    jobs = []
+    for pstr, leaf in tree_leaves(params):
+        job = (serving_job(pstr, leaf, "stream", min_bytes)
+               if isinstance(leaf, torch.Tensor) else None)
+        if job is not None:
+            jobs.append(dict(job, pstr=pstr, matmul_pos=False))
+    return jobs
+
+
+def streaming_encode_plan(params, *,
+                          shared_params: Optional[EnecParams] = None,
+                          min_bytes: int = MIN_STREAM_BYTES,
+                          shards: int = STREAM_SHARDS, codec=None):
+    """The encode plan :func:`compress_params_for_streaming` would execute
+    over ``params``, not executed: ``len(plan.buckets)`` encoder launches
+    for the whole tree."""
+    return (codec or current_codec()).plan_encode(
+        [j["arr"] for j in _stream_jobs(params, min_bytes)], stacked=True,
+        p=shared_params, shards=shards)
+
+
+def decompress_sliced(p_sliced):
+    """The reference's name for :func:`~repro_torch.runtime.weights.
+    resolve`: every storage-only handle of a layer slice decoded."""
+    return resolve(p_sliced)
+
+
+def materialize_weight_tree(tree, codec=None):
+    """Every handle of ``tree`` back to its dense ``(L, ...)`` leaf, in
+    one decode launch per decoder bucket of the whole tree
+    (``materialize_full_many``); bitwise each handle materialised
+    alone."""
+    named = [(p, h) for p, h in tree_leaves(tree) if is_handle(h)]
+    dense = dict(zip((p for p, _ in named),
+                     materialize_full_many([h for _, h in named], codec)))
+    return tree_map_with_path(lambda p, leaf: dense.get(p, leaf), tree)
 
 
 def _abstract_stack(n_layers: int, layer_shape, dtype, p, block_elems: int,

@@ -195,6 +195,12 @@ def finish_materialize(handle, w_stacked: torch.Tensor) -> torch.Tensor:
     raise TypeError(f"not a compressed handle: {type(handle).__name__}")
 
 
+def materialize_full(handle, codec=None) -> torch.Tensor:
+    """One stacked handle back to its dense ``(L, ...)`` leaf, in one
+    decode launch (``materialize`` works on one layer's slice)."""
+    return materialize_full_many([handle], codec)[0]
+
+
 def materialize_full_many(handles, codec=None) -> list:
     """Every handle's dense ``(L, ...)`` leaf, with O(#decode buckets)
     launches (``Codec.decompress_stacked_many``)."""

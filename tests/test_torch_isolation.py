@@ -1,6 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` nor
-``chip_smoke.py`` imports JAX or the JAX package, and its entry points run
-on CUDA unless the caller asks for the CPU."""
+"""The port stands alone: no module of ``src/repro_torch``, no example of
+``examples_torch`` nor ``chip_smoke.py`` imports JAX or the JAX package,
+and its entry points run on CUDA unless the caller asks for the CPU."""
 import ast
 import pathlib
 
@@ -8,8 +8,8 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples_torch").glob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_modules(path):
@@ -68,6 +68,16 @@ MESH_MODULES = ("launch/mesh.py", "runtime/sharding.py",
 @pytest.mark.parametrize("rel", MESH_MODULES)
 def test_mesh_modules_are_scanned(rel):
     assert ROOT / "src" / "repro_torch" / rel in PORT_FILES
+
+
+# the port's examples, each scanned above
+EXAMPLES = ("quickstart.py", "compress_checkpoint.py", "serve_compressed.py",
+            "serve_moe_streaming.py", "train_lm.py")
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_are_scanned(name):
+    assert ROOT / "examples_torch" / name in PORT_FILES
 
 
 @pytest.mark.parametrize("arch", ["xlstm_125m", "jamba_v0_1_52b",
