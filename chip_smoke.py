@@ -255,6 +255,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_SCRIPT = time.perf_counter()     # the script's start, for its total
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12                # H100 SXM bf16 tensor cores, dense
@@ -4621,11 +4622,19 @@ MESH_BATCH, MESH_TOKENS = 2, 3    # phase serve's first 2 requests, 3 tokens
 MESH_WIDTHS = (2, 4)
 MESH_ARGS = ["--batch", str(MESH_BATCH), "--prompt-len", str(PROMPT),
              "--tokens", str(MESH_TOKENS)]
+# the sequence-sharded K/V ring (A = 2): 2 requests x prompt 2040 x 8
+# tokens, a 2048-position ring of 2 x 1024, the prompt and the decoded
+# positions crossing the ranks' boundary; once per decode-attention route
+PROMPT_SP, SP_TOKENS = 2040, 8
+SP_ARGS = ["--mode", "fused", "--batch", "2", "--prompt-len",
+           str(PROMPT_SP), "--tokens", str(SP_TOKENS)]
+SP_ROUTES = {"sp_scores": False, "sp_flash": True}   # decode_score_shard
 # each torch.distributed.run: its ranks' serve.main runs, by label
 MESH_RUNS = {2: {"stream_on": ["--mode", "stream", "--overlap", "on"],
                  "stream_off": ["--mode", "stream", "--overlap", "off"],
                  "fused": ["--mode", "fused"],
-                 "restore": ["--mode", "stream", "--ckpt", "{ckpt}"]},
+                 "restore": ["--mode", "stream", "--ckpt", "{ckpt}"],
+                 **{label: SP_ARGS for label in SP_ROUTES}},
              4: {"stream_on": ["--mode", "stream", "--overlap", "on"]}}
 MESH_LEAF = (8192, 2048)          # llama's w_down: shard_local_decode
 MESH_TIME_LIMIT_S = 420
@@ -4671,9 +4680,25 @@ def _mesh_leaf_checks(mesh) -> dict:
             "stream_nbytes": col.stream_nbytes(ct)}
 
 
+def _serve_route(argv, score_shard: bool) -> dict:
+    """``serve.main(argv)`` with the config's ``decode_score_shard`` set as
+    given (serve has no flag for it: the config selects the decode
+    attention's route, as in the reference)."""
+    import dataclasses
+    from repro_torch.launch import serve
+    config = serve.get_config
+    serve.get_config = lambda arch: dataclasses.replace(
+        config(arch), decode_score_shard=score_shard)
+    try:
+        return serve.main(argv)
+    finally:
+        serve.get_config = config
+
+
 def mesh_worker(spec_path: str) -> None:
     """One rank of a ``torch.distributed.run`` world of phase mesh: its
-    ``serve.main --tp A`` runs, each result saved for the parent."""
+    ``serve.main --tp A`` runs, each result saved for the parent (the
+    ``SP_ROUTES`` runs with the route's ``decode_score_shard``)."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
@@ -4694,14 +4719,16 @@ def mesh_worker(spec_path: str) -> None:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         serve.reset_launch_counts()
-        out = serve.main(MESH_ARGS + args + ["--tp", str(A)])
+        out = _serve_route(MESH_ARGS + args + ["--tp", str(A)],
+                           SP_ROUTES.get(label, False))
         res["runs"][label] = {
             "logits": out["logits"].cpu(), "tokens": out["tokens"],
             "path_launches": serve.launch_counts(),
             **{k: out[k] for k in (
                 "step_launches", "step_gather_bytes", "gather_nbytes",
                 "links", "mesh", "overlap", "tpot_s", "ttft_s", "step_s",
-                "resident_bytes", "restore", "mode_mix")},
+                "resident_bytes", "restore", "mode_mix", "ring_bytes",
+                "kv_layout", "step_kv_bytes")},
             "peak_bytes": torch.cuda.max_memory_allocated()}
         del out
     torch.save(res, out_dir / f"{spec['tag']}_rank{rank}.pt")
@@ -4758,8 +4785,10 @@ def phase_mesh():
     refuses two ranks on one device), each holding only its own stream
     shards and gathering the others' as compressed bytes when a layer uses
     them.  A = 2: stream mode with the prefetch on and off, fused mode and
-    a restore of a stream checkpoint saved with ``--shards 2``; A = 4:
-    stream mode (its single-device side ``--shards 4``, run here).
+    a restore of a stream checkpoint saved with ``--shards 2``, and fused
+    mode over a sequence-sharded K/V ring in both decode-attention routes
+    (``SP_ARGS``, :func:`_check_mesh_sp`); A = 4: stream mode (its
+    single-device side ``--shards 4``, run here).
     Checks: every rank's logits bitwise equal to phase serve's
     single-device run of the same mode and shards (its first
     ``MESH_BATCH`` requests and ``MESH_TOKENS`` tokens; the A = 4 run and
@@ -4787,7 +4816,8 @@ def phase_mesh():
                 ("save", ["--mode", "stream", "--save-ckpt",
                           str(tmp / "ckpt")]),
                 ("restore", ["--mode", "stream", "--ckpt",
-                             str(tmp / "ckpt")])):
+                             str(tmp / "ckpt")]),
+                ("sp", SP_ARGS + ["--shards", "2"])):
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -4796,7 +4826,8 @@ def phase_mesh():
                 "logits": out["logits"].cpu(), "restore": out["restore"],
                 "step_launches": out["step_launches"][0],
                 "tpot_s": out["tpot_s"], "resident_bytes":
-                    out["resident_bytes"],
+                    out["resident_bytes"], "ring_bytes": out["ring_bytes"],
+                "overlap": out["overlap"],
                 "peak_bytes": torch.cuda.max_memory_allocated()}
             del out
         torch.cuda.empty_cache()
@@ -4847,6 +4878,10 @@ def _check_mesh_world(A, ranks, want, singles, secs, card) -> dict:
     out = {"backend": r0["backend"], "cards": r0["cards"], "seconds": secs,
            "runs": {}}
     for label in r0["runs"]:
+        if label in SP_ROUTES:
+            out["runs"][label] = _check_mesh_sp(A, label, ranks,
+                                                singles["sp"], card)
+            continue
         mode = "restore" if label == "restore" else label.split("_")[0]
         ref = want[mode, A]
         per_rank = []
@@ -4906,6 +4941,71 @@ def _check_mesh_world(A, ranks, want, singles, secs, card) -> dict:
             f"{single['resident_bytes'] / 1e9:.2f}; backend "
             f"{r0['backend']}, {r0['cards']} card(s) ({card})")
     return out
+
+
+def _check_mesh_sp(A, label, ranks, single, card) -> dict:
+    """A run over the sequence-sharded ring: each rank holds its 2048 / A
+    positions from ``rank x 2048 / A``, its ring bytes 1/A of the
+    single-device run's; its logits bitwise that run's; kernel 1 / 2 / 2'
+    launches a step the code's and one device's; every step's decode
+    attention gathered the same dense bytes (the route's); the streams'
+    gathers compressed bytes as in the fused run."""
+    import torch
+    per_rank = []
+    for r in ranks:
+        run = r["runs"][label]
+        tag = f"mesh A={A} {label} rank {r['rank']}"
+        positions = (PROMPT_SP + SP_TOKENS) // A
+        check(run["kv_layout"] == {"sharded": True, "axes": ["model"],
+                                   "positions": positions,
+                                   "offset": positions * r["rank"],
+                                   "why": ""},
+              f"{tag}: KV layout {run['kv_layout']}")
+        check(A * run["ring_bytes"] == single["ring_bytes"] > 0,
+              f"{tag}: ring {run['ring_bytes']} B, one device's "
+              f"{single['ring_bytes']} B")
+        check(tuple(run["logits"].shape) == (SP_TOKENS, 2, 128256)
+              and bool(torch.isfinite(run["logits"]).all()),
+              f"{tag}: logits {tuple(run['logits'].shape)}")
+        check(torch.equal(run["logits"].view(torch.int32),
+                          single["logits"].view(torch.int32)),
+              f"{tag}: logits not bitwise equal to one device's")
+        kv = run["step_kv_bytes"]
+        check(len(kv) == SP_TOKENS - 1 and len(set(kv)) == 1 and kv[0] > 0,
+              f"{tag}: decode attention gathered {kv} B a step")
+        link = run["links"]["d2d_allgather"]
+        check(link["dense_bytes"] == sum(kv)
+              and run["step_gather_bytes"]
+              == [(A - 1) * run["gather_nbytes"]] * (SP_TOKENS - 1),
+              f"{tag}: d2d_allgather {link}, streams "
+              f"{run['step_gather_bytes']} a step")
+        code = run_step_launches("llama3_2_1b", "fused", run)
+        for st in run["step_launches"]:
+            for k in ("enec_decode", "decompress_matmul",
+                      "dense_tile_matmul"):
+                check(st[k] == code[k] == single["step_launches"][k],
+                      f"{tag}: {k} {st[k]} launches a step, the code says "
+                      f"{code[k]}, one device's step "
+                      f"{single['step_launches'][k]}")
+        per_rank.append({
+            "tpot_ms": 1e3 * run["tpot_s"], "ttft_ms": 1e3 * run["ttft_s"],
+            "peak_gb": run["peak_bytes"] / 1e9,
+            "ring_mb": run["ring_bytes"] / 1e6,
+            "kv_mb_per_step": kv[0] / 1e6,
+            "gather_mb_per_step": run["step_gather_bytes"][0] / 1e6})
+    log(f"mesh A={A} {label}: {A} ranks bitwise equal to one device over a "
+        f"sequence-sharded ring ({per_rank[0]['ring_mb']:.2f} MB a rank, "
+        f"one device {single['ring_bytes'] / 1e6:.2f} MB); decode "
+        f"attention gathered {per_rank[0]['kv_mb_per_step']:.4f} MB a step "
+        f"(streams {per_rank[0]['gather_mb_per_step']:.1f} MB); TPOT "
+        f"{[round(p['tpot_ms'], 1) for p in per_rank]} ms (eager, gloo "
+        f"through the host; one device captured "
+        f"{1e3 * single['tpot_s']:.2f} ms), TTFT "
+        f"{[round(p['ttft_ms'], 1) for p in per_rank]} ms, peak GB "
+        f"{[round(p['peak_gb'], 2) for p in per_rank]} against one "
+        f"device's {single['peak_bytes'] / 1e9:.2f} ({card})")
+    return {"ranks": per_rank,
+            "step_launches": ranks[0]["runs"][label]["step_launches"][0]}
 
 
 def _check_mesh_restore(A, ranks, single) -> None:
@@ -6077,6 +6177,7 @@ def main():
     check(tuple(serve.COUNTERS) == KERNELS,
           f"counters {tuple(serve.COUNTERS)} != {KERNELS}")
     t0 = time.perf_counter()
+    log(f"phases start {t0 - T_SCRIPT:.1f} s into the script")
     secs = RESULTS["phase_s"] = {}
 
     def timed(phase, *args):
@@ -6105,10 +6206,12 @@ def main():
     line = kernels_line(launches)
     RESULTS["kernels"] = line["kernels"]
     RESULTS["seconds"] = time.perf_counter() - t0
+    RESULTS["script_s"] = time.perf_counter() - T_SCRIPT
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(RESULTS, indent=1))
-    log(f"done in {RESULTS['seconds']:.1f}s")
+    log(f"done in {RESULTS['seconds']:.1f}s ({RESULTS['script_s']:.1f} s "
+        f"since the script started)")
     print(card_line())
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

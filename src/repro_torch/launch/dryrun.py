@@ -16,12 +16,20 @@ not run):
           reference's dry-run does, under the config's policy or the
           ``remat_dots`` variant's), the rank-ordered gradient sum over
           "data" and AdamW on the shards;
-  prefill ``build_prefill_step`` / ``build_decode_step`` under the serving
-  decode  mesh (``runtime/collectives.py``): the rank holds its own stream
-          shards and gathers the others' at each use; the dense math runs
-          whole on every rank (every rank serves every request, as
-          ``launch/serve.py`` does under ``--tp``), over the whole batch
-          and, for decode, the cache of ``registry.input_specs``.
+  prefill ``build_prefill_step`` / ``build_decode_step(..., mesh=)`` under
+  decode  the serving mesh (``runtime/collectives.py``): the rank holds its
+          own stream shards and gathers the others' at each use; the dense
+          math runs whole over the rank's block of the batch
+          (``sharding.batch_pspecs``), and the rank holds its block of the
+          cache of ``registry.input_specs`` (``sharding.
+          port_cache_pspecs``: the K/V rings' sequence on "model", or
+          ("pod", "model") beside an unsharded batch, where
+          ``sharding.kv_layout``'s rule allows; recurrent states and the
+          encoder memory on the batch only).  A decode step's attention
+          gathers over the sequence axes: the scores, or under the
+          ``flash_decode`` variant (``cfg.decode_score_shard``) the
+          softmax's stats and per-chunk partials only
+          (``models/layers.py:rank_decode_attention``).
 
 What a record holds (the reference's schema, so ``launch/roofline.py``
 reads either):
@@ -125,9 +133,6 @@ _NO_EP = ("the port's serving mesh shards only compressed streams and runs "
 def variant_skip(variant: str, kind: str):
     """Why the port's program cannot express ``variant`` for a cell of
     ``kind``, or None."""
-    if variant == "flash_decode":
-        return ("the port's decode attention runs whole on every rank: "
-                "there are no sharded scores to pin")
     if variant.startswith("ep_contract") and kind != "train":
         return _NO_EP
     if variant == "streamed" and kind == "train":
@@ -345,22 +350,47 @@ def _program(cfg, shape, mesh, mode, tree):
                 f"data, AdamW on the shards")
         return (params, opt, specs), lambda: step(params, opt, specs), line
     params = serving_params(cfg, mode, mesh, tree)
+    b = shape.global_batch
+    layout = sharding.kv_layout(mesh, shape.seq_len, batch=b,
+                                pin=cfg.decode_score_shard)
+    ba = sharding.batch_axis(mesh, b)
+    rows = sharding.local_shard(specs["tokens"], (ba,), mesh).shape[0]
     if shape.kind == "prefill":
-        step = build_prefill_step(model, max_len=shape.seq_len)
+        step = build_prefill_step(model, max_len=shape.seq_len, mesh=mesh)
         batch = {k: v for k, v in specs.items()}
         run = lambda: step(params, batch)  # noqa: E731
-        what = f"prefill of {shape.global_batch} x {shape.seq_len} tokens"
+        what = (f"prefill of {rows} of {b} rows x {shape.seq_len} tokens "
+                f"(batch on {ba})")
         inputs = (params, batch)
     else:
-        step = build_decode_step(model)
-        run = lambda: step(params, specs["cache"], specs["tokens"])  # noqa
-        what = (f"decode step of {shape.global_batch} sequences over a "
-                f"cache of {shape.seq_len}")
-        inputs = (params, specs)
+        step = build_decode_step(model, mesh=mesh)
+        cache = rank_cache(specs["cache"], mesh, b, layout)
+        run = lambda: step(params, cache, specs["tokens"])  # noqa: E731
+        what = (f"decode step of {rows} of {b} sequences (batch on {ba}) "
+                f"over a cache of {shape.seq_len}")
+        inputs = (params, {"cache": cache, "tokens": specs["tokens"]})
+    route = ""
+    if layout.sharded and shape.kind == "decode":
+        route = (", flash-decoding: stats and per-chunk partials gathered"
+                 if cfg.decode_score_shard else ", scores gathered")
     line = (f"{what}, {mode} weights, on serving mesh {dims} rank "
             f"{mesh.rank}: own stream shards, gathered at use; the dense "
-            f"math whole on every rank")
+            f"math whole over the rank's rows; K/V ring "
+            f"{layout.describe()}{route}; recurrent states and encoder "
+            f"memory whole on the rank's rows")
     return inputs, run, line
+
+
+def rank_cache(cache, mesh, b: int, layout):
+    """The rank's block of a whole (``meta``) decode cache of ``b`` rows
+    under ``sharding.port_cache_pspecs``, as new ``meta`` tensors of the
+    block's shapes, with ``layout`` as its ``kv_layout``."""
+    specs = dict(sharding.spec_leaves(sharding.port_cache_pspecs(
+        cache, mesh, b, layout)))
+    local = tree_map_with_path(lambda p, t: _meta_like(
+        t, sharding.local_shard(t, specs[p], mesh).shape), cache)
+    local["kv_layout"] = layout
+    return local
 
 
 def lower_cell(cfg, shape: ShapeSpec, mesh, *, variant: str = "baseline",

@@ -71,6 +71,13 @@ when a layer uses them (``runtime/collectives.py``; the ``d2d_allgather``
 link of the ledger); the dense math runs on every rank, so every rank
 serves every request and its logits equal a single-device run's bit for
 bit.  The step runs eagerly under a mesh.  Only rank 0 prints.
+Each rank holds its share of the K/V ring's sequence where
+``runtime/sharding.py:kv_layout`` allows it (a rank's slice a whole number
+of 1024-position chunks: ``(--prompt-len + --tokens) % (A x 1024) ==
+0``), else the whole ring; the mesh line says which.  A sharded ring's
+decode attention gathers the scores over the model axis, or, with the
+config's ``decode_score_shard`` (flash-decoding), only the softmax's
+stats and partials; logits stay one device's bits either way.
 ``--ckpt`` restores onto the mesh, each rank uploading only its shards'
 bytes; ``--save-ckpt`` saves the whole tree from rank 0 before placing it.
 
@@ -118,6 +125,7 @@ from repro_torch.runtime.engine import Engine, EngineConfig, ServerHealth
 from repro_torch.runtime.experts import ExpertStore, install_expert_store
 from repro_torch.runtime.overlap import (OVERLAP_MODES, build_schedule,
                                          overlap_enabled)
+from repro_torch.runtime.sharding import kv_layout
 from repro_torch.runtime.streaming import (assign_weight_modes, mode_mix,
                                            stream_stats, tree_leaves)
 from repro_torch.runtime.weights import FusedWeight, StreamedWeight
@@ -436,12 +444,19 @@ def _serve(args, cfg, model, codec, dev, mesh=None) -> dict:
                        buckets_per_layer=schedule.buckets_per_layer)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     gather_nbytes = 0
+    max_len = args.prompt_len + args.tokens
+    layout = None
     if mesh is not None:
         gather_nbytes = tree_gather_nbytes(params, mesh)
+        layout = kv_layout(mesh, max_len, pin=cfg.decode_score_shard)
+        route = ("flash-decoding: stats and partials gathered"
+                 if cfg.decode_score_shard else "scores gathered")
         print(f"[serve] serving mesh {mesh.shape} ({mesh.size} ranks, "
               f"backend {dist.get_backend() if mesh.size > 1 else None}): "
               f"--shards {args.shards}, {gather_nbytes / 1e6:.2f} MB of "
-              f"sharded streams gathered a use of every leaf")
+              f"sharded streams gathered a use of every leaf; KV ring of "
+              f"{max_len} {layout.describe()}"
+              + (f", {route}" if layout.sharded else ""))
     print(f"[serve] arch={cfg.name} mode={args.mode} device={name} "
           f"setup={setup_s:.2f}s encode_buckets="
           f"{encode['planned_buckets']} mode_mix={mode_mix(params)}")
@@ -473,6 +488,7 @@ def _serve(args, cfg, model, codec, dev, mesh=None) -> dict:
     engine.run_until_idle()
     wall = time.perf_counter() - t0
     launches = _since(base)
+    ring_bytes = engine.ring_bytes()
     health = HEALTH.state        # while serving, before the drain
     engine.shutdown(deadline_s=30.0)
 
@@ -521,6 +537,10 @@ def _serve(args, cfg, model, codec, dev, mesh=None) -> dict:
           f"per_decode_step="
           f"{engine.step_launches[0] if engine.step_launches else {}}")
     print(_link_line(codec))
+    if layout is not None:
+        kv_step = engine.step_kv_bytes[0] if engine.step_kv_bytes else 0
+        print(f"[serve] KV ring {ring_bytes / 1e6:.2f} MB on this rank; "
+              f"decode attention gathered {kv_step / 1e6:.3f} MB a step")
     complete = len(finished) == len(reqs) and all(
         len(r.tokens) == args.tokens for r in reqs)
     tokens = logits = None
@@ -542,6 +562,12 @@ def _serve(args, cfg, model, codec, dev, mesh=None) -> dict:
             "step_decode_s": engine.step_decode_s,
             "step_h2d_bytes": engine.step_h2d_bytes, "experts": experts,
             "step_gather_bytes": engine.step_gather_bytes,
+            "step_kv_bytes": engine.step_kv_bytes,
+            "ring_bytes": ring_bytes,
+            "kv_layout": None if layout is None else {
+                "sharded": layout.sharded, "axes": list(layout.axes),
+                "positions": layout.local_length, "offset": layout.offset,
+                "why": layout.why},
             "gather_nbytes": gather_nbytes, "links": codec.link_stats(),
             "mesh": None if mesh is None else dict(mesh.shape),
             "rank": 0 if mesh is None else mesh.rank,

@@ -16,7 +16,10 @@ Serving is a one-shot prefill of ``{"frames", "tokens"}`` (encoder pass,
 the decoder's prompt pass, the self-attention K/V and the cross-attention
 memory ``mem_k`` / ``mem_v`` into the cache) followed by one-token decode
 steps; :func:`decode_step` is the same step on fixed buffers, in place,
-for ``runtime/captured.py`` to replay as a CUDA graph.
+for ``runtime/captured.py`` to replay as a CUDA graph.  Under a
+``sharding.KVLayout`` (the dry-run's serving mesh) the self-attention
+rings hold the rank's share of the sequence, as ``models/lm.py``'s do;
+the encoder memory stays whole.
 """
 from __future__ import annotations
 
@@ -28,9 +31,9 @@ from repro_torch.runtime.weights import resolve as resolve_weights
 from .layers import (ACT_DTYPE, attention_block, attention_decode_block,
                      cross_attention_block, cross_entropy, cross_memory,
                      dense_init, embed_init, embed_tokens, init_attention,
-                     init_cross_attention, init_mlp, lm_logits, mlp_block,
-                     rms_norm)
-from .lm import _dense_leaf, attn_shape, layer_slice
+                     init_cross_attention, init_mlp, keep_positions,
+                     lm_logits, mlp_block, rms_norm)
+from .lm import _dense_leaf, attn_shape, cache_layout, layer_slice
 
 ENC_LEN = 4096      # encoder frames of a serving cache (ENC_FRAMES_STUB)
 
@@ -161,30 +164,39 @@ def loss_fn(params, cfg, batch):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, max_len: int, enc_len: int = ENC_LEN,
-               device="cuda"):
+               device="cuda", mesh=None, layout=None):
     """Self-attention K/V rings (L, B, max_len, KV, hd), the encoder memory
     ``mem_k`` / ``mem_v`` (L, B, enc_len, KV, hd) and the lengths: zeros
-    (``device="meta"`` gives the shapes with nothing allocated)."""
+    (``device="meta"`` gives the shapes with nothing allocated).  On a
+    ``mesh`` or under ``layout`` the rings hold the rank's positions
+    (``lm.init_cache``)."""
     s = attn_shape(cfg)
     dev = resolve_device(device)
+    layout = cache_layout(cfg, max_len, mesh, layout)
+    ring = max_len if layout is None else layout.local_length
 
     def z(t):
         return torch.zeros((cfg.n_layers, batch, t, s.n_kv_heads,
                             s.head_dim), dtype=ACT_DTYPE, device=dev)
 
-    return {"k": z(max_len), "v": z(max_len), "mem_k": z(enc_len),
-            "mem_v": z(enc_len),
-            "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    cache = {"k": z(ring), "v": z(ring), "mem_k": z(enc_len),
+             "mem_v": z(enc_len),
+             "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    if layout is not None:
+        cache["kv_layout"] = layout
+    return cache
 
 
-def prefill(params, cfg, frames, tokens, max_len: int):
+def prefill(params, cfg, frames, tokens, max_len: int, mesh=None,
+            layout=None):
     """Encoder pass + decoder prompt pass; builds the self and cross
-    caches.  Returns (last-token logits (B, V), cache)."""
+    caches (the rank's positions of the self-attention K/V on a ``mesh``
+    or under ``layout``).  Returns (last-token logits (B, V), cache)."""
     enc_out = encode(params, cfg, frames)
     s = attn_shape(cfg)
     b, t = tokens.shape
     cache = init_cache(cfg, b, max_len, enc_out.shape[1],
-                       device=enc_out.device)
+                       device=enc_out.device, mesh=mesh, layout=layout)
     x = embed_tokens(_dense_leaf(params["embed"]), tokens)
     positions = torch.arange(t, device=x.device)[None, :]
     for i in range(cfg.n_layers):
@@ -192,7 +204,8 @@ def prefill(params, cfg, frames, tokens, max_len: int):
         memory = cross_memory(p["xattn"], enc_out, s)
         cache["mem_k"][i], cache["mem_v"][i] = memory
         x, kv = _dec_layer_fwd(p, cfg, x, memory, positions)
-        cache["k"][i, :, :t], cache["v"][i, :, :t] = kv
+        for k, got in zip(("k", "v"), kv):
+            keep_positions(cache[k][i], got, cache.get("kv_layout"))
     cache["lengths"] = torch.full((b,), t, dtype=torch.int32,
                                   device=x.device)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -213,9 +226,9 @@ def decode_fn(params, cfg, cache, tokens: torch.Tensor):
         sl["xattn"] = {k: sl["xattn"][k] for k in ("wq", "wo")}
         p = resolve_weights(sl)
         h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
-        out, _ = attention_decode_block(p["attn"], h, s,
-                                        (cache["k"][i], cache["v"][i]),
-                                        lengths, cfg.rope_theta)
+        out, _ = attention_decode_block(
+            p["attn"], h, s, (cache["k"][i], cache["v"][i]), lengths,
+            cfg.rope_theta, cache.get("kv_layout"), cfg.decode_score_shard)
         x = x + out
         x = x + cross_attention_block(
             p["xattn"], rms_norm(x, p["xnorm"], cfg.norm_eps),
@@ -228,11 +241,12 @@ def decode_fn(params, cfg, cache, tokens: torch.Tensor):
 
 
 def init_step_state(cfg, slots: int, max_len: int, enc_len: int = ENC_LEN,
-                    device="cuda"):
+                    device="cuda", mesh=None):
     """The buffers of :func:`decode_step`, allocated once: the cache of
     ``slots`` rows (:func:`init_cache`), each row's last token (int64)
     and the step's f32 logits."""
-    state = init_cache(cfg, slots, max_len, enc_len, device=device)
+    state = init_cache(cfg, slots, max_len, enc_len, device=device,
+                       mesh=mesh)
     dev = state["lengths"].device
     state["tokens"] = torch.zeros((slots,), dtype=torch.int64, device=dev)
     state["logits"] = torch.zeros((slots, cfg.vocab_size),
@@ -261,6 +275,8 @@ def decode_step(params, cfg, state, bucket: int) -> None:
     addresses; its bits are :func:`decode_fn`'s on the same rows."""
     sub = {k: state[k][:, :bucket] for k in ("k", "v", "mem_k", "mem_v")}
     sub["lengths"] = state["lengths"][:bucket]
+    if "kv_layout" in state:
+        sub["kv_layout"] = state["kv_layout"]
     logits, _ = decode_fn(params, cfg, sub, state["tokens"][:bucket])
     state["logits"][:bucket].copy_(logits)
     state["tokens"][:bucket].copy_(torch.argmax(logits, dim=-1))

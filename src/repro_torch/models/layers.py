@@ -7,7 +7,9 @@ recurrent blocks.
 Conventions follow the reference: activations bf16 (``ACT_DTYPE`` casts in
 the same places), matmuls accumulate in f32, norms and softmax in f32.
 Attention is plain PyTorch following the reference's chunked softmax; the
-reference computes it with plain jnp outside any Pallas kernel too.
+reference computes it with plain jnp outside any Pallas kernel too.  The
+decode attention also runs on a rank's slice of a sequence-sharded K/V
+ring (:func:`rank_decode_attention`), with the whole ring's bits.
 """
 from __future__ import annotations
 
@@ -274,6 +276,108 @@ def flash_attention(q, k, v, *, prefix_len: int = 0, chunk: int = KV_CHUNK):
     return (acc / _heads_last(denom)).to(ACT_DTYPE)
 
 
+def decode_scores(q, k_cache, lengths=None, offset: int = 0):
+    """The scores (B, KV, g, S) f32 of one decode query q (B, 1, H, hd)
+    against the cache positions ``offset .. offset + S`` (k_cache (B, S,
+    KV, hd)), each a :func:`fixed_dot` over hd within chunks of
+    ``DECODE_CHUNK`` positions, scaled; positions at or past ``lengths``
+    (B,) set to -1e30.  A score's bits are its own query's and key's: the
+    same in a rank's slice as in the whole ring."""
+    b, _, h, hd = q.shape
+    s_len, kv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, kv, h // kv, 1, hd).float()
+    parts = [fixed_dot(qg, k_cache[:, lo:lo + DECODE_CHUNK]
+                       .permute(0, 2, 1, 3)[:, :, None])
+             for lo in range(0, s_len, DECODE_CHUNK)]
+    scores = (parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)) \
+        * (1.0 / math.sqrt(hd))                           # (B, KV, g, S)
+    if lengths is not None:
+        k_pos = offset + torch.arange(s_len, device=q.device)
+        scores = torch.where(k_pos < lengths[:, None, None, None], scores,
+                             -1e30)
+    return scores
+
+
+def chunk_sums(p: torch.Tensor) -> torch.Tensor:
+    """Each ``DECODE_CHUNK``-position chunk's :func:`fixed_sum` of p
+    (B, KV, g, S): (chunks, B, KV, g)."""
+    return torch.stack([fixed_sum(p[..., lo:lo + DECODE_CHUNK])
+                        for lo in range(0, p.shape[-1], DECODE_CHUNK)])
+
+
+def chunk_products(probs: torch.Tensor, v_cache) -> torch.Tensor:
+    """Each chunk's P.V, a :func:`fixed_dot` over its positions, of probs
+    (B, KV, g, S) and v_cache (B, S, KV, hd): (chunks, B, KV, g, hd)."""
+    return torch.stack([
+        fixed_dot(probs[..., None, lo:lo + DECODE_CHUNK],
+                  v_cache[:, lo:lo + DECODE_CHUNK].permute(0, 2, 3, 1)
+                  [:, :, None])
+        for lo in range(0, probs.shape[-1], DECODE_CHUNK)])
+
+
+def fold_chunks(parts: torch.Tensor) -> torch.Tensor:
+    """The combine: chunk partials (chunks, ...) added in chunk order,
+    ``((p0 + p1) + p2) + ...``, whichever ranks computed them."""
+    out = parts[0]
+    for i in range(1, parts.shape[0]):
+        out = out + parts[i]
+    return out
+
+
+def rank_decode_attention(q, k_cache, v_cache, lengths=None,
+                          offset: int = 0, score_shard: bool = False):
+    """The rank-local part of single-token decode attention over this
+    rank's slice of a sequence-sharded K/V ring (positions ``offset ..
+    offset + S_local``): a generator.  Each ``yield (t, dim)`` asks for
+    every rank's ``t`` along ``dim`` in position order (the rank's
+    ``KVLayout.gather``, or a test concatenating A ranks' parts in one
+    process) and is sent that; it returns the (B, 1, H, hd) f32 output.
+    Its bits are :func:`decode_attention`'s on the whole ring, for either
+    route:
+
+    * default (the reference's unpinned layout): the rank's scores are
+      gathered whole; every rank forms the max, p, the denominator (its
+      chunk sums in order) and the bf16 probabilities, then P.V on its own
+      chunks, whose per-chunk partials are gathered and folded in chunk
+      order;
+    * ``score_shard`` (``cfg.decode_score_shard``, flash-decoding): the
+      rank's local maxima are gathered and their max taken (exact); its
+      p and per-chunk denominator partials, gathered and folded in chunk
+      order; its probabilities and per-chunk P.V partials, gathered and
+      folded in chunk order.  Only (B, KV, g)-sized stats and the
+      (B, KV, g, hd) partials cross between ranks.
+    """
+    b, _, h, hd = q.shape
+    scores = decode_scores(q, k_cache, lengths, offset)
+    if score_shard:
+        m = (yield scores.amax(dim=-1, keepdim=True), -1)
+        p = torch.exp(scores - m.amax(dim=-1, keepdim=True))
+        denom = fold_chunks((yield chunk_sums(p), 0))
+    else:
+        whole = yield scores, -1
+        p = torch.exp(whole - whole.amax(dim=-1, keepdim=True))
+        denom = fold_chunks(chunk_sums(p))
+        p = p[..., offset:offset + k_cache.shape[1]]
+    probs = (p / denom[..., None]).to(ACT_DTYPE).float()
+    out = fold_chunks((yield chunk_products(probs, v_cache), 0))
+    return out.reshape(b, 1, h, hd)
+
+
+def run_rank(part, gather):
+    """Drive a :func:`rank_decode_attention` generator: each of its
+    requests answered by ``gather(t, dim)``; returns its output."""
+    try:
+        request = next(part)
+        while True:
+            request = part.send(gather(*request))
+    except StopIteration as done:
+        return done.value
+
+
+def _whole(t, _dim):
+    return t
+
+
 def decode_attention(q, k_cache, v_cache, lengths=None):
     """Single-token decode: q (B, 1, H, hd) over caches (B, S, KV, hd);
     ``lengths`` (B,) valid entries per sequence (None: all S, as whisper's
@@ -286,31 +390,10 @@ def decode_attention(q, k_cache, v_cache, lengths=None):
     bits do not depend on the batch around it: a library's batched
     product picks its kernel, and with it its summation order, by the
     batch's shape (on the card PaliGemma's single KV head gave a row
-    other bits at batch 1 than at batch 4)."""
-    b, _, h, hd = q.shape
-    s_len, kv = k_cache.shape[1], k_cache.shape[2]
-    qg = q.reshape(b, kv, h // kv, 1, hd).float()
-    chunks = range(0, s_len, DECODE_CHUNK)
-    parts = [fixed_dot(qg, k_cache[:, lo:lo + DECODE_CHUNK]
-                       .permute(0, 2, 1, 3)[:, :, None]) for lo in chunks]
-    scores = (parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)) \
-        * (1.0 / math.sqrt(hd))                           # (B, KV, g, S)
-    if lengths is not None:
-        k_pos = torch.arange(s_len, device=q.device)
-        scores = torch.where(k_pos < lengths[:, None, None, None], scores,
-                             -1e30)
-    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
-    denom = out = None
-    for lo in chunks:
-        part = fixed_sum(p[..., lo:lo + DECODE_CHUNK])
-        denom = part if denom is None else denom + part
-    probs = (p / denom[..., None]).to(ACT_DTYPE).float()
-    for lo in chunks:
-        vc = v_cache[:, lo:lo + DECODE_CHUNK].permute(0, 2, 3, 1)
-        part = fixed_dot(probs[..., None, lo:lo + DECODE_CHUNK],
-                         vc[:, :, None])                  # (B, KV, g, hd)
-        out = part if out is None else out + part
-    return out.reshape(b, 1, h, hd)
+    other bits at batch 1 than at batch 4).  It is
+    :func:`rank_decode_attention` on one rank holding the whole ring."""
+    return run_rank(rank_decode_attention(q, k_cache, v_cache, lengths),
+                    _whole)
 
 
 def attention_block(p, x, s: AttnParamsShape, positions, theta, *,
@@ -325,19 +408,51 @@ def attention_block(p, x, s: AttnParamsShape, positions, theta, *,
     return out.to(x.dtype), (k, v)
 
 
+def write_owned(cache, bidx, lengths, new, offset: int) -> None:
+    """``cache[b, lengths[b] - offset] = new[b]`` where the position lies
+    in this rank's slice (``offset .. offset + S_local``), else nothing:
+    branch-free, a clamped index and a ``where``, with no host sync."""
+    local = lengths - offset
+    owned = (local >= 0) & (local < cache.shape[1])
+    at = local.clamp(0, cache.shape[1] - 1)
+    cache[bidx, at] = torch.where(owned[:, None, None], new, cache[bidx, at])
+
+
+def keep_positions(ring, got, layout) -> None:
+    """Copy the prompt's K or V ``got`` (..., T, KV, hd on dim -3) into a
+    ring (..., S_local, KV, hd): its first T positions, or with a
+    sequence-sharded ``layout`` the rank's own of them."""
+    t = got.shape[-3]
+    lo = 0 if layout is None else layout.offset
+    hi = min(t, lo + ring.shape[-3])
+    if hi > lo:
+        ring[..., :hi - lo, :, :] = got[..., lo:hi, :, :]
+
+
 def attention_decode_block(p, x, s: AttnParamsShape, cache_kv, lengths,
-                           theta):
+                           theta, layout=None, score_shard: bool = False):
     """One-token decode step. x: (B, 1, D); cache_kv: (k, v) (B, S, KV, hd).
 
     Writes the new k/v at position ``lengths`` per sequence — in place, to
-    save a cache copy per layer and step — then attends.
+    save a cache copy per layer and step — then attends.  With a
+    sequence-sharded ``layout`` (``runtime/sharding.py:KVLayout``) the
+    ring holds this rank's positions: only the owner writes, and the
+    attention is :func:`rank_decode_attention` over the rank's slice,
+    its gathers the layout's (the route ``score_shard``'s).
     """
     k_cache, v_cache = cache_kv
     q, k_new, v_new = _project_qkv(p, x, s, lengths[:, None], theta)
     bidx = torch.arange(x.shape[0], device=x.device)
-    k_cache[bidx, lengths] = k_new[:, 0]
-    v_cache[bidx, lengths] = v_new[:, 0]
-    out = decode_attention(q, k_cache, v_cache, lengths + 1)
+    if layout is not None and layout.sharded:
+        write_owned(k_cache, bidx, lengths, k_new[:, 0], layout.offset)
+        write_owned(v_cache, bidx, lengths, v_new[:, 0], layout.offset)
+        out = run_rank(rank_decode_attention(
+            q, k_cache, v_cache, lengths + 1, layout.offset, score_shard),
+            layout.gather)
+    else:
+        k_cache[bidx, lengths] = k_new[:, 0]
+        v_cache[bidx, lengths] = v_new[:, 0]
+        out = decode_attention(q, k_cache, v_cache, lengths + 1)
     out = weight_matmul(p["wo"], out.reshape(x.shape[0], 1, -1))
     return out.to(x.dtype), (k_cache, v_cache)
 

@@ -27,6 +27,14 @@ the recurrent state (Mamba ``h`` / ``conv``, mLSTM ``c`` / ``n`` / ``m``,
 sLSTM ``c`` / ``n`` / ``h`` / ``m``), stacked over periods.  A decode step
 updates every one of them in place, so the engine's step runs on fixed
 buffers and replays as a CUDA graph.
+
+On a serving mesh (``init_cache(mesh=)``, ``prefill_fn(mesh=)``) the
+attention K/V rings hold this rank's share of the sequence where
+``runtime/sharding.py:kv_layout`` allows it: the cache's ``kv_layout``
+says which positions, the prefill keeps those, the decode writes a token's
+K/V on its owner only and attends through ``layers.
+rank_decode_attention`` (its route ``cfg.decode_score_shard``'s), with
+one device's bits.  The recurrent states stay whole.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.runtime import sharding
 from repro_torch.runtime.overlap import (build_schedule, overlap_enabled,
                                          pipeline_unrolled)
 from repro_torch.runtime.weights import is_handle
@@ -47,7 +56,7 @@ from . import xlstm as xlstm_lib
 from .layers import (ACT_DTYPE, AttnParamsShape, attention_block,
                      attention_decode_block, cross_entropy, dense_init,
                      embed_init, embed_tokens, init_attention, init_mlp,
-                     lm_logits, mlp_block, rms_norm)
+                     keep_positions, lm_logits, mlp_block, rms_norm)
 
 
 class BlockDesc(NamedTuple):
@@ -238,14 +247,15 @@ def _apply_position(p, desc: BlockDesc, cfg, x, positions,
     return x, entry, aux
 
 
-def _apply_position_step(p, desc: BlockDesc, cfg, x, cache, lengths):
+def _apply_position_step(p, desc: BlockDesc, cfg, x, cache, lengths,
+                         layout=None):
     """One-token decode of one block; its cache entry (one layer's view of
     the K/V ring or of the recurrent state) is updated in place."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
     if desc.seq == "attn":     # writes the new K/V at ``lengths`` itself
-        out, _ = attention_decode_block(p["attn"], h, attn_shape(cfg),
-                                        (cache["k"], cache["v"]), lengths,
-                                        cfg.rope_theta)
+        out, _ = attention_decode_block(
+            p["attn"], h, attn_shape(cfg), (cache["k"], cache["v"]), lengths,
+            cfg.rope_theta, layout, cfg.decode_score_shard)
     else:
         if desc.seq == "mamba":
             out, new = ssm_lib.mamba_step(p["mamba"], h, cache,
@@ -388,18 +398,35 @@ def loss_fn(params, cfg, batch: dict):
     return loss + 1e-2 * aux, {"nll": loss, "aux": aux}
 
 
-def init_cache(cfg, batch: int, max_len: int, device="cuda"):
+def cache_layout(cfg, max_len: int, mesh=None, layout=None):
+    """The K/V rings' sequence layout: ``layout`` as given, else on
+    ``mesh`` every row on every rank (the serving engine's)
+    ``sharding.kv_layout`` of ``max_len`` positions, else None (one
+    device)."""
+    if layout is None and mesh is not None:
+        layout = sharding.kv_layout(mesh, max_len,
+                                    pin=cfg.decode_score_shard)
+    return layout
+
+
+def init_cache(cfg, batch: int, max_len: int, device="cuda", mesh=None,
+               layout=None):
     """The decode cache of ``batch`` rows, stacked over periods: zeros,
     and the stabilisers ``m`` of the xLSTM blocks at their initial -1e30
-    (``device="meta"`` gives the shapes with nothing allocated)."""
+    (``device="meta"`` gives the shapes with nothing allocated).  On a
+    serving ``mesh`` (or under a given ``sharding.KVLayout``) each K/V
+    ring holds this rank's ``layout.local_length`` positions from
+    ``layout.offset``, recorded as ``cache["kv_layout"]``."""
     program = block_program(cfg)
     n_periods = cfg.n_layers // len(program)
     dev = resolve_device(device)
+    layout = cache_layout(cfg, max_len, mesh, layout)
+    ring = max_len if layout is None else layout.local_length
     entries = []
     for desc in program:
         if desc.seq == "attn":
             s = attn_shape(cfg)
-            shape = (n_periods, batch, max_len, s.n_kv_heads, s.head_dim)
+            shape = (n_periods, batch, ring, s.n_kv_heads, s.head_dim)
             entries.append({k: torch.zeros(shape, dtype=ACT_DTYPE,
                                            device=dev) for k in ("k", "v")})
             continue
@@ -413,23 +440,30 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda"):
             one = xlstm_lib.init_slstm_cache(cfg.d_model, batch, dev)
         entries.append({k: v[None].repeat((n_periods,) + (1,) * v.ndim)
                         for k, v in one.items()})
-    return {"entries": entries,
-            "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    cache = {"entries": entries,
+             "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    if layout is not None:
+        cache["kv_layout"] = layout
+    return cache
 
 
-def prefill_fn(params, cfg, batch: dict, max_len: int):
+def prefill_fn(params, cfg, batch: dict, max_len: int, mesh=None,
+               layout=None):
     """Run the prompt (and its prefix embeddings), build the cache: the
-    attention K/V into the ring's first positions, the recurrent states
-    wholesale.  Returns (last_token_logits, cache)."""
+    attention K/V into the ring's first positions (on a ``mesh``, or under
+    ``layout``, the rank's own of them: :func:`init_cache`), the recurrent
+    states wholesale.  Returns (last_token_logits, cache)."""
     x, caches, head, _ = forward(params, cfg, batch)
     b, t = x.shape[0], x.shape[1]
     logits = lm_logits(x[:, -1:], head)[:, 0]
-    cache = init_cache(cfg, b, max_len, device=x.device)
+    cache = init_cache(cfg, b, max_len, device=x.device, mesh=mesh,
+                       layout=layout)
     for desc, entry, got in zip(block_program(cfg), cache["entries"],
                                 caches):
         if desc.seq == "attn":
             for k in ("k", "v"):
-                entry[k][:, :, :t] = got[k].to(ACT_DTYPE)
+                keep_positions(entry[k], got[k].to(ACT_DTYPE),
+                               cache.get("kv_layout"))
         else:
             for k in entry:
                 entry[k].copy_(got[k].to(entry[k].dtype))
@@ -445,21 +479,24 @@ def decode_fn(params, cfg, cache, tokens: torch.Tensor):
     embed = _dense_leaf(params["embed"])
     x = embed_tokens(embed, tokens[:, None])
     lengths = cache["lengths"].to(torch.int64)
+    layout = cache.get("kv_layout")
     x, _ = _run_layers(
         params, cfg, x,
         lambda p, x, pos, entries: (_apply_position_step(
-            p, program[pos], cfg, x, entries[pos], lengths), None),
+            p, program[pos], cfg, x, entries[pos], lengths, layout), None),
         extra=cache["entries"])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(x, _head(params, cfg, embed))[:, 0]
     return logits, dict(cache, lengths=cache["lengths"] + 1)
 
 
-def init_step_state(cfg, slots: int, max_len: int, device="cuda"):
+def init_step_state(cfg, slots: int, max_len: int, device="cuda",
+                    mesh=None):
     """The buffers of :func:`decode_step`, allocated once: the cache of
-    ``slots`` slots (``init_cache``: K/V ring and recurrent states), each
-    slot's last token (int64) and the step's f32 logits."""
-    state = init_cache(cfg, slots, max_len, device=device)
+    ``slots`` slots (``init_cache``: K/V ring, this rank's share of it on
+    a serving ``mesh``, and recurrent states), each slot's last token
+    (int64) and the step's f32 logits."""
+    state = init_cache(cfg, slots, max_len, device=device, mesh=mesh)
     dev = state["lengths"].device
     state["tokens"] = torch.zeros((slots,), dtype=torch.int64, device=dev)
     state["logits"] = torch.zeros((slots, cfg.vocab_size),
@@ -478,6 +515,8 @@ def decode_step(params, cfg, state, bucket: int) -> None:
     sub = {"entries": [{k: t[:, :bucket] for k, t in e.items()}
                        for e in state["entries"]],
            "lengths": state["lengths"][:bucket]}
+    if "kv_layout" in state:
+        sub["kv_layout"] = state["kv_layout"]
     logits, _ = decode_fn(params, cfg, sub, state["tokens"][:bucket])
     state["logits"][:bucket].copy_(logits)
     state["tokens"][:bucket].copy_(torch.argmax(logits, dim=-1))

@@ -25,10 +25,11 @@ class Model(NamedTuple):
     cfg: ArchConfig
     init: Callable            # (seed=, device=) -> params
     loss_fn: Callable         # (params, batch) -> (loss, metrics)
-    prefill_fn: Callable      # (params, batch, max_len) -> (logits, cache)
+    prefill_fn: Callable      # (params, batch, max_len, mesh=) -> (logits,
+    #                           cache), this rank's positions on a mesh
     decode_fn: Callable       # (params, cache, tokens) -> (logits, cache)
-    init_cache: Callable      # (batch, max_len, device=) -> cache
-    init_step_state: Callable  # (slots, max_len, device=) -> step buffers
+    init_cache: Callable      # (batch, max_len, device=, mesh=) -> cache
+    init_step_state: Callable  # (slots, max_len, device=, mesh=) -> buffers
     decode_step: Callable     # (params, state, bucket) -> None, in place
 
 
@@ -38,8 +39,9 @@ def build_model(cfg: ArchConfig) -> Model:
             cfg=cfg,
             init=partial(encdec.init_params, cfg),
             loss_fn=lambda params, batch: encdec.loss_fn(params, cfg, batch),
-            prefill_fn=lambda params, batch, max_len: encdec.prefill(
-                params, cfg, batch["frames"], batch["tokens"], max_len),
+            prefill_fn=lambda params, batch, max_len, **kw: encdec.prefill(
+                params, cfg, batch["frames"], batch["tokens"], max_len,
+                **kw),
             decode_fn=lambda params, cache, tokens: encdec.decode_fn(
                 params, cfg, cache, tokens),
             init_cache=partial(encdec.init_cache, cfg),
@@ -52,8 +54,8 @@ def build_model(cfg: ArchConfig) -> Model:
         cfg=cfg,
         init=partial(lm.init_params, cfg),
         loss_fn=lambda params, batch: lm.loss_fn(params, cfg, batch),
-        prefill_fn=lambda params, batch, max_len: lm.prefill_fn(
-            params, cfg, batch, max_len),
+        prefill_fn=lambda params, batch, max_len, **kw: lm.prefill_fn(
+            params, cfg, batch, max_len, **kw),
         decode_fn=lambda params, cache, tokens: lm.decode_fn(
             params, cfg, cache, tokens),
         init_cache=partial(lm.init_cache, cfg),

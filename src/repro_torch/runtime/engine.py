@@ -28,6 +28,14 @@ of the batch goes on.
   under a serving mesh (``extra_context`` installing
   ``runtime.collectives.use_serving_mesh``): its shard gathers are
   collectives between processes, which a CUDA graph cannot hold.
+* **The ring on a serving mesh.**  Under a serving mesh every rank keeps
+  every request (on every ``"data"`` coordinate) and its share of the
+  ring's sequence where ``runtime/sharding.py:kv_layout`` allows it
+  (``model.init_step_state(mesh=)``): a prefill keeps the rank's
+  positions (``model.prefill_fn(mesh=)``) and is copied into the slot as
+  it is; a step's decode attention gathers over the sequence axes
+  (``models/layers.py:rank_decode_attention``), its logits one device's
+  bits.
 * **Deadlines at every stage.**  Requests whose TTFT deadline passes in the
   queue are shed before a prefill; in-flight requests past their total
   deadline are evicted at step granularity and their slot reclaimed; a
@@ -197,12 +205,14 @@ class Engine:
         # pool on the card until the cycle collector ran
         engine = weakref.ref(self)
         with self._ctx():
-            # a step under a serving mesh gathers shards through
-            # collectives, which a CUDA graph cannot hold
-            meshed = serving_mesh() is not None
+            ambient = serving_mesh()
+        # the serving mesh the slot ring's sequence is shared over (or
+        # None); a step under it gathers shards through collectives, which
+        # a CUDA graph cannot hold
+        self._mesh = None if ambient is None else ambient[0]
         self.captured = CapturedStep(
             lambda bucket: engine()._step_body(bucket), self.device, s,
-            eager=expert_store is not None or meshed,
+            eager=expert_store is not None or self._mesh is not None,
             carried=lambda: engine()._carried())
 
         self.counters = {"submitted": 0, "admitted": 0, "done": 0,
@@ -221,10 +231,13 @@ class Engine:
         # per decode step: the expert store's miss-decode seconds (0.0 on
         # a step that hit every expert, and without a store) and the bytes
         # the run's codec moved host to device, and the compressed bytes it
-        # gathered between the ranks of a serving mesh (d2d_allgather)
+        # gathered between the ranks of a serving mesh (d2d_allgather), and
+        # the dense bytes its decode attention gathered over the sequence
+        # axes of a sharded ring (d2d_allgather's dense bytes)
         self.step_decode_s: List[float] = []
         self.step_h2d_bytes: List[int] = []
         self.step_gather_bytes: List[int] = []
+        self.step_kv_bytes: List[int] = []
         self.prefill_launches = dict.fromkeys(build.counts(), 0)
         self._draining = False
         if not self.health.ready():
@@ -245,7 +258,15 @@ class Engine:
         if self._state is None:
             self._state = self.model.init_step_state(
                 self.config.max_slots, self.config.max_len,
-                device=self.device)
+                device=self.device, mesh=self._mesh)
+
+    def ring_bytes(self) -> int:
+        """Bytes of this rank's K/V rings (0 before the first request)."""
+        if self._state is None:
+            return 0
+        return sum(t.numel() * t.element_size()
+                   for e in self._state["entries"] for k, t in e.items()
+                   if k in ("k", "v"))
 
     def _step_body(self, bucket: int) -> None:
         self.model.decode_step(self.params, self._state, bucket)
@@ -262,8 +283,8 @@ class Engine:
         return (self.codec.transfer_stats()["h2d_bytes"]
                 if self.codec is not None else 0)
 
-    def _gather_bytes(self) -> int:
-        return (self.codec.link_stats()["d2d_allgather"]["compressed_bytes"]
+    def _gather_bytes(self, kind: str = "compressed_bytes") -> int:
+        return (self.codec.link_stats()["d2d_allgather"][kind]
                 if self.codec is not None else 0)
 
     def _load(self) -> None:
@@ -429,10 +450,11 @@ class Engine:
                                                  torch.int64)[None, :]
         with self._ctx():
             logits, cache = self.model.prefill_fn(
-                self.params, {"tokens": prompt}, self.config.max_len)
-            # every tensor of every entry, the K/V ring's whole row and
-            # each recurrent state: a reused slot keeps nothing of its
-            # last request
+                self.params, {"tokens": prompt}, self.config.max_len,
+                mesh=self._mesh)
+            # every tensor of every entry, the K/V ring's whole row (the
+            # rank's positions of it on a serving mesh) and each recurrent
+            # state: a reused slot keeps nothing of its last request
             for ring, part in zip(self._state["entries"], cache["entries"]):
                 for k, t in part.items():
                     ring[k][:, slot].copy_(t[:, 0])
@@ -456,6 +478,7 @@ class Engine:
         dec0 = (self.expert_store.decode_seconds()
                 if self.expert_store is not None else 0.0)
         h2d0, gather0 = self._h2d_bytes(), self._gather_bytes()
+        kv0 = self._gather_bytes("dense_bytes")
         t0 = self.clock()
         with self._ctx():
             # a transient runtime error rides the same retry policy as
@@ -490,6 +513,7 @@ class Engine:
             if self.expert_store is not None else 0.0)
         self.step_h2d_bytes.append(self._h2d_bytes() - h2d0)
         self.step_gather_bytes.append(self._gather_bytes() - gather0)
+        self.step_kv_bytes.append(self._gather_bytes("dense_bytes") - kv0)
         if self.governor.observe_step(dt):
             for req in self.queue.shed_lowest_priority(
                     self.config.shed_per_trip, reason="overload"):

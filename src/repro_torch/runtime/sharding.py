@@ -17,12 +17,27 @@ when a dim does not divide by the mesh axis (replicate).
 The reference's ``to_named`` (specs to ``NamedSharding``) has no
 counterpart: a rank holds its own slice of a tensor, cut by
 :func:`local_shard`.
+
+**The K/V ring's sequence** (:func:`kv_layout`) goes where
+:func:`cache_pspecs` puts it, under one rule of the port's own: a rank's
+slice must be a whole number of ``DECODE_CHUNK`` (1024) positions, that
+is ``S % (A x DECODE_CHUNK) == 0`` for the product ``A`` of the sequence
+axes; otherwise the ring is replicated, as :func:`_maybe` replicates a dim
+that does not divide.  The decode attention's sums run chunk by chunk in
+order (``models/layers.py:rank_decode_attention``), and a chunk cut
+between two ranks could not give one device's bits.
+:func:`port_cache_pspecs` is :func:`cache_pspecs` under that rule, with
+the recurrent states and the encoder memory whole (on the batch only).
 """
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import torch
 
 from repro_torch.core.api import CompressedTensor
+from repro_torch.launch.mesh import gather_whole
 from repro_torch.runtime.weights import (DenseWeight, is_handle,
                                          tree_map_with_path)
 
@@ -212,28 +227,147 @@ def batch_pspecs(specs: dict, mesh, global_batch: int) -> dict:
     return out
 
 
+def _seq_axes_wanted(ba):
+    """The axes the reference puts a K/V sequence on: "model" beside a
+    sharded batch, else ("pod", "model") (the long-context path)."""
+    return "model" if ba is not None else ("pod", "model")
+
+
+def _cache_spec(name: str, shape: tuple, mesh, ba) -> tuple:
+    if name == "lengths":
+        return (ba,)
+    if name in ("k", "v", "mem_k", "mem_v"):
+        # (periods, B, S, KV, hd)
+        seq_axes = _maybe(shape[2], mesh, _seq_axes_wanted(ba))
+        return (None, ba, seq_axes, None, None)
+    if name in ("h", "conv"):        # mamba state / conv window
+        ch = _maybe(shape[-1], mesh, "model")
+        return (None, ba, *((None,) * (len(shape) - 3)), ch)
+    if name in ("c", "n", "m"):      # mlstm / slstm states
+        return (None, ba, *((None,) * (len(shape) - 2)))
+    return replicated(len(shape))
+
+
 def cache_pspecs(cache, mesh, b: int):
     """KV caches: batch on data(+pod) when divisible, else the sequence dim
     on ("pod","model") (the long-context path).  SSM states: batch, else
     channel on model."""
     ba = batch_axis(mesh, b)
+    return tree_map_with_path(
+        lambda path, leaf: _cache_spec(path.rsplit("/", 1)[-1],
+                                       tuple(leaf.shape), mesh, ba), cache)
+
+
+# ---------------------------------------------------------------------------
+# the K/V ring's sequence on a serving mesh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class KVLayout:
+    """How one rank of ``mesh`` holds the sequence of a K/V ring of
+    ``length`` positions: its block of ``length / count`` positions from
+    ``offset`` when ``axes`` (major to minor) is not empty, else the whole
+    ring, ``why`` saying why."""
+    mesh: object
+    axes: tuple
+    length: int
+    why: str = ""
+
+    @property
+    def sharded(self) -> bool:
+        return bool(self.axes)
+
+    @property
+    def count(self) -> int:
+        return math.prod(self.mesh.shape[a] for a in self.axes)
+
+    @property
+    def index(self) -> int:
+        """This rank's block, major to minor (as :func:`local_shard`)."""
+        index = 0
+        for a in self.axes:
+            index = index * self.mesh.shape[a] + self.mesh.coords.get(a, 0)
+        return index
+
+    @property
+    def local_length(self) -> int:
+        return self.length // self.count
+
+    @property
+    def offset(self) -> int:
+        return self.index * self.local_length
+
+    def spec(self):
+        """The sequence dim's entry of a spec (None: replicated)."""
+        if not self.axes:
+            return None
+        return self.axes if len(self.axes) > 1 else self.axes[0]
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` along ``dim`` in position order, over the
+        sequence axes (``launch/mesh.py:gather_whole``: one broadcast an
+        owner, counted as dense bytes on ``d2d_allgather``)."""
+        spec = [None] * t.ndim
+        spec[dim] = self.spec()
+        return gather_whole([t], [tuple(spec)], self.mesh)[0]
+
+    def describe(self) -> str:
+        if not self.sharded:
+            return f"whole ({self.length} positions on every rank: " \
+                   f"{self.why})"
+        return (f"sequence-sharded over {'x'.join(self.axes)} "
+                f"({self.count} ranks x {self.local_length} positions; "
+                f"this rank from {self.offset})")
+
+
+def kv_layout(mesh, length: int, batch=None, pin: bool = False) -> KVLayout:
+    """The K/V ring's sequence layout on ``mesh``: the axes
+    :func:`cache_pspecs` gives it (beside a batch of ``batch`` rows sharded
+    by its rule; ``None``: every rank holds every row, as the serving
+    engine does), kept only where a rank's slice is a whole number of
+    ``DECODE_CHUNK`` positions, ``length % (A x DECODE_CHUNK) == 0``;
+    otherwise the ring is whole on every rank.  ``pin``
+    (``cfg.decode_score_shard``, the reference's flash-decoding pin) on a
+    ring that rule keeps whole raises: there are no sharded scores to
+    pin.  A mesh with no sequence axis of more than one rank holds the
+    ring whole, and the pin has nothing to act on there, as on one
+    device."""
+    from repro_torch.models.layers import DECODE_CHUNK
+    ba = None if batch is None else batch_axis(mesh, batch)
+    wanted = _seq_axes_wanted(ba)
+    name = _present(mesh, wanted)
+    A = _axis_size(mesh, name)
+    if A <= 1:
+        return KVLayout(mesh, (), length, f"no sequence axis {wanted} of "
+                        f"more than one rank")
+    if length % (A * DECODE_CHUNK):
+        why = (f"{length} positions % ({A} ranks x DECODE_CHUNK "
+               f"{DECODE_CHUNK}) != 0: a rank's slice must be whole "
+               f"{DECODE_CHUNK}-position chunks")
+        if pin:
+            raise ValueError(f"decode_score_shard pins the decode scores "
+                             f"sequence-sharded, but this K/V ring cannot "
+                             f"be sharded: {why}")
+        return KVLayout(mesh, (), length, why)
+    return KVLayout(mesh, name if isinstance(name, tuple) else (name,),
+                    length)
+
+
+def port_cache_pspecs(cache, mesh, b: int, layout: KVLayout):
+    """:func:`cache_pspecs` under the port's rules: the K/V rings'
+    sequence as ``layout`` holds it; the recurrent states and the encoder
+    memory sharded on the batch only (whole channels and positions)."""
+    ba = batch_axis(mesh, b)
 
     def spec_for(path, leaf) -> tuple:
         name = path.rsplit("/", 1)[-1]
-        shape = tuple(leaf.shape)
-        if name == "lengths":
-            return (ba,)
-        if name in ("k", "v", "mem_k", "mem_v"):
-            # (periods, B, S, KV, hd)
-            seq_axes = _maybe(shape[2], mesh, "model") if ba is not None \
-                else _maybe(shape[2], mesh, ("pod", "model"))
-            return (None, ba, seq_axes, None, None)
-        if name in ("h", "conv"):        # mamba state / conv window
-            ch = _maybe(shape[-1], mesh, "model")
-            return (None, ba, *((None,) * (len(shape) - 3)), ch)
-        if name in ("c", "n", "m"):      # mlstm / slstm states
-            return (None, ba, *((None,) * (len(shape) - 2)))
-        return replicated(len(shape))
+        spec = _cache_spec(name, tuple(leaf.shape), mesh, ba)
+        if len(spec) < 2:
+            return spec
+        rest = [None] * (len(spec) - 2)
+        if name in ("k", "v"):
+            rest[0] = layout.spec()
+        return (spec[0], spec[1], *rest)
 
     return tree_map_with_path(spec_for, cache)
 
@@ -291,4 +425,5 @@ def local_shard(t: torch.Tensor, spec, mesh) -> torch.Tensor:
 
 __all__ = ["batch_axis", "param_pspec", "param_pspecs", "ct_pspecs",
            "handle_pspecs", "batch_pspecs", "cache_pspecs", "logits_pspec",
+           "KVLayout", "kv_layout", "port_cache_pspecs",
            "local_shard", "spec_leaves", "shard_dim", "ct_stacked"]

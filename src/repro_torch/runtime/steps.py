@@ -25,6 +25,12 @@ step runs, on every rank:
 
 The loss metric is the rank-ordered mean over "data" of the ranks' local
 losses.  With D = 1 every rank computes exactly what one device computes.
+
+On a serving mesh (``build_prefill_step`` / ``build_decode_step(...,
+mesh=)``) a rank runs its rows of the batch under the ambient serving mesh
+(its stream shards gathered at use) over its share of the K/V rings
+(``sharding.kv_layout``; the decode attention's gathers over the sequence
+axes), as the dry-run's serving cells run rank 0.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ from repro_torch.launch.mesh import gather_whole
 from repro_torch.optim import adamw
 from repro_torch.optim.grad_compress import rank_ordered_sum
 from repro_torch.runtime import elastic, sharding
+from repro_torch.runtime.collectives import use_serving_mesh
 
 DATA_AXIS = "data"
 
@@ -145,13 +152,48 @@ def _mesh_train_step(model, opt_cfg, mesh) -> Callable:
     return train_step
 
 
-def build_prefill_step(model, max_len: int) -> Callable:
-    def prefill_step(params, batch):
-        return model.prefill_fn(params, batch, max_len)
-    return prefill_step
+def build_prefill_step(model, max_len: int, mesh=None) -> Callable:
+    """(params, batch) -> (logits, cache).  On a serving ``mesh``
+    (``launch/mesh.py``; ``params`` as ``runtime/collectives.py`` places
+    them) the step runs under it as the ambient serving mesh on this
+    rank's rows of the global ``batch`` (``sharding.batch_pspecs``) and
+    keeps this rank's share of the K/V rings
+    (``sharding.kv_layout(mesh, max_len, batch=rows)``, the layout of
+    ``cache_pspecs``): its logits and cache are the rank's."""
+    if mesh is None:
+        def prefill_step(params, batch):
+            return model.prefill_fn(params, batch, max_len)
+        return prefill_step
+
+    def mesh_prefill_step(params, batch):
+        rows = batch["tokens"].shape[0]
+        bspecs = sharding.batch_pspecs(batch, mesh, rows)
+        local = {k: sharding.local_shard(v, bspecs[k], mesh)
+                 for k, v in batch.items()}
+        layout = sharding.kv_layout(mesh, max_len, batch=rows,
+                                    pin=model.cfg.decode_score_shard)
+        with use_serving_mesh(mesh):
+            return model.prefill_fn(params, local, max_len, layout=layout)
+
+    return mesh_prefill_step
 
 
-def build_decode_step(model) -> Callable:
-    def decode_step(params, cache, tokens):
-        return model.decode_fn(params, cache, tokens)
-    return decode_step
+def build_decode_step(model, mesh=None) -> Callable:
+    """(params, cache, tokens) -> (logits, cache).  On a serving ``mesh``
+    ``cache`` is this rank's (its rows and its share of the K/V rings:
+    the mesh prefill step's, or ``model.init_cache`` under
+    ``sharding.kv_layout(mesh, max_len, batch=B)``) and ``tokens`` the
+    global (B,) batch, of which the step decodes this rank's rows under
+    the ambient serving mesh."""
+    if mesh is None:
+        def decode_step(params, cache, tokens):
+            return model.decode_fn(params, cache, tokens)
+        return decode_step
+
+    def mesh_decode_step(params, cache, tokens):
+        spec = (sharding.batch_axis(mesh, tokens.shape[0]),)
+        with use_serving_mesh(mesh):
+            return model.decode_fn(params, cache, sharding.local_shard(
+                tokens, spec, mesh))
+
+    return mesh_decode_step

@@ -343,10 +343,12 @@ def test_full_width_llama_decode_step(mode, want):
 
 
 def test_skips_carry_the_references_reasons(tmp_path):
-    """The 8 cells the reference skips, with its reasons; a variant the
-    port cannot express skipped with its own; ``remat_dots`` run (a train
-    cell of llama smoke on a 2x2 mesh), its peak at least the baseline's
-    (``dots`` keeps product outputs beside each period's input)."""
+    """The 8 cells the reference skips, with its reasons; ``flash_decode``
+    run (a decode cell of llama smoke with a 2048-position cache on a 2x2
+    mesh: the ring sequence-sharded, the flash-decoding gathers
+    recorded); ``remat_dots`` run (a train cell of llama smoke on a 2x2
+    mesh), its peak at least the baseline's (``dots`` keeps product
+    outputs beside each period's input)."""
     skipped = {}
     for arch, shape in CELLS:
         ok, reason = ref_applicable(ref_config(arch), shape)
@@ -357,11 +359,15 @@ def test_skips_carry_the_references_reasons(tmp_path):
         rec = dryrun.run_cell(arch, shape, tmp_path, ["single"])
         assert (rec["status"], rec["reason"]) == ("skipped", reason)
     rec = dryrun.run_cell("llama3_2_1b", "decode_32k", tmp_path, ["single"],
-                          variant="flash_decode")
-    assert rec["status"] == "skipped" and "decode attention" in \
-        rec["reason"]
+                          variant="flash_decode", mesh_shape=(2, 2),
+                          cfg=get_smoke_config("llama3_2_1b"),
+                          shape=ShapeSpec("decode_32k", 2048, 2, "decode"))
+    assert rec["status"] == "ok", rec
+    full = rec["single"]["full"]
+    assert "flash-decoding" in full["program"]
+    assert full["collectives"]["broadcast"]["count"] > 0
     assert sorted(p.name for p in tmp_path.iterdir())[0] \
-        == "llama3_2_1b__decode_32k__flash_decode.json"
+        == "llama3_2_1b__decode_32k__flash_decode__mesh2x2.json"
     peaks = {}
     for variant in ("baseline", "remat_dots"):
         rec = dryrun.run_cell("llama3_2_1b", "train_4k", tmp_path,

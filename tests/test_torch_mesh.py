@@ -19,6 +19,12 @@ assert on what the ranks sent back:
   * a mesh restore of a stream checkpoint written by each package
     (``--shards 4``): logits bitwise, each rank's h2d bytes of the placed
     records summing over the ranks to the single-device restore's;
+  * the K/V ring sequence-sharded: ``serve --tp 2`` (fused) with a
+    2048-position ring and a prompt of 2044 that crosses the ranks'
+    boundary at 1024, in both decode-attention routes (the scores
+    gathered; the config's ``decode_score_shard``): each rank holding its
+    half of one device's ring, logits bitwise one device's, greedy
+    tokens the reference's, the flash route gathering fewer bytes;
   * no-op gathers of raw, const, unsharded and indivisible tensors, and
     the refusals (``--tp`` beyond the world, an expert store on a mesh).
 
@@ -29,6 +35,7 @@ shards, as in the reference at this size.  The reference's own sharded
 serve is not run: it fails on this JAX (ROADMAP, Queue 3).
 """
 import contextlib
+import dataclasses
 import functools
 import io
 import os
@@ -51,6 +58,11 @@ SERVE = ["--smoke", "--device", "cpu", "--batch", "2", "--prompt-len", "12",
 RUNS = [("dense", "off"), ("stream", "off"), ("stream", "on"),
         ("fused", "off"), ("fused", "on")]
 TPS = (4, 2)
+# the sequence-sharded ring: max_len 2048 = 2 ranks x 1024 positions
+SP_SERVE = ["--smoke", "--device", "cpu", "--batch", "1", "--prompt-len",
+            "2044", "--tokens", "4", "--min-bytes", "1024", "--mode",
+            "fused"]
+SP_ROUTES = ("scores", "flash")
 DTYPES = ("bfloat16", "float16", "float32")
 CKPTS = ("port", "reference")
 
@@ -83,8 +95,25 @@ def _serve(argv):
 
 def _keep(out) -> dict:
     keys = ("logits", "tokens", "links", "step_gather_bytes",
-            "gather_nbytes", "overlap", "mode_mix", "mesh", "restore")
+            "gather_nbytes", "overlap", "mode_mix", "mesh", "restore",
+            "ring_bytes", "kv_layout", "step_kv_bytes")
     return {k: out[k] for k in keys}
+
+
+def _serve_route(argv, route: str):
+    """:func:`_serve` with the smoke config's ``decode_score_shard`` set
+    for the flash route (serve has no flag for it: the config selects
+    it, as in the reference)."""
+    from repro_torch.launch import serve
+    if route == "scores":
+        return _serve(argv)
+    config = serve.get_smoke_config
+    serve.get_smoke_config = lambda arch: dataclasses.replace(
+        config(arch), decode_score_shard=True)
+    try:
+        return _serve(argv)
+    finally:
+        serve.get_smoke_config = config
 
 
 # ---------------------------------------------------------------------------
@@ -203,12 +232,15 @@ def _worker(out_dir: Path) -> None:
            "mesh22": (mesh22.shape, mesh22.coords,
                       mesh22.axis_ranks("model"), mesh22.axis_ranks("data")),
            "codec": _codec_scenarios(mesh4), "place": _place_scenario(mesh4),
-           "serve": {}, "restore": {}}
+           "serve": {}, "restore": {}, "sp": {}}
     for tp in TPS:
         for mode, overlap in RUNS:
             res["serve"][tp, mode, overlap] = _keep(_serve(
                 SERVE + ["--tp", str(tp), "--mode", mode,
                          "--overlap", overlap]))
+    for route in SP_ROUTES:
+        res["sp"][route] = _keep(_serve_route(SP_SERVE + ["--tp", "2"],
+                                              route))
     deadline = time.monotonic() + TIME_LIMIT_S
     while not (out_dir / "ckpts_ready").exists():
         if time.monotonic() > deadline:
@@ -275,13 +307,14 @@ def _join_world(procs, out_dir: Path) -> list:
             for r in range(WORLD)]
 
 
-def _port_prompts(vocab: int) -> torch.Tensor:
+def _port_prompts(vocab: int, batch: int = 2, length: int = 12
+                  ) -> torch.Tensor:
     """The prompts ``serve.main`` draws."""
-    return torch.randint(0, vocab, (2, 12),
+    return torch.randint(0, vocab, (batch, length),
                          generator=torch.Generator().manual_seed(1))
 
 
-def _reference_tokens(jparams, prompts) -> np.ndarray:
+def _reference_tokens(jparams, prompts, max_len: int = 16) -> np.ndarray:
     """The reference's greedy tokens on one device: its prefill and three
     decode steps, dense, on the same weights and prompts (batch, 4)."""
     import jax
@@ -290,7 +323,8 @@ def _reference_tokens(jparams, prompts) -> np.ndarray:
     from repro.models import build_model as jax_build_model
     model = jax_build_model(jax_smoke_config("llama3_2_1b"))
     logits, cache = model.prefill_fn(
-        jparams, {"tokens": jnp.asarray(prompts.numpy(), jnp.int32)}, 16)
+        jparams, {"tokens": jnp.asarray(prompts.numpy(), jnp.int32)},
+        max_len)
     tok = jnp.argmax(logits, -1).astype(jnp.int32)
     toks = [np.asarray(tok)]
     for _ in range(3):
@@ -360,10 +394,13 @@ def _single_device_side(out_dir: Path) -> tuple:
         single["restore", name] = _keep(_serve(
             SERVE + ["--mode", "stream", "--shards", "4",
                      "--ckpt", str(out_dir / name)]))
+    single["sp"] = _keep(_serve(SP_SERVE + ["--shards", "2"]))
     prompts = _port_prompts(cfg.vocab_size)
-    refs = {"port": _reference_tokens(
-        _to_jax(build_model(cfg).init(device="cpu")), prompts),
-        "reference": _reference_tokens(jparams, prompts)}
+    port = _to_jax(build_model(cfg).init(device="cpu"))
+    refs = {"port": _reference_tokens(port, prompts),
+            "reference": _reference_tokens(jparams, prompts),
+            "sp": _reference_tokens(port, _port_prompts(
+                cfg.vocab_size, 1, 2044), 2048)}
     return single, refs
 
 
@@ -525,6 +562,43 @@ def test_mesh_restore_bitwise_with_own_uploads(world, name):
         h2d = r["restore"][name]["restore"]["record_h2d"]
         assert abs(sum(h2d[rec] for rec in placed) * WORLD - total) \
             <= 0.02 * total
+
+
+@pytest.mark.parametrize("route", SP_ROUTES)
+def test_sequence_sharded_ring_bitwise_to_one_device(world, route):
+    """``serve --tp 2`` on the (2, 2) mesh over a 2048-position ring: each
+    rank holds its model coordinate's 1024 positions, half of one
+    device's ring; its logits are one device's bit for bit and its greedy
+    tokens the reference's, the prompt and the decoded positions crossing
+    the ranks' boundary at 1024; every step's decode attention gathered
+    dense bytes over the model axis."""
+    ranks, single, refs = world
+    want = single["sp"]
+    assert want["kv_layout"] is None and want["ring_bytes"] > 0
+    for r in ranks:
+        got = r["sp"][route]
+        assert got["mesh"] == {"data": 2, "model": 2}
+        assert got["kv_layout"] == {
+            "sharded": True, "axes": ["model"], "positions": 1024,
+            "offset": 1024 * (r["rank"] % 2), "why": ""}
+        assert 2 * got["ring_bytes"] == want["ring_bytes"]
+        assert torch.equal(_bits(got["logits"]), _bits(want["logits"]))
+        np.testing.assert_array_equal(got["tokens"].numpy(), refs["sp"])
+        assert len(got["step_kv_bytes"]) == 3
+        assert all(b > 0 for b in got["step_kv_bytes"])
+        assert got["links"]["d2d_allgather"]["dense_bytes"] \
+            == sum(got["step_kv_bytes"])
+
+
+def test_flash_route_gathers_fewer_bytes(world):
+    """A step of the flash route (maxima, denominator and P.V partials)
+    gathers fewer bytes than the scores route (the scores and the P.V
+    partials), the same on every step and rank."""
+    ranks, _, _ = world
+    steps = {route: {b for r in ranks for b in r["sp"][route][
+        "step_kv_bytes"]} for route in SP_ROUTES}
+    assert all(len(v) == 1 for v in steps.values())
+    assert max(steps["flash"]) < max(steps["scores"])
 
 
 def test_expert_store_refuses_a_mesh(world):
