@@ -308,12 +308,13 @@ FLAT = {"llama3_2_1b": 1, "minitron_4b": 2}
 ARCH_LAYERS = {"llama3_2_1b": N_LAYERS, "minitron_4b": MINITRON_LAYERS}
 
 
-def run_step_launches(arch: str, mode: str, out: dict) -> dict:
-    """One decode step's launches of a ``serve.main`` run, its stream
-    mode's prefetch read from the run's schedule (``out["overlap"]``)."""
+def run_step_launches(arch: str, mode: str, out: dict, layers=None) -> dict:
+    """One decode step's launches of a ``serve.main`` run (of ``layers``
+    layers; default the arch's served depth), its stream mode's prefetch
+    read from the run's schedule (``out["overlap"]``)."""
     bpl = (out["overlap"]["buckets_per_layer"] if out["overlap"]["enabled"]
            else None)
-    return step_launches(ARCH_LAYERS[arch], FLAT[arch], bpl)[mode]
+    return step_launches(layers or ARCH_LAYERS[arch], FLAT[arch], bpl)[mode]
 
 # phase scan: the shapes of tests/test_kernels.py::test_idd_scan_matches_
 # cumsum, the llama embed's blocks x groups (16032 blocks of 1024 groups of
@@ -1993,8 +1994,10 @@ def _capture_guards() -> dict:
     """Host state a replay would not renew is refused inside a capture:
     kernel 3 (its look-back epoch is a host argument) and kernel 2's
     arrival counters on a stream that has none yet."""
+    import importlib
     import torch
     from repro_torch.kernels import ops
+    dm = importlib.import_module("repro_torch.kernels.decompress_matmul")
     out = {}
     x = torch.randint(0, 9, (4, 1024), dtype=torch.int32, device="cuda")
     a = torch.randn((4, 256), device="cuda").bfloat16()
@@ -2002,11 +2005,23 @@ def _capture_guards() -> dict:
     ops.idd_scan(x)
     ops.tiled_matmul(a, w)
     torch.cuda.synchronize()
+
+    def new_stream():
+        # PyTorch hands out streams from a pool of 32 a priority, round
+        # robin: after the earlier phases' captures a "new" one may be a
+        # stream kernel 2 has run on, whose counters exist
+        for priority in (0, -1):
+            for _ in range(64):
+                stream = torch.cuda.Stream(priority=priority)
+                if all(k[1] != stream.cuda_stream for k in dm._COUNTERS):
+                    return stream
+        fail("engine: every pooled CUDA stream has kernel 2's counters")
+
     for name, fn in (("idd_scan", lambda: ops.idd_scan(x)),
                      ("matmul_counters", lambda: ops.tiled_matmul(a, w))):
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+            with torch.cuda.graph(graph, stream=new_stream()):
                 fn()
         except RuntimeError as e:
             check("capture" in str(e), f"{name}: refused with {e}")
@@ -4629,13 +4644,30 @@ PROMPT_SP, SP_TOKENS = 2040, 8
 SP_ARGS = ["--mode", "fused", "--batch", "2", "--prompt-len",
            str(PROMPT_SP), "--tokens", str(SP_TOKENS)]
 SP_ROUTES = {"sp_scores": False, "sp_flash": True}   # decode_score_shard
+# expert-parallel MoE serving (the runs labelled ep_*): phi3_5_moe at its
+# published widths (D 4096, F 6400, 16 experts, top-2), depth cut 32 -> 2
+# in the mesh worker as phase moe cuts it (the config's n_layers): the A
+# ranks share one card, and each builds the whole tree before it keeps
+# its share
+EP_LAYERS = 2
+EP_ARGS = ["--arch", MOE_ARCH]
 # each torch.distributed.run: its ranks' serve.main runs, by label
 MESH_RUNS = {2: {"stream_on": ["--mode", "stream", "--overlap", "on"],
                  "stream_off": ["--mode", "stream", "--overlap", "off"],
                  "fused": ["--mode", "fused"],
                  "restore": ["--mode", "stream", "--ckpt", "{ckpt}"],
-                 **{label: SP_ARGS for label in SP_ROUTES}},
-             4: {"stream_on": ["--mode", "stream", "--overlap", "on"]}}
+                 **{label: SP_ARGS for label in SP_ROUTES},
+                 "ep_dense": EP_ARGS + ["--mode", "dense"],
+                 "ep_stream": EP_ARGS + ["--mode", "stream"],
+                 "ep_fused": EP_ARGS + ["--mode", "fused"]},
+             4: {"stream_on": ["--mode", "stream", "--overlap", "on"],
+                 # a (data 2, model 2) mesh: experts on model, each
+                 # matrix's output columns on data
+                 "ep_dense_2x2": EP_ARGS + ["--mode", "dense", "--tp", "2"]}}
+# the A = 4 world's llama run, and its single-device side, cut to 4 of
+# llama's 16 layers for the script's time limit (every stream of a layer
+# still shards 4 ways; the checks read the depth)
+MESH_DEPTH = {(4, "stream_on"): 4}
 MESH_LEAF = (8192, 2048)          # llama's w_down: shard_local_decode
 MESH_TIME_LIMIT_S = 420
 
@@ -4680,15 +4712,17 @@ def _mesh_leaf_checks(mesh) -> dict:
             "stream_nbytes": col.stream_nbytes(ct)}
 
 
-def _serve_route(argv, score_shard: bool) -> dict:
+def _serve_route(argv, score_shard: bool, layers=None) -> dict:
     """``serve.main(argv)`` with the config's ``decode_score_shard`` set as
     given (serve has no flag for it: the config selects the decode
-    attention's route, as in the reference)."""
+    attention's route, as in the reference) and, given ``layers``, its
+    depth cut to that many layers."""
     import dataclasses
     from repro_torch.launch import serve
     config = serve.get_config
+    cut = {} if layers is None else {"n_layers": layers}
     serve.get_config = lambda arch: dataclasses.replace(
-        config(arch), decode_score_shard=score_shard)
+        config(arch), decode_score_shard=score_shard, **cut)
     try:
         return serve.main(argv)
     finally:
@@ -4719,8 +4753,11 @@ def mesh_worker(spec_path: str) -> None:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         serve.reset_launch_counts()
-        out = _serve_route(MESH_ARGS + args + ["--tp", str(A)],
-                           SP_ROUTES.get(label, False))
+        tp = [] if "--tp" in args else ["--tp", str(A)]
+        out = _serve_route(MESH_ARGS + args + tp,
+                           SP_ROUTES.get(label, False),
+                           EP_LAYERS if label.startswith("ep_")
+                           else MESH_DEPTH.get((A, label)))
         res["runs"][label] = {
             "logits": out["logits"].cpu(), "tokens": out["tokens"],
             "path_launches": serve.launch_counts(),
@@ -4728,7 +4765,8 @@ def mesh_worker(spec_path: str) -> None:
                 "step_launches", "step_gather_bytes", "gather_nbytes",
                 "links", "mesh", "overlap", "tpot_s", "ttft_s", "step_s",
                 "resident_bytes", "restore", "mode_mix", "ring_bytes",
-                "kv_layout", "step_kv_bytes")},
+                "kv_layout", "step_kv_bytes", "step_ep_bytes",
+                "expert_placement")},
             "peak_bytes": torch.cuda.max_memory_allocated()}
         del out
     torch.save(res, out_dir / f"{spec['tag']}_rank{rank}.pt")
@@ -4788,7 +4826,15 @@ def phase_mesh():
     a restore of a stream checkpoint saved with ``--shards 2``, and fused
     mode over a sequence-sharded K/V ring in both decode-attention routes
     (``SP_ARGS``, :func:`_check_mesh_sp`); A = 4: stream mode (its
-    single-device side ``--shards 4``, run here).
+    single-device side ``--shards 4``, run here; both cut to
+    ``MESH_DEPTH`` layers).  Expert-parallel MoE
+    serving (``ep_*``, :func:`_check_mesh_ep`): phi3_5_moe at its
+    published widths cut to ``EP_LAYERS`` layers, dense / stream / fused
+    at A = 2 and dense on the (data 2, model 2) mesh of the A = 4 world,
+    each rank holding only its own experts (and in dense mode its output
+    columns), against single-device runs of the same depth, modes and
+    shards made here; kernel 2' on column halves of the expert products
+    bitwise the whole product's (:func:`_ep_column_checks`).
     Checks: every rank's logits bitwise equal to phase serve's
     single-device run of the same mode and shards (its first
     ``MESH_BATCH`` requests and ``MESH_TOKENS`` tokens; the A = 4 run and
@@ -4817,17 +4863,28 @@ def phase_mesh():
                           str(tmp / "ckpt")]),
                 ("restore", ["--mode", "stream", "--ckpt",
                              str(tmp / "ckpt")]),
-                ("sp", SP_ARGS + ["--shards", "2"])):
+                ("sp", SP_ARGS + ["--shards", "2"]),
+                # the expert-parallel runs' yardsticks: one device at the
+                # same depth, modes and shards
+                ("ep_dense", EP_ARGS + ["--mode", "dense"]),
+                ("ep_stream", EP_ARGS + ["--mode", "stream", "--shards",
+                                         "2"]),
+                ("ep_fused", EP_ARGS + ["--mode", "fused", "--shards",
+                                        "2"])):
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            out = serve.main(MESH_ARGS + args)
+            depth = (EP_LAYERS if label.startswith("ep_") else
+                     MESH_DEPTH[4, "stream_on"] if label == "stream_shards4"
+                     else None)
+            out = _serve_route(MESH_ARGS + args, False, depth)
             singles[label] = {
                 "logits": out["logits"].cpu(), "restore": out["restore"],
                 "step_launches": out["step_launches"][0],
-                "tpot_s": out["tpot_s"], "resident_bytes":
-                    out["resident_bytes"], "ring_bytes": out["ring_bytes"],
-                "overlap": out["overlap"],
+                "tpot_s": out["tpot_s"], "ttft_s": out["ttft_s"],
+                "resident_bytes": out["resident_bytes"],
+                "ring_bytes": out["ring_bytes"], "overlap": out["overlap"],
+                "experts": out["expert_placement"],
                 "peak_bytes": torch.cuda.max_memory_allocated()}
             del out
         torch.cuda.empty_cache()
@@ -4841,6 +4898,7 @@ def phase_mesh():
                 SERVE_REFS["stream"]["logits"].view(torch.int32)),
                 f"mesh: the single-device {label} run differs from phase "
                 f"serve's stream run")
+        res["ep_columns"] = _ep_column_checks(card)
         for A in MESH_WIDTHS:
             runs = {k: [a.replace("{ckpt}", str(tmp / "ckpt")) for a in v]
                     for k, v in MESH_RUNS[A].items()}
@@ -4882,6 +4940,10 @@ def _check_mesh_world(A, ranks, want, singles, secs, card) -> dict:
             out["runs"][label] = _check_mesh_sp(A, label, ranks,
                                                 singles["sp"], card)
             continue
+        if label.startswith("ep_"):
+            out["runs"][label] = _check_mesh_ep(A, label, ranks, singles,
+                                                card)
+            continue
         mode = "restore" if label == "restore" else label.split("_")[0]
         ref = want[mode, A]
         per_rank = []
@@ -4907,7 +4969,8 @@ def _check_mesh_world(A, ranks, want, singles, secs, card) -> dict:
             # the step's launches as read from the code (its prefetch
             # schedule), and, on the same schedule, one device's step
             code = run_step_launches("llama3_2_1b", mode if mode != "restore"
-                                     else "stream", run)
+                                     else "stream", run,
+                                     MESH_DEPTH.get((A, label)))
             same = label != "stream_off"
             for st in run["step_launches"]:
                 for k in ("enec_decode", "decompress_matmul",
@@ -5006,6 +5069,141 @@ def _check_mesh_sp(A, label, ranks, single, card) -> dict:
         f"device's {single['peak_bytes'] / 1e9:.2f} ({card})")
     return {"ranks": per_rank,
             "step_launches": ranks[0]["runs"][label]["step_launches"][0]}
+
+
+def _ep_column_checks(card) -> dict:
+    """Kernel 2' on a rank's output columns of phi3.5's expert products
+    (``e_gate`` (4096, 6400) and ``e_down`` (6400, 4096)) at the mesh's
+    decode rows: each half, copied out and as a strided view, bitwise the
+    whole product's columns (the expert layout's premise)."""
+    import torch
+    from repro_torch.kernels.decompress_matmul import dense_matmul_cuda
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    for name, (k, n) in (("e_gate", (4096, 6400)), ("e_down", (6400, 4096))):
+        x = torch.randn((MESH_BATCH, k), generator=gen,
+                        device="cuda").bfloat16()
+        w = (torch.randn((k, n), generator=gen, device="cuda")
+             * k ** -0.5).bfloat16()
+        whole = dense_matmul_cuda(x, w)
+        equal = []
+        for lo, hi in ((0, n // 2), (n // 2, n)):
+            for part in (w[:, lo:hi].contiguous(), w[:, lo:hi]):
+                equal.append(torch.equal(
+                    dense_matmul_cuda(x, part).view(torch.int32),
+                    whole[:, lo:hi].view(torch.int32)))
+        check(all(equal), f"mesh ep: kernel 2' on {name}'s column halves "
+              f"not bitwise the whole product's columns: {equal}")
+        out[name] = {"k": k, "n": n, "m": MESH_BATCH, "bitwise": equal}
+    log(f"mesh ep: kernel 2' on each half of e_gate's and e_down's output "
+        f"columns bitwise the whole product's, copied out and strided "
+        f"(M = {MESH_BATCH}; {card})")
+    return out
+
+
+def _check_mesh_ep(A, label, ranks, singles, card) -> dict:
+    """An expert-parallel run of phi3_5_moe cut to ``EP_LAYERS`` layers:
+    every rank's logits bitwise the single-device run's of the same mode
+    and shards; no expert stack left placed to gather, so a step gathers
+    (A - 1) x the other placed streams (attention, embed, head) and no
+    expert byte; each rank holds 1/A of the expert bytes (its experts,
+    and in dense mode its output columns) and the ranks hold them all;
+    the MoE blocks' exchanged activation bytes a step the layout's
+    formula; kernel 1 and kernel 2 launches a step one device's, kernel
+    2' 3 products fewer for each expert the rank does not own."""
+    import torch
+    from types import SimpleNamespace
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import sharding
+    mode = label.split("_")[1]
+    single = singles[f"ep_{mode}"]
+    whole = single["experts"]["bytes"]
+    cfg = get_config(MOE_ARCH)
+    per_rank, held = [], []
+    for r in ranks:
+        run = r["runs"][label]
+        tag = f"mesh A={A} {label} rank {r['rank']}"
+        coords = {"model": r["rank"] % run["mesh"]["model"]}
+        layout = sharding.expert_layout(
+            SimpleNamespace(shape=run["mesh"], coords=coords),
+            cfg.n_experts, cfg.d_model, cfg.moe_d_ff, dense=mode == "dense")
+        share = layout.expert_count * layout.data_count
+        check(share == A and layout.local_experts * layout.expert_count
+              == cfg.n_experts, f"{tag}: layout {layout.describe()}")
+        check(tuple(run["logits"].shape) == (MESH_TOKENS, MESH_BATCH,
+                                             cfg.vocab_size)
+              and bool(torch.isfinite(run["logits"]).all()),
+              f"{tag}: logits {tuple(run['logits'].shape)}")
+        check(torch.equal(run["logits"].view(torch.int32),
+                          single["logits"].view(torch.int32)),
+              f"{tag}: logits not bitwise equal to one device's")
+        placement = run["expert_placement"]
+        check(placement["placed"] == 0
+              and run["step_gather_bytes"] == [(run["mesh"]["model"] - 1)
+                                               * run["gather_nbytes"]]
+              * (MESH_TOKENS - 1)
+              and run["links"]["d2d_allgather"]["dense_bytes"] == 0,
+              f"{tag}: {placement['placed']} expert stacks placed to "
+              f"gather; gathered {run['step_gather_bytes']} a step, the "
+              f"other placed streams {run['gather_nbytes']}")
+        check(placement["bytes"] * share == whole
+              and placement["layout"] == layout.describe(),
+              f"{tag}: holds {placement['bytes']} of one device's {whole} "
+              f"expert bytes, not 1/{share}, as {placement['layout']}")
+        held.append(placement["bytes"])
+        want_ep = EP_LAYERS * layout.exchange_bytes(MESH_BATCH, 1, 4)
+        check(run["step_ep_bytes"] == [want_ep] * (MESH_TOKENS - 1),
+              f"{tag}: MoE exchanges {run['step_ep_bytes']} B a step, the "
+              f"layout's formula {want_ep}")
+        fewer = 3 * EP_LAYERS * (cfg.n_experts - layout.local_experts)
+        one = single["step_launches"]
+        for st in run["step_launches"]:
+            check(st["enec_decode"] == one["enec_decode"]
+                  and st["decompress_matmul"] == one["decompress_matmul"]
+                  and st["dense_tile_matmul"] == one["dense_tile_matmul"]
+                  - fewer, f"{tag}: launches a step {st}, one device's "
+                  f"{one}, 2' fewer by {fewer} expected")
+        per_rank.append({
+            "tpot_ms": 1e3 * run["tpot_s"], "ttft_ms": 1e3 * run["ttft_s"],
+            "peak_gb": run["peak_bytes"] / 1e9,
+            "resident_gb": run["resident_bytes"] / 1e9,
+            "expert_gb": placement["bytes"] / 1e9,
+            "gather_mb_per_step": run["step_gather_bytes"][0] / 1e6,
+            "ep_mb_per_step": run["step_ep_bytes"][0] / 1e6,
+            "launches_per_step": run["step_launches"][0]})
+    placement = ranks[0]["runs"][label]["expert_placement"]
+    check(sum(held) * share == whole * len(ranks),
+          f"mesh A={A} {label}: ranks hold {held} of {whole} expert bytes")
+    would = (ranks[0]["runs"][label]["mesh"]["model"] - 1) \
+        * placement["stream_nbytes"]
+    out = {"layout": placement["layout"], "ranks": per_rank,
+           "expert_gb_whole": whole / 1e9,
+           "expert_gb_gathered_before": would / 1e9,
+           "single": {"tpot_ms": 1e3 * single["tpot_s"],
+                      "ttft_ms": 1e3 * single["ttft_s"],
+                      "peak_gb": single["peak_bytes"] / 1e9,
+                      "resident_gb": single["resident_bytes"] / 1e9,
+                      "launches_per_step": single["step_launches"]}}
+    log(f"mesh A={A} {label}: {len(ranks)} ranks bitwise equal to one "
+        f"device ({MOE_ARCH}, {EP_LAYERS} layers; rank 0: "
+        f"{placement['layout']}); experts held "
+        f"{[round(p['expert_gb'], 3) for p in per_rank]} GB a rank of "
+        f"{whole / 1e9:.3f}, none gathered (the rule before gathered "
+        f"{would / 1e9:.3f} GB a step); streams gathered "
+        f"{per_rank[0]['gather_mb_per_step']:.1f} MB a step; MoE "
+        f"activations exchanged {per_rank[0]['ep_mb_per_step']:.4f} MB a "
+        f"step; TPOT {[round(p['tpot_ms'], 1) for p in per_rank]} ms (eager, "
+        f"gloo through the host; one device captured "
+        f"{1e3 * single['tpot_s']:.2f} ms), TTFT "
+        f"{[round(p['ttft_ms'], 1) for p in per_rank]} ms (one device "
+        f"{1e3 * single['ttft_s']:.1f}), peak GB "
+        f"{[round(p['peak_gb'], 2) for p in per_rank]} / resident "
+        f"{[round(p['resident_gb'], 2) for p in per_rank]} against one "
+        f"device's {single['peak_bytes'] / 1e9:.2f} / "
+        f"{single['resident_bytes'] / 1e9:.2f}; launches a step "
+        f"{per_rank[0]['launches_per_step']} against one device's "
+        f"{single['step_launches']} ({card})")
+    return out
 
 
 def _check_mesh_restore(A, ranks, single) -> None:
@@ -6225,6 +6423,14 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--train-mesh-worker"]:
         train_mesh_worker(sys.argv[2])
     else:
+        import atexit
+        # on stderr (stdout's last line is the result): when the
+        # interpreter's exit starts, after every non-daemon thread has
+        # ended, so a slow exit shows whether threads or teardown hold it
+        atexit.register(lambda: print(
+            f"[chip_smoke] interpreter exit starts "
+            f"{time.perf_counter() - T_SCRIPT:.1f} s after the script's "
+            f"start", file=sys.stderr, flush=True))
         try:
             main()
         finally:

@@ -29,7 +29,12 @@ not run):
           gathers over the sequence axes: the scores, or under the
           ``flash_decode`` variant (``cfg.decode_score_shard``) the
           softmax's stats and per-chunk partials only
-          (``models/layers.py:rank_decode_attention``).
+          (``models/layers.py:rank_decode_attention``).  The rank holds
+          its share of the MoE expert stacks (``sharding.
+          expert_layout``; "serve_ep" for the ``ep_*`` variants, which
+          places what "serve" places in the port) and its MoE blocks
+          exchange activations (``models/moe.py``); the record's
+          ``experts`` says what it holds.
 
 What a record holds (the reference's schema, so ``launch/roofline.py``
 reads either):
@@ -104,7 +109,7 @@ from repro_torch.runtime.overlap import build_schedule, overlap_enabled
 from repro_torch.runtime.steps import (build_decode_step, build_prefill_step,
                                        build_train_step)
 from repro_torch.runtime.weights import (DenseWeight, is_handle,
-                                         tree_map_with_path)
+                                         tree_leaves, tree_map_with_path)
 
 # the paper's Table IV parameters, those of the reference's streamed
 # variant
@@ -125,16 +130,11 @@ VARIANT_TWEAKS = {
 # parameters, which the port serves as dense handles)
 VARIANT_MODE = {"streamed": "stream"}
 
-_NO_EP = ("the port's serving mesh shards only compressed streams and runs "
-          "the dense expert math whole on every rank: there is no "
-          "expert-parallel weight layout to choose")
 
 
 def variant_skip(variant: str, kind: str):
     """Why the port's program cannot express ``variant`` for a cell of
     ``kind``, or None."""
-    if variant.startswith("ep_contract") and kind != "train":
-        return _NO_EP
     if variant == "streamed" and kind == "train":
         return "the port trains dense parameters only"
     return None
@@ -266,10 +266,21 @@ def _meta_like(a: torch.Tensor, shape) -> torch.Tensor:
     return torch.empty(tuple(shape), dtype=a.dtype, device="meta")
 
 
-def place_abstract(tree, mesh, axis: str = collectives.MODEL_AXIS):
+def expert_mode_of(variant: str, kind: str) -> str:
+    """The expert layout's mode of a cell: "serve_ep" for the ``ep_*``
+    variants' serving cells, as the reference's ``lower_cell`` picks it,
+    else "serve"."""
+    if variant.startswith(("ep_contract", "ep_a2a")) and kind != "train":
+        return "serve_ep"
+    return "serve"
+
+
+def place_abstract(tree, mesh, axis: str = collectives.MODEL_AXIS,
+                   expert_mode: str = "serve"):
     """The serving tree as rank ``mesh.rank`` holds it: each sharded stream
-    cut to the rank's own shard rows (``collectives.place_serving_tree``'s
-    layout, on ``meta`` tensors)."""
+    cut to the rank's own shard rows and each MoE expert stack to the
+    rank's share (``collectives.place_serving_tree``'s layout, on ``meta``
+    tensors)."""
     A = mesh.shape.get(axis, 1)
 
     def place(ct):
@@ -280,13 +291,37 @@ def place_abstract(tree, mesh, axis: str = collectives.MODEL_AXIS):
             _meta_like(a, sharding.local_shard(a, spec, mesh).shape)
             for a, spec in zip(ct.streams, specs))))
 
-    def one(_, leaf):
+    layouts = collectives.expert_layouts(tree, mesh, expert_mode)
+
+    def one(path, leaf):
+        if path in layouts:
+            return collectives.place_expert(leaf, layouts[path], mesh, axis)
         if is_handle(leaf) and isinstance(getattr(leaf, "ct", None),
                                           CompressedTensor):
             return dataclasses.replace(leaf, ct=place(leaf.ct))
         return leaf
 
     return tree_map_with_path(one, tree)
+
+
+def expert_record(whole, placed, mesh, expert_mode: str):
+    """The MoE expert stacks of a cell's rank: its layout, the bytes it
+    holds, the formula's (``sharding.ExpertLayout.nbytes`` of each stack's
+    layers: a dense stack's share) and the whole pool's; None without
+    experts."""
+    layouts = collectives.expert_layouts(whole, mesh, expert_mode)
+    if not layouts:
+        return None
+    formula = 0
+    for path, leaf in tree_leaves(whole):
+        if path in layouts:
+            stack = leaf.shape[0] if isinstance(leaf, torch.Tensor) \
+                else leaf.ct.streams.mask.shape[0]
+            formula += layouts[path].nbytes(int(stack)) // 3
+    held = collectives.expert_census(placed, mesh, expert_mode)
+    return {"layout": held["layout"], "bytes": held["bytes"],
+            "formula_bytes": formula,
+            "whole_bytes": collectives.expert_census(whole)["bytes"]}
 
 
 def meta_tree(tree):
@@ -311,24 +346,27 @@ def meta_tree(tree):
     return tree_map_with_path(one, tree)
 
 
-def serving_params(cfg, mode: str, mesh, tree=None):
-    """The abstract serving tree of ``mode`` (the ``min_bytes`` and shards
-    of the reference's streamed variant: 1 MiB, 16), or :func:`meta_tree`
-    of ``tree``, placed for rank 0; a stream tree's prefetch layout made
-    once, as ``launch/serve.py`` makes it at set-up."""
-    params = (meta_tree(tree) if tree is not None else
-              streaming.abstract_serving_params(cfg, TABLE_IV, mode=mode))
-    params = place_abstract(params, mesh)
+def serving_params(cfg, mode: str, mesh, tree=None,
+                   expert_mode: str = "serve"):
+    """``(whole, placed)``: the abstract serving tree of ``mode`` (the
+    ``min_bytes`` and shards of the reference's streamed variant: 1 MiB,
+    16), or :func:`meta_tree` of ``tree``, and that tree placed for rank 0
+    (MoE expert stacks under ``expert_mode``); a stream tree's prefetch
+    layout made once, as ``launch/serve.py`` makes it at set-up."""
+    whole = (meta_tree(tree) if tree is not None else
+             streaming.abstract_serving_params(cfg, TABLE_IV, mode=mode))
+    params = place_abstract(whole, mesh, expert_mode=expert_mode)
     if not cfg.is_encdec:
         n_periods = _periods(cfg)
         if overlap_enabled(cfg.overlap, params["period"], n_periods):
             build_schedule(params["period"], n_periods)
-    return params
+    return whole, params
 
 
-def _program(cfg, shape, mesh, mode, tree):
-    """``(inputs, run, line)``: the rank's inputs, the function that runs
-    its program on them and one line saying what it is."""
+def _program(cfg, shape, mesh, mode, tree, expert_mode: str = "serve"):
+    """``(inputs, run, line, experts)``: the rank's inputs, the function
+    that runs its program on them, one line saying what it is and its
+    :func:`expert_record`."""
     model = build_model(cfg)
     specs = input_specs(cfg, shape)
     dims = "x".join(map(str, mesh.shape.values()))
@@ -348,22 +386,26 @@ def _program(cfg, shape, mesh, mode, tree):
                 f"forward + backward on {rows} of {shape.global_batch} "
                 f"rows x {shape.seq_len}, rank-ordered gradient sum over "
                 f"data, AdamW on the shards")
-        return (params, opt, specs), lambda: step(params, opt, specs), line
-    params = serving_params(cfg, mode, mesh, tree)
+        return ((params, opt, specs), lambda: step(params, opt, specs), line,
+                None)
+    whole, params = serving_params(cfg, mode, mesh, tree, expert_mode)
+    experts = expert_record(whole, params, mesh, expert_mode)
+    del whole
     b = shape.global_batch
     layout = sharding.kv_layout(mesh, shape.seq_len, batch=b,
                                 pin=cfg.decode_score_shard)
     ba = sharding.batch_axis(mesh, b)
     rows = sharding.local_shard(specs["tokens"], (ba,), mesh).shape[0]
     if shape.kind == "prefill":
-        step = build_prefill_step(model, max_len=shape.seq_len, mesh=mesh)
+        step = build_prefill_step(model, max_len=shape.seq_len, mesh=mesh,
+                                  expert_mode=expert_mode)
         batch = {k: v for k, v in specs.items()}
         run = lambda: step(params, batch)  # noqa: E731
         what = (f"prefill of {rows} of {b} rows x {shape.seq_len} tokens "
                 f"(batch on {ba})")
         inputs = (params, batch)
     else:
-        step = build_decode_step(model, mesh=mesh)
+        step = build_decode_step(model, mesh=mesh, expert_mode=expert_mode)
         cache = rank_cache(specs["cache"], mesh, b, layout)
         run = lambda: step(params, cache, specs["tokens"])  # noqa: E731
         what = (f"decode step of {rows} of {b} sequences (batch on {ba}) "
@@ -373,12 +415,19 @@ def _program(cfg, shape, mesh, mode, tree):
     if layout.sharded and shape.kind == "decode":
         route = (", flash-decoding: stats and per-chunk partials gathered"
                  if cfg.decode_score_shard else ", scores gathered")
+    ep = ""
+    if experts is not None:
+        ep = (f"; MoE experts: {experts['layout']}, activations exchanged, "
+              f"none gathered")
+        if expert_mode == "serve_ep":
+            ep += (" (serve_ep places what serve places in the port: no "
+                   "contracting dim is split, docs/PORT.md convention 11)")
     line = (f"{what}, {mode} weights, on serving mesh {dims} rank "
             f"{mesh.rank}: own stream shards, gathered at use; the dense "
             f"math whole over the rank's rows; K/V ring "
             f"{layout.describe()}{route}; recurrent states and encoder "
-            f"memory whole on the rank's rows")
-    return inputs, run, line
+            f"memory whole on the rank's rows{ep}")
+    return inputs, run, line, experts
 
 
 def rank_cache(cache, mesh, b: int, layout):
@@ -405,7 +454,8 @@ def lower_cell(cfg, shape: ShapeSpec, mesh, *, variant: str = "baseline",
     t0 = time.time()
     kernel_cost.reset()
     mesh.records.clear()
-    inputs, run, line = _program(cfg, shape, mesh, mode, tree)
+    inputs, run, line, experts = _program(
+        cfg, shape, mesh, mode, tree, expert_mode_of(variant, shape.kind))
     # a codec of its own: the dry-run's gathers count on no one's ledger
     with use_codec(Codec()), collectives.use_serving_mesh(mesh), \
             torch.no_grad(), CostMode(tensors_bytes(*inputs)) as counter:
@@ -423,6 +473,8 @@ def lower_cell(cfg, shape: ShapeSpec, mesh, *, variant: str = "baseline",
                       "argument_size_in_bytes": tensors_bytes(*inputs)},
            "collectives": collective_stats.collective_stats(mesh.records),
            "kernels": kernels, "ops": counter.ops}
+    if experts is not None:
+        rec["experts"] = experts
     return rec
 
 

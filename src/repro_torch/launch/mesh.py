@@ -94,6 +94,15 @@ class Mesh:
             staging.view(-1), staging[me].clone(),
             group=self.groups[axis][1], async_op=True)
 
+    def all_to_all(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """Chunk ``c`` of ``t``'s dim 0 (``A`` equal chunks) to the rank at
+        coordinate ``c`` of ``axis``: returns the chunks every rank sent
+        this one, in coordinate order (one ``all_to_all_single``)."""
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t.contiguous(),
+                               group=self.groups[axis][1])
+        return out
+
     def gather_all(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` (the same shape on each), stacked in rank
         order: ``(size, *t.shape)``; counted on no link."""
@@ -162,6 +171,10 @@ class AbstractMesh(Mesh):
         self.record("all-gather", staging.numel() * staging.element_size(),
                     axis)
         return _Done()
+
+    def all_to_all(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        self.record("all-to-all", t.numel() * t.element_size(), axis)
+        return torch.empty_like(t)
 
 
 def _gather_plan(spec, mesh) -> list:

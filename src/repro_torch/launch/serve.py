@@ -78,8 +78,17 @@ of 1024-position chunks: ``(--prompt-len + --tokens) % (A x 1024) ==
 decode attention gathers the scores over the model axis, or, with the
 config's ``decode_score_shard`` (flash-decoding), only the softmax's
 stats and partials; logits stay one device's bits either way.
-``--ckpt`` restores onto the mesh, each rank uploading only its shards'
-bytes; ``--save-ckpt`` saves the whole tree from rank 0 before placing it.
+An MoE arch's expert stacks are placed by ``runtime/sharding.py:
+expert_layout``: each rank holds, decodes and multiplies only its own
+experts (E on the model axis where it divides; a dense stack also splits
+each expert matrix's output columns over the data axis), nothing of them
+is gathered, and the MoE block exchanges activations instead
+(``models/moe.py``); the experts line says what each rank holds.
+``--expert-cache-mb`` stays refused on a mesh, as the reference refuses
+it.  ``--ckpt`` restores onto the mesh, each rank uploading only its
+shards' bytes (a compressed expert stack's: its own experts'); a dense
+record uploads whole and is cut.  ``--save-ckpt`` saves the whole tree
+from rank 0 before placing it.
 
     PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
         -m repro_torch.launch.serve --smoke --device cpu --tp 4
@@ -118,7 +127,8 @@ from repro_torch.kernels.idd_scan import LAUNCHES as IDD_SCAN_LAUNCHES
 from repro_torch.launch.mesh import make_host_mesh, world_size
 from repro_torch.models import build_model
 from repro_torch.models.lm import abstract_params
-from repro_torch.runtime.collectives import (place_serving_tree,
+from repro_torch.runtime.collectives import (expert_census,
+                                             place_serving_tree,
                                              tree_gather_nbytes,
                                              use_serving_mesh)
 from repro_torch.runtime.engine import Engine, EngineConfig, ServerHealth
@@ -429,8 +439,12 @@ def _serve(args, cfg, model, codec, dev, mesh=None) -> dict:
     if mesh is not None:
         if args.save_ckpt:
             dist.barrier()      # the checkpoint is whole for every rank
-        # each rank keeps its own shard rows (a restore placed them)
+        # each rank keeps its own shard rows (a restore placed them) and
+        # its share of the MoE expert stacks
         params = place_serving_tree(params, mesh)
+    # what this rank holds of the MoE expert stacks (None without them,
+    # and with an expert store)
+    placement = expert_census(params, mesh)
     resident = (torch.cuda.memory_allocated(dev) if dev.type == "cuda"
                 else None)
     ratio = wire_ratio(params)
@@ -457,6 +471,13 @@ def _serve(args, cfg, model, codec, dev, mesh=None) -> dict:
               f"sharded streams gathered a use of every leaf; KV ring of "
               f"{max_len} {layout.describe()}"
               + (f", {route}" if layout.sharded else ""))
+        if placement is not None:
+            print(f"[serve] experts on the mesh: {placement['layout']}; "
+                  f"{placement['bytes'] / 1e6:.2f} MB held on this rank, "
+                  f"{placement['placed']} stacks gathered at use (the "
+                  f"compressed stacks' {placement['stream_nbytes'] / 1e6:.2f}"
+                  f" MB of streams were gathered (A - 1) times a use "
+                  f"before)")
     print(f"[serve] arch={cfg.name} mode={args.mode} device={name} "
           f"setup={setup_s:.2f}s encode_buckets="
           f"{encode['planned_buckets']} mode_mix={mode_mix(params)}")
@@ -541,6 +562,10 @@ def _serve(args, cfg, model, codec, dev, mesh=None) -> dict:
         kv_step = engine.step_kv_bytes[0] if engine.step_kv_bytes else 0
         print(f"[serve] KV ring {ring_bytes / 1e6:.2f} MB on this rank; "
               f"decode attention gathered {kv_step / 1e6:.3f} MB a step")
+    if placement is not None and mesh is not None:
+        ep_step = engine.step_ep_bytes[0] if engine.step_ep_bytes else 0
+        print(f"[serve] MoE blocks exchanged {ep_step / 1e6:.4f} MB of "
+              f"activations a step on this rank")
     complete = len(finished) == len(reqs) and all(
         len(r.tokens) == args.tokens for r in reqs)
     tokens = logits = None
@@ -563,6 +588,8 @@ def _serve(args, cfg, model, codec, dev, mesh=None) -> dict:
             "step_h2d_bytes": engine.step_h2d_bytes, "experts": experts,
             "step_gather_bytes": engine.step_gather_bytes,
             "step_kv_bytes": engine.step_kv_bytes,
+            "step_ep_bytes": engine.step_ep_bytes,
+            "expert_placement": placement,
             "ring_bytes": ring_bytes,
             "kv_layout": None if layout is None else {
                 "sharded": layout.sharded, "axes": list(layout.axes),

@@ -30,24 +30,36 @@ What the port does in its own way, and why:
   path it adds ``+0.0`` to every token, which leaves a sum that is never
   ``-0.0`` unchanged: skipping it gives the same bits.  Without a store
   the block has no host sync and captures in a CUDA graph.
-* **All-to-all dispatch** (``dispatch_a2a=True``, the reference's
-  expert-parallel variant).  The reference reshards ``x_ec`` from the batch
-  to the model axis; the port's ranks hold whole expert weights, so it is
-  the identity (bits equal to ``False``), and the dry-run's abstract mesh
-  records the all-to-all (``collectives.expert_dispatch``).
+* **Expert parallelism** (under a serving mesh whose ranks hold their
+  share of the expert stacks: ``sharding.expert_layout``, placed by
+  ``collectives.place_serving_tree``).  Routing runs on the rank's own
+  rows, whole (the router is whole on every rank).  The rank computes only
+  its own experts: the capacity pick of those experts (from every data
+  rank's rows where the rows and the matrices' output columns are both
+  split on "data": ``collectives.expert_dispatch``), ``g`` and ``u`` on
+  its F columns, ``h`` all-gathered over "data" along F, ``y`` on its D
+  columns and returned to the rows' ranks (``expert_return``).  A column
+  slice of a canonical product is that product's columns bit for bit.
+  The combine all-gathers every rank's experts' weighted outputs over the
+  expert axis (``expert_combine``) and every rank folds all of them in
+  ascending expert order, as one device does: no float atomics and no
+  reassociating psum, so the block's output is one device's bits.
+  ``dispatch_a2a=True`` (the reference's all-to-all onto the contracting
+  dim) moves what ``False`` moves: the port splits no contracting dim
+  (``docs/PORT.md`` convention 11).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.runtime.collectives import expert_dispatch
+from repro_torch.runtime import collectives, sharding
 from repro_torch.runtime.experts import ExpertRef, routed_expert_weights
 
 from .layers import ACT_DTYPE, dense_init, weight_matmul
 
 CAPACITY_FACTOR = 1.25
-EXPERT_LEAVES = ("e_gate", "e_up", "e_down")
+EXPERT_LEAVES = sharding.EXPERT_LEAVES
 
 
 def init_moe(n_layers: int, d_model: int, d_ff: int, n_experts: int, gen,
@@ -102,6 +114,48 @@ def _expert_weights(p, topk_i: torch.Tensor):
     return routed, {e: tuple(s[e] for s in stacks) for e in routed}
 
 
+def _held_layout(p, n_experts: int, d_model: int):
+    """The expert layout of what this rank holds under the ambient serving
+    mesh (``sharding.held_expert_layout``), or None: no mesh, an expert
+    store's handles, or stacks held whole on every rank (the one-device
+    path then runs as it is)."""
+    ctx = collectives.serving_mesh()
+    if ctx is None or any(isinstance(p[n], ExpertRef)
+                          for n in EXPERT_LEAVES):
+        return None
+    layout = sharding.held_expert_layout(
+        ctx[0], n_experts, d_model, p["e_gate"].shape, p["e_down"].shape,
+        collectives.serving_rows()[1])
+    if layout.expert_axis is None and layout.data_axis is None:
+        return None
+    return layout
+
+
+def _own_experts(p, layout, x_ec, gate_ec, acc_dt) -> torch.Tensor:
+    """This rank's experts' products under ``layout`` and the exchanges
+    around them: returns every expert's weighted outputs (B, E, C, D) in
+    ``acc_dt`` for the rank's rows, ascending expert order."""
+    rows = collectives.serving_rows()[0]
+    lo, n = layout.offset, layout.local_experts
+    x_own = collectives.expert_dispatch(x_ec[:, lo:lo + n], layout, rows)
+    bb, _, c, d = x_own.shape                   # bb: the rows multiplied
+    hs = []
+    for j in range(n):
+        xj = x_own[:, j].reshape(bb * c, d)
+        g = weight_matmul(p["e_gate"][j], xj, saveable=False)
+        u = weight_matmul(p["e_up"][j], xj, saveable=False)
+        hs.append((F.silu(g) * u).to(ACT_DTYPE))        # (bb*C, F')
+    h = torch.stack(hs)
+    if layout.data_axis is not None:
+        h = collectives.gather_acts(h, 2, layout.mesh, layout.data_axis)
+    y = torch.stack([weight_matmul(p["e_down"][j], h[j], saveable=False)
+                     .reshape(bb, c, -1) for j in range(n)], 1)
+    y = collectives.expert_return(y, layout, rows)      # (B, n, C, D) f32
+    gate = gate_ec[:, lo:lo + n, :, None]
+    y = torch.where(gate > 0, y * gate, 0.0).to(acc_dt)
+    return collectives.expert_combine(y, layout)
+
+
 def route(router, x: torch.Tensor, k: int) -> dict:
     """The routing of ``moe_block`` for x (B, T, D): router ``logits`` and
     ``probs`` (B, T, E) f32, each token's top-k experts ``topk_i`` and
@@ -137,10 +191,6 @@ def moe_block(p, x: torch.Tensor, k: int, combine_dtype: str = "f32",
     e, c = assign.shape[-1], idx_ec.shape[-1]
     bidx = torch.arange(b, device=dev)[:, None, None]
     x_ec = x[bidx, idx_ec]                                  # (B, E, C, D)
-    if dispatch_a2a:
-        # the expert-parallel dispatch: the identity on the port's ranks,
-        # recorded as the reference's all-to-all under the dry-run's mesh
-        x_ec = expert_dispatch(x_ec)
     # slot of each (sequence, expert, token) in the capacity pick, or -1;
     # a pick's C token indices are distinct, so the scatter has no clashes
     slot = torch.full((b, e, t), -1, dtype=torch.int64, device=dev)
@@ -148,20 +198,33 @@ def moe_block(p, x: torch.Tensor, k: int, combine_dtype: str = "f32",
 
     acc_dt = torch.bfloat16 if combine_dtype == "bf16" else torch.float32
     out = torch.zeros((b, t, d), dtype=acc_dt, device=dev)
-    experts, weights = _expert_weights(p, topk_i)
-    for j in experts:
-        w_gate, w_up, w_down = weights[j]
-        xj = x_ec[:, j].reshape(b * c, d)
-        # the reference's batched expert einsums: no output kept by remat
-        g = weight_matmul(w_gate, xj, saveable=False)
-        u = weight_matmul(w_up, xj, saveable=False)
-        h = (F.silu(g) * u).to(ACT_DTYPE)
-        y = weight_matmul(w_down, h, saveable=False).reshape(b, c, d)
-        gate = gate_ec[:, j, :, None]
-        y = torch.where(gate > 0, y * gate, 0.0)
-        sj = slot[:, j]                                     # (B, T)
-        took = torch.gather(y, 1, sj.clamp(min=0)[..., None].expand(b, t, d))
-        out = out + torch.where(sj[..., None] >= 0, took, 0.0).to(acc_dt)
+    layout = _held_layout(p, e, d)
+    if layout is not None:
+        # every expert's weighted outputs, from the ranks that own them
+        y_all = _own_experts(p, layout, x_ec, gate_ec, acc_dt)
+        for j in range(e):
+            sj = slot[:, j]                                 # (B, T)
+            took = torch.gather(y_all[:, j], 1,
+                                sj.clamp(min=0)[..., None].expand(b, t, d))
+            out = out + torch.where(sj[..., None] >= 0, took, 0.0)
+    else:
+        experts, weights = _expert_weights(p, topk_i)
+        for j in experts:
+            w_gate, w_up, w_down = weights[j]
+            xj = x_ec[:, j].reshape(b * c, d)
+            # the reference's batched expert einsums: no output kept by
+            # remat
+            g = weight_matmul(w_gate, xj, saveable=False)
+            u = weight_matmul(w_up, xj, saveable=False)
+            h = (F.silu(g) * u).to(ACT_DTYPE)
+            y = weight_matmul(w_down, h, saveable=False).reshape(b, c, d)
+            gate = gate_ec[:, j, :, None]
+            y = torch.where(gate > 0, y * gate, 0.0)
+            sj = slot[:, j]                                 # (B, T)
+            took = torch.gather(y, 1,
+                                sj.clamp(min=0)[..., None].expand(b, t, d))
+            out = out + torch.where(sj[..., None] >= 0, took,
+                                    0.0).to(acc_dt)
 
     me = probs.mean(dim=(0, 1))                             # (E,)
     ce = (assign > 0).float().mean(dim=(0, 1))

@@ -50,6 +50,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -57,9 +58,10 @@ import torch
 from repro_torch.core.api import CompressedTensor, precompute_wire_bytes
 from repro_torch.core.codec import BlockStreams, flatten_blocks
 from repro_torch.core.codec_api import current_codec
+from repro_torch.launch.mesh import gather_whole
 from repro_torch.runtime import sharding
-from repro_torch.runtime.weights import (is_handle, tree_leaves,
-                                         tree_map_with_path)
+from repro_torch.runtime.weights import (StreamedWeight, is_handle,
+                                         tree_leaves, tree_map_with_path)
 
 MODEL_AXIS = "model"
 
@@ -70,6 +72,8 @@ MODEL_AXIS = "model"
 
 _mesh_ctx: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_serving_mesh", default=None)
+_rows_ctx: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_serving_rows", default=(None, "serve"))
 
 
 def serving_mesh():
@@ -79,31 +83,126 @@ def serving_mesh():
     return _mesh_ctx.get()
 
 
+def serving_rows() -> tuple:
+    """``(rows, expert_mode)`` of the ambient serving mesh: the axis (or
+    axes) the program's rows of the batch are sharded on (``None``: every
+    rank holds every row, as the serving engine does) and the expert
+    layout's mode (``sharding.EXPERT_MODES``)."""
+    return _rows_ctx.get()
+
+
 @contextlib.contextmanager
-def use_serving_mesh(mesh, axis: str = MODEL_AXIS):
+def use_serving_mesh(mesh, axis: str = MODEL_AXIS, rows=None,
+                     expert_mode: str = "serve"):
     """Install ``mesh`` as the ambient serving mesh for the block: every
-    handle use inside gathers its compressed shards over ``axis`` first."""
+    handle use inside gathers its compressed shards over ``axis`` first,
+    and the MoE block exchanges its experts' activations over the mesh
+    (:func:`expert_dispatch`).  ``rows``: the axis the program's rows are
+    sharded on (``None``: every rank holds every row); ``expert_mode``:
+    the expert layout's mode ("serve" or "serve_ep", which place the same
+    in the port: ``sharding.expert_layout``)."""
+    if expert_mode not in sharding.EXPERT_MODES:
+        raise ValueError(f"unknown expert layout mode {expert_mode!r}; "
+                         f"expected one of {sharding.EXPERT_MODES}")
     token = _mesh_ctx.set((mesh, axis))
+    rows_token = _rows_ctx.set((rows, expert_mode))
     try:
         yield mesh
     finally:
+        _rows_ctx.reset(rows_token)
         _mesh_ctx.reset(token)
 
 
-def expert_dispatch(x_ec: torch.Tensor, axis: str = MODEL_AXIS
+# ---------------------------------------------------------------------------
+# the expert-parallel MoE block's activation exchanges
+# ---------------------------------------------------------------------------
+
+# the activation bytes the MoE blocks' exchanges received in this process
+# (process-global, as the launch counters are)
+_EXCHANGED = [0]
+
+
+def expert_exchange_bytes() -> int:
+    """The activation bytes this rank has received in the expert-parallel
+    MoE blocks' exchanges (an all-gather of a part of P bytes over A
+    ranks: (A - 1) x P; an all-to-all of T bytes: (A - 1) / A x T).
+    Never weight bytes."""
+    return _EXCHANGED[0]
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def gather_acts(t: torch.Tensor, dim: int, mesh, axis) -> torch.Tensor:
+    """Every rank's ``t`` along ``dim`` over ``axis``, in coordinate
+    order (``launch/mesh.py:gather_whole``: one broadcast an owner),
+    counted on the exchange ledger, not on any link of the codec."""
+    A = _axis_count(mesh, axis)
+    if A <= 1:
+        return t
+    spec = [None] * t.ndim
+    spec[dim] = axis
+    out = gather_whole([t.contiguous()], [tuple(spec)], mesh, link=None)[0]
+    _EXCHANGED[0] += (A - 1) * _nbytes(t)
+    return out
+
+
+def _rows_on(rows, axis: str) -> bool:
+    """Are the program's rows (``serving_rows()[0]``) sharded on
+    ``axis``?"""
+    return axis in (rows if isinstance(rows, tuple) else (rows,))
+
+
+def expert_dispatch(x_own: torch.Tensor, layout, rows=None
                     ) -> torch.Tensor:
-    """The MoE all-to-all dispatch (``moe_block(dispatch_a2a=True)``; the
-    reference reshards the capacity-gathered ``x_ec`` from the batch to the
-    model axis).  The port's ranks hold whole expert weights, so nothing
-    moves and ``x_ec`` comes back as it is; under an ambient mesh that
-    records its collectives (the dry-run's ``AbstractMesh``) the
-    all-to-all the reference makes, of ``x_ec``'s bytes over ``axis``,
-    is recorded."""
-    ctx = serving_mesh()
-    record = None if ctx is None else getattr(ctx[0], "record", None)
-    if record is not None:
-        record("all-to-all", x_ec.numel() * x_ec.element_size(), axis)
-    return x_ec
+    """The expert-parallel dispatch: ``x_own`` (B, E', C, D), the capacity
+    pick of this rank's own experts from its own rows, becomes what the
+    layout's products need (``sharding.ExpertLayout``).  Where the
+    experts' output columns are split over "data" and the rows are
+    sharded there too, every data rank's rows: an all-gather over "data"
+    (B x A_d rows, data coordinate major); otherwise the rank's rows are
+    every row its products need, and nothing moves.  The move made is
+    recorded: on :func:`expert_exchange_bytes`, and as its broadcasts
+    under a mesh
+    that records its collectives (the dry-run's ``AbstractMesh``).  The
+    reference's ``dispatch_a2a`` reshards ``x_ec`` onto the contracting
+    dim instead; the port splits no contracting dim (``docs/PORT.md``
+    convention 11), so both dispatches are this one."""
+    if layout.data_axis is None or not _rows_on(rows, layout.data_axis):
+        return x_own
+    return gather_acts(x_own, 0, layout.mesh, layout.data_axis)
+
+
+def expert_return(y: torch.Tensor, layout, rows=None) -> torch.Tensor:
+    """The products' output back to the rows that routed to them: ``y``
+    (B', E', C, D') holds this rank's column block of its experts' outputs
+    for every row its products ran on; returns (B, E', C, D), whole
+    columns for the rank's own rows.  Rows sharded on "data": each data
+    rank's rows sent back to it (one all-to-all over "data"); every row
+    on every rank: the column blocks all-gathered over "data"."""
+    axis = layout.data_axis
+    if axis is None:
+        return y
+    mesh, A = layout.mesh, layout.data_count
+    if not _rows_on(rows, axis):
+        return gather_acts(y, y.ndim - 1, mesh, axis)
+    out = mesh.all_to_all(y.contiguous(), axis)
+    _EXCHANGED[0] += (A - 1) * _nbytes(y) // A
+    b = y.shape[0] // A
+    # chunk c: this rank's rows, data rank c's column block
+    return out.view(A, b, *y.shape[1:]).movedim(0, -2).reshape(
+        b, *y.shape[1:-1], A * y.shape[-1])
+
+
+def expert_combine(contrib: torch.Tensor, layout) -> torch.Tensor:
+    """Every rank's experts' weighted outputs (B, E', C, D) for the rank's
+    rows, all-gathered over the expert axis in coordinate order, which is
+    ascending expert order: (B, E, C, D).  Each rank then folds them as
+    one device does; no partial sum crosses between ranks."""
+    if layout.expert_axis is None:
+        return contrib
+    return gather_acts(contrib, 1, layout.mesh, layout.expert_axis)
 
 
 # ---------------------------------------------------------------------------
@@ -164,12 +263,148 @@ def place_ct(ct: CompressedTensor, mesh, axis: str = MODEL_AXIS
     return out
 
 
+def _expert_dims(path: str, shape) -> tuple:
+    """``(E, D, F)`` of an expert leaf of ``shape``: (..., E, D, F) for
+    ``e_gate`` / ``e_up``, (..., E, F, D) for ``e_down``."""
+    e, a, b = (int(v) for v in shape[-3:])
+    return (e, b, a) if path.rsplit("/", 1)[-1] == "e_down" else (e, a, b)
+
+
+def _layer_shape(leaf):
+    """The shape of one layer's weight of a MoE leaf (a stacked tensor or
+    a stream handle), or None (an expert store's handle)."""
+    if isinstance(leaf, StreamedWeight):
+        return tuple(leaf.layer_shape)
+    if isinstance(leaf, torch.Tensor):
+        return tuple(leaf.shape[1:])
+    return None
+
+
+def _moe_blocks(tree) -> dict:
+    """The MoE blocks of a serving tree: ``{parent path: {leaf name:
+    (path, leaf)}}`` of each router and expert stack."""
+    out: dict = {}
+    for path, leaf in tree_leaves(tree):
+        prefix, _, name = path.rpartition("/")
+        if name == "router" or name in sharding.EXPERT_LEAVES:
+            out.setdefault(prefix, {})[name] = (path, leaf)
+    return out
+
+
+def leaf_expert_layout(path: str, leaf, mesh, expert_mode: str = "serve"):
+    """The ``sharding.expert_layout`` of one whole expert leaf of a serving
+    tree on ``mesh``: a dense MoE expert stack (a tensor) or a compressed
+    one (a stream handle of the expert-major layout); ``None`` for any
+    other leaf."""
+    if not sharding.is_expert_leaf(path):
+        return None
+    if isinstance(leaf, torch.Tensor):
+        shape, dense = leaf.shape, True
+    elif isinstance(leaf, StreamedWeight) and leaf.tp_axis == 0:
+        shape, dense = leaf.layer_shape, False
+    else:
+        return None
+    return sharding.expert_layout(mesh, *_expert_dims(path, shape),
+                                  dense=dense, mode=expert_mode)
+
+
+def expert_layouts(tree, mesh, expert_mode: str = "serve") -> dict:
+    """``{path: ExpertLayout}`` of the expert stacks of a serving tree that
+    a rank holds whole, each as :func:`leaf_expert_layout` places it.  A
+    stack is whole when it holds every expert its block's router routes
+    to; a rank's share (placed already) is not placed again, so placing a
+    tree twice (a restore, then the launcher) is placing it once."""
+    out = {}
+    for leaves in _moe_blocks(tree).values():
+        router = leaves.get("router")
+        n = None if router is None else _layer_shape(router[1])[-1]
+        for name in sharding.EXPERT_LEAVES:
+            if name not in leaves:
+                continue
+            path, leaf = leaves[name]
+            layout = leaf_expert_layout(path, leaf, mesh, expert_mode)
+            if layout is not None and n in (None, layout.n_experts):
+                out[path] = layout
+    return out
+
+
+def localize_ct(ct: CompressedTensor, layout, axis: str = MODEL_AXIS
+                ) -> CompressedTensor:
+    """The rank's own experts of a compressed expert stack (a layer stack
+    of the expert-major layout, whole or placed on ``axis``) as a
+    compressed tensor of those experts alone: its own shard rows, with
+    ``shape`` (E / A, ...) and ``shards / A``.  A rank then decodes its
+    own experts locally, and nothing of the stack is ever gathered.  The
+    shard rows must be whole experts: ``A`` divides ``shards`` and a
+    rank's rows hold exactly ``E / A`` experts (no block padding between
+    them); otherwise the placement is refused."""
+    A = layout.expert_count
+    E = layout.n_experts
+    if ct.mode != "enec" or ct.shards % A or not sharding.ct_stacked(ct) \
+            or tuple(ct.shape)[0] != E:
+        raise ValueError(
+            f"cannot place this expert stack by experts on {A} ranks: "
+            f"mode {ct.mode}, {ct.shards} stream shards, shape "
+            f"{tuple(ct.shape)} (need an enec layer stack of {E} experts "
+            f"whose shard count divides by {A}; serve it with --shards a "
+            f"multiple of {A})")
+    rows = ct.shards // A
+    per_rank = rows * ct.streams.mask.shape[2] * ct.block_elems
+    per_expert = math.prod(ct.shape[1:])
+    if per_rank != E // A * per_expert:
+        raise ValueError(
+            f"the stream shards of this expert stack do not fall on expert "
+            f"boundaries: a rank's {rows} of {ct.shards} shards hold "
+            f"{per_rank} elements, its {E // A} experts {E // A * per_expert} "
+            f"(the layer's {E * per_expert} elements pad to whole "
+            f"{ct.block_elems}-element blocks per shard)")
+    held = ct.streams.mask.shape[1]
+    if held == ct.shards:               # whole: cut out this rank's rows
+        start = layout.mesh.axis_index(axis) * rows
+        streams = ct.streams.map(lambda a: a.narrow(1, start, rows).clone())
+    elif held == rows:                  # placed (a mesh restore's upload)
+        streams = ct.streams
+    else:
+        raise ValueError(f"expert stack holds {held} of {ct.shards} "
+                         f"shards; a {A}-rank axis needs {rows}")
+    if rows == 1:                       # an unsharded layout has no dim
+        streams = streams.map(lambda a: a.squeeze(1))
+    return dataclasses.replace(ct, streams=streams, shards=rows,
+                               shape=(E // A, *ct.shape[1:]))
+
+
+def place_expert(leaf, layout, mesh, axis: str = MODEL_AXIS):
+    """This rank's share of one expert leaf under ``layout``: a dense
+    stack cut to its experts and output columns (copied out, so the rest
+    can be freed); a compressed one to its own experts'
+    (:func:`localize_ct`), or left as it is where the layout keeps the
+    stacks whole."""
+    if isinstance(leaf, torch.Tensor):
+        spec = layout.leaf_spec(leaf.ndim)
+        if all(a is None for a in spec):
+            return leaf
+        return sharding.local_shard(leaf, spec, mesh).clone()
+    if layout.expert_axis is None:
+        return leaf
+    ct = localize_ct(leaf.ct, layout, axis)
+    return dataclasses.replace(leaf, ct=ct, layer_shape=tuple(ct.shape))
+
+
 def serving_pspecs(tree, mesh, axis: str = MODEL_AXIS):
     """Specs of a serving tree: handles and CompressedTensors get their
-    metadata's stream specs (:func:`sharding.handle_pspecs`), every plain
-    tensor replicates: only the compressed storage is sharded, never the
-    dense math."""
-    def one(_, leaf):
+    metadata's stream specs (:func:`sharding.handle_pspecs`), whole MoE
+    expert stacks their ``sharding.expert_layout``'s (a compressed stack's
+    stream rows on ``axis`` where the experts split there, else
+    replicated), every other plain tensor replicates: the dense math runs
+    whole."""
+    layouts = expert_layouts(tree, mesh)
+
+    def one(path, leaf):
+        layout = layouts.get(path)
+        if layout is not None and isinstance(leaf, torch.Tensor):
+            return layout.leaf_spec(leaf.ndim)
+        if layout is not None and layout.expert_axis is None:
+            return leaf.ct.streams.map(lambda a: sharding.replicated(a.ndim))
         if is_handle(leaf):
             return sharding.handle_pspecs(leaf, mesh, axis)
         if isinstance(leaf, CompressedTensor):
@@ -181,14 +416,20 @@ def serving_pspecs(tree, mesh, axis: str = MODEL_AXIS):
 
 def place_serving_tree(tree, mesh, axis: str = MODEL_AXIS):
     """The tree as this rank holds it on ``mesh`` (:func:`serving_pspecs`):
-    each sharded stream cut to the rank's own shard rows, everything else
-    replicated (kept whole)."""
+    each sharded stream cut to the rank's own shard rows, each whole MoE
+    expert stack to the rank's share (:func:`place_expert`; a share placed
+    already is kept), everything else replicated (kept whole)."""
     # one host copy of every high_len fills the wire-size caches
     precompute_wire_bytes([
         ct for _, leaf in tree_leaves(tree)
         if isinstance(ct := getattr(leaf, "ct", leaf), CompressedTensor)])
+    layouts = expert_layouts(tree, mesh)
 
-    def one(_, leaf):
+    def one(path, leaf):
+        if path in layouts:
+            return place_expert(leaf, layouts[path], mesh, axis)
+        if sharding.is_expert_leaf(path):
+            return leaf                 # this rank's share already
         if is_handle(leaf) and isinstance(getattr(leaf, "ct", None),
                                           CompressedTensor):
             return dataclasses.replace(leaf, ct=place_ct(leaf.ct, mesh, axis))
@@ -197,6 +438,42 @@ def place_serving_tree(tree, mesh, axis: str = MODEL_AXIS):
         return leaf
 
     return tree_map_with_path(one, tree)
+
+
+def expert_census(tree, mesh=None, expert_mode: str = "serve"):
+    """What this rank holds of a serving tree's MoE expert stacks, read
+    from the leaves themselves: ``layout`` (the first block's
+    ``sharding.held_expert_layout``, described), ``bytes`` on its device,
+    ``stream_nbytes`` (the compressed stacks' whole stream layouts: what a
+    stream gather of every shard, the rule before the expert layout,
+    moves ``(A - 1)`` times a use) and ``placed`` (stacks held as placed
+    shard rows, which a use would gather: none once
+    :func:`place_serving_tree` has placed them).  ``None`` for a tree
+    without MoE blocks or with an expert store's handles."""
+    blocks = _moe_blocks(tree)
+    if not blocks:
+        return None
+    layout, held = None, {"bytes": 0, "stream_nbytes": 0, "placed": 0}
+    for leaves in blocks.values():
+        shapes = {n: _layer_shape(leaf) for n, (_, leaf) in leaves.items()}
+        if any(v is None for v in shapes.values()):
+            return None
+        router = shapes["router"]
+        mine = sharding.held_expert_layout(
+            mesh, router[-1], router[-2], shapes["e_gate"],
+            shapes["e_down"], expert_mode)
+        layout = layout or mine
+        for name in sharding.EXPERT_LEAVES:
+            leaf = leaves[name][1]
+            ct = getattr(leaf, "ct", None)
+            if isinstance(ct, CompressedTensor):
+                held["bytes"] += ct.nbytes_device()
+                held["stream_nbytes"] += stream_nbytes(ct) * \
+                    mine.expert_count
+                held["placed"] += is_placed(ct)
+            else:
+                held["bytes"] += _nbytes(leaf)
+    return {"layout": layout.describe(), **held}
 
 
 def stream_placer(mesh, axis: str = MODEL_AXIS):
@@ -233,16 +510,17 @@ def _offsets(sizes) -> tuple:
 
 def whole_streams(cts, A: int) -> list:
     """Empty stream arrays of the whole tensors that the placed ``cts``
-    are slices of (on an ``A``-rank axis), as views of ONE new byte buffer:
-    each stream array's region holds every tensor's whole array, one after
-    another.  For one layer of a decoder bucket's members that is the
-    prefetch's bucket layout (``runtime/overlap.py``), which the bucket's
-    decode reads as one view."""
+    are slices of (on an ``A``-rank axis; a tensor held whole keeps its
+    own shapes), as views of ONE new byte buffer: each stream array's
+    region holds every tensor's whole array, one after another.  For one
+    layer of a decoder bucket's members that is the prefetch's bucket
+    layout (``runtime/overlap.py``), which the bucket's decode reads as
+    one view."""
     first = cts[0].streams
     shapes = []
     for ct in cts:
-        d = sharding.shard_dim(ct)
-        shapes.append([tuple(a.shape[:d]) + (a.shape[d] * A,)
+        d, scale = sharding.shard_dim(ct), A if is_placed(ct) else 1
+        shapes.append([tuple(a.shape[:d]) + (a.shape[d] * scale,)
                        + tuple(a.shape[d + 1:]) for a in ct.streams])
     counts = [[torch.Size(s).numel() for s in member] for member in shapes]
     sizes = [sum(c[k] for c in counts) * a.element_size()

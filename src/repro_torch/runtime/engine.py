@@ -35,7 +35,8 @@ of the batch goes on.
   positions (``model.prefill_fn(mesh=)``) and is copied into the slot as
   it is; a step's decode attention gathers over the sequence axes
   (``models/layers.py:rank_decode_attention``), its logits one device's
-  bits.
+  bits.  Its MoE blocks compute only the rank's own experts and exchange
+  their activations (``models/moe.py``; ``step_ep_bytes``).
 * **Deadlines at every stage.**  Requests whose TTFT deadline passes in the
   queue are shed before a prefill; in-flight requests past their total
   deadline are evicted at step granularity and their slot reclaimed; a
@@ -74,7 +75,8 @@ from repro_torch.runtime import faults as rt_faults
 from repro_torch.runtime.admission import (AdmissionQueue, OverloadGovernor,
                                            Request)
 from repro_torch.runtime.captured import CapturedStep
-from repro_torch.runtime.collectives import serving_mesh
+from repro_torch.runtime.collectives import (expert_exchange_bytes,
+                                             serving_mesh)
 from repro_torch.runtime.retry import RetryPolicy
 
 
@@ -233,11 +235,14 @@ class Engine:
         # the run's codec moved host to device, and the compressed bytes it
         # gathered between the ranks of a serving mesh (d2d_allgather), and
         # the dense bytes its decode attention gathered over the sequence
-        # axes of a sharded ring (d2d_allgather's dense bytes)
+        # axes of a sharded ring (d2d_allgather's dense bytes), and the
+        # activation bytes its MoE blocks' expert-parallel exchanges
+        # received (``collectives.expert_exchange_bytes``)
         self.step_decode_s: List[float] = []
         self.step_h2d_bytes: List[int] = []
         self.step_gather_bytes: List[int] = []
         self.step_kv_bytes: List[int] = []
+        self.step_ep_bytes: List[int] = []
         self.prefill_launches = dict.fromkeys(build.counts(), 0)
         self._draining = False
         if not self.health.ready():
@@ -479,6 +484,7 @@ class Engine:
                 if self.expert_store is not None else 0.0)
         h2d0, gather0 = self._h2d_bytes(), self._gather_bytes()
         kv0 = self._gather_bytes("dense_bytes")
+        ep0 = expert_exchange_bytes()
         t0 = self.clock()
         with self._ctx():
             # a transient runtime error rides the same retry policy as
@@ -514,6 +520,7 @@ class Engine:
         self.step_h2d_bytes.append(self._h2d_bytes() - h2d0)
         self.step_gather_bytes.append(self._gather_bytes() - gather0)
         self.step_kv_bytes.append(self._gather_bytes("dense_bytes") - kv0)
+        self.step_ep_bytes.append(expert_exchange_bytes() - ep0)
         if self.governor.observe_step(dt):
             for req in self.queue.shed_lowest_priority(
                     self.config.shed_per_trip, reason="overload"):

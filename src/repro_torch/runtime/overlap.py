@@ -61,7 +61,10 @@ every owner's shard rows of the layer into their rows of it
 (:func:`gather_layer`: one broadcast an owner a leaf, all of the layer's
 in flight together, each unpacked from its staging row into the layout),
 then the bucket's one decode launch reads it as one view, with nothing
-copied after the gather.
+copied after the gather.  A MoE expert stack is never gathered: the rank
+holds its own experts' rows as a tensor of their own
+(``collectives.localize_ct``), which its decode reads as it is, or copied
+into the bucket's buffer beside gathered members.
 
 On the CPU the same schedule runs in order on one stream: that follows the
 device, it is not a fallback.
@@ -206,20 +209,29 @@ def slot_buffers(schedule: OverlapSchedule) -> list:
 
 def gather_layer(cts: list, mesh, axis: str, codec=None) -> list:
     """A layer's per-layer tensors with every placed one gathered over the
-    mesh ``axis``: the placed members of each decoder bucket (in slot
-    order, as ``Codec.plan_decode`` groups them) into one new buffer a
-    bucket, laid out member after member, so the bucket's decode reads
-    each stream array as one view."""
+    mesh ``axis``: the members of each decoder bucket that holds a placed
+    one (in slot order, as ``Codec.plan_decode`` groups them) laid out in
+    one new buffer a bucket, member after member, so the bucket's decode
+    reads each stream array as one view.  A member this rank holds whole
+    (a MoE expert stack's own experts: ``collectives.localize_ct``) is
+    copied into its rows; a placed one gathers into them."""
     buckets: dict = {}
     for i, ct in enumerate(cts):
-        if collectives.is_placed(ct):
+        if ct.mode == "enec":
             buckets.setdefault(_key(ct), []).append(i)
     A = mesh.shape.get(axis, 1)
-    outs = [None] * len(cts)
+    cts, outs = list(cts), [None] * len(cts)
     for members in buckets.values():
+        if not any(collectives.is_placed(cts[i]) for i in members):
+            continue
         for i, whole in zip(members, collectives.whole_streams(
                 [cts[i] for i in members], A)):
-            outs[i] = whole
+            if collectives.is_placed(cts[i]):
+                outs[i] = whole
+                continue
+            for a, w in zip(cts[i].streams, whole):
+                w.copy_(a)
+            cts[i] = dataclasses.replace(cts[i], streams=whole)
     # one call: every member's broadcasts are in flight together
     return collectives.gather_cts(cts, mesh, axis, codec, outs)
 

@@ -28,6 +28,16 @@ order (``models/layers.py:rank_decode_attention``), and a chunk cut
 between two ranks could not give one device's bits.
 :func:`port_cache_pspecs` is :func:`cache_pspecs` under that rule, with
 the recurrent states and the encoder memory whole (on the batch only).
+
+**MoE expert stacks** (:func:`expert_layout`) go where
+:func:`param_pspec` puts them for serving: E on "model" where it divides,
+so each rank holds, decodes and multiplies only its own experts; and, for
+dense stacks, each expert matrix's OUTPUT dim on "data" (F of ``e_gate`` /
+``e_up``, D of ``e_down``).  The reference splits ``e_down``'s F there,
+and under ``serve_ep`` every contracting dim, which its psum reassociates;
+the port's canonical tiled matmul keeps each output's k order whole, so
+a column slice of a product is that product's columns bit for bit and
+both modes place the same bytes (``docs/PORT.md`` convention 11).
 """
 from __future__ import annotations
 
@@ -372,6 +382,172 @@ def port_cache_pspecs(cache, mesh, b: int, layout: KVLayout):
     return tree_map_with_path(spec_for, cache)
 
 
+# ---------------------------------------------------------------------------
+# MoE expert stacks on a serving mesh
+# ---------------------------------------------------------------------------
+
+EXPERT_LEAVES = ("e_gate", "e_up", "e_down")
+EXPERT_MODES = ("serve", "serve_ep")
+
+
+def is_expert_leaf(path: str) -> bool:
+    return path.rsplit("/", 1)[-1] in EXPERT_LEAVES
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ExpertLayout:
+    """What one rank of ``mesh`` holds of a MoE layer's expert stacks
+    (``n_experts`` experts of ``e_gate`` / ``e_up`` (D, F) and ``e_down``
+    (F, D)): its block of ``local_experts`` experts from ``offset`` when
+    ``expert_axis`` is set, else every expert; and, when ``data_axis`` is
+    set, its block of each matrix's OUTPUT columns (F of ``e_gate`` /
+    ``e_up``, D of ``e_down``: ``docs/PORT.md`` convention 11), else whole
+    matrices.  ``why`` says why an axis was not used."""
+    mesh: object
+    n_experts: int
+    d_model: int
+    d_ff: int
+    expert_axis: object = None
+    data_axis: object = None
+    mode: str = "serve"
+    why: str = ""
+
+    @property
+    def expert_count(self) -> int:
+        return _axis_size(self.mesh, self.expert_axis)
+
+    @property
+    def data_count(self) -> int:
+        return _axis_size(self.mesh, self.data_axis)
+
+    @property
+    def local_experts(self) -> int:
+        return self.n_experts // self.expert_count
+
+    @property
+    def offset(self) -> int:
+        """This rank's first expert."""
+        if self.expert_axis is None:
+            return 0
+        return self.mesh.coords.get(self.expert_axis, 0) * self.local_experts
+
+    def leaf_spec(self, ndim: int) -> tuple:
+        """The spec of an expert leaf of ``ndim`` dims (leading layer-stack
+        dims unsharded): E on the expert axis, the output dim (the last of
+        every expert matrix) on the data axis."""
+        lead = (None,) * (ndim - 3)
+        return (*lead, self.expert_axis, None, self.data_axis)
+
+    def nbytes(self, n_layers: int, itemsize: int = 2) -> int:
+        """Bytes of this rank's share of ``n_layers`` layers' three expert
+        stacks."""
+        return (n_layers * self.local_experts * 3 * self.d_model * self.d_ff
+                // self.data_count * itemsize)
+
+    def exchange_bytes(self, rows: int, capacity: int, acc_size: int,
+                       rows_sharded: bool = False) -> int:
+        """Activation bytes this rank receives in one MoE block of ``rows``
+        rows (the rank's own rows when ``rows_sharded``: its block of the
+        batch on "data") at capacity ``capacity``, combining in
+        ``acc_size``-byte floats: the dispatch of the own experts' bf16
+        ``x_ec`` from every data rank's rows and the return of each data
+        rank's rows of the f32 ``y`` (an all-to-all), where the rows are
+        sharded and the columns split; else the all-gather of ``y``'s
+        columns; the bf16 ``h`` all-gathered over the data axis along F;
+        the combine's all-gather of every rank's experts' weighted outputs
+        over the expert axis, in the combine's dtype."""
+        A_d, A_m = self.data_count, self.expert_count
+        e, d, f = self.local_experts, self.d_model, self.d_ff
+        out = 0
+        if A_d > 1:
+            every = rows * A_d if rows_sharded else rows
+            out += (A_d - 1) * e * every * capacity * f // A_d * 2
+            out += (A_d - 1) * rows * e * capacity * d // A_d * 4
+            if rows_sharded:
+                out += (A_d - 1) * rows * e * capacity * d * 2
+        if A_m > 1:
+            out += (A_m - 1) * rows * e * capacity * d * acc_size
+        return out
+
+    def describe(self) -> str:
+        if self.expert_axis is None:
+            experts = f"all {self.n_experts} experts on every rank"
+        else:
+            experts = (f"{self.local_experts} of {self.n_experts} experts "
+                       f"from {self.offset} over {self.expert_axis} "
+                       f"({self.expert_count} ranks)")
+        cols = ("whole matrices" if self.data_axis is None else
+                f"1/{self.data_count} of each matrix's output columns over "
+                f"{self.data_axis}")
+        why = f" ({self.why})" if self.why else ""
+        return f"{experts}, {cols}{why} [{self.mode}]"
+
+
+def expert_layout(mesh, n_experts: int, d_model: int, d_ff: int, *,
+                  dense: bool = True, mode: str = "serve") -> ExpertLayout:
+    """The expert stacks' layout on a serving ``mesh``, as
+    :func:`param_pspec` places them in ``mode="serve"`` (the default) or
+    ``"serve_ep"``, under the port's rules (``docs/PORT.md`` convention
+    11): E on "model" where it divides (the reference's :func:`_maybe`),
+    else every expert on every rank; on "data", for ``dense`` stacks only,
+    each matrix's output dim (F of ``e_gate`` / ``e_up``, D of
+    ``e_down``) where both divide, else whole.  The reference splits a
+    contracting dim on "data" (``e_down``'s F; every expert matrix's under
+    ``serve_ep``); the port keeps each output's k order whole, so both
+    modes place the same: a rank holds the same bytes either way.  A
+    compressed stack (``dense=False``) is placed by its stream rows on
+    "model" only (:func:`~repro_torch.runtime.collectives.localize_ct`)."""
+    if mode not in EXPERT_MODES:
+        raise ValueError(f"unknown expert layout mode {mode!r}; expected "
+                         f"one of {EXPERT_MODES}")
+    why = []
+    experts = _maybe(n_experts, mesh, "model")
+    if experts is None and _axis_size(mesh, _present(mesh, "model")) > 1:
+        why.append(f"{n_experts} experts % {mesh.shape['model']} model "
+                   f"ranks != 0: the stacks stay whole on every rank")
+    data = None
+    if _axis_size(mesh, _present(mesh, "data")) > 1:
+        if not dense:
+            why.append("compressed stacks keep whole matrices on data")
+        elif _maybe(d_ff, mesh, "data") and _maybe(d_model, mesh, "data"):
+            data = "data"
+        else:
+            why.append(f"d_ff {d_ff} or d_model {d_model} % "
+                       f"{mesh.shape['data']} data ranks != 0: whole "
+                       f"matrices")
+    return ExpertLayout(mesh, n_experts, d_model, d_ff, experts, data, mode,
+                        "; ".join(why))
+
+
+def held_expert_layout(mesh, n_experts: int, d_model: int, gate_shape,
+                       down_shape, mode: str = "serve") -> ExpertLayout:
+    """The layout of the expert stacks a rank holds, read from one layer's
+    ``e_gate`` (E', D, F') and ``e_down`` (E', F, D') shapes: E' of
+    ``n_experts`` (its block on "model", or all of them), F' and D' whole
+    or both its block on "data".  Raises on a share no layout gives."""
+    d_ff = int(down_shape[-2])
+    held_e, held_f, held_d = (int(gate_shape[-3]), int(gate_shape[-1]),
+                              int(down_shape[-1]))
+    expert_axis = data_axis = None
+    if held_e != n_experts:
+        expert_axis = _present(mesh, "model")
+        if expert_axis is None or held_e * _axis_size(
+                mesh, expert_axis) != n_experts:
+            raise ValueError(f"a rank holds {held_e} of {n_experts} "
+                             f"experts: no expert layout of mesh "
+                             f"{dict(mesh.shape)} gives that")
+    if (held_f, held_d) != (d_ff, d_model):
+        data_axis = _present(mesh, "data")
+        A = _axis_size(mesh, data_axis)
+        if data_axis is None or (held_f * A, held_d * A) != (d_ff, d_model):
+            raise ValueError(f"a rank holds ({held_f}, {held_d}) of the "
+                             f"expert matrices' output dims ({d_ff}, "
+                             f"{d_model}): no expert layout of mesh "
+                             f"{dict(mesh.shape)} gives that")
+    return ExpertLayout(mesh, n_experts, d_model, d_ff, expert_axis,
+                        data_axis, mode)
+
+
 def logits_pspec(mesh, b: int, vocab: int) -> tuple:
     return (batch_axis(mesh, b), _maybe(vocab, mesh, "model"))
 
@@ -426,4 +602,5 @@ def local_shard(t: torch.Tensor, spec, mesh) -> torch.Tensor:
 __all__ = ["batch_axis", "param_pspec", "param_pspecs", "ct_pspecs",
            "handle_pspecs", "batch_pspecs", "cache_pspecs", "logits_pspec",
            "KVLayout", "kv_layout", "port_cache_pspecs",
-           "local_shard", "spec_leaves", "shard_dim", "ct_stacked"]
+           "ExpertLayout", "expert_layout", "held_expert_layout",
+           "is_expert_leaf", "local_shard", "spec_leaves", "shard_dim", "ct_stacked"]

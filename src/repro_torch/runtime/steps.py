@@ -30,7 +30,9 @@ On a serving mesh (``build_prefill_step`` / ``build_decode_step(...,
 mesh=)``) a rank runs its rows of the batch under the ambient serving mesh
 (its stream shards gathered at use) over its share of the K/V rings
 (``sharding.kv_layout``; the decode attention's gathers over the sequence
-axes), as the dry-run's serving cells run rank 0.
+axes) and with its share of the MoE expert stacks
+(``sharding.expert_layout``; the MoE block's exchanges over "data" and
+"model"), as the dry-run's serving cells run rank 0.
 """
 from __future__ import annotations
 
@@ -152,12 +154,14 @@ def _mesh_train_step(model, opt_cfg, mesh) -> Callable:
     return train_step
 
 
-def build_prefill_step(model, max_len: int, mesh=None) -> Callable:
+def build_prefill_step(model, max_len: int, mesh=None,
+                       expert_mode: str = "serve") -> Callable:
     """(params, batch) -> (logits, cache).  On a serving ``mesh``
     (``launch/mesh.py``; ``params`` as ``runtime/collectives.py`` places
-    them) the step runs under it as the ambient serving mesh on this
-    rank's rows of the global ``batch`` (``sharding.batch_pspecs``) and
-    keeps this rank's share of the K/V rings
+    them, MoE expert stacks under ``sharding.expert_layout(mode=
+    expert_mode)``) the step runs under it as the ambient serving mesh on
+    this rank's rows of the global ``batch`` (``sharding.batch_pspecs``)
+    and keeps this rank's share of the K/V rings
     (``sharding.kv_layout(mesh, max_len, batch=rows)``, the layout of
     ``cache_pspecs``): its logits and cache are the rank's."""
     if mesh is None:
@@ -172,19 +176,22 @@ def build_prefill_step(model, max_len: int, mesh=None) -> Callable:
                  for k, v in batch.items()}
         layout = sharding.kv_layout(mesh, max_len, batch=rows,
                                     pin=model.cfg.decode_score_shard)
-        with use_serving_mesh(mesh):
+        with use_serving_mesh(mesh, rows=sharding.batch_axis(mesh, rows),
+                              expert_mode=expert_mode):
             return model.prefill_fn(params, local, max_len, layout=layout)
 
     return mesh_prefill_step
 
 
-def build_decode_step(model, mesh=None) -> Callable:
+def build_decode_step(model, mesh=None,
+                      expert_mode: str = "serve") -> Callable:
     """(params, cache, tokens) -> (logits, cache).  On a serving ``mesh``
     ``cache`` is this rank's (its rows and its share of the K/V rings:
     the mesh prefill step's, or ``model.init_cache`` under
     ``sharding.kv_layout(mesh, max_len, batch=B)``) and ``tokens`` the
     global (B,) batch, of which the step decodes this rank's rows under
-    the ambient serving mesh."""
+    the ambient serving mesh (MoE expert stacks as for
+    :func:`build_prefill_step`)."""
     if mesh is None:
         def decode_step(params, cache, tokens):
             return model.decode_fn(params, cache, tokens)
@@ -192,7 +199,7 @@ def build_decode_step(model, mesh=None) -> Callable:
 
     def mesh_decode_step(params, cache, tokens):
         spec = (sharding.batch_axis(mesh, tokens.shape[0]),)
-        with use_serving_mesh(mesh):
+        with use_serving_mesh(mesh, rows=spec[0], expert_mode=expert_mode):
             return model.decode_fn(params, cache, sharding.local_shard(
                 tokens, spec, mesh))
 

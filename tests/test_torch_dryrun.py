@@ -10,9 +10,10 @@ remat (435 launches of kernel 2') and decode step (113 launches of
 kernel 2' dense, 112 of kernel 2 and 1 of 2' fused, 17 of kernel 1 in
 stream mode with the prefetch) and its FLOPs against 2 N tokens; the
 reference's 8 skips and the ``remat_dots`` variant run;
-``moe_block(dispatch_a2a=True)`` bitwise equal to ``False`` and recorded
-as one all-to-all under the abstract mesh; ``serve --dense`` bitwise
-equal to ``--mode dense``.
+``moe_block(dispatch_a2a=True)`` bitwise equal to ``False`` and, under
+the abstract mesh with the experts placed, recording the same exchange
+as ``False``, its bytes the expert layout's formula; ``serve --dense``
+bitwise equal to ``--mode dense``.
 """
 import numpy as np
 import pytest
@@ -33,8 +34,9 @@ from repro_torch.kernels import cost, ops, ref
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.models import build_model, moe, registry
+from repro_torch.models.lm import block_program
 from repro_torch.optim import adamw
-from repro_torch.runtime import collectives, streaming
+from repro_torch.runtime import collectives, sharding, streaming
 from repro_torch.runtime.steps import (build_decode_step, build_prefill_step,
                                        build_train_step)
 from repro_torch.runtime.weights import StreamedWeight
@@ -264,12 +266,20 @@ def test_dryrun_launches_equal_the_cpu_programs(arch, kind, mode,
     """On a 2x2 abstract mesh (rank 0) the dry-run's launches a kernel
     equal the wrapper calls of one device's program on the CPU: the mesh
     moves bytes, never kernel work (every rank runs the dense math whole;
-    a training rank its rows).  The serving cells run the tree the CPU run
-    compressed (``dryrun.meta_tree``): its escapes and decoder buckets
-    are a real encode's."""
+    a training rank its rows), but for the MoE experts of a serving cell:
+    the rank multiplies only its own (``sharding.expert_layout``: half of
+    them on the model axis of 2), three products an expert fewer for each
+    of the others.  The serving cells run the tree the CPU run compressed
+    (``dryrun.meta_tree``): its escapes and decoder buckets are a real
+    encode's."""
     cfg = get_smoke_config(arch)
     shape = SMOKE_SHAPES[kind]
     want, tree = _cpu_run(cfg, shape, mode, monkeypatch)
+    if kind != "train" and cfg.n_experts:
+        program = block_program(cfg)
+        moe_layers = sum(d.ffn == "moe" for d in program) * (
+            cfg.n_layers // len(program))
+        want["dense_tile_matmul"] -= 3 * cfg.n_experts // 2 * moe_layers
     mesh = AbstractMesh((2, 2), ("data", "model"))
     rec = dryrun.lower_cell(cfg, shape, mesh, mode=mode, tree=tree)
     got = {k: v["launches"] for k, v in rec["kernels"].items()}
@@ -405,6 +415,13 @@ def test_dryrun_record_reads_into_the_roofline(tmp_path):
 @pytest.mark.parametrize("arch", ["phi3_5_moe_42b_a6_6b",
                                   "qwen3_moe_235b_a22b"])
 def test_moe_a2a_dispatch_bitwise_equal_and_recorded(arch):
+    """``dispatch_a2a=True`` gives ``False``'s bits on one device, and on
+    the 2x2 abstract mesh (rank 0, its rows of the batch on "data", its
+    share of the expert stacks placed by ``sharding.expert_layout``) both
+    record the same exchange: the own experts' ``x_ec`` gathered over
+    "data", ``h`` over "data", ``y`` returned by one all-to-all over
+    "data", the combine over "model", the ledger's bytes the layout's
+    formula."""
     cfg = get_smoke_config(arch)
     gen = torch.Generator().manual_seed(1)
     p = moe.init_moe(1, cfg.d_model, cfg.moe_d_ff, cfg.n_experts, gen, "cpu")
@@ -416,14 +433,29 @@ def test_moe_a2a_dispatch_bitwise_equal_and_recorded(arch):
     assert torch.equal(a2a.view(torch.int16), base.view(torch.int16))
     for key in aux:
         assert torch.equal(aux[key], aux2[key])
-    mesh = AbstractMesh((2, 2), ("data", "model"))
-    with collectives.use_serving_mesh(mesh):
-        moe.moe_block({n: t.to("meta") for n, t in p.items()},
-                      x.to("meta"), k, dispatch_a2a=True)
-    # x_ec: (B, E, C, D) bf16 over the model axis of 2 ranks
+    records = {}
+    for flag in (False, True):
+        mesh = AbstractMesh((2, 2), ("data", "model"))
+        meta = {}
+        for name, t in p.items():
+            layout = collectives.leaf_expert_layout(name, t.to("meta"), mesh)
+            meta[name] = t.to("meta") if layout is None else \
+                collectives.place_expert(t.to("meta"), layout, mesh)
+        before = collectives.expert_exchange_bytes()
+        with collectives.use_serving_mesh(mesh, rows="data"):
+            moe.moe_block(meta, x[:1].to("meta"), k, dispatch_a2a=flag)
+        records[flag] = (mesh.records,
+                         collectives.expert_exchange_bytes() - before)
+    assert records[True] == records[False]
+    kinds = [kind for kind, _, _ in records[True][0]]
+    assert kinds.count("all-to-all") == 1
+    assert kinds.count("broadcast") == 3 * 2     # x, h, combine; 2 owners
     c = moe.capacity_for(8, cfg.n_experts, k)
-    assert mesh.records == [("all-to-all",
-                             2 * cfg.n_experts * c * cfg.d_model * 2, 2)]
+    layout = sharding.expert_layout(mesh, cfg.n_experts, cfg.d_model,
+                                    cfg.moe_d_ff)
+    assert layout.local_experts == cfg.n_experts // 2
+    assert records[True][1] == layout.exchange_bytes(1, c, 4,
+                                                     rows_sharded=True)
 
 
 def test_serve_dense_alias_bitwise_equal_to_mode_dense():
