@@ -5237,11 +5237,19 @@ def _check_mesh_restore(A, ranks, single) -> None:
 TRAIN_MESH_A = 2
 TRAIN_MESH_FIRST = (1, 2)      # phase train records its shards' digests
 # each rank's ``launch/train.py`` runs, in order: 3 steps on (1, 2) saved at
-# step 3, then that checkpoint resumed on (2, 1) to step 6, whose final
-# save no check reads and is skipped (``_saves_skipped``)
+# step 3, then that checkpoint resumed on (2, 1) to step 6 and on the pod
+# mesh (pod 2, data 1, model 1) to step 6, whose final saves no check reads
+# and are skipped (``_saves_skipped``)
 TRAIN_MESH_RUNS = {"1x2": ["--mesh", "1x2", "--steps", str(TRAIN_RESUME)],
-                   "2x1": ["--mesh", "2x1", "--steps", str(TRAIN_STEPS)]}
-TRAIN_MESH_SAVES = {"1x2": True, "2x1": False}
+                   "2x1": ["--mesh", "2x1", "--steps", str(TRAIN_STEPS)],
+                   "pod2x1x1": ["--steps", str(TRAIN_STEPS)]}
+TRAIN_MESH_SAVES = {"1x2": True, "2x1": False, "pod2x1x1": False}
+# the runs on a pod mesh, made by the worker and given to ``train.main`` as
+# ``mesh=`` (``--mesh`` is DxM, as the reference's launcher's), and the
+# run each must equal bit for bit: (P, D, M) trains as (P·D, M)
+TRAIN_MESH_POD = {"pod2x1x1": (2, 1, 1)}
+TRAIN_MESH_POD_TWIN = {"pod2x1x1": "2x1"}
+POD_AXES = ("pod", "data", "model")
 TRAIN_MESH_RTOL = 1e-3
 
 
@@ -5289,9 +5297,11 @@ def _memory_marks(train, marks: list):
 def _allreduce_check(out) -> dict:
     """One step's whole gradient tree of this rank's rows (batch
     TRAIN_STEPS, the state of ``out``) through ``compressed_allreduce``
-    over "data", each leaf's codec params searched on the exponent
-    histogram of every rank's gradient (summed over the axis): bitwise
-    equal to the plain rank-ordered sum of the dense gradients.  Logs the
+    over the one axis of more than one rank that the rows are on ("data"
+    on (2, 1), "pod" on the pod mesh), each leaf's codec params searched
+    on the exponent histogram of every rank's gradient (summed over the
+    axis): bitwise equal to the plain rank-ordered sum of the dense
+    gradients.  Logs the
     d2d_psum bytes, compressed and dense, the gradient ratio as shipped
     (the static stream layout) and at the exact wire size beside
     ``wire_bytes_saved``'s estimate, and the launches (one encode and one
@@ -5314,7 +5324,13 @@ def _allreduce_check(out) -> dict:
     from repro_torch.runtime import elastic, sharding
     from repro_torch.runtime.steps import loss_and_grads
     mesh = out["mesh"]
-    D = mesh.shape["data"]
+    rows = sharding.batch_axis(mesh, 8)
+    axes = [a for a in (rows if isinstance(rows, tuple) else (rows,))
+            if a is not None and mesh.shape[a] > 1]
+    check(len(axes) == 1, f"train_mesh all-reduce: the rows of mesh "
+          f"{mesh.shape} are on {rows}, not on one axis")
+    axis = axes[0]
+    D = mesh.shape[axis]
     model = build_model(get_config("llama3_2_1b"))
     data = pipeline.DataConfig(vocab_size=TRAIN_VOCAB, seq_len=128,
                                global_batch=8)
@@ -5334,15 +5350,15 @@ def _allreduce_check(out) -> dict:
     for _, g in tree_leaves(grads):
         fmt = format_for(g.dtype)
         hists = gather_whole([exponent_histogram_device(g, fmt)[None]],
-                             [("data",)], mesh, link=None)[0]
+                             [(axis,)], mesh, link=None)[0]
         p = params_mod.search(hists.sum(0).cpu().numpy(), fmt)
         searched.append((g, fmt, p))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        got = compressed_allreduce(g, mesh, "data", p, codec=codec)
+        got = compressed_allreduce(g, mesh, axis, p, codec=codec)
         torch.cuda.synchronize()
         secs += time.perf_counter() - t0
-        parts = gather_whole([g[None]], [("data",)], mesh, link=None)[0]
+        parts = gather_whole([g[None]], [(axis,)], mesh, link=None)[0]
         want = rank_ordered_sum(parts).to(g.dtype)
         equal &= torch.equal(got.view(torch.int16), want.view(torch.int16))
         leaves += 1
@@ -5360,7 +5376,8 @@ def _allreduce_check(out) -> dict:
         wire += (D - 1) * (sum(a.numel() * a.element_size()
                                for a in (st.mask, st.low, st.raw, st.high_len))
                            + int(((st.high_len.long() + 7) // 8).sum()))
-    return {"bitwise": equal, "leaves": leaves, "launches": launches,
+    return {"axis": axis, "ranks": D, "bitwise": equal, "leaves": leaves,
+            "launches": launches,
             "link": link, "dense_bytes": raw, "estimate_bytes": estimate,
             "wire_bytes": wire, "ratio": raw / link["compressed_bytes"],
             "wire_ratio": raw / wire, "estimate_ratio": raw / estimate,
@@ -5379,6 +5396,7 @@ def train_mesh_worker(spec_path: str) -> None:
     from repro_torch.core.codec_api import current_codec
     from repro_torch.kernels import build
     from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
     spec = json.loads(Path(spec_path).read_text())
     out_dir = Path(spec["out"])
     build.build_all()
@@ -5399,8 +5417,11 @@ def train_mesh_worker(spec_path: str) -> None:
         dec = codec.decode_cache_stats()["dispatches"]
         t0 = time.perf_counter()
         try:
+            pod = TRAIN_MESH_POD.get(label)
             out = train.main(["--arch", "llama3_2_1b", "--ckpt",
-                              str(out_dir / "ckpt")] + args)
+                              str(out_dir / "ckpt")] + args,
+                             mesh=make_mesh(pod, POD_AXES, "cuda")
+                             if pod else None)
         finally:
             unmark()
         torch.cuda.synchronize()
@@ -5418,6 +5439,11 @@ def train_mesh_worker(spec_path: str) -> None:
             "saves_skipped": skipped,
             "digest": {path: leaf_digest(t)
                        for path, t in _flat_state(out)}}
+        if label in TRAIN_MESH_POD_TWIN:
+            # what each rank of the twin mesh holds of this rank's state
+            twin = tuple(int(v) for v in TRAIN_MESH_POD_TWIN[label].split(
+                "x"))
+            res["runs"][label]["as_twin"] = shard_digests(out, twin)
         if label != list(spec["runs"])[-1]:
             del out
     torch.cuda.empty_cache()
@@ -5428,14 +5454,15 @@ def train_mesh_worker(spec_path: str) -> None:
     dist.destroy_process_group()
 
 
-def _replicated_leaves(shape) -> set:
-    """The leaves of the training state every rank of a ``(data, model)``
-    mesh of ``shape`` holds whole."""
+def _replicated_leaves(shape: dict) -> set:
+    """The leaves of the training state every rank of a mesh of ``shape``
+    (axis name -> size: ``(data, model)`` or ``(pod, data, model)``)
+    holds whole."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models.registry import abstract_params
     from repro_torch.runtime import elastic, sharding
-    mesh = Mesh(shape, ("data", "model"))
+    mesh = Mesh(tuple(shape.values()), tuple(shape))
     specs = sharding.spec_leaves(elastic.train_pspecs(
         abstract_params(get_config("llama3_2_1b")), mesh))
     return {path for path, spec in specs
@@ -5467,15 +5494,21 @@ def phase_train_mesh():
     them); that checkpoint resumed on (2, 1) to step 6 (the elastic
     change of grid; its final save, which no check reads, skipped):
     losses within TRAIN_MESH_RTOL of phase train's steps 3-5, the leaves
-    both ranks hold whole equal on both; one step's
-    whole gradient tree through ``compressed_allreduce`` over "data"
-    bitwise equal to the plain rank-ordered sum; 2' launches a step as the
-    code's (``train_step_launches``), 4 and 1 equal to the codec's encode
-    and decode dispatches (the save on rank 0, the restore on every
-    rank).  Logs seconds a step split into gather / compute / reduce, the
-    gathered and reduced bytes a step, d2d_psum compressed against dense
-    bytes and the gradient ratio, and resident and peak GB a rank for the
-    set-up, the step and the save."""
+    both ranks hold whole equal on both; the same checkpoint resumed on
+    the pod mesh (pod 2, data 1, model 1; ``TRAIN_MESH_POD``, made by the
+    worker and handed to ``train.main`` as ``mesh=``) to step 6, its final
+    save skipped: losses, gradient norms and the state bitwise the (2, 1)
+    run's (the state cut to (2, 1)'s shards equal to the digests that
+    run's ranks hold), both pods holding the same shards; one step's
+    whole gradient tree through ``compressed_allreduce`` over the axis the
+    last run's rows are on ("pod") bitwise equal to the plain rank-ordered
+    sum; 2' launches a step as the code's (``train_step_launches``), 4
+    and 1 equal to the codec's encode and decode dispatches (the save on
+    rank 0, the restore on every rank; no 4 in a run that does not save).
+    Logs seconds a step split into gather / compute / reduce, the gathered
+    and reduced bytes a step, d2d_psum compressed against dense bytes and
+    the gradient ratio, and resident and peak GB a rank for the set-up,
+    the step and the save, the pod run's beside the (2, 1) run's."""
     import shutil
     import tempfile
     import torch
@@ -5498,12 +5531,14 @@ def phase_train_mesh():
            "runs": {}}
     for label in TRAIN_MESH_RUNS:
         runs = [r["runs"][label] for r in ranks]
-        shape = dict(zip(("data", "model"),
-                         (int(v) for v in label.split("x"))))
+        sizes = TRAIN_MESH_POD.get(label) or tuple(
+            int(v) for v in label.split("x"))
+        shape = dict(zip(POD_AXES if label in TRAIN_MESH_POD
+                         else ("data", "model"), sizes))
         hist = runs[0]["history"]
-        whole = _replicated_leaves(tuple(shape.values()))
+        whole = _replicated_leaves(shape)
         steps = [h["step"] for h in hist]
-        first = TRAIN_RESUME if label == "2x1" else 0
+        first = 0 if label == "1x2" else TRAIN_RESUME
         check(steps == list(range(first, first + 3)),
               f"train_mesh {label}: steps {steps}")
         for r, run in zip(ranks, runs):
@@ -5533,9 +5568,10 @@ def phase_train_mesh():
             check((lc["enec_encode"] > 0) == (saves and r["rank"] == 0),
                   f"{tag}: kernel 4 at the save on rank 0 only (a run that "
                   f"saves): {lc}")
-            check((lc["enec_decode"] > 0) == (label == "2x1"),
+            check((lc["enec_decode"] > 0) == (label != "1x2"),
                   f"{tag}: kernel 1 at the restore only: {lc}")
         single = want["history"][first:first + 3]
+        rel = None
         if label == "1x2":
             check([(h["loss"], h["grad_norm"]) for h in hist]
                   == [(h["loss"], h["grad_norm"]) for h in single],
@@ -5547,19 +5583,39 @@ def phase_train_mesh():
         else:
             rel = max(abs(h["loss"] - w["loss"]) / abs(w["loss"])
                       for h, w in zip(hist, single))
-            check(rel <= TRAIN_MESH_RTOL, f"train_mesh 2x1: losses {hist} "
-                  f"vs phase train's {single}: {rel:.2e} relative")
+            check(rel <= TRAIN_MESH_RTOL, f"train_mesh {label}: losses "
+                  f"{hist} vs phase train's {single}: {rel:.2e} relative")
+        twin = TRAIN_MESH_POD_TWIN.get(label)
+        if twin:
+            # (P, D, M) trains as (P·D, M): the twin ran before this run
+            theirs = [r["runs"][twin] for r in ranks]
+            check([(h["step"], h["loss"], h["grad_norm"]) for h in hist]
+                  == [(h["step"], h["loss"], h["grad_norm"])
+                      for h in theirs[0]["history"]],
+                  f"train_mesh {label}: losses {hist} differ from the "
+                  f"{twin} run's {theirs[0]['history']}")
+            check(all(run["digest"] == runs[0]["digest"] for run in runs),
+                  f"train_mesh {label}: the pods hold different shards")
+            check(all(run["as_twin"] == [t["digest"] for t in theirs]
+                      for run in runs),
+                  f"train_mesh {label}: the state cut to the {twin} mesh's "
+                  f"shards differs from what that run's ranks hold")
         marks = [_peaks_gb(run["marks"]) for run in runs]
         res["runs"][label] = {
+            "mesh": shape,
             "history": hist, "seconds": [run["seconds"] for run in runs],
             "launches": [run["launches"] for run in runs],
             "gb": marks, "held_gb": [run["held_bytes"] / 1e9 for run in runs],
-            "loss_rel": None if label == "1x2" else rel}
+            "loss_rel": rel}
         split = {k: [h[k] for h in hist] for k in (
             "dt_s", "gather_s", "compute_s", "reduce_s", "gather_bytes",
             "reduce_bytes")}
         res["runs"][label]["split"] = split
-        log(f"train_mesh {label}: {'bitwise equal to phase train' if label == '1x2' else f'losses within {rel:.2e} of phase train'}, "
+        match = ("bitwise equal to phase train" if label == "1x2" else
+                 f"losses within {rel:.2e} of phase train")
+        if twin:
+            match = f"bitwise equal to the {twin} run, " + match
+        log(f"train_mesh {label}: {match}, "
             f"ranks equal; s a step {split['dt_s']} (gather "
             f"{[round(v, 3) for v in split['gather_s']]}, compute "
             f"{[round(v, 3) for v in split['compute_s']]}, reduce "
@@ -5570,6 +5626,20 @@ def phase_train_mesh():
                 f"rank {i}: " + ", ".join(f"{k} {v[0]:.2f}/{v[1]:.2f}"
                                           for k, v in m.items())
                 for i, m in enumerate(marks)) + f" ({card})")
+        if twin:
+            a, b = res["runs"][label], res["runs"][twin]
+            log(f"train_mesh {label} beside {twin}: s a step "
+                f"{a['split']['dt_s']} / {b['split']['dt_s']}; gather s "
+                f"{a['split']['gather_s']} / {b['split']['gather_s']}; "
+                f"compute s {a['split']['compute_s']} / "
+                f"{b['split']['compute_s']}; reduce s "
+                f"{a['split']['reduce_s']} / {b['split']['reduce_s']}; "
+                f"reduced bytes a step {a['split']['reduce_bytes'][0]} / "
+                f"{b['split']['reduce_bytes'][0]}; peak / held GB a rank "
+                f"{[{k: round(v[0], 2) for k, v in m.items()} for m in a['gb']]}"
+                f" / {[{k: round(v[0], 2) for k, v in m.items()} for m in b['gb']]}"
+                f", {[round(g, 2) for g in a['held_gb']]} / "
+                f"{[round(g, 2) for g in b['held_gb']]} ({card})")
     for r in ranks:
         ar = r["allreduce"]
         check(ar["bitwise"], f"train_mesh rank {r['rank']}: compressed_"
@@ -5580,9 +5650,14 @@ def phase_train_mesh():
               f"{ar['launches']} for {ar['leaves']} leaves")
         check(ar["link"]["dense_bytes"] == 0,
               f"train_mesh: d2d_psum {ar['link']}")
+        last = list(TRAIN_MESH_RUNS)[-1]
+        check(ar["axis"] == ("pod" if last in TRAIN_MESH_POD else "data"),
+              f"train_mesh rank {r['rank']}: the all-reduce ran over "
+              f"{ar['axis']} after the {last} run")
     ar = ranks[0]["allreduce"]
     res["allreduce"] = {k: v for k, v in ar.items() if k != "launches"}
-    log(f"train_mesh all-reduce: {ar['leaves']} gradient leaves bitwise "
+    log(f"train_mesh all-reduce over {ar['axis']} ({ar['ranks']} ranks): "
+        f"{ar['leaves']} gradient leaves bitwise "
         f"equal to the plain sum; d2d_psum {ar['link']['compressed_bytes'] / 1e9:.3f} GB "
         f"compressed against {ar['dense_bytes'] / 1e9:.3f} GB dense (ratio "
         f"{ar['ratio']:.4f} as shipped, the static stream layout; "

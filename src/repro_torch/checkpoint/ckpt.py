@@ -297,7 +297,12 @@ class CheckpointManager:
     def _gather_for_save(self, tree, mesh: Mesh, pspecs):
         """The whole tree on rank 0 (``None`` on the others): every leaf
         gathered from the ranks' shards in turn, so that a rank other than
-        0 holds one whole leaf at a time."""
+        0 holds one whole leaf at a time.  On a pod mesh only pod 0's
+        ranks gather: the state is replicated across "pod" (no spec names
+        it), so the other pods hold the same bytes, and each pod's gathers
+        run within its own axis groups."""
+        if mesh.axis_index("pod") != 0:
+            return None
         specs = dict(spec_leaves(pspecs))
         whole = {}
         for name, t in rt_streaming.tree_leaves(tree):

@@ -15,7 +15,9 @@ not run):
           :func:`run_cell` sets ``remat`` on every train cell, as the
           reference's dry-run does, under the config's policy or the
           ``remat_dots`` variant's), the rank-ordered gradient sum over
-          "data" and AdamW on the shards;
+          the batch's axes (("pod", "data") on the multi-pod mesh, where
+          the parameters are replicated across "pod") and AdamW on the
+          shards;
   prefill ``build_prefill_step`` / ``build_decode_step(..., mesh=)`` under
   decode  the serving mesh (``runtime/collectives.py``): the rank holds its
           own stream shards and gathers the others' at each use; the dense
@@ -148,9 +150,11 @@ def _periods(cfg) -> int:
 
 def production_mesh(multi_pod: bool = False, shape=None) -> AbstractMesh:
     """Rank 0 of the 16x16 (or 2x16x16) mesh, or of a ``(data, model)``
-    mesh of ``shape``."""
+    mesh of ``shape`` (``(pod, data, model)`` for three sizes)."""
     if shape is not None:
-        return AbstractMesh(tuple(shape), ("data", "model"))
+        axes = ("pod", "data", "model") if len(shape) == 3 \
+            else ("data", "model")
+        return AbstractMesh(tuple(shape), axes)
     if multi_pod:
         return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
     return AbstractMesh((16, 16), ("data", "model"))
@@ -373,19 +377,19 @@ def _program(cfg, shape, mesh, mode, tree, expert_mode: str = "serve"):
     if shape.kind == "train":
         whole = abstract_params(cfg)
         pspecs = elastic.train_pspecs(whole, mesh)
-        pleaves = dict(sharding.spec_leaves(pspecs["params"]))
-        params = tree_map_with_path(lambda p, t: _meta_like(
-            t, sharding.local_shard(t, pleaves[p], mesh).shape), whole)
+        params = elastic.abstract_shards(whole, mesh, pspecs["params"])
         opt = adamw.init(params)
         step = build_train_step(model, adamw.AdamWConfig(), mesh)
         rows = sharding.local_shard(
             specs["tokens"], sharding.batch_pspecs(
                 specs, mesh, shape.global_batch)["tokens"], mesh).shape[0]
+        ba = sharding.batch_axis(mesh, shape.global_batch)
         line = (f"train step on mesh {dims} rank {mesh.rank}: params and "
-                f"AdamW moments sharded (train_pspecs), dense gather, "
-                f"forward + backward on {rows} of {shape.global_batch} "
-                f"rows x {shape.seq_len}, rank-ordered gradient sum over "
-                f"data, AdamW on the shards")
+                f"AdamW moments sharded (train_pspecs; replicated across "
+                f"pod), dense gather, forward + backward on {rows} of "
+                f"{shape.global_batch} rows x {shape.seq_len} (batch on "
+                f"{ba}), rank-ordered gradient sum over {ba}, AdamW on the "
+                f"shards")
         return ((params, opt, specs), lambda: step(params, opt, specs), line,
                 None)
     whole, params = serving_params(cfg, mode, mesh, tree, expert_mode)
@@ -513,12 +517,6 @@ def run_cell(arch: str, shape_name: str, outdir: Path, multi_pod_modes,
     for mesh_name in multi_pod_modes:
         mesh = production_mesh(mesh_name == "multi", mesh_shape)
         entry = {}
-        if shape.kind == "train" and set(mesh.shape) - {"data", "model"}:
-            entry["status"] = "skipped"
-            entry["reason"] = ("the port's training mesh has (data, model) "
-                               "axes; a pod axis is not expressible")
-            record[mesh_name] = entry
-            continue
         try:
             rec = lower_cell(cfg, shape, mesh, variant=variant, mode=mode)
             entry["full"] = rec
@@ -564,7 +562,8 @@ def main(argv=None):
     ap.add_argument("--variant", default="baseline",
                     choices=tuple(VARIANT_TWEAKS))
     ap.add_argument("--mesh-shape", default=None,
-                    help="override the single-pod mesh, e.g. 4x64")
+                    help="override the single-pod mesh, e.g. 4x64 (DxM) "
+                         "or 2x4x4 (PxDxM, a pod mesh)")
     ap.add_argument("--single-only", action="store_true")
     ap.add_argument("--multi-only", action="store_true")
     args = ap.parse_args(argv)

@@ -18,7 +18,10 @@ mesh: ``--mesh DxM``, or the largest grid the arch supports
 (``elastic.best_mesh_for``); each rank holds its shards of the parameters
 and AdamW state (``sharding.param_pspecs(mode="train")``) and a
 checkpoint written by any layout resumes on any other.  In a world of one
-rank it trains on one device.
+rank it trains on one device.  ``--mesh`` stays ``DxM``, as the
+reference's launcher's does; a caller with a pod mesh (``launch/mesh.py:
+make_mesh(shape, ("pod", "data", "model"))``) passes it to
+:func:`main` as ``mesh=``, and the run goes as on any other mesh.
 """
 from __future__ import annotations
 
@@ -72,11 +75,16 @@ def mesh_shape(arg, world: int):
     return shape
 
 
-def main(argv=None) -> dict:
+def main(argv=None, *, mesh=None) -> dict:
+    """Parse ``argv`` and train; ``mesh``: a mesh the caller made over the
+    whole world (a pod mesh, say), used in place of ``--mesh``."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     world = world_size()
+    if mesh is not None and (args.mesh is not None or mesh.size != world):
+        raise ValueError(f"mesh= {dict(mesh.shape)} takes the place of "
+                         f"--mesh and must span the world of {world}")
     shape = mesh_shape(args.mesh, world)
     model = build_model(cfg)
     opt_cfg = adamw.AdamWConfig(
@@ -95,8 +103,9 @@ def main(argv=None) -> dict:
             # before the process group: a build must not eat its timeout
             from repro_torch.kernels import build
             build.build_all()
-        mesh = (make_mesh(shape, ("data", "model")[:len(shape)], dev)
-                if shape else elastic.best_mesh_for(cfg, device=dev))
+        if mesh is None:
+            mesh = (make_mesh(shape, ("data", "model")[:len(shape)], dev)
+                    if shape else elastic.best_mesh_for(cfg, device=dev))
         print(f"[launch.train] {cfg.name} on mesh {dict(mesh.shape)}")
         dev = mesh.device
         # ``run`` makes the state from seed 0: the params whole once, then

@@ -11,9 +11,13 @@ caveat, unlike lossy 1-bit / top-k schemes.
       -> gather every rank's streams over the axis (compressed bytes only)
       -> decode all of them in one launch (kernel 1), sum in rank order
 
-:func:`compressed_allreduce` is the primitive; the reference's train step
-does not call it (its pjit reduction syncs the gradients), and neither
-does the port's (``runtime/steps.py`` sums them dense, in rank order).
+:func:`compressed_allreduce` is the primitive, over any one mesh axis: on
+the reference's pod-DP layout the sync over "pod" (the slow links
+between pods, ``runtime/sharding.py``) is where it applies.  The
+reference's train step does not call it (its pjit reduction syncs the
+gradients over ("pod", "data")), and neither does the port's
+(``runtime/steps.py`` sums them dense, in rank order over the batch's
+axes, pod-major).
 """
 from __future__ import annotations
 

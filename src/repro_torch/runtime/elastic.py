@@ -12,7 +12,11 @@ in the pipeline depends on the world size: a batch is a pure function of
 
 A rank holds its shards as tensors of its own (:func:`reshard`), never as
 views of a whole tensor, so its resident bytes fall to its share of the
-state; :func:`gather_tree` rebuilds the whole tensors from them.
+state; :func:`gather_tree` rebuilds the whole tensors from them.  On a
+mesh with a "pod" axis (``("pod", "data", "model")``, the reference's
+pod-DP layout) the state is placed by "data" and "model" only: every pod
+holds the same shards.  The grids :func:`best_mesh_for` picks stay
+``(data, model)``, as the reference's do.
 """
 from __future__ import annotations
 
@@ -58,7 +62,8 @@ def train_pspecs(params, mesh) -> dict:
     ``params`` (tensors or ``meta`` tensors): FSDP over "data" on the
     non-TP matrix dim and TP over "model" (``param_pspecs(mode="train")``),
     the AdamW moments as their parameters, the step replicated (the
-    reference's ``launch/train.py``)."""
+    reference's ``launch/train.py``); on a pod mesh every pod holds the
+    same shards (no spec names "pod")."""
     specs = sharding.param_pspecs(params, mesh, mode="train")
     return {"params": specs,
             "opt": adamw.AdamWState(step=(), m=specs, v=specs)}
@@ -76,6 +81,15 @@ def reshard(tree, mesh, pspecs):
                            device=mesh.device).copy_(piece)
 
     return tree_map_with_path(one, tree)
+
+
+def abstract_shards(tree, mesh, pspecs):
+    """``meta`` tensors of the shapes and dtypes of this rank's shards of
+    the whole ``tree`` (tensors or ``meta`` tensors) under ``pspecs``."""
+    specs = dict(sharding.spec_leaves(pspecs))
+    return tree_map_with_path(lambda path, t: torch.empty(
+        sharding.local_shard(t, specs[path], mesh).shape, dtype=t.dtype,
+        device="meta"), tree)
 
 
 def whole_shape(t: torch.Tensor, spec, mesh) -> tuple:

@@ -7,24 +7,33 @@ kernel 2' on the card, forward and backward), and the embedding's
 gradient is accumulated deterministically (``models/layers.py``), so a
 step's bits are the same in every run.
 
-On a training mesh (``build_train_step(..., mesh=)``) each rank holds its
-shards of the parameters and AdamW moments (``runtime/elastic.py``) and a
-step runs, on every rank:
+On a training mesh (``build_train_step(..., mesh=)``: axes ("pod",
+"data", "model") in that order, any of them absent or of size 1) each
+rank holds its shards of the parameters and AdamW moments
+(``runtime/elastic.py``: FSDP over "data", TP over "model", replicated
+across "pod", the reference's pod-DP layout) and a step runs, on every
+rank:
 
   1. gather: every parameter whole from its shards (dense broadcasts,
      counted on ``d2d_allgather``);
   2. forward and backward over this rank's rows of the global batch
-     (``sharding.batch_pspecs``; ranks that differ only on "model" compute
-     the same rows);
-  3. the gradient sum over "data": each rank's whole gradient summed in
-     rank order in f32, scaled by 1/D and cast to the parameter's dtype
-     (counted on ``d2d_psum`` as dense bytes; none with D = 1), the same
-     bits on every rank;
+     (``sharding.batch_axis``: ("pod", "data") where the batch divides,
+     else "data", else none; ranks that differ only on "model", or on
+     "pod" when the rows sit on "data" alone, compute the same rows);
+  3. the gradient sum over the batch's ranks: each rank's whole gradient
+     stacked pod-major (the order ``local_shard`` splits the rows in),
+     ``REDUCE_CHUNK`` elements at a time, and summed in that order in
+     f32, scaled by 1/N for the N row blocks and cast to the parameter's
+     dtype (counted on ``d2d_psum`` as (N - 1) x the gradient's dense
+     bytes; none with N = 1), the same bits on every rank: a (P, D, M)
+     mesh gives what a (P·D, M) mesh gives, bit for bit (``docs/PORT.md``
+     convention 12);
   4. the global norm of the whole gradient;
   5. AdamW on the local shards of params, m and v, clipped by that norm.
 
-The loss metric is the rank-ordered mean over "data" of the ranks' local
-losses.  With D = 1 every rank computes exactly what one device computes.
+The loss metric is the rank-ordered mean over the same ranks of their
+local losses.  With N = 1 every rank computes exactly what one device
+computes.
 
 On a serving mesh (``build_prefill_step`` / ``build_decode_step(...,
 mesh=)``) a rank runs its rows of the batch under the ambient serving mesh
@@ -36,6 +45,7 @@ axes) and with its share of the MoE expert stacks
 """
 from __future__ import annotations
 
+import math
 import time
 from typing import Callable
 
@@ -49,7 +59,11 @@ from repro_torch.optim.grad_compress import rank_ordered_sum
 from repro_torch.runtime import elastic, sharding
 from repro_torch.runtime.collectives import use_serving_mesh
 
-DATA_AXIS = "data"
+# a training mesh's axes, in the order a mesh lays them out
+TRAIN_AXES = ("pod", "data", "model")
+# elements of a gradient leaf the sum over the row blocks gathers at once:
+# the stack of N whole parts of a layer-stacked leaf would hold N copies
+REDUCE_CHUNK = 1 << 26
 
 
 def loss_and_grads(model, params, batch) -> tuple:
@@ -73,7 +87,7 @@ def loss_and_grads(model, params, batch) -> tuple:
 def build_train_step(model, opt_cfg: adamw.AdamWConfig, mesh=None
                      ) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics); on
-    ``mesh`` (a ``(data, model)`` mesh of ``launch/mesh.py``) params and
+    ``mesh`` (a ``launch/mesh.py`` mesh over ``TRAIN_AXES``) params and
     opt_state are this rank's shards and batch the global batch."""
     if mesh is not None:
         return _mesh_train_step(model, opt_cfg, mesh)
@@ -96,17 +110,13 @@ def _clock(dev: torch.device) -> float:
 
 def _mesh_train_step(model, opt_cfg, mesh) -> Callable:
     from repro_torch.models.registry import abstract_params
-    if set(mesh.shape) - {DATA_AXIS, "model"}:
-        raise ValueError(f"a training mesh has (data, model) axes, got "
+    if tuple(mesh.shape) != tuple(a for a in TRAIN_AXES if a in mesh.shape):
+        raise ValueError(f"a training mesh has axes {TRAIN_AXES} in that "
+                         f"order, any of them absent, got "
                          f"{tuple(mesh.shape)}")
     pspecs = sharding.param_pspecs(abstract_params(model.cfg), mesh,
                                    mode="train")
     specs = dict(sharding.spec_leaves(pspecs))
-    D = mesh.shape.get(DATA_AXIS, 1)
-
-    def over_data(t: torch.Tensor) -> torch.Tensor:
-        """Every data rank's ``t``, stacked in rank order."""
-        return gather_whole([t[None]], [(DATA_AXIS,)], mesh, link=None)[0]
 
     def train_step(params, opt_state, batch):
         codec = current_codec()
@@ -126,18 +136,33 @@ def _mesh_train_step(model, opt_cfg, mesh) -> Callable:
         t2 = _clock(mesh.device)
 
         reduce_bytes = 0
-        if sharding.batch_axis(mesh, rows) == DATA_AXIS:
+        axes = sharding.batch_axis(mesh, rows)
+        if axes is not None:        # the rows are split: sum over them
+            n = math.prod(mesh.shape[a] for a in (
+                axes if isinstance(axes, tuple) else (axes,)))
+
+            def over_rows(t: torch.Tensor) -> torch.Tensor:
+                """Every row block's ``t``, stacked pod-major."""
+                return gather_whole([t[None]], [(axes,)], mesh,
+                                    link=None)[0]
+
             def reduce(q, g):
                 nonlocal reduce_bytes
-                nbytes = (D - 1) * g.numel() * g.element_size()
+                nbytes = (n - 1) * g.numel() * g.element_size()
                 codec.count_link("d2d_psum", nbytes, dense=True)
                 reduce_bytes += nbytes
-                return (rank_ordered_sum(over_data(g)) / D).to(g.dtype)
+                flat = g.reshape(-1)
+                out = torch.empty_like(flat)
+                for a in range(0, flat.numel(), REDUCE_CHUNK):
+                    piece = flat[a:a + REDUCE_CHUNK]
+                    out[a:a + piece.numel()] = (rank_ordered_sum(
+                        over_rows(piece)) / n).to(g.dtype)
+                return out.view(g.shape)
 
             grads = tree_map_with_path(reduce, grads)
             names = sorted(metrics)
-            means = rank_ordered_sum(over_data(torch.stack(
-                [loss] + [metrics[k].float() for k in names]))) / D
+            means = rank_ordered_sum(over_rows(torch.stack(
+                [loss] + [metrics[k].float() for k in names]))) / n
             loss = means[0]
             metrics = dict(zip(names, means[1:]))
         gnorm = adamw.global_norm(grads)

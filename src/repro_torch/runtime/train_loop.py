@@ -17,7 +17,9 @@ its shards of the state (``runtime/elastic.py``): a resume restores any
 checkpoint (written by one device, another mesh or the reference) onto
 the mesh, every save is collective, and the straggler watchdog decides
 from the world's largest step time, so that every rank strikes, and
-saves, at the same step.
+saves, at the same step.  A pod mesh (``("pod", "data", "model")``) runs
+the same way: its ranks' shards are replicated across "pod", pod 0 alone
+gathers a save, and the watchdog's maximum spans all three axes.
 """
 from __future__ import annotations
 
@@ -70,8 +72,9 @@ def run(model, opt_cfg: adamw.AdamWConfig, data_cfg, loop_cfg: TrainLoopConfig,
         mesh=None) -> dict:
     """Run (or resume) training on ``device``, or on ``mesh`` (a
     ``launch/mesh.py`` mesh; ``params`` and ``opt_state`` then are this
-    rank's shards, made here from the seed when not given). Returns the
-    final state and stats."""
+    rank's shards).  A state not given is made here from the seed, or,
+    where ``ckpt`` has a step to resume, restored without one being made.
+    Returns the final state and stats."""
     from repro_torch.models.registry import abstract_params
     from repro_torch.runtime import elastic
     from repro_torch.runtime.steps import build_train_step
@@ -82,7 +85,14 @@ def run(model, opt_cfg: adamw.AdamWConfig, data_cfg, loop_cfg: TrainLoopConfig,
     place = {} if mesh is None else {"mesh": mesh, "pspecs": specs}
     if train_step is None:
         train_step = build_train_step(model, opt_cfg, mesh)
-    if params is None:
+    resume = ckpt is not None and ckpt.latest_step() is not None
+    if params is None and resume:
+        # shapes only: the checkpoint's state takes their place, and a
+        # state made from the seed would stay alive beside it
+        params = abstract_params(model.cfg)
+        if mesh is not None:
+            params = elastic.abstract_shards(params, mesh, specs["params"])
+    elif params is None:
         params = model.init(seed=data_cfg.seed, device=dev)
         if mesh is not None:
             params = elastic.reshard(params, mesh, specs["params"])
@@ -90,7 +100,7 @@ def run(model, opt_cfg: adamw.AdamWConfig, data_cfg, loop_cfg: TrainLoopConfig,
         opt_state = adamw.init(params)
 
     start_step = 0
-    if ckpt is not None and ckpt.latest_step() is not None:
+    if resume:
         state, manifest = ckpt.load({"params": params, "opt": opt_state},
                                     **place)
         params, opt_state = state["params"], state["opt"]

@@ -30,12 +30,25 @@ assert on what the ranks sent back:
   * ``train.main``: ``--mesh 2x2`` prints its mesh, the automatic mesh is
     ``best_mesh_for``'s, ``--mesh 3x1`` raises;
   * the straggler watchdog: one slow step on rank 1 only makes every rank
-    strike and save at that step, and the world ends.
+    strike and save at that step, and the world ends;
+  * the pod axis (meshes over ("pod", "data", "model"), the reference's
+    pod-DP layout): (2, 2, 1) trained bitwise as the 4-rank ("data",)
+    mesh and (2, 1, 2) as (2, 2) (the gradient summed over ("pod",
+    "data") in one rank-ordered f32 sum, pod-major; the pod runs sum each
+    leaf in pieces of POD_REDUCE_CHUNK elements, the flat runs whole
+    leaves), the two pods holding
+    the same shards, each rank its (data, model) shard; the (2, 2, 1)
+    save byte-identical to the one-device save; the one-device checkpoint
+    of step 2 resumed on (2, 1, 2) bitwise as on (2, 2);
+    ``compressed_allreduce`` over "pod" of (2, 2, 1) bitwise the
+    rank-ordered sum over "pod" (the port's counterpart of the
+    reference's 8-device ``test_compressed_allreduce_bit_identical_2pods``).
 """
 import contextlib
 import io
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -50,6 +63,13 @@ ROOT = Path(__file__).resolve().parents[1]
 WORLD = 4
 TIME_LIMIT_S = 240
 MESHES = ((1, 4), (2, 2), (4, 1))
+POD_AXES = ("pod", "data", "model")
+# each pod mesh and the mesh it must train bitwise as: (P, D, M) as
+# (P·D, M), (4,) being the 4-rank ("data",) mesh
+POD_MESHES = {(2, 2, 1): (4,), (2, 1, 2): (2, 2)}
+# elements a gather of the pod runs' gradient sum (``steps.REDUCE_CHUNK``):
+# a smoke leaf is cut into pieces, the last one short
+POD_REDUCE_CHUNK = 4099
 STEPS, RESUME_FROM, RESUME_TO = 3, 2, 4
 SEQ, BATCH = 16, 4
 DTYPES = ("bfloat16", "float16", "float32")
@@ -155,6 +175,12 @@ def _gathered(out) -> dict:
                                link=None)
 
 
+def _axes(shape) -> tuple:
+    """The axes of a mesh of ``shape`` here: ("data",), ("data", "model")
+    or ``POD_AXES``."""
+    return {1: ("data",), 2: ("data", "model"), 3: POD_AXES}[len(shape)]
+
+
 def _resident(out) -> dict:
     from repro_torch.core.api import tree_leaves
     return {path: (tuple(t.shape), t.is_contiguous()
@@ -217,18 +243,29 @@ def _worker(out_dir: Path) -> None:
     from repro_torch.checkpoint.ckpt import CheckpointManager
     from repro_torch.launch.mesh import make_mesh
     mesh4 = make_mesh((WORLD,), ("data",), "cpu")
-    meshes = {shape: make_mesh(shape, ("data", "model"), "cpu")
-              for shape in MESHES}
+    meshes = {shape: make_mesh(shape, _axes(shape), "cpu")
+              for shape in MESHES + tuple(POD_MESHES)}
+    meshes[WORLD, ] = mesh4
     res = {"rank": mesh4.rank, "train": {}}
     res["allreduce"] = _allreduce_scenarios(
-        {"4": (mesh4, "data"), "2x2": (meshes[2, 2], "data")})
+        {"4": (mesh4, "data"), "2x2": (meshes[2, 2], "data"),
+         "pod": (meshes[2, 2, 1], "pod")})
+    saved = {(2, 2): "mesh22", (2, 2, 1): "pod221"}
+    from repro_torch.runtime import steps
+    whole_leaf = steps.REDUCE_CHUNK
     for shape, mesh in meshes.items():
-        ckpt = (CheckpointManager(out_dir / "mesh22", device="cpu")
-                if shape == (2, 2) else None)
+        ckpt = (CheckpointManager(out_dir / saved[shape], device="cpu")
+                if shape in saved else None)
+        # the pod meshes sum a leaf in many pieces, the flat ones whole
+        steps.REDUCE_CHUNK = POD_REDUCE_CHUNK if len(shape) == 3 \
+            else whole_leaf
         out = _train(STEPS, mesh=mesh, ckpt=ckpt)
+        steps.REDUCE_CHUNK = whole_leaf
         res["train"][shape] = {"history": out["history"],
                                "state": _gathered(out),
                                "resident": _resident(out)}
+        if len(shape) == 3:
+            res["train"][shape]["local"] = _state(out)
         if shape == (2, 2):
             like = _state(out)
     res["launcher"] = _launcher_scenarios(out_dir)
@@ -241,6 +278,11 @@ def _worker(out_dir: Path) -> None:
     out = _train(RESUME_TO, mesh=meshes[1, 4],
                  ckpt=CheckpointManager(out_dir / "single", device="cpu"))
     res["resume"] = {"history": out["history"], "state": _gathered(out)}
+    for shape in ((2, 1, 2), (2, 2)):
+        out = _train(RESUME_TO, mesh=meshes[shape], ckpt=CheckpointManager(
+            out_dir / f"single_{'x'.join(map(str, shape))}", device="cpu"))
+        res["resume", shape] = {"history": out["history"],
+                                "state": _gathered(out)}
     from repro_torch.runtime import elastic
     state, manifest = CheckpointManager(
         out_dir / "reference", device="cpu").load(
@@ -341,6 +383,10 @@ def world(tmp_path_factory):
     try:
         single = {"resume_source": _train(RESUME_FROM, ckpt=_manager(
             out_dir / "single"))}
+        for shape in ((2, 1, 2), (2, 2)):
+            # a copy each: every resume saves its own final step there
+            shutil.copytree(out_dir / "single", out_dir / (
+                "single_" + "x".join(map(str, shape))))
         single["reference"] = _reference_checkpoint(out_dir)
         (out_dir / "ckpts_ready").touch()
         single["steps"] = _train(STEPS)
@@ -380,14 +426,14 @@ def _assert_state_equal(got, want, what: str):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("label", ["4", "2x2"])
+@pytest.mark.parametrize("label", ["4", "2x2", "pod"])
 def test_compressed_allreduce_bitwise_with_reference_streams(
         world, label, dtype):
     """Every rank's result is the rank-ordered f32 sum of its axis' inputs
     cast back (negative zeros included); its own streams are the reference
     encoder's bytes;
     ``d2d_psum`` holds ``(n - 1) x`` its stream bytes and one op an
-    array."""
+    array.  "pod": the axis of (2, 2, 1) whose ranks differ by 2."""
     import jax.numpy as jnp
     from repro.core import codec as jax_codec
     from repro.core.dtypes import format_for as jax_format_for
@@ -401,6 +447,8 @@ def test_compressed_allreduce_bitwise_with_reference_streams(
         axis_ranks = res["ranks"]
         n = len(axis_ranks)
         assert n == (4 if label == "4" else 2)
+        if label == "pod":
+            assert axis_ranks == (r["rank"] % 2, r["rank"] % 2 + 2)
         want = rank_ordered_sum([_ar_input(dtype, q) for q in axis_ranks])
         assert res["out"].dtype == getattr(torch, dtype)
         assert torch.equal(_bits(res["out"]),
@@ -451,7 +499,7 @@ def test_data_parallel_meshes_agree(world, shape):
             <= LOSS_RTOL * abs(w["grad_norm"])
 
 
-@pytest.mark.parametrize("shape", MESHES)
+@pytest.mark.parametrize("shape", MESHES + tuple(POD_MESHES))
 def test_each_rank_holds_its_own_shards(world, shape):
     """Every resident leaf has the shape of ``local_shard`` of the whole
     under the train specs, contiguous, in a storage of its own."""
@@ -460,7 +508,7 @@ def test_each_rank_holds_its_own_shards(world, shape):
     ranks, single, _ = world
     whole = _flat(_state(single["steps"]))
     for r in ranks:
-        mesh = Mesh(shape, ("data", "model"), rank=r["rank"])
+        mesh = Mesh(shape, _axes(shape), rank=r["rank"])
         specs = dict(sharding.spec_leaves(elastic.train_pspecs(
             _abstract(), mesh)))
         resident = r["train"][shape]["resident"]
@@ -472,17 +520,21 @@ def test_each_rank_holds_its_own_shards(world, shape):
         assert sharded < sum(t.numel() for t in whole.values())
 
 
-def test_mesh_save_byte_identical_to_one_device(world, tmp_path):
-    """The (2, 2) run's collective save (rank 0 writes) is, file by file,
-    a single-device save of the same gathered state."""
+@pytest.mark.parametrize("shape, root", [((2, 2), "mesh22"),
+                                         ((2, 2, 1), "pod221")])
+def test_mesh_save_byte_identical_to_one_device(world, tmp_path, shape,
+                                                root):
+    """The (2, 2) and (2, 2, 1) runs' collective saves (rank 0 writes; on
+    the pod mesh only pod 0 gathers) are, file by file, a single-device
+    save of the same gathered state."""
     ranks, _, out_dir = world
-    state = ranks[0]["train"][2, 2]["state"]
+    state = ranks[0]["train"][shape]["state"]
     _manager(tmp_path / "single").save(STEPS, state, blocking=True)
     step = f"step_{STEPS:012d}"
-    mine, theirs = out_dir / "mesh22" / step, tmp_path / "single" / step
+    mine, theirs = out_dir / root / step, tmp_path / "single" / step
     names = sorted(p.name for p in mine.iterdir())
     assert names == sorted(p.name for p in theirs.iterdir())
-    assert (out_dir / "mesh22" / "LATEST").read_text() == step
+    assert (out_dir / root / "LATEST").read_text() == step
     for name in names:
         if name == "manifest.json":
             a, b = (json.loads((d / name).read_text()) for d in (mine,
@@ -557,6 +609,72 @@ def test_watchdog_straggler_on_one_rank_saves_everywhere(world):
     steps = sorted(p.name for p in (out_dir / "watchdog").glob("step_*"))
     assert f"step_{SLOW_STEP:012d}" in steps
     assert steps[-1] == f"step_{SLOW_STEP + 2:012d}"
+
+
+def _grad_bytes() -> int:
+    return sum(t.numel() * t.element_size()
+               for _, t in _flat(_abstract()).items())
+
+
+@pytest.mark.parametrize("pod", list(POD_MESHES))
+def test_pod_mesh_trains_bitwise_as_the_flat_mesh(world, pod):
+    """A (P, D, M) mesh trains bitwise as the (P·D, M) mesh: every rank's
+    losses, gradient norms and gathered state equal the flat mesh's; the
+    step reduces (P·D - 1) x the gradient's bytes, as the flat mesh's."""
+    ranks, _, _ = world
+    flat = POD_MESHES[pod]
+    want = ranks[0]["train"][flat]
+    n = pod[0] * pod[1]
+    for r in ranks:
+        got = r["train"][pod]
+        _assert_state_equal(got["state"], want["state"], f"mesh {pod}")
+        assert [(h["step"], h["loss"], h["grad_norm"])
+                for h in got["history"]] == [
+            (h["step"], h["loss"], h["grad_norm"]) for h in want["history"]]
+        assert [h["reduce_bytes"] for h in got["history"]] == [
+            h["reduce_bytes"] for h in want["history"]] == [
+            (n - 1) * _grad_bytes()] * STEPS
+
+
+@pytest.mark.parametrize("pod", list(POD_MESHES))
+def test_pod_replicas_hold_identical_shards(world, pod):
+    """Ranks that differ only on "pod" hold the same shards, bit for bit,
+    and each rank's resident bytes are its (data, model) shard's: those
+    of the rank of a (D, M) mesh at the same coordinates."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.runtime import elastic, sharding
+    ranks, single, _ = world
+    whole = _flat(_state(single["steps"]))
+    per_pod = WORLD // pod[0]
+    for r in ranks:
+        partner = ranks[(r["rank"] + per_pod) % WORLD]
+        _assert_state_equal(r["train"][pod]["local"],
+                            partner["train"][pod]["local"],
+                            f"mesh {pod} pod replicas")
+        flat = Mesh(pod[1:], ("data", "model"), rank=r["rank"] % per_pod)
+        specs = dict(sharding.spec_leaves(elastic.train_pspecs(
+            _abstract(), flat)))
+        held = sum(t.numel() * t.element_size() for t in
+                   _flat(r["train"][pod]["local"]).values())
+        assert held == sum(
+            sharding.local_shard(t, specs[p], flat).numel()
+            * t.element_size() for p, t in whole.items())
+
+
+def test_one_device_checkpoint_resumes_onto_pod_mesh_bitwise(world):
+    """The single-device checkpoint of step 2 resumed on (2, 1, 2) to step
+    4: losses, gradient norms and gathered state bitwise those of the
+    same checkpoint resumed on (2, 2)."""
+    ranks, _, _ = world
+    want = ranks[0]["resume", (2, 2)]
+    assert [h["step"] for h in want["history"]] == \
+        list(range(RESUME_FROM, RESUME_TO))
+    for r in ranks:
+        got = r["resume", (2, 1, 2)]
+        _assert_state_equal(got["state"], want["state"], "resumed (2, 1, 2)")
+        assert [(h["step"], h["loss"], h["grad_norm"])
+                for h in got["history"]] == [
+            (h["step"], h["loss"], h["grad_norm"]) for h in want["history"]]
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:
