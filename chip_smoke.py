@@ -340,6 +340,7 @@ KV_REL = 1e-4
 
 RESULTS: dict = {}
 SERVE_REFS: dict = {}     # phase serve's logits and launches, by mode
+MESH_WHISPER_REF: dict = {}   # phase mesh's one-device whisper logits
 
 
 def fail(msg: str):
@@ -4207,6 +4208,24 @@ def _whisper_mode(model, cfg, mode, frames, prompts) -> tuple:
     return res, launches, alone
 
 
+def _check_mesh_whisper_ref(alone) -> None:
+    """Phase mesh's one-device whisper steps (its first ``MESH_BATCH``
+    requests prefilled together, ``MESH_TOKENS`` tokens), the yardstick
+    of its mesh run, bitwise equal to the same requests served alone
+    here (nothing to hold when phase mesh did not run)."""
+    ref = MESH_WHISPER_REF.get("logits")
+    if ref is None:
+        return
+    for r in range(MESH_BATCH):
+        check(_bits_equal([ref[t, r] for t in range(MESH_TOKENS)],
+                          [t.cpu() for t in alone[r][:MESH_TOKENS]]),
+              f"whisper: phase mesh's one-device steps differ from r{r} "
+              f"served alone")
+    log(f"whisper: phase mesh's one-device yardstick (rows "
+        f"{MESH_BATCH} together, {MESH_TOKENS} tokens) bitwise equal to "
+        f"each request alone")
+
+
 def phase_whisper():
     """whisper_tiny at full width (4 + 4 layers, d_model 384, vocab 51865)
     from seeded weights, served as the reference serves it: 4 requests x
@@ -4236,6 +4255,7 @@ def phase_whisper():
             model, cfg, mode, frames, prompts)
         if first is None:
             first = alone
+            _check_mesh_whisper_ref(alone)
         for r in range(BATCH):
             check(_bits_equal(alone[r], first[r]),
                   f"whisper {mode}: r{r} differs from dense")
@@ -4651,6 +4671,19 @@ SP_ROUTES = {"sp_scores": False, "sp_flash": True}   # decode_score_shard
 # its share
 EP_LAYERS = 2
 EP_ARGS = ["--arch", MOE_ARCH]
+# the Mamba states on the mesh (the run labelled jamba_dense): jamba at its
+# published widths (d_inner 8192, d_state 16: h and conv both halve at
+# A = 2) cut to one period, 8 layers, as phase families cuts it.  Dense
+# mode: both ranks build the whole tree on the one card before they cut
+# their share, 2 x 26.71 GB (phase families' dense peak at 8 layers, U4)
+# against ≈ 2 x 31.7 GB in stream or fused mode
+JAMBA_ARCH, JAMBA_MESH_LAYERS = "jamba_v0_1_52b", 8
+JAMBA_MESH_ARGS = ["--arch", JAMBA_ARCH, "--mode", "dense"]
+# the encoder memory on the mesh (the run labelled whisper_stream, the
+# mesh steps of runtime/steps.py: serve refuses an encoder-decoder):
+# whisper_tiny at full width, WHISPER_FRAMES 4096 memory positions, 2 x
+# 2048 at A = 2, phase whisper's first MESH_BATCH requests and frames
+WHISPER_MESH_MODE = "stream"
 # each torch.distributed.run: its ranks' serve.main runs, by label
 MESH_RUNS = {2: {"stream_on": ["--mode", "stream", "--overlap", "on"],
                  "stream_off": ["--mode", "stream", "--overlap", "off"],
@@ -4659,7 +4692,10 @@ MESH_RUNS = {2: {"stream_on": ["--mode", "stream", "--overlap", "on"],
                  **{label: SP_ARGS for label in SP_ROUTES},
                  "ep_dense": EP_ARGS + ["--mode", "dense"],
                  "ep_stream": EP_ARGS + ["--mode", "stream"],
-                 "ep_fused": EP_ARGS + ["--mode", "fused"]},
+                 "ep_fused": EP_ARGS + ["--mode", "fused"],
+                 "jamba_dense": JAMBA_MESH_ARGS,
+                 # not serve.main: the mesh steps (_mesh_whisper)
+                 f"whisper_{WHISPER_MESH_MODE}": []},
              4: {"stream_on": ["--mode", "stream", "--overlap", "on"],
                  # a (data 2, model 2) mesh: experts on model, each
                  # matrix's output columns on data
@@ -4667,7 +4703,7 @@ MESH_RUNS = {2: {"stream_on": ["--mode", "stream", "--overlap", "on"],
 # the A = 4 world's llama run, and its single-device side, cut to 4 of
 # llama's 16 layers for the script's time limit (every stream of a layer
 # still shards 4 ways; the checks read the depth)
-MESH_DEPTH = {(4, "stream_on"): 4}
+MESH_DEPTH = {(4, "stream_on"): 4, (2, "jamba_dense"): JAMBA_MESH_LAYERS}
 MESH_LEAF = (8192, 2048)          # llama's w_down: shard_local_decode
 MESH_TIME_LIMIT_S = 420
 
@@ -4753,6 +4789,12 @@ def mesh_worker(spec_path: str) -> None:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         serve.reset_launch_counts()
+        if label.startswith("whisper_"):
+            out = _whisper_steps(label.split("_", 1)[1], mesh)
+            res["runs"][label] = {
+                **out, "path_launches": serve.launch_counts(),
+                "peak_bytes": torch.cuda.max_memory_allocated()}
+            continue
         tp = [] if "--tp" in args else ["--tp", str(A)]
         out = _serve_route(MESH_ARGS + args + tp,
                            SP_ROUTES.get(label, False),
@@ -4766,12 +4808,73 @@ def mesh_worker(spec_path: str) -> None:
                 "links", "mesh", "overlap", "tpot_s", "ttft_s", "step_s",
                 "resident_bytes", "restore", "mode_mix", "ring_bytes",
                 "kv_layout", "step_kv_bytes", "step_ep_bytes",
-                "expert_placement")},
+                "expert_placement", "state_bytes", "state_layout")},
             "peak_bytes": torch.cuda.max_memory_allocated()}
         del out
     torch.save(res, out_dir / f"{spec['tag']}_rank{rank}.pt")
     dist.barrier()
     dist.destroy_process_group()
+
+
+def _whisper_steps(mode: str, mesh=None) -> dict:
+    """Phase whisper's first ``MESH_BATCH`` requests (its seeded weights,
+    frames and prompts) in ``mode`` through the steps of
+    ``runtime/steps.py`` on ``mesh`` (None: one device): one prefill of
+    the rows together, then ``MESH_TOKENS - 1`` decode steps.  Returns the
+    logits (MESH_TOKENS, MESH_BATCH, V) on the host, the bytes of the
+    cache's ``mem_k`` + ``mem_v`` and its memory layout, and each step's
+    seconds and gathered bytes (dense: the cross attention's; compressed:
+    the stream shards')."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.codec_api import Codec, use_codec
+    from repro_torch.models import build_model
+    from repro_torch.runtime import collectives
+    from repro_torch.runtime.steps import (build_decode_step,
+                                           build_prefill_step)
+    from repro_torch.runtime.streaming import assign_weight_modes
+    cfg = get_config(WHISPER_ARCH)
+    model = build_model(cfg)
+    dev = torch.device("cuda") if mesh is None else mesh.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    frames = torch.randn((BATCH, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                         device=dev).to(torch.bfloat16)[:MESH_BATCH]
+    tokens = torch.as_tensor(_prompts(cfg.vocab_size)[:MESH_BATCH],
+                             dtype=torch.int64, device=dev)
+    codec = Codec()
+    with use_codec(codec):
+        params = assign_weight_modes(model.init(seed=0, device=dev),
+                                     mode=mode, min_bytes=MIN_BYTES,
+                                     shards=2, codec=codec)
+        if mesh is not None:
+            params = collectives.place_serving_tree(params, mesh)
+        prefill = build_prefill_step(model, WHISPER_MAX_LEN, mesh)
+        decode = build_decode_step(model, mesh)
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"frames": frames, "tokens": tokens})
+        ttft = _sync_s(t0)
+        memory = cache.get("mem_layout")
+        out = [logits.cpu()]
+        secs, dense, compressed = [], [], []
+        for _ in range(MESH_TOKENS - 1):
+            link = dict(codec.link_stats()["d2d_allgather"])
+            t0 = time.perf_counter()
+            logits, cache = decode(params, cache, torch.argmax(logits, -1))
+            secs.append(_sync_s(t0))
+            after = codec.link_stats()["d2d_allgather"]
+            dense.append(after["dense_bytes"] - link["dense_bytes"])
+            compressed.append(after["compressed_bytes"]
+                              - link["compressed_bytes"])
+            out.append(logits.cpu())
+    return {"logits": torch.stack(out), "ttft_s": ttft, "step_s": secs,
+            "step_dense_bytes": dense, "step_gather_bytes": compressed,
+            "mem_bytes": sum(cache[k].numel() * cache[k].element_size()
+                             for k in ("mem_k", "mem_v")),
+            "mem_layout": None if memory is None else {
+                "sharded": memory.sharded, "axes": list(memory.axes),
+                "positions": memory.local_length, "offset": memory.offset,
+                "why": memory.why},
+            "mesh": None if mesh is None else dict(mesh.shape)}
 
 
 def _mesh_world(A: int, runs: dict, out_dir: Path,
@@ -4834,7 +4937,14 @@ def phase_mesh():
     each rank holding only its own experts (and in dense mode its output
     columns), against single-device runs of the same depth, modes and
     shards made here; kernel 2' on column halves of the expert products
-    bitwise the whole product's (:func:`_ep_column_checks`).
+    bitwise the whole product's (:func:`_ep_column_checks`).  The
+    recurrent states and the encoder memory (A = 2): jamba at its
+    published widths cut to ``JAMBA_MESH_LAYERS`` layers in dense mode,
+    each rank holding half of every Mamba ``h`` (by d_state) and ``conv``
+    (by channels) (:func:`_check_mesh_jamba`); whisper_tiny through the
+    mesh steps, each rank holding 2048 of the memory's 4096 positions
+    (:func:`_check_mesh_whisper`); each against a single-device run of
+    the same depth, mode and requests made here.
     Checks: every rank's logits bitwise equal to phase serve's
     single-device run of the same mode and shards (its first
     ``MESH_BATCH`` requests and ``MESH_TOKENS`` tokens; the A = 4 run and
@@ -4870,13 +4980,15 @@ def phase_mesh():
                 ("ep_stream", EP_ARGS + ["--mode", "stream", "--shards",
                                          "2"]),
                 ("ep_fused", EP_ARGS + ["--mode", "fused", "--shards",
-                                        "2"])):
+                                        "2"]),
+                # the Mamba states' run's yardstick, at the same depth
+                ("jamba_dense", JAMBA_MESH_ARGS)):
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             depth = (EP_LAYERS if label.startswith("ep_") else
                      MESH_DEPTH[4, "stream_on"] if label == "stream_shards4"
-                     else None)
+                     else MESH_DEPTH.get((2, label)))
             out = _serve_route(MESH_ARGS + args, False, depth)
             singles[label] = {
                 "logits": out["logits"].cpu(), "restore": out["restore"],
@@ -4885,8 +4997,17 @@ def phase_mesh():
                 "resident_bytes": out["resident_bytes"],
                 "ring_bytes": out["ring_bytes"], "overlap": out["overlap"],
                 "experts": out["expert_placement"],
+                "state_bytes": out["state_bytes"],
                 "peak_bytes": torch.cuda.max_memory_allocated()}
             del out
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # the encoder memory's run's yardstick: the same steps on one
+        # device (phase whisper holds it against each request alone)
+        label = f"whisper_{WHISPER_MESH_MODE}"
+        singles[label] = {**_whisper_steps(WHISPER_MESH_MODE),
+                          "peak_bytes": torch.cuda.max_memory_allocated()}
+        MESH_WHISPER_REF["logits"] = singles[label]["logits"]
         torch.cuda.empty_cache()
         want = {("fused", 2): SERVE_REFS["fused"],
                 ("stream", 2): SERVE_REFS["stream"],
@@ -4943,6 +5064,14 @@ def _check_mesh_world(A, ranks, want, singles, secs, card) -> dict:
         if label.startswith("ep_"):
             out["runs"][label] = _check_mesh_ep(A, label, ranks, singles,
                                                 card)
+            continue
+        if label == "jamba_dense":
+            out["runs"][label] = _check_mesh_jamba(A, label, ranks,
+                                                   singles[label], card)
+            continue
+        if label.startswith("whisper_"):
+            out["runs"][label] = _check_mesh_whisper(A, label, ranks,
+                                                     singles[label], card)
             continue
         mode = "restore" if label == "restore" else label.split("_")[0]
         ref = want[mode, A]
@@ -5204,6 +5333,163 @@ def _check_mesh_ep(A, label, ranks, singles, card) -> dict:
         f"{per_rank[0]['launches_per_step']} against one device's "
         f"{single['step_launches']} ({card})")
     return out
+
+
+def _check_mesh_jamba(A, label, ranks, single, card) -> dict:
+    """jamba_v0_1_52b at published widths cut to ``JAMBA_MESH_LAYERS``
+    layers, dense, on A ranks: every rank's logits bitwise the
+    single-device run's; each holds 1/A of the Mamba states (``h`` by
+    d_state 16, ``conv`` by its 8192 channels), its blocks the layout's,
+    and 1/A of the experts; a decode step gathers the layout's bytes for
+    its Mamba layers (the 67-position ring stays whole, so no attention
+    byte); kernel 2' launches a step one device's less 3 for each expert
+    a rank does not own."""
+    import torch
+    from types import SimpleNamespace
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import block_program
+    from repro_torch.models.ssm import mamba_dims
+    from repro_torch.runtime import sharding
+    cfg = get_config(JAMBA_ARCH)
+    program = block_program(cfg)
+    periods = JAMBA_MESH_LAYERS // len(program)
+    n_mamba = periods * sum(d.seq == "mamba" for d in program)
+    n_moe = periods * sum(d.ffn == "moe" for d in program)
+    d_inner, _ = mamba_dims(cfg.d_model, cfg.ssm_state)
+    per_rank = []
+    for r in ranks:
+        run = r["runs"][label]
+        tag = f"mesh A={A} {label} rank {r['rank']}"
+        mesh = SimpleNamespace(shape=run["mesh"],
+                               coords={"model": r["rank"] % A})
+        layout = sharding.state_layout(mesh, d_inner, cfg.ssm_state)
+        check(layout.h_axis == layout.conv_axis == "model"
+              and run["state_layout"]["describe"] == layout.describe(),
+              f"{tag}: state layout {run['state_layout']}, want "
+              f"{layout.describe()}")
+        check(tuple(run["logits"].shape) == (MESH_TOKENS, MESH_BATCH,
+                                             cfg.vocab_size)
+              and bool(torch.isfinite(run["logits"]).all()),
+              f"{tag}: logits {tuple(run['logits'].shape)}")
+        check(torch.equal(run["logits"].view(torch.int32),
+                          single["logits"].view(torch.int32)),
+              f"{tag}: logits not bitwise equal to one device's")
+        check(run["state_bytes"] * A == single["state_bytes"] > 0,
+              f"{tag}: Mamba states {run['state_bytes']} B, one device's "
+              f"{single['state_bytes']} B")
+        check(run["expert_placement"]["bytes"] * A
+              == single["experts"]["bytes"],
+              f"{tag}: holds {run['expert_placement']['bytes']} of "
+              f"{single['experts']['bytes']} expert bytes")
+        want = n_mamba * layout.step_gather_bytes(MESH_BATCH)
+        check(run["kv_layout"]["sharded"] is False
+              and run["step_kv_bytes"] == [want] * (MESH_TOKENS - 1),
+              f"{tag}: gathered {run['step_kv_bytes']} dense B a step, the "
+              f"layout's {want} for {n_mamba} Mamba layers")
+        fewer = 3 * n_moe * (cfg.n_experts - cfg.n_experts // A)
+        one = single["step_launches"]
+        for st in run["step_launches"]:
+            check(st["enec_decode"] == one["enec_decode"]
+                  and st["decompress_matmul"] == one["decompress_matmul"]
+                  and st["dense_tile_matmul"] == one["dense_tile_matmul"]
+                  - fewer, f"{tag}: launches a step {st}, one device's "
+                  f"{one}, 2' fewer by {fewer} expected")
+        per_rank.append({
+            "tpot_ms": 1e3 * run["tpot_s"], "ttft_ms": 1e3 * run["ttft_s"],
+            "peak_gb": run["peak_bytes"] / 1e9,
+            "resident_gb": run["resident_bytes"] / 1e9,
+            "state_mb": run["state_bytes"] / 1e6,
+            "state_gather_mb_per_step": run["step_kv_bytes"][0] / 1e6,
+            "ep_mb_per_step": run["step_ep_bytes"][0] / 1e6,
+            "layout": run["state_layout"]["describe"],
+            "launches_per_step": run["step_launches"][0]})
+    out = {"ranks": per_rank, "layers": JAMBA_MESH_LAYERS,
+           "single": {"tpot_ms": 1e3 * single["tpot_s"],
+                      "ttft_ms": 1e3 * single["ttft_s"],
+                      "peak_gb": single["peak_bytes"] / 1e9,
+                      "resident_gb": single["resident_bytes"] / 1e9,
+                      "state_mb": single["state_bytes"] / 1e6,
+                      "launches_per_step": single["step_launches"]}}
+    log(f"mesh A={A} {label}: {len(ranks)} ranks bitwise equal to one "
+        f"device ({JAMBA_ARCH}, {JAMBA_MESH_LAYERS} layers, dense); Mamba "
+        f"states {[round(p['state_mb'], 4) for p in per_rank]} MB a rank "
+        f"of one device's {single['state_bytes'] / 1e6:.4f} (rank 0: "
+        f"{per_rank[0]['layout']}); gathered for the Mamba states "
+        f"{per_rank[0]['state_gather_mb_per_step']:.6f} MB a step "
+        f"({n_mamba} layers); MoE activations exchanged "
+        f"{per_rank[0]['ep_mb_per_step']:.4f} MB a step; TPOT "
+        f"{[round(p['tpot_ms'], 1) for p in per_rank]} ms (eager, gloo "
+        f"through the host: the ranks share one card; one device captured "
+        f"{1e3 * single['tpot_s']:.2f} ms), TTFT "
+        f"{[round(p['ttft_ms'], 1) for p in per_rank]} ms (one device "
+        f"{1e3 * single['ttft_s']:.1f}), peak GB "
+        f"{[round(p['peak_gb'], 2) for p in per_rank]} / resident "
+        f"{[round(p['resident_gb'], 2) for p in per_rank]} against one "
+        f"device's {single['peak_bytes'] / 1e9:.2f} / "
+        f"{single['resident_bytes'] / 1e9:.2f}; launches a step "
+        f"{per_rank[0]['launches_per_step']} against one device's "
+        f"{single['step_launches']} ({card})")
+    return out
+
+
+def _check_mesh_whisper(A, label, ranks, single, card) -> dict:
+    """whisper_tiny through the mesh steps on A ranks: every rank's logits
+    bitwise the single-device steps'; each rank holds its 4096 / A of the
+    memory's positions from ``rank x 4096 / A``, 1/A of one device's
+    ``mem_k`` / ``mem_v`` bytes; every decode step gathers the same dense
+    bytes (the cross attention's scores and per-chunk partials, and the
+    decoder's attention over its whole ring: none) and the streams'
+    compressed shards."""
+    import torch
+    positions = WHISPER_FRAMES // A
+    per_rank = []
+    for r in ranks:
+        run = r["runs"][label]
+        tag = f"mesh A={A} {label} rank {r['rank']}"
+        check(run["mem_layout"] == {"sharded": True, "axes": ["model"],
+                                    "positions": positions,
+                                    "offset": positions * r["rank"],
+                                    "why": ""},
+              f"{tag}: memory layout {run['mem_layout']}")
+        check(run["mem_bytes"] * A == single["mem_bytes"] > 0,
+              f"{tag}: memory {run['mem_bytes']} B, one device's "
+              f"{single['mem_bytes']} B")
+        check(tuple(run["logits"].shape) == tuple(single["logits"].shape)
+              and bool(torch.isfinite(run["logits"]).all()),
+              f"{tag}: logits {tuple(run['logits'].shape)}")
+        check(torch.equal(run["logits"].view(torch.int32),
+                          single["logits"].view(torch.int32)),
+              f"{tag}: logits not bitwise equal to one device's")
+        dense = run["step_dense_bytes"]
+        check(len(set(dense)) == 1 and dense[0] > 0
+              and all(b > 0 for b in run["step_gather_bytes"]),
+              f"{tag}: gathered {dense} dense, {run['step_gather_bytes']} "
+              f"compressed B a step")
+        per_rank.append({
+            "tpot_ms": 1e3 * sum(run["step_s"]) / len(run["step_s"]),
+            "ttft_ms": 1e3 * run["ttft_s"], "peak_gb": run["peak_bytes"] / 1e9,
+            "mem_mb": run["mem_bytes"] / 1e6,
+            "mem_gather_mb_per_step": dense[0] / 1e6,
+            "gather_mb_per_step": run["step_gather_bytes"][0] / 1e6})
+    check(all(s == 0 for s in single["step_dense_bytes"]),
+          f"mesh {label}: one device gathered {single['step_dense_bytes']}")
+    tpot = 1e3 * sum(single["step_s"]) / len(single["step_s"])
+    log(f"mesh A={A} {label}: {len(ranks)} ranks bitwise equal to one "
+        f"device ({WHISPER_ARCH}, {WHISPER_FRAMES} frames, "
+        f"{WHISPER_MESH_MODE}); memory "
+        f"{[round(p['mem_mb'], 3) for p in per_rank]} MB a rank of one device's {single['mem_bytes'] / 1e6:.3f}; the "
+        f"cross attention gathered {per_rank[0]['mem_gather_mb_per_step']:.4f}"
+        f" MB a step (streams {per_rank[0]['gather_mb_per_step']:.3f} MB); "
+        f"TPOT {[round(p['tpot_ms'], 1) for p in per_rank]} ms (eager, gloo "
+        f"through the host; one device eager {tpot:.2f} ms), TTFT "
+        f"{[round(p['ttft_ms'], 1) for p in per_rank]} ms (one device "
+        f"{1e3 * single['ttft_s']:.1f}), peak GB "
+        f"{[round(p['peak_gb'], 2) for p in per_rank]} against one "
+        f"device's {single['peak_bytes'] / 1e9:.2f} ({card})")
+    return {"ranks": per_rank,
+            "single": {"tpot_ms": tpot, "ttft_ms": 1e3 * single["ttft_s"],
+                       "peak_gb": single["peak_bytes"] / 1e9,
+                       "mem_mb": single["mem_bytes"] / 1e6}}
 
 
 def _check_mesh_restore(A, ranks, single) -> None:

@@ -24,14 +24,18 @@ not run):
           math runs whole over the rank's block of the batch
           (``sharding.batch_pspecs``), and the rank holds its block of the
           cache of ``registry.input_specs`` (``sharding.
-          port_cache_pspecs``: the K/V rings' sequence on "model", or
-          ("pod", "model") beside an unsharded batch, where
-          ``sharding.kv_layout``'s rule allows; recurrent states and the
-          encoder memory on the batch only).  A decode step's attention
-          gathers over the sequence axes: the scores, or under the
-          ``flash_decode`` variant (``cfg.decode_score_shard``) the
-          softmax's stats and per-chunk partials only
-          (``models/layers.py:rank_decode_attention``).  The rank holds
+          port_cache_pspecs``: the K/V rings' sequence, and whisper's
+          encoder memory's, on "model", or ("pod", "model") beside an
+          unsharded batch, where ``sharding.kv_layout``'s rule allows;
+          Mamba's ``h`` by d_state and ``conv`` by channels on "model"
+          where they divide, ``sharding.state_layout``; xLSTM's states
+          on the batch only).  A decode step's attention gathers over the
+          sequence axes: the scores, or under the ``flash_decode`` variant
+          (``cfg.decode_score_shard``) the softmax's stats and per-chunk
+          partials only (``models/layers.py:rank_decode_attention``), the
+          cross attention over a sharded memory likewise; a Mamba step
+          gathers its conv output and its read-out's products
+          (``models/ssm.py:rank_mamba_step``).  The rank holds
           its share of the MoE expert stacks (``sharding.
           expert_layout``; "serve_ep" for the ``ep_*`` variants, which
           places what "serve" places in the port) and its MoE blocks
@@ -109,6 +113,7 @@ from repro_torch.optim import adamw
 from repro_torch.runtime import collectives, elastic, sharding, streaming
 from repro_torch.runtime.overlap import build_schedule, overlap_enabled
 from repro_torch.runtime.steps import (build_decode_step, build_prefill_step,
+                                       serving_layouts,
                                        build_train_step)
 from repro_torch.runtime.weights import (DenseWeight, is_handle,
                                          tree_leaves, tree_map_with_path)
@@ -396,8 +401,10 @@ def _program(cfg, shape, mesh, mode, tree, expert_mode: str = "serve"):
     experts = expert_record(whole, params, mesh, expert_mode)
     del whole
     b = shape.global_batch
-    layout = sharding.kv_layout(mesh, shape.seq_len, batch=b,
-                                pin=cfg.decode_score_shard)
+    layouts = serving_layouts(
+        cfg, mesh, shape.seq_len, b,
+        specs["frames"].shape[1] if "frames" in specs else None)
+    layout = layouts["layout"]
     ba = sharding.batch_axis(mesh, b)
     rows = sharding.local_shard(specs["tokens"], (ba,), mesh).shape[0]
     if shape.kind == "prefill":
@@ -426,23 +433,43 @@ def _program(cfg, shape, mesh, mode, tree, expert_mode: str = "serve"):
         if expert_mode == "serve_ep":
             ep += (" (serve_ep places what serve places in the port: no "
                    "contracting dim is split, docs/PORT.md convention 11)")
+    held = ""
+    if "state" in layouts:
+        held += (f"; Mamba states {layouts['state'].describe()}, the conv "
+                 f"output and the read-out's products gathered a step")
+    if "memory" in layouts:
+        mem = layouts["memory"]
+        held += f"; encoder memory {mem.describe()}"
+        if mem.sharded and shape.kind == "decode":
+            held += (", cross attention's stats and per-chunk partials "
+                     "gathered" if cfg.decode_score_shard else
+                     ", cross attention's scores gathered")
     line = (f"{what}, {mode} weights, on serving mesh {dims} rank "
             f"{mesh.rank}: own stream shards, gathered at use; the dense "
             f"math whole over the rank's rows; K/V ring "
-            f"{layout.describe()}{route}; recurrent states and encoder "
-            f"memory whole on the rank's rows{ep}")
+            f"{layout.describe()}{route}{held}{ep}")
     return inputs, run, line, experts
 
 
 def rank_cache(cache, mesh, b: int, layout):
     """The rank's block of a whole (``meta``) decode cache of ``b`` rows
     under ``sharding.port_cache_pspecs``, as new ``meta`` tensors of the
-    block's shapes, with ``layout`` as its ``kv_layout``."""
+    block's shapes, with ``layout`` as its ``kv_layout`` and, read from
+    its leaves, its Mamba states' ``state_layout`` and its encoder
+    memory's ``mem_layout``."""
     specs = dict(sharding.spec_leaves(sharding.port_cache_pspecs(
         cache, mesh, b, layout)))
     local = tree_map_with_path(lambda p, t: _meta_like(
         t, sharding.local_shard(t, specs[p], mesh).shape), cache)
     local["kv_layout"] = layout
+    mamba = [e for e in cache.get("entries", ()) if "conv" in e]
+    if mamba:
+        h = mamba[0]["h"]
+        local["state_layout"] = sharding.state_layout(
+            mesh, h.shape[-2], h.shape[-1], batch=b)
+    if "mem_k" in cache:
+        local["mem_layout"] = sharding.memory_layout(
+            mesh, cache["mem_k"].shape[2], batch=b)
     return local
 
 

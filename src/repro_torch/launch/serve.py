@@ -77,8 +77,12 @@ of 1024-position chunks: ``(--prompt-len + --tokens) % (A x 1024) ==
 0``), else the whole ring; the mesh line says which.  A sharded ring's
 decode attention gathers the scores over the model axis, or, with the
 config's ``decode_score_shard`` (flash-decoding), only the softmax's
-stats and partials; logits stay one device's bits either way.
-An MoE arch's expert stacks are placed by ``runtime/sharding.py:
+stats and partials; logits stay one device's bits either way.  A
+hybrid arch's Mamba states hold the rank's blocks of ``h``'s d_state and
+``conv``'s channels where they divide by the model axis
+(``runtime/sharding.py:state_layout``); each step gathers the conv output
+and the read-out's products, and the mesh line says which blocks a rank
+holds.  An MoE arch's expert stacks are placed by ``runtime/sharding.py:
 expert_layout``: each rank holds, decodes and multiplies only its own
 experts (E on the model axis where it divides; a dense stack also splits
 each expert matrix's output columns over the data axis), nothing of them
@@ -125,7 +129,7 @@ from repro_torch.kernels.decompress_matmul import (DENSE_LAUNCHES,
                                                   FUSED_LAUNCHES)
 from repro_torch.kernels.idd_scan import LAUNCHES as IDD_SCAN_LAUNCHES
 from repro_torch.launch.mesh import make_host_mesh, world_size
-from repro_torch.models import build_model
+from repro_torch.models import build_model, lm
 from repro_torch.models.lm import abstract_params
 from repro_torch.runtime.collectives import (expert_census,
                                              place_serving_tree,
@@ -459,10 +463,11 @@ def _serve(args, cfg, model, codec, dev, mesh=None) -> dict:
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     gather_nbytes = 0
     max_len = args.prompt_len + args.tokens
-    layout = None
+    layout = state = None
     if mesh is not None:
         gather_nbytes = tree_gather_nbytes(params, mesh)
         layout = kv_layout(mesh, max_len, pin=cfg.decode_score_shard)
+        state = lm.state_layout(cfg, mesh)
         route = ("flash-decoding: stats and partials gathered"
                  if cfg.decode_score_shard else "scores gathered")
         print(f"[serve] serving mesh {mesh.shape} ({mesh.size} ranks, "
@@ -470,7 +475,9 @@ def _serve(args, cfg, model, codec, dev, mesh=None) -> dict:
               f"--shards {args.shards}, {gather_nbytes / 1e6:.2f} MB of "
               f"sharded streams gathered a use of every leaf; KV ring of "
               f"{max_len} {layout.describe()}"
-              + (f", {route}" if layout.sharded else ""))
+              + (f", {route}" if layout.sharded else "")
+              + ("" if state is None else
+                 f"; Mamba states {state.describe()}"))
         if placement is not None:
             print(f"[serve] experts on the mesh: {placement['layout']}; "
                   f"{placement['bytes'] / 1e6:.2f} MB held on this rank, "
@@ -510,6 +517,7 @@ def _serve(args, cfg, model, codec, dev, mesh=None) -> dict:
     wall = time.perf_counter() - t0
     launches = _since(base)
     ring_bytes = engine.ring_bytes()
+    state_bytes = engine.state_bytes()
     health = HEALTH.state        # while serving, before the drain
     engine.shutdown(deadline_s=30.0)
 
@@ -561,7 +569,9 @@ def _serve(args, cfg, model, codec, dev, mesh=None) -> dict:
     if layout is not None:
         kv_step = engine.step_kv_bytes[0] if engine.step_kv_bytes else 0
         print(f"[serve] KV ring {ring_bytes / 1e6:.2f} MB on this rank; "
-              f"decode attention gathered {kv_step / 1e6:.3f} MB a step")
+              f"recurrent states {state_bytes / 1e6:.2f} MB; the decode "
+              f"attention and Mamba states gathered {kv_step / 1e6:.3f} MB "
+              f"a step")
     if placement is not None and mesh is not None:
         ep_step = engine.step_ep_bytes[0] if engine.step_ep_bytes else 0
         print(f"[serve] MoE blocks exchanged {ep_step / 1e6:.4f} MB of "
@@ -590,11 +600,16 @@ def _serve(args, cfg, model, codec, dev, mesh=None) -> dict:
             "step_kv_bytes": engine.step_kv_bytes,
             "step_ep_bytes": engine.step_ep_bytes,
             "expert_placement": placement,
-            "ring_bytes": ring_bytes,
+            "ring_bytes": ring_bytes, "state_bytes": state_bytes,
             "kv_layout": None if layout is None else {
                 "sharded": layout.sharded, "axes": list(layout.axes),
                 "positions": layout.local_length, "offset": layout.offset,
                 "why": layout.why},
+            "state_layout": None if state is None else {
+                "h_axis": state.h_axis, "conv_axis": state.conv_axis,
+                "state_block": list(state.state_block),
+                "channel_block": list(state.channel_block),
+                "describe": state.describe()},
             "gather_nbytes": gather_nbytes, "links": codec.link_stats(),
             "mesh": None if mesh is None else dict(mesh.shape),
             "rank": 0 if mesh is None else mesh.rank,

@@ -16,16 +16,22 @@ Serving is a one-shot prefill of ``{"frames", "tokens"}`` (encoder pass,
 the decoder's prompt pass, the self-attention K/V and the cross-attention
 memory ``mem_k`` / ``mem_v`` into the cache) followed by one-token decode
 steps; :func:`decode_step` is the same step on fixed buffers, in place,
-for ``runtime/captured.py`` to replay as a CUDA graph.  Under a
-``sharding.KVLayout`` (the dry-run's serving mesh) the self-attention
-rings hold the rank's share of the sequence, as ``models/lm.py``'s do;
-the encoder memory stays whole.
+for ``runtime/captured.py`` to replay as a CUDA graph.  On a serving
+mesh (or under a ``sharding.KVLayout``) the self-attention rings hold the
+rank's share of the sequence, as ``models/lm.py``'s do, and the encoder
+memory ``mem_k`` / ``mem_v`` the rank's share of its positions where
+``runtime/sharding.py:memory_layout`` allows it (``cache["mem_layout"]``):
+the prefill computes the whole memory, runs the prompt over it and keeps
+the rank's positions; a decode step's cross attention is
+``layers.rank_decode_attention`` over them (the route
+``cfg.decode_score_shard``'s), with one device's bits.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.runtime import sharding
 from repro_torch.runtime.weights import resolve as resolve_weights
 
 from .layers import (ACT_DTYPE, attention_block, attention_decode_block,
@@ -163,47 +169,67 @@ def loss_fn(params, cfg, batch):
 # serving
 # ---------------------------------------------------------------------------
 
+def memory_layout(enc_len: int, mesh=None, memory=None, batch=None):
+    """The encoder memory's layout: ``memory`` as given, else on ``mesh``
+    ``sharding.memory_layout`` of ``enc_len`` positions (rows as ``batch``
+    gives them: ``None``, every row on every rank), else None (one
+    device)."""
+    if memory is None and mesh is not None:
+        memory = sharding.memory_layout(mesh, enc_len, batch=batch)
+    return memory
+
+
 def init_cache(cfg, batch: int, max_len: int, enc_len: int = ENC_LEN,
-               device="cuda", mesh=None, layout=None):
+               device="cuda", mesh=None, layout=None, memory=None):
     """Self-attention K/V rings (L, B, max_len, KV, hd), the encoder memory
     ``mem_k`` / ``mem_v`` (L, B, enc_len, KV, hd) and the lengths: zeros
     (``device="meta"`` gives the shapes with nothing allocated).  On a
     ``mesh`` or under ``layout`` the rings hold the rank's positions
-    (``lm.init_cache``)."""
+    (``lm.init_cache``), and on a ``mesh`` or under ``memory`` (a
+    ``sharding.KVLayout`` of ``enc_len`` positions) the memory holds the
+    rank's ``memory.local_length`` positions from ``memory.offset``,
+    recorded as ``cache["mem_layout"]``."""
     s = attn_shape(cfg)
     dev = resolve_device(device)
     layout = cache_layout(cfg, max_len, mesh, layout)
+    memory = memory_layout(enc_len, mesh, memory)
     ring = max_len if layout is None else layout.local_length
+    held = enc_len if memory is None else memory.local_length
 
     def z(t):
         return torch.zeros((cfg.n_layers, batch, t, s.n_kv_heads,
                             s.head_dim), dtype=ACT_DTYPE, device=dev)
 
-    cache = {"k": z(ring), "v": z(ring), "mem_k": z(enc_len),
-             "mem_v": z(enc_len),
+    cache = {"k": z(ring), "v": z(ring), "mem_k": z(held),
+             "mem_v": z(held),
              "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev)}
     if layout is not None:
         cache["kv_layout"] = layout
+    if memory is not None:
+        cache["mem_layout"] = memory
     return cache
 
 
 def prefill(params, cfg, frames, tokens, max_len: int, mesh=None,
-            layout=None):
-    """Encoder pass + decoder prompt pass; builds the self and cross
-    caches (the rank's positions of the self-attention K/V on a ``mesh``
-    or under ``layout``).  Returns (last-token logits (B, V), cache)."""
+            layout=None, memory=None):
+    """Encoder pass + decoder prompt pass over the whole memory; builds the
+    self and cross caches (the rank's positions of the self-attention K/V
+    and of the memory on a ``mesh``, or under ``layout`` and ``memory``).
+    Returns (last-token logits (B, V), cache)."""
     enc_out = encode(params, cfg, frames)
     s = attn_shape(cfg)
     b, t = tokens.shape
     cache = init_cache(cfg, b, max_len, enc_out.shape[1],
-                       device=enc_out.device, mesh=mesh, layout=layout)
+                       device=enc_out.device, mesh=mesh, layout=layout,
+                       memory=memory)
     x = embed_tokens(_dense_leaf(params["embed"]), tokens)
     positions = torch.arange(t, device=x.device)[None, :]
     for i in range(cfg.n_layers):
         p = _layer(params, "dec_stack", i)
-        memory = cross_memory(p["xattn"], enc_out, s)
-        cache["mem_k"][i], cache["mem_v"][i] = memory
-        x, kv = _dec_layer_fwd(p, cfg, x, memory, positions)
+        mem = cross_memory(p["xattn"], enc_out, s)
+        for k, got in zip(("mem_k", "mem_v"), mem):
+            keep_positions(cache[k][i], got, cache.get("mem_layout"))
+        x, kv = _dec_layer_fwd(p, cfg, x, mem, positions)
         for k, got in zip(("k", "v"), kv):
             keep_positions(cache[k][i], got, cache.get("kv_layout"))
     cache["lengths"] = torch.full((b,), t, dtype=torch.int32,
@@ -215,10 +241,14 @@ def prefill(params, cfg, frames, tokens, max_len: int, mesh=None,
 
 def decode_fn(params, cfg, cache, tokens: torch.Tensor):
     """One decoder token per row. tokens: (B,) int.  Returns (logits
-    (B, V), cache); the self-attention K/V are written in place."""
+    (B, V), cache); the self-attention K/V are written in place, and the
+    cross attention runs over the rank's positions of the memory under
+    ``cache["mem_layout"]``."""
     s = attn_shape(cfg)
     x = embed_tokens(_dense_leaf(params["embed"]), tokens[:, None])
     lengths = cache["lengths"].to(torch.int64)
+    memory = cache.get("mem_layout")
+    mem_sharded = memory is not None and memory.sharded
     for i in range(cfg.n_layers):
         sl = layer_slice(params["dec_stack"], i)
         # the memory's K/V are in the cache: xattn's wk / wv are not read
@@ -232,7 +262,9 @@ def decode_fn(params, cfg, cache, tokens: torch.Tensor):
         x = x + out
         x = x + cross_attention_block(
             p["xattn"], rms_norm(x, p["xnorm"], cfg.norm_eps),
-            (cache["mem_k"][i], cache["mem_v"][i]), s, decode=True)
+            (cache["mem_k"][i], cache["mem_v"][i]), s, decode=True,
+            layout=memory,
+            score_shard=mem_sharded and cfg.decode_score_shard)
         x = x + mlp_block(p["mlp"], rms_norm(x, p["post_norm"], cfg.norm_eps),
                           activation="gelu")
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -243,8 +275,9 @@ def decode_fn(params, cfg, cache, tokens: torch.Tensor):
 def init_step_state(cfg, slots: int, max_len: int, enc_len: int = ENC_LEN,
                     device="cuda", mesh=None):
     """The buffers of :func:`decode_step`, allocated once: the cache of
-    ``slots`` rows (:func:`init_cache`), each row's last token (int64)
-    and the step's f32 logits."""
+    ``slots`` rows (:func:`init_cache`; on a ``mesh`` the rank's
+    positions of the rings and of the memory), each row's last token
+    (int64) and the step's f32 logits."""
     state = init_cache(cfg, slots, max_len, enc_len, device=device,
                        mesh=mesh)
     dev = state["lengths"].device
@@ -256,8 +289,9 @@ def init_step_state(cfg, slots: int, max_len: int, enc_len: int = ENC_LEN,
 
 def load_prefill(state, cache, row: int) -> None:
     """Copy a one-row prefill's cache into row ``row`` of the step
-    buffers (its K/V at their positions, its whole encoder memory, its
-    length); the memory length must equal the buffers'."""
+    buffers (its K/V at their positions, its encoder memory, its length);
+    the prefill must hold the memory as the buffers do (the same length,
+    the same ``mem_layout``)."""
     t = cache["k"].shape[2]
     for k in ("k", "v"):
         state[k][:, row, :t].copy_(cache[k][:, 0])
@@ -275,8 +309,9 @@ def decode_step(params, cfg, state, bucket: int) -> None:
     addresses; its bits are :func:`decode_fn`'s on the same rows."""
     sub = {k: state[k][:, :bucket] for k in ("k", "v", "mem_k", "mem_v")}
     sub["lengths"] = state["lengths"][:bucket]
-    if "kv_layout" in state:
-        sub["kv_layout"] = state["kv_layout"]
+    for key in ("kv_layout", "mem_layout"):
+        if key in state:
+            sub[key] = state[key]
     logits, _ = decode_fn(params, cfg, sub, state["tokens"][:bucket])
     state["logits"][:bucket].copy_(logits)
     state["tokens"][:bucket].copy_(torch.argmax(logits, dim=-1))

@@ -364,8 +364,9 @@ def rank_decode_attention(q, k_cache, v_cache, lengths=None,
 
 
 def run_rank(part, gather):
-    """Drive a :func:`rank_decode_attention` generator: each of its
-    requests answered by ``gather(t, dim)``; returns its output."""
+    """Drive a rank generator (:func:`rank_decode_attention`,
+    ``ssm.rank_mamba_step``): each of its requests answered by
+    ``gather(*request)``; returns its output."""
     try:
         request = next(part)
         while True:
@@ -483,18 +484,27 @@ def cross_memory(p, enc_out, s: AttnParamsShape):
 
 
 def cross_attention_block(p, x, memory_kv, s: AttnParamsShape, *,
-                          decode: bool = False):
+                          decode: bool = False, layout=None,
+                          score_shard: bool = False):
     """x (B, T, D) queries over the precomputed encoder memory (k, v),
     every memory position visible.  ``decode`` (T = 1) sums in the fixed
     pairwise order of :func:`decode_attention`, so a row's bits do not
-    depend on the batch; the prompt runs :func:`flash_attention` with the
-    whole memory as its visible prefix.  Either way the output is cast to
-    bf16 before ``wo``, as the reference's flash attention returns it."""
+    depend on the batch; over a sequence-sharded memory (``layout``, a
+    ``sharding.KVLayout``: the rank holds its positions from
+    ``layout.offset``) it is :func:`rank_decode_attention` with the
+    layout's gathers, by the route ``score_shard`` picks, with the same
+    bits.  The prompt runs :func:`flash_attention` with the whole memory
+    as its visible prefix.  Either way the output is cast to bf16 before
+    ``wo``, as the reference's flash attention returns it."""
     b, t, _ = x.shape
     k, v = memory_kv
     q = weight_matmul(p["wq"], x).reshape(b, t, s.n_heads, s.head_dim)
     q = q.to(ACT_DTYPE)
-    if decode:
+    if decode and layout is not None and layout.sharded:
+        out = run_rank(rank_decode_attention(
+            q, k, v, None, layout.offset, score_shard),
+            layout.gather).to(ACT_DTYPE)
+    elif decode:
         out = decode_attention(q, k, v).to(ACT_DTYPE)
     else:
         out = flash_attention(q, k, v, prefix_len=k.shape[1])

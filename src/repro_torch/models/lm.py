@@ -34,7 +34,12 @@ attention K/V rings hold this rank's share of the sequence where
 says which positions, the prefill keeps those, the decode writes a token's
 K/V on its owner only and attends through ``layers.
 rank_decode_attention`` (its route ``cfg.decode_score_shard``'s), with
-one device's bits.  The recurrent states stay whole.
+one device's bits.  A Mamba block's state holds the rank's blocks of
+``h``'s ``d_state`` and ``conv``'s channels where ``runtime/sharding.py:
+state_layout`` allows it (``cache["state_layout"]``): the prefill keeps
+those blocks of its whole final state, and the decode step updates them
+(``ssm.rank_mamba_step``), again with one device's bits.  xLSTM's states
+stay whole.
 """
 from __future__ import annotations
 
@@ -248,9 +253,11 @@ def _apply_position(p, desc: BlockDesc, cfg, x, positions,
 
 
 def _apply_position_step(p, desc: BlockDesc, cfg, x, cache, lengths,
-                         layout=None):
+                         layout=None, state=None):
     """One-token decode of one block; its cache entry (one layer's view of
-    the K/V ring or of the recurrent state) is updated in place."""
+    the K/V ring or of the recurrent state, the rank's share of it under
+    the ring's ``layout`` or the Mamba ``state`` layout) is updated in
+    place."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
     if desc.seq == "attn":     # writes the new K/V at ``lengths`` itself
         out, _ = attention_decode_block(
@@ -259,7 +266,7 @@ def _apply_position_step(p, desc: BlockDesc, cfg, x, cache, lengths,
     else:
         if desc.seq == "mamba":
             out, new = ssm_lib.mamba_step(p["mamba"], h, cache,
-                                          cfg.ssm_state)
+                                          cfg.ssm_state, state)
         elif desc.seq == "mlstm":
             out, new = xlstm_lib.mlstm_step(p["mlstm"], h, cache,
                                             cfg.n_heads)
@@ -409,18 +416,36 @@ def cache_layout(cfg, max_len: int, mesh=None, layout=None):
     return layout
 
 
+def state_layout(cfg, mesh=None, state=None, batch=None):
+    """The Mamba states' layout: ``state`` as given, else on ``mesh`` the
+    ``sharding.state_layout`` of the config's ``d_inner`` and
+    ``ssm_state`` (rows as ``batch`` gives them: ``None``, every row on
+    every rank, the serving engine's), else None (one device, or no Mamba
+    block in the program)."""
+    if state is None and mesh is not None and any(
+            d.seq == "mamba" for d in block_program(cfg)):
+        d_inner, _ = ssm_lib.mamba_dims(cfg.d_model, cfg.ssm_state)
+        state = sharding.state_layout(mesh, d_inner, cfg.ssm_state,
+                                      batch=batch)
+    return state
+
+
 def init_cache(cfg, batch: int, max_len: int, device="cuda", mesh=None,
-               layout=None):
+               layout=None, state=None):
     """The decode cache of ``batch`` rows, stacked over periods: zeros,
     and the stabilisers ``m`` of the xLSTM blocks at their initial -1e30
     (``device="meta"`` gives the shapes with nothing allocated).  On a
     serving ``mesh`` (or under a given ``sharding.KVLayout``) each K/V
     ring holds this rank's ``layout.local_length`` positions from
-    ``layout.offset``, recorded as ``cache["kv_layout"]``."""
+    ``layout.offset``, recorded as ``cache["kv_layout"]``; each Mamba
+    state its blocks under the ``sharding.StateLayout`` (``state``, or
+    :func:`state_layout` on ``mesh``), recorded as
+    ``cache["state_layout"]``."""
     program = block_program(cfg)
     n_periods = cfg.n_layers // len(program)
     dev = resolve_device(device)
     layout = cache_layout(cfg, max_len, mesh, layout)
+    state = state_layout(cfg, mesh, state)
     ring = max_len if layout is None else layout.local_length
     entries = []
     for desc in program:
@@ -432,7 +457,7 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda", mesh=None,
             continue
         if desc.seq == "mamba":
             one = ssm_lib.init_mamba_cache(cfg.d_model, cfg.ssm_state,
-                                           cfg.conv_dim, batch, dev)
+                                           cfg.conv_dim, batch, dev, state)
         elif desc.seq == "mlstm":
             one = xlstm_lib.init_mlstm_cache(cfg.d_model, cfg.n_heads, batch,
                                              dev)
@@ -444,26 +469,32 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda", mesh=None,
              "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev)}
     if layout is not None:
         cache["kv_layout"] = layout
+    if state is not None:
+        cache["state_layout"] = state
     return cache
 
 
 def prefill_fn(params, cfg, batch: dict, max_len: int, mesh=None,
-               layout=None):
+               layout=None, state=None):
     """Run the prompt (and its prefix embeddings), build the cache: the
     attention K/V into the ring's first positions (on a ``mesh``, or under
     ``layout``, the rank's own of them: :func:`init_cache`), the recurrent
-    states wholesale.  Returns (last_token_logits, cache)."""
+    states wholesale, a Mamba state's the rank's blocks of it on a
+    ``mesh`` or under ``state``.  Returns (last_token_logits, cache)."""
     x, caches, head, _ = forward(params, cfg, batch)
     b, t = x.shape[0], x.shape[1]
     logits = lm_logits(x[:, -1:], head)[:, 0]
     cache = init_cache(cfg, b, max_len, device=x.device, mesh=mesh,
-                       layout=layout)
+                       layout=layout, state=state)
     for desc, entry, got in zip(block_program(cfg), cache["entries"],
                                 caches):
         if desc.seq == "attn":
             for k in ("k", "v"):
                 keep_positions(entry[k], got[k].to(ACT_DTYPE),
                                cache.get("kv_layout"))
+        elif desc.seq == "mamba":
+            ssm_lib.keep_state_blocks(entry, got,
+                                      cache.get("state_layout"))
         else:
             for k in entry:
                 entry[k].copy_(got[k].to(entry[k].dtype))
@@ -479,11 +510,12 @@ def decode_fn(params, cfg, cache, tokens: torch.Tensor):
     embed = _dense_leaf(params["embed"])
     x = embed_tokens(embed, tokens[:, None])
     lengths = cache["lengths"].to(torch.int64)
-    layout = cache.get("kv_layout")
+    layout, state = cache.get("kv_layout"), cache.get("state_layout")
     x, _ = _run_layers(
         params, cfg, x,
         lambda p, x, pos, entries: (_apply_position_step(
-            p, program[pos], cfg, x, entries[pos], lengths, layout), None),
+            p, program[pos], cfg, x, entries[pos], lengths, layout, state),
+            None),
         extra=cache["entries"])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(x, _head(params, cfg, embed))[:, 0]
@@ -495,7 +527,8 @@ def init_step_state(cfg, slots: int, max_len: int, device="cuda",
     """The buffers of :func:`decode_step`, allocated once: the cache of
     ``slots`` slots (``init_cache``: K/V ring, this rank's share of it on
     a serving ``mesh``, and recurrent states), each slot's last token
-    (int64) and the step's f32 logits."""
+    (int64) and the step's f32 logits; on a mesh the rank's blocks of
+    the Mamba states too."""
     state = init_cache(cfg, slots, max_len, device=device, mesh=mesh)
     dev = state["lengths"].device
     state["tokens"] = torch.zeros((slots,), dtype=torch.int64, device=dev)
@@ -515,8 +548,9 @@ def decode_step(params, cfg, state, bucket: int) -> None:
     sub = {"entries": [{k: t[:, :bucket] for k, t in e.items()}
                        for e in state["entries"]],
            "lengths": state["lengths"][:bucket]}
-    if "kv_layout" in state:
-        sub["kv_layout"] = state["kv_layout"]
+    for key in ("kv_layout", "state_layout"):
+        if key in state:
+            sub[key] = state[key]
     logits, _ = decode_fn(params, cfg, sub, state["tokens"][:bucket])
     state["logits"][:bucket].copy_(logits)
     state["tokens"][:bucket].copy_(torch.argmax(logits, dim=-1))

@@ -21,6 +21,13 @@ What the port does in its own way, and why:
 * **Short prompts.**  The decode state's conv window is the last
   ``K - 1`` pre-conv inputs of a prompt zero-padded on the left, which is
   the reference's window wherever it is defined (``T >= K - 1``).
+* **On a serving mesh** (``runtime/sharding.py:StateLayout``) a rank
+  holds and updates only its block of ``h``'s ``d_state`` and of
+  ``conv``'s channels (:func:`rank_mamba_step`): the conv and ``_update``
+  are per element, so they keep their bits; the conv output ``x`` and the
+  read-out's products are gathered whole before the products that
+  contract over them (``docs/PORT.md`` convention 13).  The prefill runs
+  the whole recurrence; its caller keeps the rank's blocks.
 """
 from __future__ import annotations
 
@@ -29,8 +36,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .layers import (ACT_DTYPE, dense_init, fixed_sum, scan_steps,
-                     softplus, stack_steps, weight_matmul)
+from .layers import (ACT_DTYPE, dense_init, fixed_sum, run_rank,
+                     scan_steps, softplus, stack_steps, weight_matmul)
 
 
 def mamba_dims(d_model: int, d_state: int, expand: int = 2):
@@ -130,32 +137,88 @@ def mamba_forward(p, u: torch.Tensor, d_state: int, conv_dim: int = 4):
 
 
 def init_mamba_cache(d_model: int, d_state: int, conv_dim: int, batch: int,
-                     device):
+                     device, layout=None):
+    """Zero decode state of ``batch`` rows: ``h`` (B, d_inner, d_state)
+    f32 and ``conv`` (B, K - 1, d_inner) bf16, or under a
+    ``sharding.StateLayout`` the rank's blocks of their last dims."""
     c, _ = mamba_dims(d_model, d_state)
-    return {"h": torch.zeros((batch, c, d_state), dtype=torch.float32,
+    s0, s1 = (0, d_state) if layout is None else layout.state_block
+    c0, c1 = (0, c) if layout is None else layout.channel_block
+    return {"h": torch.zeros((batch, c, s1 - s0), dtype=torch.float32,
                              device=device),
-            "conv": torch.zeros((batch, conv_dim - 1, c), dtype=ACT_DTYPE,
-                                device=device)}
+            "conv": torch.zeros((batch, conv_dim - 1, c1 - c0),
+                                dtype=ACT_DTYPE, device=device)}
 
 
-def mamba_step(p, u: torch.Tensor, cache: dict, d_state: int):
-    """Single-token decode, u (B, 1, D) -> ((B, 1, D), the new state).
+def keep_state_blocks(entry: dict, got: dict, layout=None) -> None:
+    """Copy a prefill's whole final state ``got`` (``h`` (..., d_inner,
+    d_state), ``conv`` (..., K - 1, d_inner)) into a cache entry: whole,
+    or under ``layout`` the rank's blocks of their last dims."""
+    s0, s1 = (0, got["h"].shape[-1]) if layout is None \
+        else layout.state_block
+    c0, c1 = (0, got["conv"].shape[-1]) if layout is None \
+        else layout.channel_block
+    entry["h"].copy_(got["h"][..., s0:s1].to(entry["h"].dtype))
+    entry["conv"].copy_(got["conv"][..., c0:c1].to(entry["conv"].dtype))
+
+
+def rank_mamba_step(p, u: torch.Tensor, cache: dict, d_state: int,
+                    layout=None):
+    """The rank-local part of a single-token decode, u (B, 1, D), over
+    this rank's blocks of the state (``cache["h"]`` (B, d_inner, S_local),
+    ``cache["conv"]`` (B, K - 1, C_local)) under a ``sharding.
+    StateLayout`` (None: the whole state, one device): a generator.
+    Each ``yield (t, dim, axis)`` asks for every rank's ``t`` along ``dim``
+    over ``axis`` in block order (``layout.gather``, or a test
+    concatenating A ranks' parts in one process) and is sent that; it
+    returns ((B, 1, D), the rank's new state).  Its bits are the whole
+    step's:
+
+      (a) ``in_proj`` whole;
+      (b) the causal conv on the rank's channel block of the window and of
+          ``x_raw`` (the taps in order 0..K-1, then the bias), then SiLU;
+      (c) ``x`` gathered whole along the channels (bf16, B x d_inner);
+      (d) ``x_proj`` / ``dt_proj`` whole;
+      (e) ``_update`` on the rank's ``d_state`` block of ``h``, ``a`` and
+          ``B_t`` (elementwise);
+      (f) the read-out's products ``h * C_t`` on the block, gathered along
+          ``d_state``, then the fixed pairwise sum over all of it.  Partial
+          sums are not folded: ``fixed_sum`` adds element j to j + half
+          first, so a contiguous block's own sum is not a subtree of it.
+
     The new conv window is a view of a fresh tensor, never of
     ``cache["conv"]``, so a caller may copy it over the old one."""
     xz = weight_matmul(p["in_proj"], u).to(ACT_DTYPE)
     c = xz.shape[-1] // 2
     x_raw, z = xz[..., :c], xz[..., c:]
-    win = torch.cat([cache["conv"], x_raw], dim=1)         # (B, K, C)
-    w = p["conv_w"]
+    c0, c1 = (0, c) if layout is None else layout.channel_block
+    s0, s1 = (0, d_state) if layout is None else layout.state_block
+    win = torch.cat([cache["conv"], x_raw[..., c0:c1]], dim=1)  # (B, K, Cl)
+    w = p["conv_w"][:, c0:c1]
     x = torch.zeros(win[:, 0].shape, dtype=torch.float32, device=u.device)
     for i in range(w.shape[0]):
         x = x + win[:, i].float() * w[i].float()
-    x = F.silu(x + p["conv_b"].float()).to(ACT_DTYPE)[:, None, :]
+    x = F.silu(x + p["conv_b"][c0:c1].float()).to(ACT_DTYPE)
+    if c1 - c0 != c:
+        x = yield x, -1, layout.conv_axis
+    x = x[:, None, :]
     dt, b_t, c_t = _projections(p, x, d_state)
-    a = -torch.exp(p["a_log"])
+    a = -torch.exp(p["a_log"])[:, s0:s1]
     xf = x[:, 0].float()
-    h = _update(cache["h"], a, dt[:, 0], xf, b_t[:, 0])
-    y = _read_out(h, c_t[:, 0])[:, None, :] + x.float() * p["d_skip"]
+    h = _update(cache["h"], a, dt[:, 0], xf, b_t[:, 0, s0:s1])
+    prods = h * c_t[:, 0, None, s0:s1]
+    if s1 - s0 != d_state:
+        prods = yield prods, -1, layout.h_axis
+    y = fixed_sum(prods)[:, None, :] + x.float() * p["d_skip"]
     y = y * F.silu(z.float())
     out = weight_matmul(p["out_proj"], y.to(ACT_DTYPE)).to(u.dtype)
     return out, {"h": h, "conv": win[:, 1:]}
+
+
+def mamba_step(p, u: torch.Tensor, cache: dict, d_state: int,
+               layout=None):
+    """Single-token decode, u (B, 1, D) -> ((B, 1, D), the new state):
+    :func:`rank_mamba_step` over the whole state, or under a
+    ``sharding.StateLayout`` over the rank's blocks with its gathers."""
+    return run_rank(rank_mamba_step(p, u, cache, d_state, layout),
+                    None if layout is None else layout.gather)

@@ -35,8 +35,11 @@ of the batch goes on.
   positions (``model.prefill_fn(mesh=)``) and is copied into the slot as
   it is; a step's decode attention gathers over the sequence axes
   (``models/layers.py:rank_decode_attention``), its logits one device's
-  bits.  Its MoE blocks compute only the rank's own experts and exchange
-  their activations (``models/moe.py``; ``step_ep_bytes``).
+  bits.  A Mamba state holds the rank's blocks of ``h``'s d_state and
+  ``conv``'s channels (``runtime/sharding.py:state_layout``), copied
+  into the slot as the prefill kept them.  Its MoE blocks compute only
+  the rank's own experts and exchange their activations
+  (``models/moe.py``; ``step_ep_bytes``).
 * **Deadlines at every stage.**  Requests whose TTFT deadline passes in the
   queue are shed before a prefill; in-flight requests past their total
   deadline are evicted at step granularity and their slot reclaimed; a
@@ -272,6 +275,14 @@ class Engine:
         return sum(t.numel() * t.element_size()
                    for e in self._state["entries"] for k, t in e.items()
                    if k in ("k", "v"))
+
+    def state_bytes(self) -> int:
+        """Bytes of this rank's recurrent states (0 before the first
+        request; its blocks of them on a serving mesh)."""
+        if self._state is None:
+            return 0
+        return sum(t.numel() * t.element_size()
+                   for t in self._carried())
 
     def _step_body(self, bucket: int) -> None:
         self.model.decode_step(self.params, self._state, bucket)

@@ -26,8 +26,20 @@ axes; otherwise the ring is replicated, as :func:`_maybe` replicates a dim
 that does not divide.  The decode attention's sums run chunk by chunk in
 order (``models/layers.py:rank_decode_attention``), and a chunk cut
 between two ranks could not give one device's bits.
-:func:`port_cache_pspecs` is :func:`cache_pspecs` under that rule, with
-the recurrent states and the encoder memory whole (on the batch only).
+
+**The recurrent states and the encoder memory** go where
+:func:`cache_pspecs` puts them too (``docs/PORT.md`` convention 13):
+Mamba's ``h`` (periods, B, d_inner, d_state) and ``conv`` (periods, B,
+K - 1, d_inner) each put their LAST dim on "model" where it divides
+(:func:`state_layout`: ``h`` by ``d_state``, not by its channels, as the
+reference's code does it; ``conv`` by its channels), each decided alone;
+whisper's ``mem_k`` / ``mem_v`` put their sequence where ``k`` / ``v``
+put theirs, under the same whole-chunk rule (:func:`kv_layout` of the
+memory's length, never pinned: a memory that cannot be sharded stays
+whole).  :func:`port_cache_pspecs` is :func:`cache_pspecs` under these
+rules.  xLSTM's states stay on the batch only: the reference's rule
+also puts the sLSTM ``h`` (periods, B, D) on "model", which the port does
+not follow yet.
 
 **MoE expert stacks** (:func:`expert_layout`) go where
 :func:`param_pspec` puts them for serving: E on "model" where it divides,
@@ -363,20 +375,136 @@ def kv_layout(mesh, length: int, batch=None, pin: bool = False) -> KVLayout:
                     length)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class StateLayout:
+    """How one rank of ``mesh`` holds a Mamba block's decode state: its
+    block of ``h``'s ``d_state`` (``h`` is (B, d_inner, d_state)) when
+    ``h_axis`` is set, and its block of ``conv``'s ``d_inner`` channels
+    (``conv`` is (B, K - 1, d_inner)) when ``conv_axis`` is set; a leaf
+    whose axis is None is whole on every rank, ``why`` saying why.
+    ``rows`` is the batch's axis (None: every rank holds every row)."""
+    mesh: object
+    d_inner: int
+    d_state: int
+    h_axis: object = None
+    conv_axis: object = None
+    rows: object = None
+    why: str = ""
+
+    @property
+    def sharded(self) -> bool:
+        return self.h_axis is not None or self.conv_axis is not None
+
+    def _block(self, axis, n: int) -> tuple:
+        """``(lo, hi)`` of this rank's block of ``n`` along ``axis``."""
+        if axis is None:
+            return 0, n
+        step = n // _axis_size(self.mesh, axis)
+        lo = self.mesh.coords.get(axis, 0) * step
+        return lo, lo + step
+
+    @property
+    def state_block(self) -> tuple:
+        """This rank's ``(s0, s1)`` of ``d_state``."""
+        return self._block(self.h_axis, self.d_state)
+
+    @property
+    def channel_block(self) -> tuple:
+        """This rank's ``(c0, c1)`` of ``d_inner``."""
+        return self._block(self.conv_axis, self.d_inner)
+
+    def gather(self, t: torch.Tensor, dim: int, axis) -> torch.Tensor:
+        """Every rank's ``t`` along ``dim`` in block order over ``axis``
+        (``launch/mesh.py:gather_whole``: one broadcast an owner, counted
+        as dense bytes on ``d2d_allgather``)."""
+        spec = [None] * t.ndim
+        spec[dim] = axis
+        return gather_whole([t.contiguous()], [tuple(spec)], self.mesh)[0]
+
+    def step_gather_bytes(self, rows: int) -> int:
+        """Dense bytes one Mamba layer's decode step gathers on a rank of
+        ``rows`` rows (``gather_whole`` counts ``(A - 1) x`` the whole):
+        the bf16 conv output ``x`` (rows, d_inner) where ``conv`` is
+        sharded, the f32 read-out products (rows, d_inner, d_state) where
+        ``h`` is."""
+        out = 0
+        if self.conv_axis is not None:
+            out += (_axis_size(self.mesh, self.conv_axis) - 1) * rows \
+                * self.d_inner * 2
+        if self.h_axis is not None:
+            out += (_axis_size(self.mesh, self.h_axis) - 1) * rows \
+                * self.d_inner * self.d_state * 4
+        return out
+
+    def describe(self) -> str:
+        def one(name, axis, n, dim, block):
+            if axis is None:
+                return f"{name} whole"
+            lo, hi = block
+            return (f"{name} {dim} {lo}:{hi} of {n} over {axis} "
+                    f"({_axis_size(self.mesh, axis)} ranks)")
+        rows = "" if self.rows is None else f"; rows on {self.rows}"
+        why = f" ({self.why})" if self.why else ""
+        return (one("h", self.h_axis, self.d_state, "d_state",
+                    self.state_block) + ", "
+                + one("conv", self.conv_axis, self.d_inner, "channels",
+                      self.channel_block) + rows + why)
+
+
+def state_layout(mesh, d_inner: int, d_state: int,
+                 batch=None) -> StateLayout:
+    """A Mamba decode state's layout on ``mesh``, as :func:`cache_pspecs`
+    places it: ``h`` (B, d_inner, d_state) and ``conv`` (B, K - 1,
+    d_inner) each put their last dim on "model" where it divides (the
+    reference's ``_maybe(shape[-1], mesh, "model")``), each decided
+    alone; the rows beside them on the batch's axis for ``batch`` rows
+    (``None``: every rank holds every row, as the serving engine does)."""
+    rows = None if batch is None else batch_axis(mesh, batch)
+    h_axis = _maybe(d_state, mesh, "model")
+    conv_axis = _maybe(d_inner, mesh, "model")
+    A = _axis_size(mesh, _present(mesh, "model"))
+    why = []
+    if A > 1:
+        for name, axis, n, dim in (("h", h_axis, d_state, "d_state"),
+                                   ("conv", conv_axis, d_inner,
+                                    "channels")):
+            if axis is None:
+                why.append(f"{name}: {dim} {n} % {A} model ranks != 0")
+    else:
+        why.append("no model axis of more than one rank")
+    return StateLayout(mesh, d_inner, d_state, h_axis, conv_axis, rows,
+                       "; ".join(why))
+
+
+def memory_layout(mesh, length: int, batch=None) -> KVLayout:
+    """The encoder memory's sequence layout (whisper's ``mem_k`` /
+    ``mem_v`` of ``length`` positions): :func:`kv_layout`'s axes and
+    whole-chunk rule, never pinned (``cfg.decode_score_shard`` pins the
+    self-attention ring): a memory that cannot be sharded stays whole."""
+    return kv_layout(mesh, length, batch=batch, pin=False)
+
+
 def port_cache_pspecs(cache, mesh, b: int, layout: KVLayout):
     """:func:`cache_pspecs` under the port's rules: the K/V rings'
-    sequence as ``layout`` holds it; the recurrent states and the encoder
-    memory sharded on the batch only (whole channels and positions)."""
+    sequence as ``layout`` holds it; a Mamba state's ``h`` and ``conv``
+    by :func:`state_layout` (their last dims on "model" where they
+    divide); the encoder memory by :func:`memory_layout` of its length;
+    xLSTM's states on the batch only."""
     ba = batch_axis(mesh, b)
 
     def spec_for(path, leaf) -> tuple:
         name = path.rsplit("/", 1)[-1]
-        spec = _cache_spec(name, tuple(leaf.shape), mesh, ba)
+        shape = tuple(leaf.shape)
+        spec = _cache_spec(name, shape, mesh, ba)
         if len(spec) < 2:
             return spec
         rest = [None] * (len(spec) - 2)
         if name in ("k", "v"):
             rest[0] = layout.spec()
+        elif name in ("mem_k", "mem_v"):
+            rest[0] = memory_layout(mesh, shape[2], batch=b).spec()
+        elif name == "conv" or (name == "h" and len(shape) == 4):
+            rest[-1] = spec[-1]     # Mamba's (an sLSTM's h has 3 dims)
         return (spec[0], spec[1], *rest)
 
     return tree_map_with_path(spec_for, cache)
@@ -601,6 +729,7 @@ def local_shard(t: torch.Tensor, spec, mesh) -> torch.Tensor:
 
 __all__ = ["batch_axis", "param_pspec", "param_pspecs", "ct_pspecs",
            "handle_pspecs", "batch_pspecs", "cache_pspecs", "logits_pspec",
-           "KVLayout", "kv_layout", "port_cache_pspecs",
+           "KVLayout", "kv_layout", "port_cache_pspecs", "StateLayout",
+           "state_layout", "memory_layout",
            "ExpertLayout", "expert_layout", "held_expert_layout",
            "is_expert_leaf", "local_shard", "spec_leaves", "shard_dim", "ct_stacked"]

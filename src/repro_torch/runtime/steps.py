@@ -39,7 +39,11 @@ On a serving mesh (``build_prefill_step`` / ``build_decode_step(...,
 mesh=)``) a rank runs its rows of the batch under the ambient serving mesh
 (its stream shards gathered at use) over its share of the K/V rings
 (``sharding.kv_layout``; the decode attention's gathers over the sequence
-axes) and with its share of the MoE expert stacks
+axes), of the Mamba states (``sharding.state_layout``: ``h``'s d_state
+and ``conv``'s channels on "model"; the conv output and the read-out's
+products gathered) and of whisper's encoder memory
+(``sharding.memory_layout``; the cross attention's gathers), and with its
+share of the MoE expert stacks
 (``sharding.expert_layout``; the MoE block's exchanges over "data" and
 "model"), as the dry-run's serving cells run rank 0.
 """
@@ -108,6 +112,25 @@ def _clock(dev: torch.device) -> float:
     return time.perf_counter()
 
 
+def mean_over_row_blocks(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The mean over the row blocks of ``axes`` (``sharding.batch_axis``'s
+    answer: an axis or a tuple of them) of every block's ``t``: each
+    block's ``t`` gathered pod-major (the order ``local_shard`` splits
+    the rows in), ``REDUCE_CHUNK`` elements at a time, summed in that
+    order in f32 by ``rank_ordered_sum``, divided by the number of blocks
+    and cast to ``t``'s dtype; the same bits on every rank.  Counted on no
+    link (the step counts its ``d2d_psum`` bytes)."""
+    names = axes if isinstance(axes, tuple) else (axes,)
+    n = math.prod(mesh.shape[a] for a in names)
+    flat = t.reshape(-1)
+    out = torch.empty_like(flat)
+    for a in range(0, flat.numel(), REDUCE_CHUNK):
+        piece = flat[a:a + REDUCE_CHUNK]
+        parts = gather_whole([piece[None]], [(axes,)], mesh, link=None)[0]
+        out[a:a + piece.numel()] = (rank_ordered_sum(parts) / n).to(t.dtype)
+    return out.view(t.shape)
+
+
 def _mesh_train_step(model, opt_cfg, mesh) -> Callable:
     from repro_torch.models.registry import abstract_params
     if tuple(mesh.shape) != tuple(a for a in TRAIN_AXES if a in mesh.shape):
@@ -141,28 +164,17 @@ def _mesh_train_step(model, opt_cfg, mesh) -> Callable:
             n = math.prod(mesh.shape[a] for a in (
                 axes if isinstance(axes, tuple) else (axes,)))
 
-            def over_rows(t: torch.Tensor) -> torch.Tensor:
-                """Every row block's ``t``, stacked pod-major."""
-                return gather_whole([t[None]], [(axes,)], mesh,
-                                    link=None)[0]
-
             def reduce(q, g):
                 nonlocal reduce_bytes
                 nbytes = (n - 1) * g.numel() * g.element_size()
                 codec.count_link("d2d_psum", nbytes, dense=True)
                 reduce_bytes += nbytes
-                flat = g.reshape(-1)
-                out = torch.empty_like(flat)
-                for a in range(0, flat.numel(), REDUCE_CHUNK):
-                    piece = flat[a:a + REDUCE_CHUNK]
-                    out[a:a + piece.numel()] = (rank_ordered_sum(
-                        over_rows(piece)) / n).to(g.dtype)
-                return out.view(g.shape)
+                return mean_over_row_blocks(g, mesh, axes)
 
             grads = tree_map_with_path(reduce, grads)
             names = sorted(metrics)
-            means = rank_ordered_sum(over_rows(torch.stack(
-                [loss] + [metrics[k].float() for k in names]))) / n
+            means = mean_over_row_blocks(torch.stack(
+                [loss] + [metrics[k].float() for k in names]), mesh, axes)
             loss = means[0]
             metrics = dict(zip(names, means[1:]))
         gnorm = adamw.global_norm(grads)
@@ -186,9 +198,10 @@ def build_prefill_step(model, max_len: int, mesh=None,
     them, MoE expert stacks under ``sharding.expert_layout(mode=
     expert_mode)``) the step runs under it as the ambient serving mesh on
     this rank's rows of the global ``batch`` (``sharding.batch_pspecs``)
-    and keeps this rank's share of the K/V rings
-    (``sharding.kv_layout(mesh, max_len, batch=rows)``, the layout of
-    ``cache_pspecs``): its logits and cache are the rank's."""
+    and keeps this rank's share of the cache, as ``cache_pspecs`` places
+    it (:func:`serving_layouts` with ``batch=rows``): the K/V rings'
+    sequence, the Mamba states' blocks and the encoder memory's
+    positions.  Its logits and cache are the rank's."""
     if mesh is None:
         def prefill_step(params, batch):
             return model.prefill_fn(params, batch, max_len)
@@ -199,23 +212,48 @@ def build_prefill_step(model, max_len: int, mesh=None,
         bspecs = sharding.batch_pspecs(batch, mesh, rows)
         local = {k: sharding.local_shard(v, bspecs[k], mesh)
                  for k, v in batch.items()}
-        layout = sharding.kv_layout(mesh, max_len, batch=rows,
-                                    pin=model.cfg.decode_score_shard)
+        enc_len = batch["frames"].shape[1] if "frames" in batch else None
+        layouts = serving_layouts(model.cfg, mesh, max_len, rows, enc_len)
         with use_serving_mesh(mesh, rows=sharding.batch_axis(mesh, rows),
                               expert_mode=expert_mode):
-            return model.prefill_fn(params, local, max_len, layout=layout)
+            return model.prefill_fn(params, local, max_len, **layouts)
 
     return mesh_prefill_step
+
+
+def serving_layouts(cfg, mesh, max_len: int, rows=None,
+                    enc_len=None) -> dict:
+    """How a rank of a serving ``mesh`` holds a cache of ``rows`` rows
+    (``None``: every row on every rank), as keyword arguments of the
+    model's ``prefill_fn`` / ``init_cache``: ``layout``, the K/V rings'
+    (``sharding.kv_layout`` of ``max_len``, pinned by
+    ``cfg.decode_score_shard``); for whisper ``memory``, the encoder
+    memory's (``sharding.memory_layout`` of ``enc_len``); for a program
+    with Mamba blocks ``state``, their states' (``sharding.state_layout``).
+    The decode step reads them from the cache."""
+    from repro_torch.models import encdec, lm
+    out = {"layout": sharding.kv_layout(mesh, max_len, batch=rows,
+                                        pin=cfg.decode_score_shard)}
+    if cfg.is_encdec:
+        out["memory"] = encdec.memory_layout(
+            encdec.ENC_LEN if enc_len is None else enc_len, mesh,
+            batch=rows)
+        return out
+    state = lm.state_layout(cfg, mesh, batch=rows)
+    if state is not None:
+        out["state"] = state
+    return out
 
 
 def build_decode_step(model, mesh=None,
                       expert_mode: str = "serve") -> Callable:
     """(params, cache, tokens) -> (logits, cache).  On a serving ``mesh``
-    ``cache`` is this rank's (its rows and its share of the K/V rings:
-    the mesh prefill step's, or ``model.init_cache`` under
-    ``sharding.kv_layout(mesh, max_len, batch=B)``) and ``tokens`` the
-    global (B,) batch, of which the step decodes this rank's rows under
-    the ambient serving mesh (MoE expert stacks as for
+    ``cache`` is this rank's (its rows and its share of the K/V rings,
+    the Mamba states and the encoder memory, its layouts recorded in it:
+    the mesh prefill step's, or ``model.init_cache(..., **
+    serving_layouts(cfg, mesh, max_len, B))``) and ``tokens`` the global
+    (B,) batch, of which the step decodes this rank's rows under the
+    ambient serving mesh (MoE expert stacks as for
     :func:`build_prefill_step`)."""
     if mesh is None:
         def decode_step(params, cache, tokens):

@@ -167,11 +167,9 @@ def test_kv_layout_follows_cache_pspecs_axes():
         if name in ("k", "v"):
             assert spec == ref[path] == (None, None, ("pod", "model"),
                                          None, None)
-        elif name == "lengths":
-            assert spec == ref[path]
-        else:       # recurrent states: whole channels
-            assert spec[2:] == (None,) * (len(spec) - 2), path
-    assert any(s[-1] == "model" for p, s in ref.items()
+        else:       # lengths and the Mamba states: the reference's
+            assert spec == ref[path], path
+    assert any(s[-1] == "model" for p, s in port.items()
                if p.endswith(("/h", "/conv")))
 
 
@@ -191,9 +189,12 @@ def test_init_cache_holds_the_ranks_positions(arch):
                 if k in e]
             assert rings and all(r.shape[2] == want for r in rings)
             assert layout.offset == (rank * want if want < length else 0)
-            if cfg.is_encdec:
-                assert cache["mem_k"].shape == cache_specs(
-                    cfg, 2, length)["mem_k"].shape
+            if cfg.is_encdec:       # the memory's 4096 positions: 2 x 2048
+                whole = cache_specs(cfg, 2, length)["mem_k"].shape
+                memory = cache["mem_layout"]
+                assert memory.sharded and memory.offset == rank * 2048
+                assert cache["mem_k"].shape == cache["mem_v"].shape == \
+                    whole[:2] + (whole[2] // 2,) + whole[3:]
     assert "kv_layout" not in model.init_cache(2, 4096, device="meta")
     with pytest.raises(ValueError, match="cannot be sharded"):
         import dataclasses

@@ -42,7 +42,10 @@ assert on what the ranks sent back:
     of step 2 resumed on (2, 1, 2) bitwise as on (2, 2);
     ``compressed_allreduce`` over "pod" of (2, 2, 1) bitwise the
     rank-ordered sum over "pod" (the port's counterpart of the
-    reference's 8-device ``test_compressed_allreduce_bit_identical_2pods``).
+    reference's 8-device ``test_compressed_allreduce_bit_identical_2pods``);
+    the step's mean over the row blocks (``steps.mean_over_row_blocks``)
+    on (2, 2, 1), over f32 blocks whose sum depends on the order (1e8, 1,
+    -1e8, 1 rotated along the elements), bitwise the one pod-major sum.
 """
 import contextlib
 import io
@@ -81,6 +84,10 @@ SLOW_STEP = 4
 # at most 5.35e-6 relative (step 0: 7.6e-8 and 0), the gradient norms by
 # at most 4.40e-4 (bf16 gradients rounded at another point).
 LOSS_RTOL = 1e-3
+# the row-block mean's check: each block's f32 elements are these values
+# rotated by the block's pod-major index and the element's, so that every
+# order of the four blocks gives some element another f32 sum
+ROW_VALUES, ROW_NUMEL = (1e8, 1.0, -1e8, 1.0), 5000
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -238,6 +245,27 @@ def _watchdog_scenario(mesh, out_dir: Path) -> list:
     return saves
 
 
+def _row_block(b: int) -> torch.Tensor:
+    """Row block ``b``'s (pod-major) f32 gradient of the row-sum check."""
+    i = torch.arange(ROW_NUMEL)
+    return torch.tensor(ROW_VALUES, dtype=torch.float32)[(b + i) % 4]
+
+
+def _row_sum_scenario(mesh) -> torch.Tensor:
+    """``steps.mean_over_row_blocks`` of this rank's row block over
+    ("pod", "data") of a (2, 2, 1) mesh, in pieces of POD_REDUCE_CHUNK
+    elements."""
+    from repro_torch.runtime import steps
+    b = mesh.coords["pod"] * mesh.shape["data"] + mesh.coords["data"]
+    whole_leaf = steps.REDUCE_CHUNK
+    steps.REDUCE_CHUNK = POD_REDUCE_CHUNK
+    try:
+        return steps.mean_over_row_blocks(_row_block(b), mesh,
+                                          ("pod", "data"))
+    finally:
+        steps.REDUCE_CHUNK = whole_leaf
+
+
 def _worker(out_dir: Path) -> None:
     torch.set_num_threads(1)
     from repro_torch.checkpoint.ckpt import CheckpointManager
@@ -250,6 +278,7 @@ def _worker(out_dir: Path) -> None:
     res["allreduce"] = _allreduce_scenarios(
         {"4": (mesh4, "data"), "2x2": (meshes[2, 2], "data"),
          "pod": (meshes[2, 2, 1], "pod")})
+    res["row_sum"] = _row_sum_scenario(meshes[2, 2, 1])
     saved = {(2, 2): "mesh22", (2, 2, 1): "pod221"}
     from repro_torch.runtime import steps
     whole_leaf = steps.REDUCE_CHUNK
@@ -659,6 +688,27 @@ def test_pod_replicas_hold_identical_shards(world, pod):
         assert held == sum(
             sharding.local_shard(t, specs[p], flat).numel()
             * t.element_size() for p, t in whole.items())
+
+
+def test_row_block_mean_is_one_pod_major_sum(world):
+    """The train step's mean over the row blocks of (2, 2, 1) is one
+    rank-ordered f32 sum of the four blocks, pod-major, divided by 4, on
+    every rank bit for bit; the blocks' values make another order (the
+    reverse, or data-major) or a sum split over "data" then "pod" give
+    other bits."""
+    from repro_torch.optim.grad_compress import rank_ordered_sum
+    ranks, _, _ = world
+    blocks = [_row_block(b) for b in range(4)]
+    want = rank_ordered_sum(blocks) / 4
+    for other in (rank_ordered_sum(blocks[::-1]) / 4,
+                  rank_ordered_sum([blocks[b] for b in (0, 2, 1, 3)]) / 4,
+                  rank_ordered_sum([rank_ordered_sum(blocks[:2]),
+                                    rank_ordered_sum(blocks[2:])]) / 4):
+        assert not torch.equal(_bits(other), _bits(want))
+    for r in ranks:
+        got = r["row_sum"]
+        assert got.dtype == torch.float32 and got.shape == (ROW_NUMEL,)
+        assert torch.equal(_bits(got), _bits(want)), r["rank"]
 
 
 def test_one_device_checkpoint_resumes_onto_pod_mesh_bitwise(world):
