@@ -4684,6 +4684,13 @@ JAMBA_MESH_ARGS = ["--arch", JAMBA_ARCH, "--mode", "dense"]
 # whisper_tiny at full width, WHISPER_FRAMES 4096 memory positions, 2 x
 # 2048 at A = 2, phase whisper's first MESH_BATCH requests and frames
 WHISPER_MESH_MODE = "stream"
+# the sLSTM h on the mesh (the run labelled xlstm_stream): xlstm_125m at
+# its published widths and depth (12 layers, 3 periods of 3 mLSTM + 1
+# sLSTM, D 768: each rank holds 384 of each sLSTM h's 768 columns) in
+# stream mode, so kernel 1 decodes every streamed leaf on each rank
+XLSTM_ARCH = "xlstm_125m"
+XLSTM_MESH_ARGS = ["--arch", XLSTM_ARCH, "--mode", "stream", "--shards",
+                   "2"]
 # each torch.distributed.run: its ranks' serve.main runs, by label
 MESH_RUNS = {2: {"stream_on": ["--mode", "stream", "--overlap", "on"],
                  "stream_off": ["--mode", "stream", "--overlap", "off"],
@@ -4694,6 +4701,7 @@ MESH_RUNS = {2: {"stream_on": ["--mode", "stream", "--overlap", "on"],
                  "ep_stream": EP_ARGS + ["--mode", "stream"],
                  "ep_fused": EP_ARGS + ["--mode", "fused"],
                  "jamba_dense": JAMBA_MESH_ARGS,
+                 "xlstm_stream": XLSTM_MESH_ARGS,
                  # not serve.main: the mesh steps (_mesh_whisper)
                  f"whisper_{WHISPER_MESH_MODE}": []},
              4: {"stream_on": ["--mode", "stream", "--overlap", "on"],
@@ -4808,7 +4816,8 @@ def mesh_worker(spec_path: str) -> None:
                 "links", "mesh", "overlap", "tpot_s", "ttft_s", "step_s",
                 "resident_bytes", "restore", "mode_mix", "ring_bytes",
                 "kv_layout", "step_kv_bytes", "step_ep_bytes",
-                "expert_placement", "state_bytes", "state_layout")},
+                "expert_placement", "state_bytes", "state_leaf_bytes",
+                "state_layout")},
             "peak_bytes": torch.cuda.max_memory_allocated()}
         del out
     torch.save(res, out_dir / f"{spec['tag']}_rank{rank}.pt")
@@ -4941,10 +4950,12 @@ def phase_mesh():
     recurrent states and the encoder memory (A = 2): jamba at its
     published widths cut to ``JAMBA_MESH_LAYERS`` layers in dense mode,
     each rank holding half of every Mamba ``h`` (by d_state) and ``conv``
-    (by channels) (:func:`_check_mesh_jamba`); whisper_tiny through the
-    mesh steps, each rank holding 2048 of the memory's 4096 positions
-    (:func:`_check_mesh_whisper`); each against a single-device run of
-    the same depth, mode and requests made here.
+    (by channels) (:func:`_check_mesh_jamba`); xlstm_125m at its
+    published widths and depth in stream mode, each rank holding half of
+    every sLSTM ``h``'s D (:func:`_check_mesh_xlstm`); whisper_tiny
+    through the mesh steps, each rank holding 2048 of the memory's 4096
+    positions (:func:`_check_mesh_whisper`); each against a single-device
+    run of the same depth, mode and requests made here.
     Checks: every rank's logits bitwise equal to phase serve's
     single-device run of the same mode and shards (its first
     ``MESH_BATCH`` requests and ``MESH_TOKENS`` tokens; the A = 4 run and
@@ -4982,7 +4993,9 @@ def phase_mesh():
                 ("ep_fused", EP_ARGS + ["--mode", "fused", "--shards",
                                         "2"]),
                 # the Mamba states' run's yardstick, at the same depth
-                ("jamba_dense", JAMBA_MESH_ARGS)):
+                ("jamba_dense", JAMBA_MESH_ARGS),
+                # the sLSTM h's run's yardstick
+                ("xlstm_stream", XLSTM_MESH_ARGS)):
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -4998,6 +5011,7 @@ def phase_mesh():
                 "ring_bytes": out["ring_bytes"], "overlap": out["overlap"],
                 "experts": out["expert_placement"],
                 "state_bytes": out["state_bytes"],
+                "state_leaf_bytes": out["state_leaf_bytes"],
                 "peak_bytes": torch.cuda.max_memory_allocated()}
             del out
         torch.cuda.empty_cache()
@@ -5072,6 +5086,10 @@ def _check_mesh_world(A, ranks, want, singles, secs, card) -> dict:
         if label.startswith("whisper_"):
             out["runs"][label] = _check_mesh_whisper(A, label, ranks,
                                                      singles[label], card)
+            continue
+        if label == "xlstm_stream":
+            out["runs"][label] = _check_mesh_xlstm(A, label, ranks,
+                                                   singles[label], card)
             continue
         mode = "restore" if label == "restore" else label.split("_")[0]
         ref = want[mode, A]
@@ -5427,6 +5445,101 @@ def _check_mesh_jamba(A, label, ranks, single, card) -> dict:
         f"{[round(p['resident_gb'], 2) for p in per_rank]} against one "
         f"device's {single['peak_bytes'] / 1e9:.2f} / "
         f"{single['resident_bytes'] / 1e9:.2f}; launches a step "
+        f"{per_rank[0]['launches_per_step']} against one device's "
+        f"{single['step_launches']} ({card})")
+    return out
+
+
+def _check_mesh_xlstm(A, label, ranks, single, card) -> dict:
+    """xlstm_125m at published widths and depth, stream mode, on A ranks:
+    every rank's logits bitwise the single-device run's; each holds its
+    D / A columns of every sLSTM ``h`` (the layout's block) and all of
+    ``c`` / ``n`` / ``m`` (the mLSTM's and the sLSTM's); a decode step
+    gathers the layout's dense bytes (the bf16 ``h`` of each sLSTM layer)
+    and ``(A - 1)`` x the placed streams' compressed bytes; kernel 1 and
+    2' launches a step are one device's."""
+    import torch
+    from types import SimpleNamespace
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config(XLSTM_ARCH)
+    program = lm.block_program(cfg)
+    n_slstm = cfg.n_layers // len(program) * sum(
+        d.seq == "slstm" for d in program)
+    whole = single["state_leaf_bytes"]
+    per_rank = []
+    for r in ranks:
+        run = r["runs"][label]
+        tag = f"mesh A={A} {label} rank {r['rank']}"
+        mesh = SimpleNamespace(shape=run["mesh"],
+                               coords={"model": r["rank"] % A})
+        layout = lm.state_layout(cfg, mesh)
+        d0, d1 = layout.slstm_block
+        check(layout.slstm_axis == "model" and d1 - d0 == cfg.d_model // A
+              and run["state_layout"]["describe"] == layout.describe()
+              and run["state_layout"]["slstm_block"] == [d0, d1],
+              f"{tag}: state layout {run['state_layout']}, want "
+              f"{layout.describe()}")
+        check(tuple(run["logits"].shape) == (MESH_TOKENS, MESH_BATCH,
+                                             cfg.vocab_size)
+              and bool(torch.isfinite(run["logits"]).all()),
+              f"{tag}: logits {tuple(run['logits'].shape)}")
+        check(torch.equal(run["logits"].view(torch.int32),
+                          single["logits"].view(torch.int32)),
+              f"{tag}: logits not bitwise equal to one device's")
+        held = run["state_leaf_bytes"]
+        check(held["h"] * A == whole["h"]
+              == n_slstm * MESH_BATCH * cfg.d_model * 4
+              and all(held[k] == whole[k] > 0 for k in ("c", "n", "m")),
+              f"{tag}: holds {held} B of the states, one device {whole}")
+        want = lm.state_gather_bytes(cfg, layout, MESH_BATCH)
+        check(want == n_slstm * (A - 1) * MESH_BATCH * cfg.d_model * 2
+              and run["step_kv_bytes"] == [want] * (MESH_TOKENS - 1),
+              f"{tag}: gathered {run['step_kv_bytes']} dense B a step, the "
+              f"layout's {want} for {n_slstm} sLSTM layers")
+        check(run["gather_nbytes"] > 0 and run["step_gather_bytes"]
+              == [(A - 1) * run["gather_nbytes"]] * (MESH_TOKENS - 1),
+              f"{tag}: gathered {run['step_gather_bytes']} compressed B a "
+              f"step, want (A - 1) x {run['gather_nbytes']}")
+        one = single["step_launches"]
+        for st in run["step_launches"]:
+            check(all(st[k] == one[k] for k in (
+                "enec_decode", "decompress_matmul", "dense_tile_matmul"))
+                  and st["enec_decode"] > 0,
+                  f"{tag}: launches a step {st}, one device's {one}")
+        per_rank.append({
+            "tpot_ms": 1e3 * run["tpot_s"], "ttft_ms": 1e3 * run["ttft_s"],
+            "peak_gb": run["peak_bytes"] / 1e9,
+            "resident_gb": run["resident_bytes"] / 1e9,
+            "h_bytes": held["h"], "state_bytes": run["state_bytes"],
+            "state_gather_bytes_per_step": run["step_kv_bytes"][0],
+            "gather_mb_per_step": run["step_gather_bytes"][0] / 1e6,
+            "layout": run["state_layout"]["describe"],
+            "launches_per_step": run["step_launches"][0]})
+    out = {"ranks": per_rank, "layers": cfg.n_layers,
+           "single": {"tpot_ms": 1e3 * single["tpot_s"],
+                      "ttft_ms": 1e3 * single["ttft_s"],
+                      "peak_gb": single["peak_bytes"] / 1e9,
+                      "resident_gb": single["resident_bytes"] / 1e9,
+                      "h_bytes": whole["h"],
+                      "state_bytes": single["state_bytes"],
+                      "launches_per_step": single["step_launches"]}}
+    log(f"mesh A={A} {label}: {len(ranks)} ranks bitwise equal to one "
+        f"device ({XLSTM_ARCH}, {cfg.n_layers} layers, stream); sLSTM h "
+        f"{[p['h_bytes'] for p in per_rank]} B a rank of one device's "
+        f"{whole['h']} (rank 0: {per_rank[0]['layout']}); gathered for "
+        f"the sLSTM h {per_rank[0]['state_gather_bytes_per_step']} dense B "
+        f"and {per_rank[0]['gather_mb_per_step']:.3f} MB of streams a step "
+        f"({n_slstm} sLSTM layers); TPOT "
+        f"{[round(p['tpot_ms'], 1) for p in per_rank]} ms (eager, gloo "
+        f"through the host: the ranks share one card; one device captured "
+        f"{1e3 * single['tpot_s']:.2f} ms), TTFT "
+        f"{[round(p['ttft_ms'], 1) for p in per_rank]} ms (one device "
+        f"{1e3 * single['ttft_s']:.1f}), peak GB "
+        f"{[round(p['peak_gb'], 3) for p in per_rank]} / resident "
+        f"{[round(p['resident_gb'], 3) for p in per_rank]} against one "
+        f"device's {single['peak_bytes'] / 1e9:.3f} / "
+        f"{single['resident_bytes'] / 1e9:.3f}; launches a step "
         f"{per_rank[0]['launches_per_step']} against one device's "
         f"{single['step_launches']} ({card})")
     return out

@@ -28,14 +28,17 @@ not run):
           encoder memory's, on "model", or ("pod", "model") beside an
           unsharded batch, where ``sharding.kv_layout``'s rule allows;
           Mamba's ``h`` by d_state and ``conv`` by channels on "model"
-          where they divide, ``sharding.state_layout``; xLSTM's states
-          on the batch only).  A decode step's attention gathers over the
-          sequence axes: the scores, or under the ``flash_decode`` variant
-          (``cfg.decode_score_shard``) the softmax's stats and per-chunk
-          partials only (``models/layers.py:rank_decode_attention``), the
-          cross attention over a sharded memory likewise; a Mamba step
-          gathers its conv output and its read-out's products
-          (``models/ssm.py:rank_mamba_step``).  The rank holds
+          where they divide, and an sLSTM's ``h`` by D, ``sharding.
+          state_layout``; the sLSTM's ``c`` / ``n`` / ``m`` and the
+          mLSTM states on the batch only).  A decode step's attention
+          gathers over the sequence axes: the scores, or under the
+          ``flash_decode`` variant (``cfg.decode_score_shard``) the
+          softmax's stats and per-chunk partials only (``models/
+          layers.py:rank_decode_attention``), the cross attention over
+          a sharded memory likewise; a Mamba step gathers its conv
+          output and its read-out's products (``models/ssm.py:
+          rank_mamba_step``), an sLSTM step its bf16 ``h`` (``models/
+          xlstm.py:rank_slstm_step``).  The rank holds
           its share of the MoE expert stacks (``sharding.
           expert_layout``; "serve_ep" for the ``ep_*`` variants, which
           places what "serve" places in the port) and its MoE blocks
@@ -435,8 +438,9 @@ def _program(cfg, shape, mesh, mode, tree, expert_mode: str = "serve"):
                    "contracting dim is split, docs/PORT.md convention 11)")
     held = ""
     if "state" in layouts:
-        held += (f"; Mamba states {layouts['state'].describe()}, the conv "
-                 f"output and the read-out's products gathered a step")
+        state = layouts["state"]
+        held += (f"; {state.kind} states {state.describe()}, "
+                 f"{state.gathered} gathered a step")
     if "memory" in layouts:
         mem = layouts["memory"]
         held += f"; encoder memory {mem.describe()}"
@@ -455,18 +459,21 @@ def rank_cache(cache, mesh, b: int, layout):
     """The rank's block of a whole (``meta``) decode cache of ``b`` rows
     under ``sharding.port_cache_pspecs``, as new ``meta`` tensors of the
     block's shapes, with ``layout`` as its ``kv_layout`` and, read from
-    its leaves, its Mamba states' ``state_layout`` and its encoder
-    memory's ``mem_layout``."""
+    its leaves, its Mamba and sLSTM states' ``state_layout`` and its
+    encoder memory's ``mem_layout``."""
     specs = dict(sharding.spec_leaves(sharding.port_cache_pspecs(
         cache, mesh, b, layout)))
     local = tree_map_with_path(lambda p, t: _meta_like(
         t, sharding.local_shard(t, specs[p], mesh).shape), cache)
     local["kv_layout"] = layout
-    mamba = [e for e in cache.get("entries", ()) if "conv" in e]
-    if mamba:
-        h = mamba[0]["h"]
+    entries = cache.get("entries", ())
+    mamba = [e["h"] for e in entries if "conv" in e]
+    slstm = [e["h"] for e in entries if "h" in e and "conv" not in e]
+    if mamba or slstm:
+        d_inner, d_state = mamba[0].shape[-2:] if mamba else (0, 0)
         local["state_layout"] = sharding.state_layout(
-            mesh, h.shape[-2], h.shape[-1], batch=b)
+            mesh, d_inner, d_state, batch=b,
+            d_slstm=slstm[0].shape[-1] if slstm else 0)
     if "mem_k" in cache:
         local["mem_layout"] = sharding.memory_layout(
             mesh, cache["mem_k"].shape[2], batch=b)

@@ -82,12 +82,16 @@ hybrid arch's Mamba states hold the rank's blocks of ``h``'s d_state and
 ``conv``'s channels where they divide by the model axis
 (``runtime/sharding.py:state_layout``); each step gathers the conv output
 and the read-out's products, and the mesh line says which blocks a rank
-holds.  An MoE arch's expert stacks are placed by ``runtime/sharding.py:
-expert_layout``: each rank holds, decodes and multiplies only its own
-experts (E on the model axis where it divides; a dense stack also splits
-each expert matrix's output columns over the data axis), nothing of them
-is gathered, and the MoE block exchanges activations instead
-(``models/moe.py``); the experts line says what each rank holds.
+holds.  An xLSTM arch's sLSTM ``h`` holds the rank's block of D where it
+divides by the model axis (``c`` / ``n`` / ``m`` and the mLSTM states
+whole); each step gathers the bf16 ``h`` before ``r_in``, and the mesh
+line says which block a rank holds and the bytes a step gathers.  An MoE
+arch's expert stacks are placed by ``runtime/sharding.py:expert_layout``:
+each rank holds, decodes and multiplies only its own experts (E on the
+model axis where it divides; a dense stack also splits each expert
+matrix's output columns over the data axis), nothing of them is gathered,
+and the MoE block exchanges activations instead (``models/moe.py``); the
+experts line says what each rank holds.
 ``--expert-cache-mb`` stays refused on a mesh, as the reference refuses
 it.  ``--ckpt`` restores onto the mesh, each rank uploading only its
 shards' bytes (a compressed expert stack's: its own experts'); a dense
@@ -477,7 +481,9 @@ def _serve(args, cfg, model, codec, dev, mesh=None) -> dict:
               f"{max_len} {layout.describe()}"
               + (f", {route}" if layout.sharded else "")
               + ("" if state is None else
-                 f"; Mamba states {state.describe()}"))
+                 f"; {state.kind} states {state.describe()}, "
+                 f"{lm.state_gather_bytes(cfg, state, args.batch)} B of "
+                 f"{state.gathered} gathered a step at {args.batch} rows"))
         if placement is not None:
             print(f"[serve] experts on the mesh: {placement['layout']}; "
                   f"{placement['bytes'] / 1e6:.2f} MB held on this rank, "
@@ -518,6 +524,7 @@ def _serve(args, cfg, model, codec, dev, mesh=None) -> dict:
     launches = _since(base)
     ring_bytes = engine.ring_bytes()
     state_bytes = engine.state_bytes()
+    state_leaf_bytes = engine.state_leaf_bytes()
     health = HEALTH.state        # while serving, before the drain
     engine.shutdown(deadline_s=30.0)
 
@@ -570,8 +577,8 @@ def _serve(args, cfg, model, codec, dev, mesh=None) -> dict:
         kv_step = engine.step_kv_bytes[0] if engine.step_kv_bytes else 0
         print(f"[serve] KV ring {ring_bytes / 1e6:.2f} MB on this rank; "
               f"recurrent states {state_bytes / 1e6:.2f} MB; the decode "
-              f"attention and Mamba states gathered {kv_step / 1e6:.3f} MB "
-              f"a step")
+              f"attention and recurrent states gathered "
+              f"{kv_step / 1e6:.3f} MB a step")
     if placement is not None and mesh is not None:
         ep_step = engine.step_ep_bytes[0] if engine.step_ep_bytes else 0
         print(f"[serve] MoE blocks exchanged {ep_step / 1e6:.4f} MB of "
@@ -607,9 +614,12 @@ def _serve(args, cfg, model, codec, dev, mesh=None) -> dict:
                 "why": layout.why},
             "state_layout": None if state is None else {
                 "h_axis": state.h_axis, "conv_axis": state.conv_axis,
+                "slstm_axis": state.slstm_axis,
                 "state_block": list(state.state_block),
                 "channel_block": list(state.channel_block),
+                "slstm_block": list(state.slstm_block),
                 "describe": state.describe()},
+            "state_leaf_bytes": state_leaf_bytes,
             "gather_nbytes": gather_nbytes, "links": codec.link_stats(),
             "mesh": None if mesh is None else dict(mesh.shape),
             "rank": 0 if mesh is None else mesh.rank,

@@ -38,8 +38,12 @@ one device's bits.  A Mamba block's state holds the rank's blocks of
 ``h``'s ``d_state`` and ``conv``'s channels where ``runtime/sharding.py:
 state_layout`` allows it (``cache["state_layout"]``): the prefill keeps
 those blocks of its whole final state, and the decode step updates them
-(``ssm.rank_mamba_step``), again with one device's bits.  xLSTM's states
-stay whole.
+(``ssm.rank_mamba_step``), again with one device's bits.  An sLSTM
+block's state holds the rank's block of ``h``'s D under the same layout
+(``c`` / ``n`` / ``m`` and the mLSTM states whole): the prefill keeps
+that block, and the decode step gathers the bf16 ``h`` whole and
+computes the whole new state (``xlstm.rank_slstm_step``), with one
+device's bits.
 """
 from __future__ import annotations
 
@@ -256,7 +260,7 @@ def _apply_position_step(p, desc: BlockDesc, cfg, x, cache, lengths,
                          layout=None, state=None):
     """One-token decode of one block; its cache entry (one layer's view of
     the K/V ring or of the recurrent state, the rank's share of it under
-    the ring's ``layout`` or the Mamba ``state`` layout) is updated in
+    the ring's ``layout`` or the recurrent ``state`` layout) is updated in
     place."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
     if desc.seq == "attn":     # writes the new K/V at ``lengths`` itself
@@ -271,7 +275,7 @@ def _apply_position_step(p, desc: BlockDesc, cfg, x, cache, lengths,
             out, new = xlstm_lib.mlstm_step(p["mlstm"], h, cache,
                                             cfg.n_heads)
         else:
-            out, new = xlstm_lib.slstm_step(p["slstm"], h, cache)
+            out, new = xlstm_lib.slstm_step(p["slstm"], h, cache, state)
         for k, v in new.items():   # never a view of the old state
             cache[k].copy_(v)
     x = x + out
@@ -417,17 +421,34 @@ def cache_layout(cfg, max_len: int, mesh=None, layout=None):
 
 
 def state_layout(cfg, mesh=None, state=None, batch=None):
-    """The Mamba states' layout: ``state`` as given, else on ``mesh`` the
-    ``sharding.state_layout`` of the config's ``d_inner`` and
-    ``ssm_state`` (rows as ``batch`` gives them: ``None``, every row on
-    every rank, the serving engine's), else None (one device, or no Mamba
-    block in the program)."""
-    if state is None and mesh is not None and any(
-            d.seq == "mamba" for d in block_program(cfg)):
-        d_inner, _ = ssm_lib.mamba_dims(cfg.d_model, cfg.ssm_state)
-        state = sharding.state_layout(mesh, d_inner, cfg.ssm_state,
-                                      batch=batch)
+    """The recurrent states' layout: ``state`` as given, else on ``mesh``
+    the ``sharding.state_layout`` of the config's Mamba ``d_inner`` and
+    ``ssm_state`` and its sLSTM width ``d_model``, for the blocks its
+    program has (rows as ``batch`` gives them: ``None``, every row on
+    every rank, the serving engine's), else None (one device, or neither
+    a Mamba nor an sLSTM block in the program)."""
+    seqs = {d.seq for d in block_program(cfg)}
+    if state is None and mesh is not None and seqs & {"mamba", "slstm"}:
+        d_inner = 0
+        if "mamba" in seqs:
+            d_inner, _ = ssm_lib.mamba_dims(cfg.d_model, cfg.ssm_state)
+        state = sharding.state_layout(
+            mesh, d_inner, cfg.ssm_state if d_inner else 0, batch=batch,
+            d_slstm=cfg.d_model if "slstm" in seqs else 0)
     return state
+
+
+def state_gather_bytes(cfg, state, rows: int) -> int:
+    """Dense bytes a decode step of ``rows`` rows gathers for the
+    recurrent states under ``state`` (``StateLayout.step_gather_bytes``
+    over the program's Mamba and sLSTM layers; 0 for None)."""
+    if state is None:
+        return 0
+    program = block_program(cfg)
+    periods = cfg.n_layers // len(program)
+    return state.step_gather_bytes(
+        rows, mamba=periods * sum(d.seq == "mamba" for d in program),
+        slstm=periods * sum(d.seq == "slstm" for d in program))
 
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda", mesh=None,
@@ -438,8 +459,8 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda", mesh=None,
     serving ``mesh`` (or under a given ``sharding.KVLayout``) each K/V
     ring holds this rank's ``layout.local_length`` positions from
     ``layout.offset``, recorded as ``cache["kv_layout"]``; each Mamba
-    state its blocks under the ``sharding.StateLayout`` (``state``, or
-    :func:`state_layout` on ``mesh``), recorded as
+    and sLSTM state its blocks under the ``sharding.StateLayout``
+    (``state``, or :func:`state_layout` on ``mesh``), recorded as
     ``cache["state_layout"]``."""
     program = block_program(cfg)
     n_periods = cfg.n_layers // len(program)
@@ -462,7 +483,8 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda", mesh=None,
             one = xlstm_lib.init_mlstm_cache(cfg.d_model, cfg.n_heads, batch,
                                              dev)
         else:
-            one = xlstm_lib.init_slstm_cache(cfg.d_model, batch, dev)
+            one = xlstm_lib.init_slstm_cache(cfg.d_model, batch, dev,
+                                             state)
         entries.append({k: v[None].repeat((n_periods,) + (1,) * v.ndim)
                         for k, v in one.items()})
     cache = {"entries": entries,
@@ -479,8 +501,8 @@ def prefill_fn(params, cfg, batch: dict, max_len: int, mesh=None,
     """Run the prompt (and its prefix embeddings), build the cache: the
     attention K/V into the ring's first positions (on a ``mesh``, or under
     ``layout``, the rank's own of them: :func:`init_cache`), the recurrent
-    states wholesale, a Mamba state's the rank's blocks of it on a
-    ``mesh`` or under ``state``.  Returns (last_token_logits, cache)."""
+    states wholesale, a Mamba or sLSTM state's the rank's blocks of it on
+    a ``mesh`` or under ``state``.  Returns (last_token_logits, cache)."""
     x, caches, head, _ = forward(params, cfg, batch)
     b, t = x.shape[0], x.shape[1]
     logits = lm_logits(x[:, -1:], head)[:, 0]
@@ -495,6 +517,9 @@ def prefill_fn(params, cfg, batch: dict, max_len: int, mesh=None,
         elif desc.seq == "mamba":
             ssm_lib.keep_state_blocks(entry, got,
                                       cache.get("state_layout"))
+        elif desc.seq == "slstm":
+            xlstm_lib.keep_slstm_blocks(entry, got,
+                                        cache.get("state_layout"))
         else:
             for k in entry:
                 entry[k].copy_(got[k].to(entry[k].dtype))
@@ -528,7 +553,7 @@ def init_step_state(cfg, slots: int, max_len: int, device="cuda",
     ``slots`` slots (``init_cache``: K/V ring, this rank's share of it on
     a serving ``mesh``, and recurrent states), each slot's last token
     (int64) and the step's f32 logits; on a mesh the rank's blocks of
-    the Mamba states too."""
+    the Mamba and sLSTM states too."""
     state = init_cache(cfg, slots, max_len, device=device, mesh=mesh)
     dev = state["lengths"].device
     state["tokens"] = torch.zeros((slots,), dtype=torch.int64, device=dev)

@@ -21,6 +21,14 @@ What the port does in its own way, and why:
   (``layers.log_sigmoid``); ``exp``, ``tanh`` and ``sigmoid`` are torch's,
   which may differ from XLA's by an f32 ulp (the tests state the
   tolerance this leaves).
+* **On a serving mesh** (``runtime/sharding.py:StateLayout``) a rank
+  holds only its block of an sLSTM's ``h``'s D, and ``c`` / ``n`` /
+  ``m`` whole (:func:`rank_slstm_step`): the bf16 ``h`` is gathered whole
+  before ``r_in``, whose product contracts over all of it, and every rank
+  then computes the whole new state from the same inputs in the same
+  order, so its bits are one device's (``docs/PORT.md`` convention 14).
+  The prefill runs the whole recurrence; its caller keeps the rank's
+  block (:func:`keep_slstm_blocks`).
 """
 from __future__ import annotations
 
@@ -29,7 +37,8 @@ import math
 import torch
 
 from .layers import (ACT_DTYPE, dense_init, fixed_sum, log_sigmoid,
-                     rms_norm, scan_steps, stack_steps, weight_matmul)
+                     rms_norm, run_rank, scan_steps, stack_steps,
+                     weight_matmul)
 
 M_INIT = -1e30      # the stabiliser's initial value
 
@@ -196,18 +205,64 @@ def slstm_forward(p, x: torch.Tensor):
         {"c": carry[0], "n": carry[1], "h": carry[2], "m": carry[3]}
 
 
-def init_slstm_cache(d_model: int, batch: int, device):
-    zeros = lambda: torch.zeros((batch, d_model), dtype=torch.float32,  # noqa: E731
-                                device=device)
-    return {"c": zeros(), "n": zeros(), "h": zeros(),
+def init_slstm_cache(d_model: int, batch: int, device, layout=None):
+    """Zero decode state of ``batch`` rows, each (B, D) f32 (``m`` at its
+    initial -1e30), or under a ``sharding.StateLayout`` ``h`` at the
+    rank's block of D."""
+    d0, d1 = (0, d_model) if layout is None else layout.slstm_block
+
+    def zeros(d):
+        return torch.zeros((batch, d), dtype=torch.float32, device=device)
+    return {"c": zeros(d_model), "n": zeros(d_model), "h": zeros(d1 - d0),
             "m": torch.full((batch, d_model), M_INIT, dtype=torch.float32,
                             device=device)}
 
 
-def slstm_step(p, x: torch.Tensor, cache: dict):
-    """Single-token decode, x (B, 1, D) -> ((B, 1, D), the new state)."""
+def keep_slstm_blocks(entry: dict, got: dict, layout=None) -> None:
+    """Copy a prefill's whole final sLSTM state ``got`` into a cache
+    entry: whole, or under ``layout`` the rank's block of ``h``'s D (``c``
+    / ``n`` / ``m`` whole)."""
+    d0, d1 = (0, got["h"].shape[-1]) if layout is None \
+        else layout.slstm_block
+    for k, t in entry.items():
+        t.copy_((got[k][..., d0:d1] if k == "h" else got[k]).to(t.dtype))
+
+
+def rank_slstm_step(p, x: torch.Tensor, cache: dict, layout=None):
+    """The rank-local part of a single-token decode, x (B, 1, D), over
+    this rank's block of ``h`` (``cache["h"]`` (B, D_local); ``c`` / ``n``
+    / ``m`` (B, D) whole) under a ``sharding.StateLayout`` (None: the
+    whole state, one device): a generator with ``ssm.rank_mamba_step``'s
+    contract, each ``yield (t, dim, axis)`` a gather.  It returns ((B, 1,
+    D), the rank's new state), with the whole step's bits:
+
+      (a) ``w_in`` whole;
+      (b) the rank's block of ``h`` cast to bf16 and gathered whole over
+          D (the cast is elementwise, so the gathered bf16 is the whole
+          ``h``'s cast, at half the bytes of the f32);
+      (c) ``r_in``, the gates and the new ``c``, ``n``, ``m`` and ``h``
+          whole on every rank, from the same inputs in the same order;
+      (d) the output from the whole new ``h``, with no second gather.
+
+    The rank keeps ``c``, ``n`` and ``m`` whole and its block of the new
+    ``h``, a view of a fresh tensor that a caller may copy over the
+    old one."""
+    d = x.shape[-1]
+    d0, d1 = (0, d) if layout is None else layout.slstm_block
     x_pre = weight_matmul(p["w_in"], x[:, 0])
-    carry = _slstm_cell(p, (cache["c"], cache["n"], cache["h"], cache["m"]),
-                        x_pre)
-    return _slstm_out(p, carry[2][:, None, :], x.dtype), \
-        {"c": carry[0], "n": carry[1], "h": carry[2], "m": carry[3]}
+    h = cache["h"].to(ACT_DTYPE)
+    if d1 - d0 != d:
+        h = yield h, -1, layout.slstm_axis
+    c, n, h_new, m = _slstm_cell(p, (cache["c"], cache["n"], h, cache["m"]),
+                                 x_pre)
+    return _slstm_out(p, h_new[:, None, :], x.dtype), \
+        {"c": c, "n": n, "h": h_new[..., d0:d1], "m": m}
+
+
+def slstm_step(p, x: torch.Tensor, cache: dict, layout=None):
+    """Single-token decode, x (B, 1, D) -> ((B, 1, D), the new state):
+    :func:`rank_slstm_step` over the whole state, or under a
+    ``sharding.StateLayout`` over the rank's block of ``h`` with its
+    gather."""
+    return run_rank(rank_slstm_step(p, x, cache, layout),
+                    None if layout is None else layout.gather)

@@ -36,8 +36,9 @@ of the batch goes on.
   it is; a step's decode attention gathers over the sequence axes
   (``models/layers.py:rank_decode_attention``), its logits one device's
   bits.  A Mamba state holds the rank's blocks of ``h``'s d_state and
-  ``conv``'s channels (``runtime/sharding.py:state_layout``), copied
-  into the slot as the prefill kept them.  Its MoE blocks compute only
+  ``conv``'s channels, an sLSTM state its block of ``h``'s D
+  (``runtime/sharding.py:state_layout``), copied into the slot as the
+  prefill kept them.  Its MoE blocks compute only
   the rank's own experts and exchange their activations
   (``models/moe.py``; ``step_ep_bytes``).
 * **Deadlines at every stage.**  Requests whose TTFT deadline passes in the
@@ -279,10 +280,17 @@ class Engine:
     def state_bytes(self) -> int:
         """Bytes of this rank's recurrent states (0 before the first
         request; its blocks of them on a serving mesh)."""
-        if self._state is None:
-            return 0
-        return sum(t.numel() * t.element_size()
-                   for t in self._carried())
+        return sum(self.state_leaf_bytes().values())
+
+    def state_leaf_bytes(self) -> dict:
+        """:meth:`state_bytes` by leaf name (``h``, ``c``, ...), summed
+        over every layer."""
+        out: dict = {}
+        for e in self._state["entries"] if self._state is not None else ():
+            for k, t in e.items():
+                if k not in ("k", "v"):
+                    out[k] = out.get(k, 0) + t.numel() * t.element_size()
+        return out
 
     def _step_body(self, bucket: int) -> None:
         self.model.decode_step(self.params, self._state, bucket)

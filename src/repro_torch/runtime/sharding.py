@@ -36,10 +36,11 @@ reference's code does it; ``conv`` by its channels), each decided alone;
 whisper's ``mem_k`` / ``mem_v`` put their sequence where ``k`` / ``v``
 put theirs, under the same whole-chunk rule (:func:`kv_layout` of the
 memory's length, never pinned: a memory that cannot be sharded stays
-whole).  :func:`port_cache_pspecs` is :func:`cache_pspecs` under these
-rules.  xLSTM's states stay on the batch only: the reference's rule
-also puts the sLSTM ``h`` (periods, B, D) on "model", which the port does
-not follow yet.
+whole).  An sLSTM's ``h`` (periods, B, D) puts its D on "model" where
+it divides, as the reference's rule for every leaf named ``h`` does, and
+its ``c`` / ``n`` / ``m`` and the mLSTM states stay on the batch
+(``docs/PORT.md`` convention 14; :func:`state_layout` of ``d_slstm``).
+:func:`port_cache_pspecs` is :func:`cache_pspecs` under these rules.
 
 **MoE expert stacks** (:func:`expert_layout`) go where
 :func:`param_pspec` puts them for serving: E on "model" where it divides,
@@ -377,12 +378,16 @@ def kv_layout(mesh, length: int, batch=None, pin: bool = False) -> KVLayout:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class StateLayout:
-    """How one rank of ``mesh`` holds a Mamba block's decode state: its
-    block of ``h``'s ``d_state`` (``h`` is (B, d_inner, d_state)) when
-    ``h_axis`` is set, and its block of ``conv``'s ``d_inner`` channels
-    (``conv`` is (B, K - 1, d_inner)) when ``conv_axis`` is set; a leaf
-    whose axis is None is whole on every rank, ``why`` saying why.
-    ``rows`` is the batch's axis (None: every rank holds every row)."""
+    """How one rank of ``mesh`` holds a program's recurrent decode states.
+    A Mamba block's (``d_inner`` > 0): its block of ``h``'s ``d_state``
+    (``h`` is (B, d_inner, d_state)) when ``h_axis`` is set, and its block
+    of ``conv``'s ``d_inner`` channels (``conv`` is (B, K - 1, d_inner))
+    when ``conv_axis`` is set.  An sLSTM block's (``d_slstm`` > 0, its
+    width D): its block of ``h``'s D (``h`` is (B, D)) when
+    ``slstm_axis`` is set; its ``c`` / ``n`` / ``m`` are whole on every
+    rank.  A leaf whose axis is None is whole on every rank, ``why``
+    saying why.  ``rows`` is the batch's axis (None: every rank holds
+    every row)."""
     mesh: object
     d_inner: int
     d_state: int
@@ -390,10 +395,19 @@ class StateLayout:
     conv_axis: object = None
     rows: object = None
     why: str = ""
+    d_slstm: int = 0
+    slstm_axis: object = None
 
     @property
     def sharded(self) -> bool:
-        return self.h_axis is not None or self.conv_axis is not None
+        return any(a is not None for a in (self.h_axis, self.conv_axis,
+                                           self.slstm_axis))
+
+    @property
+    def kind(self) -> str:
+        """The blocks it holds states of: "Mamba", "sLSTM" or both."""
+        return " and ".join(k for k, n in (("Mamba", self.d_inner),
+                                           ("sLSTM", self.d_slstm)) if n)
 
     def _block(self, axis, n: int) -> tuple:
         """``(lo, hi)`` of this rank's block of ``n`` along ``axis``."""
@@ -413,6 +427,11 @@ class StateLayout:
         """This rank's ``(c0, c1)`` of ``d_inner``."""
         return self._block(self.conv_axis, self.d_inner)
 
+    @property
+    def slstm_block(self) -> tuple:
+        """This rank's ``(d0, d1)`` of an sLSTM ``h``'s D."""
+        return self._block(self.slstm_axis, self.d_slstm)
+
     def gather(self, t: torch.Tensor, dim: int, axis) -> torch.Tensor:
         """Every rank's ``t`` along ``dim`` in block order over ``axis``
         (``launch/mesh.py:gather_whole``: one broadcast an owner, counted
@@ -421,20 +440,34 @@ class StateLayout:
         spec[dim] = axis
         return gather_whole([t.contiguous()], [tuple(spec)], self.mesh)[0]
 
-    def step_gather_bytes(self, rows: int) -> int:
-        """Dense bytes one Mamba layer's decode step gathers on a rank of
-        ``rows`` rows (``gather_whole`` counts ``(A - 1) x`` the whole):
-        the bf16 conv output ``x`` (rows, d_inner) where ``conv`` is
-        sharded, the f32 read-out products (rows, d_inner, d_state) where
-        ``h`` is."""
-        out = 0
+    def step_gather_bytes(self, rows: int, mamba: int = 1,
+                          slstm: int = 1) -> int:
+        """Dense bytes a decode step of ``mamba`` Mamba layers and
+        ``slstm`` sLSTM layers gathers on a rank of ``rows`` rows
+        (``gather_whole`` counts ``(A - 1) x`` the whole): for a Mamba
+        layer the bf16 conv output ``x`` (rows, d_inner) where ``conv`` is
+        sharded and the f32 read-out products (rows, d_inner, d_state)
+        where ``h`` is; for an sLSTM layer its bf16 ``h`` (rows, D) where
+        ``h`` is sharded."""
+        one = 0
         if self.conv_axis is not None:
-            out += (_axis_size(self.mesh, self.conv_axis) - 1) * rows \
+            one += (_axis_size(self.mesh, self.conv_axis) - 1) * rows \
                 * self.d_inner * 2
         if self.h_axis is not None:
-            out += (_axis_size(self.mesh, self.h_axis) - 1) * rows \
+            one += (_axis_size(self.mesh, self.h_axis) - 1) * rows \
                 * self.d_inner * self.d_state * 4
+        out = mamba * one
+        if self.slstm_axis is not None:
+            out += slstm * (_axis_size(self.mesh, self.slstm_axis) - 1) \
+                * rows * self.d_slstm * 2
         return out
+
+    @property
+    def gathered(self) -> str:
+        """What a decode step gathers, in words."""
+        return " and ".join(w for w, n in (
+            ("the conv output and the read-out's products", self.d_inner),
+            ("the bf16 sLSTM h", self.d_slstm)) if n)
 
     def describe(self) -> str:
         def one(name, axis, n, dim, block):
@@ -443,37 +476,48 @@ class StateLayout:
             lo, hi = block
             return (f"{name} {dim} {lo}:{hi} of {n} over {axis} "
                     f"({_axis_size(self.mesh, axis)} ranks)")
+        parts = []
+        if self.d_inner:
+            parts += [one("h", self.h_axis, self.d_state, "d_state",
+                          self.state_block),
+                      one("conv", self.conv_axis, self.d_inner, "channels",
+                          self.channel_block)]
+        if self.d_slstm:
+            parts += [one("h", self.slstm_axis, self.d_slstm, "D",
+                          self.slstm_block), "c / n / m whole"]
         rows = "" if self.rows is None else f"; rows on {self.rows}"
         why = f" ({self.why})" if self.why else ""
-        return (one("h", self.h_axis, self.d_state, "d_state",
-                    self.state_block) + ", "
-                + one("conv", self.conv_axis, self.d_inner, "channels",
-                      self.channel_block) + rows + why)
+        return ", ".join(parts) + rows + why
 
 
-def state_layout(mesh, d_inner: int, d_state: int,
-                 batch=None) -> StateLayout:
-    """A Mamba decode state's layout on ``mesh``, as :func:`cache_pspecs`
-    places it: ``h`` (B, d_inner, d_state) and ``conv`` (B, K - 1,
-    d_inner) each put their last dim on "model" where it divides (the
-    reference's ``_maybe(shape[-1], mesh, "model")``), each decided
-    alone; the rows beside them on the batch's axis for ``batch`` rows
-    (``None``: every rank holds every row, as the serving engine does)."""
+def state_layout(mesh, d_inner: int, d_state: int, batch=None,
+                 d_slstm: int = 0) -> StateLayout:
+    """A program's recurrent decode states' layout on ``mesh``, as
+    :func:`cache_pspecs` places them: a Mamba state's (``d_inner`` > 0)
+    ``h`` (B, d_inner, d_state) and ``conv`` (B, K - 1, d_inner) and an
+    sLSTM state's (``d_slstm`` > 0) ``h`` (B, D) each put their last dim
+    on "model" where it divides (the reference's ``_maybe(shape[-1],
+    mesh, "model")``), each decided alone; the sLSTM's ``c`` / ``n`` /
+    ``m`` stay whole; the rows beside them on the batch's axis for
+    ``batch`` rows (``None``: every rank holds every row, as the serving
+    engine does)."""
     rows = None if batch is None else batch_axis(mesh, batch)
-    h_axis = _maybe(d_state, mesh, "model")
-    conv_axis = _maybe(d_inner, mesh, "model")
+    leaves = []
+    if d_inner:
+        leaves += [("h", d_state, "d_state"), ("conv", d_inner, "channels")]
+    if d_slstm:
+        leaves.append(("sLSTM h", d_slstm, "D"))
+    axes = {name: _maybe(n, mesh, "model") for name, n, _ in leaves}
     A = _axis_size(mesh, _present(mesh, "model"))
     why = []
     if A > 1:
-        for name, axis, n, dim in (("h", h_axis, d_state, "d_state"),
-                                   ("conv", conv_axis, d_inner,
-                                    "channels")):
-            if axis is None:
-                why.append(f"{name}: {dim} {n} % {A} model ranks != 0")
+        why += [f"{name}: {dim} {n} % {A} model ranks != 0"
+                for name, n, dim in leaves if axes[name] is None]
     else:
         why.append("no model axis of more than one rank")
-    return StateLayout(mesh, d_inner, d_state, h_axis, conv_axis, rows,
-                       "; ".join(why))
+    return StateLayout(mesh, d_inner, d_state, axes.get("h"),
+                       axes.get("conv"), rows, "; ".join(why), d_slstm,
+                       axes.get("sLSTM h"))
 
 
 def memory_layout(mesh, length: int, batch=None) -> KVLayout:
@@ -488,8 +532,9 @@ def port_cache_pspecs(cache, mesh, b: int, layout: KVLayout):
     """:func:`cache_pspecs` under the port's rules: the K/V rings'
     sequence as ``layout`` holds it; a Mamba state's ``h`` and ``conv``
     by :func:`state_layout` (their last dims on "model" where they
-    divide); the encoder memory by :func:`memory_layout` of its length;
-    xLSTM's states on the batch only."""
+    divide); an sLSTM's ``h`` its D on "model" where it divides (its
+    ``c`` / ``n`` / ``m`` and the mLSTM states on the batch only); the
+    encoder memory by :func:`memory_layout` of its length."""
     ba = batch_axis(mesh, b)
 
     def spec_for(path, leaf) -> tuple:
@@ -503,8 +548,8 @@ def port_cache_pspecs(cache, mesh, b: int, layout: KVLayout):
             rest[0] = layout.spec()
         elif name in ("mem_k", "mem_v"):
             rest[0] = memory_layout(mesh, shape[2], batch=b).spec()
-        elif name == "conv" or (name == "h" and len(shape) == 4):
-            rest[-1] = spec[-1]     # Mamba's (an sLSTM's h has 3 dims)
+        elif name in ("h", "conv"):     # Mamba's, and an sLSTM's h
+            rest[-1] = spec[-1]
         return (spec[0], spec[1], *rest)
 
     return tree_map_with_path(spec_for, cache)

@@ -39,9 +39,10 @@ On a serving mesh (``build_prefill_step`` / ``build_decode_step(...,
 mesh=)``) a rank runs its rows of the batch under the ambient serving mesh
 (its stream shards gathered at use) over its share of the K/V rings
 (``sharding.kv_layout``; the decode attention's gathers over the sequence
-axes), of the Mamba states (``sharding.state_layout``: ``h``'s d_state
-and ``conv``'s channels on "model"; the conv output and the read-out's
-products gathered) and of whisper's encoder memory
+axes), of the recurrent states (``sharding.state_layout``: Mamba ``h``'s
+d_state and ``conv``'s channels on "model", the conv output and the
+read-out's products gathered; an sLSTM ``h``'s D on "model", its bf16
+``h`` gathered) and of whisper's encoder memory
 (``sharding.memory_layout``; the cross attention's gathers), and with its
 share of the MoE expert stacks
 (``sharding.expert_layout``; the MoE block's exchanges over "data" and
@@ -229,7 +230,8 @@ def serving_layouts(cfg, mesh, max_len: int, rows=None,
     (``sharding.kv_layout`` of ``max_len``, pinned by
     ``cfg.decode_score_shard``); for whisper ``memory``, the encoder
     memory's (``sharding.memory_layout`` of ``enc_len``); for a program
-    with Mamba blocks ``state``, their states' (``sharding.state_layout``).
+    with Mamba or sLSTM blocks ``state``, their states'
+    (``sharding.state_layout``).
     The decode step reads them from the cache."""
     from repro_torch.models import encdec, lm
     out = {"layout": sharding.kv_layout(mesh, max_len, batch=rows,
@@ -249,7 +251,7 @@ def build_decode_step(model, mesh=None,
                       expert_mode: str = "serve") -> Callable:
     """(params, cache, tokens) -> (logits, cache).  On a serving ``mesh``
     ``cache`` is this rank's (its rows and its share of the K/V rings,
-    the Mamba states and the encoder memory, its layouts recorded in it:
+    the recurrent states and the encoder memory, its layouts recorded in it:
     the mesh prefill step's, or ``model.init_cache(..., **
     serving_layouts(cfg, mesh, max_len, B))``) and ``tokens`` the global
     (B,) batch, of which the step decodes this rank's rows under the

@@ -1,30 +1,33 @@
 """The recurrent states and the encoder memory on the port's serving mesh
 (``runtime/sharding.py:state_layout`` / ``memory_layout``,
-``models/ssm.py:rank_mamba_step``, ``layers.cross_attention_block`` over
-a sharded memory), against the reference's rules, one device and the
-reference's greedy tokens.
+``models/ssm.py:rank_mamba_step``, ``models/xlstm.py:rank_slstm_step``,
+``layers.cross_attention_block`` over a sharded memory), against the
+reference's rules, one device and the reference's greedy tokens.
 
   * ``port_cache_pspecs`` equal to the reference's ``cache_pspecs`` on
-    Mamba's ``h`` (by d_state) and ``conv`` (by channels) and whisper's
-    ``mem_k`` / ``mem_v`` (by sequence, where the 1024-chunk rule holds;
-    whole, saying why, where it does not) on the smoke caches;
+    every leaf of every smoke cache (Mamba's ``h`` by d_state and
+    ``conv`` by channels, an sLSTM's ``h`` by D, whisper's ``mem_k`` /
+    ``mem_v`` by sequence), except a K/V ring or memory that the
+    1024-chunk rule keeps whole, its layout saying why;
   * in one process, A ranks on ``AbstractMesh`` coordinates, each in a
     thread whose gathers meet the others' (:class:`_Exchange`):
     ``mamba_step``'s rank blocks at A = 1, 2, 4, 8 assembled bitwise the
     whole step's ``h``, ``conv`` and output over several steps (at A = 8
     the smoke d_state 4 does not divide: ``conv`` shards, ``h`` stays
-    whole), and the cross attention's rank parts bitwise the whole
-    memory's in both routes;
-  * gloo worlds of 2 and 4 CPU ranks: jamba smoke through ``serve.main
-    --tp A`` in three modes and jamba / whisper smoke through the mesh
-    steps (``build_prefill_step`` / ``build_decode_step(mesh=)``, on
+    whole), ``slstm_step``'s likewise (at A = 3 the smoke D 64 does not
+    divide: ``h`` stays whole), and the cross attention's rank parts
+    bitwise the whole memory's in both routes;
+  * gloo worlds of 2 and 4 CPU ranks: jamba and xlstm smoke through
+    ``serve.main --tp A`` and jamba / whisper / xlstm smoke through the
+    mesh steps (``build_prefill_step`` / ``build_decode_step(mesh=)``, on
     (1, A) and, rows on "data", (2, 2)), every rank's logits bitwise one
     device's, greedy tokens the reference's (JAX on the CPU; the weights
     made by the reference and carried over by ``convert.params_from_
-    jax``), each rank holding 1/A of ``h``, ``conv``, ``mem_k`` and
-    ``mem_v`` and gathering the layout's bytes a step;
-  * the dry-run's jamba and whisper serving cells holding 1/A of these
-    leaves on rank 0, their program line saying so.
+    jax``; xlstm's logits within its stated ulps of the reference's),
+    each rank holding 1/A of ``h``, ``conv``, ``mem_k`` and ``mem_v``
+    and gathering the layout's bytes a step;
+  * the dry-run's jamba, whisper and xlstm serving cells holding 1/A of
+    these leaves on rank 0, their program line saying so.
 
 One module fixture makes the reference's weights and tokens, starts both
 worlds (6 processes, one thread each) and makes the single-device runs
@@ -49,27 +52,35 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import ARCH_IDS
+
 ROOT = Path(__file__).resolve().parents[1]
 TIME_LIMIT_S = 240
 BLOCK_ELEMS = 1024
-JAMBA, WHISPER = "jamba_v0_1_52b", "whisper_tiny"
+JAMBA, WHISPER, XLSTM = "jamba_v0_1_52b", "whisper_tiny", "xlstm_125m"
 MODES = ("dense", "stream", "fused")
 # serve.main's requests
 BATCH, PROMPT, TOKENS = 2, 12, 4
-SERVE = ["--smoke", "--device", "cpu", "--arch", JAMBA, "--batch",
-         str(BATCH), "--prompt-len", str(PROMPT), "--tokens", str(TOKENS),
+SERVE = ["--smoke", "--device", "cpu", "--batch", str(BATCH),
+         "--prompt-len", str(PROMPT), "--tokens", str(TOKENS),
          "--min-bytes", "1024"]
+# xlstm's logits against the reference's: bf16 ulps of the larger of 1
+# and the reference's magnitude (tests/test_torch_families.py:LOGIT_ULPS)
+LOGIT_ULP, XLSTM_ULPS = 2.0 ** -8, 4
 # the mesh steps' requests (the reference's tokens): prompts of 8 tokens
 # from numpy seed 1, three decode steps; whisper's frames from the same
 # seed, 2048 of them
 STEP_PROMPT, STEPS, FRAMES = 8, 3, 2048
 MAX_LEN = STEP_PROMPT + STEPS + 1
-# each world's runs: serve.main --tp A in a mode; the mesh steps of an
-# arch on a (data, model) grid
-WORLD_SERVE = {2: [(2, m) for m in MODES],
-               4: [(4, m) for m in MODES] + [(2, "dense")]}
-WORLD_STEPS = {2: [(JAMBA, (1, 2)), (WHISPER, (1, 2))],
-               4: [(JAMBA, (1, 4)), (JAMBA, (2, 2)), (WHISPER, (2, 2))]}
+# each world's runs: serve.main --arch --tp A in a mode; the mesh steps
+# of an arch on a (data, model) grid
+WORLD_SERVE = {2: [(a, 2, m) for a in (JAMBA, XLSTM) for m in MODES],
+               4: [(JAMBA, 4, m) for m in MODES] + [(JAMBA, 2, "dense"),
+                                                    (XLSTM, 4, "dense")]}
+WORLD_STEPS = {2: [(JAMBA, (1, 2)), (WHISPER, (1, 2)), (XLSTM, (1, 2))],
+               4: [(JAMBA, (1, 4)), (JAMBA, (2, 2)), (WHISPER, (2, 2)),
+                   (XLSTM, (1, 4)), (XLSTM, (2, 2))]}
+STEP_ARCHS = (JAMBA, WHISPER, XLSTM)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -97,17 +108,21 @@ def _mesh(grid, rank: int = 0):
 # ---------------------------------------------------------------------------
 
 GRIDS = {"1x2": {"data": 1, "model": 2}, "2x2": {"data": 2, "model": 2},
-         "2x2x2": {"pod": 2, "data": 2, "model": 2}}
-LEAVES = ("h", "conv", "mem_k", "mem_v")
+         "2x2x2": {"pod": 2, "data": 2, "model": 2},
+         "1x4": {"data": 1, "model": 4}}
+RINGS = (16, 4096)
+HELD = ("h", "conv", "mem_k", "mem_v", "c", "n", "m")
 
 
-@pytest.mark.parametrize("arch", [JAMBA, WHISPER])
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_port_cache_pspecs_equal_the_reference(arch):
-    """On the jamba and whisper smoke caches (whisper's memory 4096
-    positions) at batches 1, 2, 4 on three grids: ``h``, ``conv``,
-    ``mem_k`` and ``mem_v`` get the reference's specs; a memory where a
-    rank's slice would not be whole 1024-position chunks stays whole, its
-    layout saying why."""
+    """Every leaf of the smoke cache (whisper's memory 4096 positions) at
+    batches 1, 2, 4, rings of 16 and 4096 positions, on four grids gets
+    the reference's spec: Mamba's ``h`` / ``conv``, an sLSTM's ``h``,
+    the mLSTM / sLSTM ``c`` / ``n`` / ``m``, ``lengths``; a K/V ring or
+    memory where a rank's slice would not be whole 1024-position chunks
+    stays whole, its layout saying why, and is the reference's on every
+    other dim."""
     import jax
     from jax.sharding import PartitionSpec as P
     from repro.configs import get_smoke_config as jax_smoke_config
@@ -116,34 +131,42 @@ def test_port_cache_pspecs_equal_the_reference(arch):
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.registry import cache_specs
     from repro_torch.runtime import sharding
-    checked = 0
+    from repro_torch.runtime.weights import tree_leaves
+    checked = kept_whole = 0
     for b in (1, 2, 4):
-        jcache = jax_cache_specs(jax_smoke_config(arch), b, 16)
-        cache = cache_specs(get_smoke_config(arch), b, 16)
-        for label, grid in GRIDS.items():
-            mesh = SimpleNamespace(shape=grid)
-            flat, _ = jax.tree_util.tree_flatten_with_path(
-                jax_sharding.cache_pspecs(jcache, mesh, b),
-                is_leaf=lambda x: isinstance(x, P))
-            want = {jax_sharding._path_str(p): tuple(s) for p, s in flat}
-            layout = sharding.kv_layout(mesh, 16, batch=b)
-            got = dict(sharding.spec_leaves(sharding.port_cache_pspecs(
-                cache, mesh, b, layout)))
-            assert set(got) == set(want)
-            for path, spec in got.items():
-                name = path.rsplit("/", 1)[-1]
-                if name not in LEAVES:
-                    continue
-                if name.startswith("mem"):
-                    memory = sharding.memory_layout(mesh, 4096, batch=b)
-                    if not memory.sharded:
-                        assert spec[2] is None and memory.why, (path, label)
-                        assert spec[:2] == want[path][:2]
-                        continue
-                    assert spec[2] == memory.spec()
-                assert spec == want[path], (arch, b, label, path)
-                checked += 1
+        for ring in RINGS:
+            jcache = jax_cache_specs(jax_smoke_config(arch), b, ring)
+            cache = cache_specs(get_smoke_config(arch), b, ring)
+            shapes = {p: tuple(t.shape) for p, t in tree_leaves(cache)}
+            for label, grid in GRIDS.items():
+                mesh = SimpleNamespace(shape=grid)
+                flat, _ = jax.tree_util.tree_flatten_with_path(
+                    jax_sharding.cache_pspecs(jcache, mesh, b),
+                    is_leaf=lambda x: isinstance(x, P))
+                want = {jax_sharding._path_str(p): tuple(s)
+                        for p, s in flat}
+                layout = sharding.kv_layout(mesh, ring, batch=b)
+                got = dict(sharding.spec_leaves(sharding.port_cache_pspecs(
+                    cache, mesh, b, layout)))
+                assert set(got) == set(want)
+                for path, spec in got.items():
+                    name = path.rsplit("/", 1)[-1]
+                    where = (arch, b, ring, label, path)
+                    if name in ("k", "v", "mem_k", "mem_v"):
+                        seq = layout if name in ("k", "v") else \
+                            sharding.memory_layout(mesh, shapes[path][2],
+                                                   batch=b)
+                        if not seq.sharded:
+                            assert spec[2] is None and seq.why, where
+                            kept_whole += want[path][2] is not None
+                            spec = spec[:2] + want[path][2:3] + spec[3:]
+                        else:
+                            assert spec[2] == seq.spec(), where
+                    assert spec == want[path], where
+                    checked += 1
     assert checked
+    if arch != XLSTM:       # the rings of 16 positions stay whole
+        assert kept_whole
 
 
 @pytest.mark.parametrize("A,h_split,conv_split", [
@@ -296,6 +319,85 @@ def test_mamba_step_rank_blocks_are_the_whole_step(A, batch):
             assert all(p.shape == whole["h"].shape for p in parts)
 
 
+def _slstm_layer(batch: int, seed: int):
+    """One smoke sLSTM layer, a live state (``n`` above its clamp, ``m``
+    finite, as after a prefill) and three inputs."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import xlstm
+    d = get_smoke_config(XLSTM).d_model
+    gen = torch.Generator().manual_seed(seed)
+    p = {k: v[0] for k, v in xlstm.init_slstm(1, d, gen, "cpu").items()}
+    p["norm"] = (0.1 * torch.randn(p["norm"].shape, generator=gen)
+                 ).bfloat16()
+    cache = {"c": torch.randn((batch, d), generator=gen),
+             "n": 0.5 + 2 * torch.rand((batch, d), generator=gen),
+             "h": torch.randn((batch, d), generator=gen),
+             "m": torch.randn((batch, d), generator=gen)}
+    xs = [torch.randn((batch, 1, d), generator=gen).bfloat16()
+          for _ in range(3)]
+    return d, p, cache, xs
+
+
+def _slstm_step_before(p, x, cache):
+    """``slstm_step`` as it was before it took a layout: the whole state,
+    no gather."""
+    from repro_torch.models import xlstm
+    from repro_torch.models.layers import weight_matmul
+    carry = xlstm._slstm_cell(p, (cache["c"], cache["n"], cache["h"],
+                                  cache["m"]),
+                              weight_matmul(p["w_in"], x[:, 0]))
+    return xlstm._slstm_out(p, carry[2][:, None, :], x.dtype), \
+        dict(zip(("c", "n", "h", "m"), carry))
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("A", [1, 2, 4, 8, 3])
+def test_slstm_step_rank_blocks_are_the_whole_step(A, batch):
+    """Each rank's ``slstm_step`` over its block of ``h``'s D (A ranks of
+    a (1, A) mesh, in threads; ``c`` / ``n`` / ``m`` whole): over three
+    steps every rank's output and ``c`` / ``n`` / ``m`` are the whole
+    step's bit for bit and the ranks' blocks together are its ``h``;
+    ``slstm_step`` with no layout is the step as it was before it took
+    one.  At A = 3 the smoke D 64 does not divide: ``h`` stays whole and
+    the layout says why."""
+    from repro_torch.models import xlstm
+    from repro_torch.runtime import sharding
+    d, p, cache, xs = _slstm_layer(batch, seed=A + 10 * batch)
+    whole, before, want = dict(cache), dict(cache), []
+    for x in xs:
+        out, whole = xlstm.slstm_step(p, x, whole)
+        ref, before = _slstm_step_before(p, x, before)
+        assert torch.equal(_bits(out), _bits(ref))
+        want.append(out)
+    for k in whole:
+        assert torch.equal(_bits(whole[k]), _bits(before[k])), k
+
+    def rank(r, exchange):
+        layout = _RankLayout(sharding.state_layout(
+            _mesh((1, A), r), 0, 0, d_slstm=d), exchange, r)
+        d0, d1 = layout.slstm_block
+        state = dict(cache, h=cache["h"][..., d0:d1].clone())
+        outs = []
+        for x in xs:
+            out, state = xlstm.slstm_step(p, x, state, layout)
+            outs.append(out)
+        return outs, state, layout
+
+    ranks = _run_ranks(A, rank)
+    for r, (outs, state, layout) in enumerate(ranks):
+        assert layout.sharded == (A in (2, 4, 8))
+        assert (A == 3) == ("sLSTM h: D 64 % 3 model ranks" in layout.why)
+        for got, ref in zip(outs, want):
+            assert torch.equal(_bits(got), _bits(ref)), r
+        for k in ("c", "n", "m"):
+            assert torch.equal(_bits(state[k]), _bits(whole[k])), (r, k)
+    parts = [state["h"] for _, state, _ in ranks]
+    joined = parts[0] if not ranks[0][2].sharded else torch.cat(parts, -1)
+    assert all(t.shape[-1] == d // (A if ranks[0][2].sharded else 1)
+               for t in parts)
+    assert torch.equal(_bits(joined), _bits(whole["h"]))
+
+
 @pytest.mark.parametrize("score_shard", [False, True],
                          ids=["scores", "flash"])
 @pytest.mark.parametrize("A", [2, 4])
@@ -348,7 +450,7 @@ def _serve(argv):
 
 def _keep(out) -> dict:
     keys = ("logits", "tokens", "links", "step_kv_bytes", "state_bytes",
-            "state_layout", "mesh", "step_launches")
+            "state_leaf_bytes", "state_layout", "mesh", "step_launches")
     return {k: out[k] for k in keys}
 
 
@@ -368,10 +470,10 @@ def _inputs(arch: str) -> dict:
 
 
 def _held_bytes(cache) -> dict:
-    """Bytes of the cache's Mamba states and encoder memory, by leaf
+    """Bytes of the cache's recurrent states and encoder memory, by leaf
     name."""
     from repro_torch.runtime.weights import tree_leaves
-    out = dict.fromkeys(LEAVES, 0)
+    out = dict.fromkeys(HELD, 0)
     for path, t in tree_leaves(cache):
         name = path.rsplit("/", 1)[-1]
         if name in out and isinstance(t, torch.Tensor):
@@ -436,9 +538,9 @@ def _worker(out_dir: Path, world: int) -> None:
     rank = int(os.environ["RANK"])
     params = torch.load(out_dir / "params.pt", weights_only=False)
     res = {"rank": rank, "serve": {}, "steps": {}}
-    for tp, mode in WORLD_SERVE[world]:
-        res["serve"][tp, mode] = _keep(_serve(
-            SERVE + ["--mode", mode, "--tp", str(tp)]))
+    for arch, tp, mode in WORLD_SERVE[world]:
+        res["serve"][arch, tp, mode] = _keep(_serve(
+            SERVE + ["--arch", arch, "--mode", mode, "--tp", str(tp)]))
     for arch, grid in WORLD_STEPS[world]:
         mesh = make_host_mesh(model=grid[1], device="cpu")
         res["steps"][arch, grid] = {"coords": mesh.coords,
@@ -498,10 +600,12 @@ def _join_world(procs, out_dir: Path, world: int, deadline: float) -> list:
 
 def _reference(arch: str):
     """The reference's smoke weights (``jax.random.key(0)``) carried over
-    to the port, and a function giving its greedy tokens on one device
-    (prefill and ``STEPS`` decode steps, each under ``jax.jit``: eagerly
-    they take ≈ 45 s on this CPU, and the tokens are the same) for the
-    mesh steps' batch."""
+    to the port, and a function giving its greedy tokens and logits on
+    one device (prefill and ``STEPS`` decode steps) for the mesh steps'
+    batch: jamba's and whisper's under ``jax.jit`` (eagerly they take
+    ≈ 45 s on this CPU, and the tokens are the same), xlstm's eagerly
+    (≈ 5 s), whose logits are held within ``XLSTM_ULPS`` (``jax.jit``
+    moves them by many ulps through XLA's fusions)."""
     import jax
     import jax.numpy as jnp
     from repro.configs import get_smoke_config as jax_smoke_config
@@ -519,16 +623,19 @@ def _reference(arch: str):
         if "frames" in batch:
             jbatch["frames"] = jnp.asarray(
                 batch["frames"].float().numpy()).astype(jnp.bfloat16)
-        prefill = jax.jit(model.prefill_fn, static_argnums=2)
-        decode = jax.jit(model.decode_fn)
+        prefill, decode = model.prefill_fn, model.decode_fn
+        if arch != XLSTM:
+            prefill = jax.jit(prefill, static_argnums=2)
+            decode = jax.jit(decode)
         logits, cache = prefill(jparams, jbatch, MAX_LEN)
         tok = jnp.argmax(logits, -1).astype(jnp.int32)
-        toks = [np.asarray(tok)]
+        toks, out = [np.asarray(tok)], [np.asarray(logits)]
         for _ in range(STEPS):
             logits, cache = decode(jparams, cache, tok)
             tok = jnp.argmax(logits, -1).astype(jnp.int32)
             toks.append(np.asarray(tok))
-        return np.stack(toks)
+            out.append(np.asarray(logits))
+        return np.stack(toks), np.stack(out)
 
     return params, tokens
 
@@ -536,15 +643,16 @@ def _reference(arch: str):
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     out_dir = tmp_path_factory.mktemp("state_mesh")
-    refs = {arch: _reference(arch) for arch in (JAMBA, WHISPER)}
+    refs = {arch: _reference(arch) for arch in STEP_ARCHS}
     params = {arch: p for arch, (p, _) in refs.items()}
     torch.save(params, out_dir / "params.pt")
     procs = {w: _start_world(out_dir, w) for w in WORLD_SERVE}
     deadline = time.monotonic() + TIME_LIMIT_S
     try:
-        single = {("serve", mode): _keep(_serve(SERVE + ["--mode", mode]))
-                  for mode in MODES}
-        for arch in (JAMBA, WHISPER):
+        single = {("serve", arch, mode): _keep(_serve(
+            SERVE + ["--arch", arch, "--mode", mode]))
+            for arch in (JAMBA, XLSTM) for mode in MODES}
+        for arch in STEP_ARCHS:
             single[arch] = _steps_run(arch, params[arch])
         tokens = {arch: fn() for arch, (_, fn) in refs.items()}
     finally:
@@ -557,9 +665,9 @@ def worlds(tmp_path_factory):
 # the tests
 # ---------------------------------------------------------------------------
 
-def _serve_runs():
+def _serve_runs(arch: str):
     return [(w, tp, mode) for w, runs in WORLD_SERVE.items()
-            for tp, mode in runs]
+            for a, tp, mode in runs if a == arch]
 
 
 def _step_runs():
@@ -567,7 +675,7 @@ def _step_runs():
             for arch, grid in runs]
 
 
-@pytest.mark.parametrize("world,tp,mode", _serve_runs())
+@pytest.mark.parametrize("world,tp,mode", _serve_runs(JAMBA))
 def test_jamba_serve_on_the_mesh_bitwise_to_one_device(worlds, world, tp,
                                                        mode):
     """``serve --tp A``: every rank's logits are one device's bit for bit;
@@ -578,11 +686,11 @@ def test_jamba_serve_on_the_mesh_bitwise_to_one_device(worlds, world, tp,
     from repro_torch.configs import get_smoke_config
     from repro_torch.runtime import sharding
     ranks, single, _ = worlds
-    want = single["serve", mode]
+    want = single["serve", JAMBA, mode]
     cfg = get_smoke_config(JAMBA)
     assert want["state_layout"] is None and want["state_bytes"] > 0
     for r in ranks[world]:
-        got = r["serve"][tp, mode]
+        got = r["serve"][JAMBA, tp, mode]
         assert got["mesh"] == {"data": world // tp, "model": tp}
         assert torch.equal(_bits(got["logits"]), _bits(want["logits"]))
         assert torch.equal(got["tokens"], want["tokens"])
@@ -599,50 +707,102 @@ def test_jamba_serve_on_the_mesh_bitwise_to_one_device(worlds, world, tp,
         assert got["step_launches"] == want["step_launches"]
 
 
+@pytest.mark.parametrize("world,tp,mode", _serve_runs(XLSTM))
+def test_xlstm_serve_on_the_mesh_bitwise_to_one_device(worlds, world, tp,
+                                                       mode):
+    """``serve --arch xlstm_125m --tp A``: every rank's logits are one
+    device's bit for bit; each rank holds 1/tp of the sLSTM ``h`` (D 64
+    divides), its block the layout's, and all of ``c`` / ``n`` / ``m``
+    (the mLSTM's and the sLSTM's); a step gathers the bf16 ``h`` of the
+    one sLSTM layer; the step's kernel launches are one device's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.runtime import sharding
+    ranks, single, _ = worlds
+    want = single["serve", XLSTM, mode]
+    d = get_smoke_config(XLSTM).d_model
+    assert want["state_layout"] is None and want["state_bytes"] > 0
+    for r in ranks[world]:
+        got = r["serve"][XLSTM, tp, mode]
+        assert got["mesh"] == {"data": world // tp, "model": tp}
+        assert torch.equal(_bits(got["logits"]), _bits(want["logits"]))
+        assert torch.equal(got["tokens"], want["tokens"])
+        held, whole = got["state_leaf_bytes"], want["state_leaf_bytes"]
+        assert held["h"] * tp == whole["h"] > 0
+        assert all(held[k] == whole[k] > 0 for k in ("c", "n", "m"))
+        assert sum(held.values()) == got["state_bytes"]
+        coord = r["rank"] % tp
+        layout = sharding.state_layout(
+            SimpleNamespace(shape=got["mesh"], coords={"model": coord}),
+            0, 0, d_slstm=d)
+        assert got["state_layout"]["describe"] == layout.describe()
+        assert got["state_layout"]["slstm_block"] == [
+            coord * d // tp, (coord + 1) * d // tp]
+        assert got["step_kv_bytes"] == [
+            (tp - 1) * BATCH * d * 2] * (TOKENS - 1)
+        assert layout.step_gather_bytes(BATCH, mamba=0, slstm=1) \
+            == (tp - 1) * BATCH * d * 2
+        assert got["step_launches"] == want["step_launches"]
+
+
 @pytest.mark.parametrize("world,arch,grid", _step_runs())
 def test_mesh_steps_bitwise_and_hold_their_share(worlds, world, arch, grid):
     """The mesh prefill and decode steps (rows on "data" on (2, 2)): every
     rank's logits are its rows of one device's bit for bit, its greedy
-    tokens the reference's; it holds 1/A of ``h`` / ``conv`` (jamba) or
-    ``mem_k`` / ``mem_v`` (whisper), A its data x model ranks, and a
+    tokens the reference's (xlstm's logits within ``XLSTM_ULPS`` of the
+    reference's); it holds 1/A of ``h`` / ``conv`` (jamba), ``mem_k`` /
+    ``mem_v`` (whisper) or the sLSTM ``h`` (xlstm, whose ``c`` / ``n`` /
+    ``m`` stay whole over "model"), A its data x model ranks, and a
     decode step gathers the layouts' bytes."""
     from repro_torch.configs import get_smoke_config
     ranks, single, tokens = worlds
     want = single[arch]
+    ref_tokens, ref_logits = tokens[arch]
     cfg = get_smoke_config(arch)
     data, model = grid
     rows = 2 // data
+    if arch == XLSTM:
+        np.testing.assert_allclose(
+            want["logits"].numpy(), ref_logits, rtol=0,
+            atol=XLSTM_ULPS * LOGIT_ULP * max(1.0, np.abs(ref_logits).max()))
     for r in ranks[world]:
         got = r["steps"][arch, grid]
         d = got["coords"]["data"]
         assert torch.equal(_bits(got["logits"]),
                            _bits(want["logits"][:, d * rows:(d + 1) * rows]))
-        np.testing.assert_array_equal(got["tokens"].numpy(),
-                                      tokens[arch])
-        np.testing.assert_array_equal(want["tokens"].numpy(), tokens[arch])
-        leaves = ("h", "conv") if arch == JAMBA else ("mem_k", "mem_v")
+        np.testing.assert_array_equal(got["tokens"].numpy(), ref_tokens)
+        np.testing.assert_array_equal(want["tokens"].numpy(), ref_tokens)
+        leaves = {JAMBA: ("h", "conv"), WHISPER: ("mem_k", "mem_v"),
+                  XLSTM: ("h",)}[arch]
         for name in leaves:
             assert got["held"][name] * data * model == want["held"][name] \
                 > 0, name
-        key = "state_layout" if arch == JAMBA else "mem_layout"
-        assert "whole" not in got["layouts"][key]
+        if arch == XLSTM:
+            for name in ("c", "n", "m"):
+                assert got["held"][name] * data == want["held"][name] > 0
+        key = "mem_layout" if arch == WHISPER else "state_layout"
+        assert "whole" not in got["layouts"][key].split(", c / n / m")[0]
         if arch == JAMBA:
             c, s = 2 * cfg.d_model, cfg.ssm_state
             # x (rows, C) bf16 and the products (rows, C, S) f32, 7 layers
             per_layer = (model - 1) * rows * c * (2 + 4 * s)
             assert got["gathered"] == [7 * per_layer] * STEPS
+        elif arch == XLSTM:
+            # the bf16 h (rows, D) of the one sLSTM layer
+            per_layer = (model - 1) * rows * cfg.d_model * 2
+            assert got["gathered"] == [per_layer] * STEPS
         else:
             assert all(g > 0 for g in got["gathered"])
     assert want["layouts"] == {} and all(g == 0 for g in want["gathered"])
 
 
-@pytest.mark.parametrize("arch", [JAMBA, WHISPER])
+@pytest.mark.parametrize("arch", [JAMBA, WHISPER, XLSTM])
 @pytest.mark.parametrize("grid", [(1, 2), (1, 4)])
 def test_dryrun_serving_cells_hold_the_ranks_share(tmp_path, arch, grid):
     """The dry-run's decode cell of the smoke config on a (1, A) abstract
-    mesh: rank 0's cache holds 1/A of ``h`` and ``conv`` (jamba) or of
-    ``mem_k`` / ``mem_v`` (whisper's 4096 positions), the cell runs, and
-    its program line says what the rank holds instead of "whole"; the
+    mesh: rank 0's cache holds 1/A of ``h`` and ``conv`` (jamba), of
+    ``mem_k`` / ``mem_v`` (whisper's 4096 positions) or of the sLSTM
+    ``h`` (xlstm, ``c`` / ``n`` / ``m`` whole), the cell runs, and its
+    program line says what the rank holds instead of "whole"; the
     prefill cell runs too."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.base import ShapeSpec
@@ -656,10 +816,13 @@ def test_dryrun_serving_cells_hold_the_ranks_share(tmp_path, arch, grid):
     layout = sharding.kv_layout(mesh, 32, batch=1)
     local = dryrun.rank_cache(whole, mesh, 1, layout)
     want, got = _held_bytes(whole), _held_bytes(local)
-    leaves = ("h", "conv") if arch == JAMBA else ("mem_k", "mem_v")
+    leaves = {JAMBA: ("h", "conv"), WHISPER: ("mem_k", "mem_v"),
+              XLSTM: ("h",)}[arch]
     for name in leaves:
         assert got[name] * A == want[name] > 0, name
-    key = "state_layout" if arch == JAMBA else "mem_layout"
+    if arch == XLSTM:
+        assert all(got[k] == want[k] > 0 for k in ("c", "n", "m"))
+    key = "mem_layout" if arch == WHISPER else "state_layout"
     assert local[key].sharded
     for kind in ("decode", "prefill"):
         shape = ShapeSpec(f"{kind}_smoke", 32 if kind == "decode" else 16,
@@ -671,6 +834,9 @@ def test_dryrun_serving_cells_hold_the_ranks_share(tmp_path, arch, grid):
         assert "whole on the rank's rows" not in line
         if arch == JAMBA:
             assert "Mamba states h d_state 0:" in line, line
+        elif arch == XLSTM:
+            assert (f"sLSTM states h D 0:{cfg.d_model // A} of "
+                    f"{cfg.d_model} over model") in line, line
         elif kind == "decode":
             assert "encoder memory sequence-sharded" in line, line
 
